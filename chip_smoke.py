@@ -29,16 +29,43 @@ these phases, each printing one JSON line:
    grouped_nfa_kernel is held against its plain version and timed on
    the run's own class batches, at its two most frequent shapes.
 
+The thousand-pattern path, on ``make_patterns(1024)`` (``bench.py``'s
+K axis: 156 groups of 128 states, 64 classes):
+
+6. sweep: the device literal sweep's tables (920 factors, 5 group
+   words) over 131072 FakeCluster rows at the 128-byte bucket, 1% with
+   a minted-family needle; the card's mask equals the same function on
+   the CPU, exactly.
+7. grouped_nfa_gated_kernel (K3) against its plain version on 8192 of
+   those rows under the sweep's gate and under a seeded random gate,
+   and against ungated K1 on all 131072, under the sweep's gate and
+   under that gate kept on 3% of the lines (dead blocks); K3's kernel
+   alone, its whole wrapper and K1 timed on that batch.
+8. engine_k1024: GpuEngineFilter on 1M FakeCluster lines (1% needles)
+   and 256 lines of 4-64 KiB; verdicts equal a K1-only engine's on the
+   short lines (that engine timed too) and a Python ``re`` oracle (one
+   alternation of the 1024 patterns) on the first 65536 lines and all
+   long ones.
+9. cli_k1024: ``app.run_async`` over 256 pods x 250 lines plus 8 long
+   lines with ``--match`` x1024, ``--stats`` and ``-p`` a temporary
+   directory: this path's main run (counts zeroed just before, read
+   just after; K3 must launch), every file equal to the oracle's lines
+   and the ``prefilter:`` stats line printed. Then K3 is held against
+   its plain version and timed on the run's own most frequent batch.
+
 Then a ``kernels`` line (each kernel's time beside its bound and its
-plain version's time, with its launches on the main path), the card
+plain version's time, with its launches on its main path), the card
 line, and last ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero without that line, as does a run with no CUDA device or
 outside a checkout.
 """
 
 import asyncio
+import concurrent.futures
+import functools
 import io
 import json
+import multiprocessing
 import os
 import re
 import subprocess
@@ -63,6 +90,38 @@ NEEDLES = [b"panic: x", b"oom-killer", b"code=503", b"retry 3/5",
            b"uid=1234567", b"FATAL a code=9", b"latency=495ms", b"EPIPE",
            b"GET /api/v2 404", b"x-request-id: 9f0a", b"disk is full",
            b"timed out", b"517 ABCDE", b"broken pipe"]
+
+
+def make_patterns(k: int) -> "list[str]":
+    """bench.make_patterns: the 32 patterns plus minted alerting-rule
+    families, k in all."""
+    out = list(PATTERNS)
+    fam = [
+        lambda i: f"svc-{i:04d} unreachable",
+        lambda i: rf"errcode={i:05d}\b",
+        lambda i: f"tenant-{i:04d}.*quota exceeded",
+        lambda i: rf"CRIT{i:05d}",
+        lambda i: rf"trace=[0-9a-f]+ span={i:06d}",
+        lambda i: f"deploy/rel-{i:04d} failed",
+        lambda i: rf"(?:FATAL|PANIC) job-{i:05d}",
+        lambda i: rf"user=u{i:06d} denied",
+    ]
+    i = 0
+    while len(out) < k:
+        out.append(fam[i % len(fam)](i))
+        i += 1
+    return out[:k]
+
+
+def minted_needle(i: int) -> bytes:
+    """A line fragment of minted family member i (i >= 992 is not in the
+    1024 set: a near miss that shares the family's literals)."""
+    return [f"svc-{i:04d} unreachable", f"errcode={i:05d}",
+            f"tenant-{i:04d} over quota exceeded", f"CRIT{i:05d}",
+            f"trace=9f{i % 7} span={i:06d}", f"deploy/rel-{i:04d} failed",
+            f"PANIC job-{i:05d}", f"user=u{i:06d} denied"][i % 8].encode()
+
+
 SEED = 20261016
 CLOCK = 1_753_800_000.0
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense int8 ops/s.
@@ -128,6 +187,30 @@ def rows_with_needles(np, rng, B: int, width: int, lo: int, printable: bool):
 def oracle_fn():
     union = re.compile(b"|".join(b"(?:" + p.encode() + b")" for p in PATTERNS))
     return lambda body: union.search(body) is not None
+
+
+@functools.lru_cache(maxsize=2)
+def _alternation(patterns: tuple) -> "re.Pattern":
+    return re.compile(b"|".join(b"(?:" + p.encode() + b")" for p in patterns))
+
+
+def _oracle_chunk(patterns: tuple, bodies: list) -> list:
+    union = _alternation(patterns)
+    return [union.search(b) is not None for b in bodies]
+
+
+def oracle_verdicts(patterns: list, bodies: list) -> list:
+    """``re`` verdicts of one alternation of ``patterns`` over
+    ``bodies``, split over worker processes (a 1024-way alternation
+    costs about 1 ms a line); the pool is shut down before returning."""
+    pats = tuple(patterns)
+    step = 2048
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1), mp_context=ctx) as ex:
+        parts = ex.map(_oracle_chunk, [pats] * (-(-len(bodies) // step)),
+                       [bodies[i:i + step] for i in range(0, len(bodies), step)])
+        return [v for part in parts for v in part]
 
 
 def build_phase(nk, build):
@@ -294,8 +377,9 @@ def k2_phase(torch, np, nfa, nk, compile_patterns, dev, lines=1024,
 
 def profile_batch(torch, eng, frame) -> dict:
     """One batch under torch.profiler (device side: wall time, summed
-    kernel and copy time, the largest of them) and under cProfile (host
-    side: the functions with the most own time)."""
+    kernel and copy time, the largest of them, and the device time of
+    any ``klogs.*`` named range) and under cProfile (host side: the
+    functions with the most own time)."""
     import cProfile
     import pstats
 
@@ -306,11 +390,30 @@ def profile_batch(torch, eng, frame) -> dict:
         t0 = time.perf_counter()
         eng.fetch_framed(eng.dispatch_framed(*frame))
         wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
     rows = [(e.key, e.self_device_time_total / 1e3)
             for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == cuda and not e.key.startswith("klogs.")]
     device_ms = sum(ms for _, ms in rows)
+    # A klogs.* range shows on the device timeline as a span from its
+    # first kernel to its last (idle gaps included); its busy time is
+    # the kernel time inside that span.
+    spans: dict = {}
+    busy: dict = {}
+    events = [e for e in prof.events() if e.device_type == cuda]
+    for a in (e for e in events if e.name.startswith("klogs.")):
+        lo, hi = a.time_range.start, a.time_range.end
+        spans[a.name] = spans.get(a.name, 0.0) + (hi - lo) / 1e3
+        busy[a.name] = busy.get(a.name, 0.0) + sum(
+            (k.time_range.end - k.time_range.start) / 1e3 for k in events
+            if not k.name.startswith("klogs.")
+            and lo <= k.time_range.start and k.time_range.end <= hi)
     top = sorted(rows, key=lambda r: -r[1])[:6]
+    kernels: dict = {}
+    for k, ms in rows:  # the hand-written kernels, by template instance
+        m = re.search(r"\w*nfa\w*(?:<[^>]*>)?", k)
+        if m:
+            kernels[m.group(0)] = kernels.get(m.group(0), 0.0) + ms
     cp = cProfile.Profile()
     cp.enable()
     eng.fetch_framed(eng.dispatch_framed(*frame))
@@ -322,6 +425,9 @@ def profile_batch(torch, eng, frame) -> dict:
     return dict(wall_ms=wall * 1e3, device_ms=device_ms,
                 device_busy=device_ms / (wall * 1e3),
                 device_top=[{"op": k[:60], "ms": ms} for k, ms in top],
+                nfa_kernels_ms=kernels, range_span_ms=spans, range_busy_ms=busy,
+                range_busy_share={k: v / device_ms if device_ms else 0.0
+                                  for k, v in busy.items()},
                 host_top=[{"fn": k[:60], "own_ms": ms} for k, ms in host])
 
 
@@ -375,7 +481,8 @@ def engine_phase(torch, np, nk, GpuEngineFilter, frame_lines, synthetic_line,
                matched=int(sum(exp)), mismatches=bad, launches=launches,
                grouped_launches_per_batch=launches[nk.GROUPED] / len(frames))
     emit({"phase": "engine", **res})
-    if bad or len(got) != len(exp) or min(launches.values()) == 0:
+    if (bad or len(got) != len(exp) or launches[nk.GROUPED] == 0
+            or launches[nk.CHUNK] == 0):
         raise AssertionError(f"engine phase failed: {res}")
     return res
 
@@ -450,9 +557,405 @@ def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
                k1_batches=k1_batches)
     emit({"phase": "cli", **res})
     if (rc != 0 or bad or len(files) != len(pods)
-            or min(launches.values()) == 0
+            or launches[nk.GROUPED] == 0 or launches[nk.CHUNK] == 0
             or any(b["max_abs_err"] for b in k1_batches)):
         raise AssertionError(f"cli phase failed: {res}")
+    return res
+
+
+# ---- the thousand-pattern path ------------------------------------------
+
+
+def k1024_rows(np, synthetic_line, B: int, width: int, seed: int):
+    """[B, width] FakeCluster rows, 1% of them with a minted-family
+    needle written over their middle (lengths unchanged)."""
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((B, width), dtype=np.uint8)
+    lens = np.zeros(B, dtype=np.int32)
+    for i in range(B):
+        ln = synthetic_line(f"pod-{i % 256:04d}", "c0", i,
+                            CLOCK + i).rstrip(b"\n")[:width]
+        if i % 100 == 7:
+            nd = minted_needle(int(rng.integers(0, 1200)))
+            ln = (ln[:30] + nd + ln[30 + len(nd):])[:width]
+        rows[i, :len(ln)] = np.frombuffer(ln, dtype=np.uint8)
+        lens[i] = len(ln)
+    return rows, lens
+
+
+def gate_cells(torch, bits, nk, words, G: int) -> dict:
+    """The (block, group) cells K3 scans once candidates are clustered:
+    the share of live blocks, the mean and the most live groups in a
+    live block (a block steps through its live groups one after
+    another), and the share of live cells."""
+    gm = bits.unpack_bits(words.long(), G)  # [B, G]
+    cand = gm.any(1)
+    gm = gm[torch.argsort((~cand).to(torch.int8), stable=True)]
+    B = gm.shape[0]
+    pad = -B % nk.GATE_TILE
+    gm = torch.nn.functional.pad(gm, (0, 0, 0, pad))
+    cells = gm.reshape(-1, nk.GATE_TILE, G).any(1)  # [blocks, G]
+    live = cells.any(1)
+    width = cells[live].sum(1).float()
+    return dict(live_block_share=float(live.float().mean()),
+                groups_per_live_block=float(width.mean()) if live.any()
+                else 0.0,
+                groups_per_live_block_max=int(width.max()) if live.any()
+                else 0,
+                live_cell_share=float(cells.float().mean()))
+
+
+def k3_kernel_ms(torch, nk, dp, live, acc, cls, words, reps: int) -> float:
+    """ms of K3's launch alone (``launch_gated``), on operands that the
+    wrapper's preparation (``cluster_gate``) made once beforehand."""
+    cls_p, gate_p, n_cand, _, _ = nk.cluster_gate(dp, cls, words)
+    return cuda_ms(torch, lambda: nk.launch_gated(dp, live, acc, cls_p,
+                                                  gate_p, n_cand), reps)
+
+
+def k3_check(torch, bits, nk, dp, live, acc, cls, words, reps: int) -> dict:
+    """K3 against its plain version on one batch, with the bound over
+    the gated (line, group) cells. ``ms`` times the kernel alone,
+    ``wrapper_ms`` the whole wrapper (gate OR, clustering, gathers,
+    kernel, un-permute), ``plain_ms`` the plain version."""
+    got, stats = nk.match_cls_grouped_gated(dp, live, acc, cls, words,
+                                            want_stats=True)
+    work: dict = {}
+    exp = nk.match_cls_grouped_gated_plain(dp, live, acc, cls, words,
+                                           work=work)
+    torch.cuda.synchronize()
+    err = int((got.int() - exp.int()).abs().max()) if len(got) else 0
+    ms = k3_kernel_ms(torch, nk, dp, live, acc, cls, words, reps)
+    wrapper_ms = cuda_ms(torch, lambda: nk.match_cls_grouped_gated(
+        dp, live, acc, cls, words), reps)
+    plain_ms = cuda_ms(torch, lambda: nk.match_cls_grouped_gated_plain(
+        dp, live, acc, cls, words), 1)
+    B, T = cls.shape
+    G, C, S = dp.char_mask.shape
+    GW = words.shape[1]
+    gated = int(bits.unpack_bits(words.long(), G).sum())
+    n_bytes = B * T * 2 + B * GW * 4 + G * (S + C) * (S // 32) * 4 + B
+    return dict(rows=B, T=T, groups=G, max_abs_err=err, ms=ms,
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                matched=int(exp.sum()),
+                candidate_lines=int(stats[0]), live_tiles=int(stats[1]),
+                tiles=int(stats[2]),
+                **gate_cells(torch, bits, nk, words, G), gated_cells=gated,
+                **step_bounds(n_bytes, S, C, gated * T, work["active"]))
+
+
+def sweep_phase(torch, np, sweep, bits, gpu, FilterStats, synthetic_line,
+                dev, rows=131072, width=128) -> dict:
+    """The K=1024 engine and its gate tables; the sweep on the card
+    against the same function, on tables built for the CPU."""
+    pats = make_patterns(1024)
+    t0 = time.perf_counter()
+    eng = gpu.GpuEngineFilter(pats, device=dev, stats=FilterStats())
+    build_s = time.perf_counter() - t0
+    st = eng._sweep_tables
+    if st is None:
+        raise AssertionError("auto mode did not gate K=1024 on the card")
+    batch, lens = k1024_rows(np, synthetic_line, rows, width, SEED + 4)
+    batch_d = torch.from_numpy(batch).to(dev)
+    lens_d = torch.from_numpy(lens).to(dev)
+    words = sweep.sweep_group_bits(st, batch_d, lens_d)
+    ms = cuda_ms(torch, lambda: sweep.sweep_group_bits(st, batch_d, lens_d),
+                 5)
+    gm = bits.unpack_bits(words, st.n_groups).cpu()
+    from klogs_tpu_torch.filters.compiler.groups import analyze, plan_groups
+    from klogs_tpu_torch.filters.compiler.index import FactorIndex
+
+    t0 = time.perf_counter()
+    infos = analyze(pats)
+    prog = FactorIndex(infos, plan_groups(infos)).sweep_program(
+        group_of=np.asarray(eng._grouped.pattern_group, dtype=np.int32),
+        n_groups=st.n_groups)
+    host = sweep.sweep_group_candidates(
+        sweep.device_sweep_tables(prog, device="cpu"),
+        torch.from_numpy(batch), torch.from_numpy(lens))
+    cpu_s = time.perf_counter() - t0
+    bad = int((gm != host).sum())
+    res = dict(rows=rows, width=width, groups=st.n_groups,
+               words=int(st.always_mask.numel()),
+               factors=int(st.fac_len.numel()), build_s=build_s, ms=ms,
+               cpu_s=cpu_s, mismatched_cells=bad,
+               candidate_line_share=float(gm.any(1).float().mean()),
+               groups_per_line=float(gm.sum(1).float().mean()),
+               groups_per_line_max=int(gm.sum(1).max()),
+               narrow=[st.narrow.slot_key.numel(), st.narrow.max_probe,
+                       st.narrow.max_bucket, st.narrow.n_words],
+               wide=[st.wide.slot_key.numel(), st.wide.max_probe,
+                     st.wide.max_bucket, st.wide.n_words])
+    emit({"phase": "sweep", **res})
+    if bad:
+        raise AssertionError(f"sweep: card and CPU masks differ: {res}")
+    return dict(res, eng=eng, batch=batch_d, lens=lens_d, words=words)
+
+
+def k3_phase(torch, nfa, bits, nk, sw, small=8192, kept=0.03) -> dict:
+    """K3 against its plain version (sweep gate, random gate) and against
+    ungated K1 on the sweep phase's batch; K3 and K1 timed there. Then
+    the sweep's gate kept on a seeded 3% of the lines only (the share of
+    candidates the host sweep leaves on the repository's needle corpus):
+    whole blocks past the candidates are dead, and K3 must equal K1 on
+    the kept lines and be false elsewhere."""
+    eng = sw["eng"]
+    dp, live, acc = eng._grouped, eng._g_live, eng._g_acc
+    cls = nfa.classify_chunk(dp, sw["batch"], sw["lens"], True, True)
+    words = sw["words"]
+    G = int(dp.follow.shape[0])
+    gen = torch.Generator(device=cls.device).manual_seed(SEED)
+    rand = bits.pack_bits(torch.rand((small, G), generator=gen,
+                                     device=cls.device) < 0.05)
+    res = {"sweep_gate": k3_check(torch, bits, nk, dp, live, acc,
+                                  cls[:small], words[:small], 5),
+           "random_gate": k3_check(torch, bits, nk, dp, live, acc,
+                                   cls[:small], rand, 5)}
+    k3, _ = nk.match_cls_grouped_gated(dp, live, acc, cls, words)
+    k1 = nk.match_cls_grouped(dp, live, acc, cls)
+    # The plain version over the whole batch, in slices: K3 against it
+    # everywhere, and the state bits its gated cells read (the bound).
+    work: dict = {}
+    plain_err = 0
+    for i in range(0, cls.shape[0], small):
+        exp = nk.match_cls_grouped_gated_plain(
+            dp, live, acc, cls[i:i + small], words[i:i + small], work=work)
+        plain_err = max(plain_err, int((k3[i:i + small].int()
+                                        - exp.int()).abs().max()))
+    B, T = cls.shape
+    S, C, GW = dp.n_states, dp.n_classes, words.shape[1]
+    n_bytes = B * T * 2 + B * GW * 4 + G * (S + C) * (S // 32) * 4 + B
+    k1_ms = cuda_ms(torch, lambda: nk.match_cls_grouped(dp, live, acc, cls), 3)
+
+    def timed(w, active: int) -> dict:
+        gated = int(bits.unpack_bits(w, G).sum())
+        return dict(
+            k3_ms=k3_kernel_ms(torch, nk, dp, live, acc, cls, w, 10),
+            k3_wrapper_ms=cuda_ms(torch, lambda: nk.match_cls_grouped_gated(
+                dp, live, acc, cls, w), 10),
+            k1_ms=k1_ms, gated_cells=gated,
+            **gate_cells(torch, bits, nk, w, G),
+            **step_bounds(n_bytes, S, C, gated * T, active))
+
+    full = dict(rows=B, T=T, max_abs_err=plain_err,
+                k3_vs_k1_mismatches=int((k3 != k1).sum()),
+                matched=int(k1.sum()), **timed(words, work["active"]))
+    keep = torch.rand(B, generator=gen, device=cls.device) < kept
+    sparse = torch.where(keep[:, None], words, torch.zeros_like(words))
+    k3s, _ = nk.match_cls_grouped_gated(dp, live, acc, cls, sparse)
+    work = {}
+    exp = nk.match_cls_grouped_gated_plain(dp, live, acc, cls[keep],
+                                           sparse[keep], work=work)
+    res["sparse_gate"] = dict(
+        rows=B, kept_lines=int(keep.sum()),
+        max_abs_err=int((k3s[keep].int() - exp.int()).abs().max()),
+        k3_vs_k1_mismatches=int((k3s != (k1 & keep)).sum()),
+        matched=int(k3s.sum()), **timed(sparse, work["active"]))
+    res["full"] = full
+    emit({"phase": nk.GATED, **res})
+    if (any(r["max_abs_err"] for r in res.values())
+            or full["k3_vs_k1_mismatches"] or not full["matched"]
+            or res["sparse_gate"]["k3_vs_k1_mismatches"]
+            or not res["sparse_gate"]["matched"]
+            or res["sparse_gate"]["live_block_share"] > 0.5):
+        raise AssertionError(f"{nk.GATED} disagrees: {res}")
+    return res
+
+
+def profile_gated_batch(torch, gpu, frame) -> dict:
+    """profile_batch with the sweep and K3 wrapped in named ranges, for
+    their shares of the batch's device time."""
+    from torch.profiler import record_function
+
+    wrapped = {}
+    for mod, name, label in ((gpu.sweep, "sweep_group_bits", "klogs.sweep"),
+                             (gpu.nfa_kernels, "match_cls_grouped_gated",
+                              "klogs.k3")):
+        fn = getattr(mod, name)
+        wrapped[(mod, name)] = fn
+
+        def ranged(*a, _fn=fn, _label=label, **kw):
+            with record_function(_label):
+                return _fn(*a, **kw)
+
+        setattr(mod, name, ranged)
+    try:
+        prof = profile_batch(torch, *frame)
+    finally:
+        for (mod, name), fn in wrapped.items():
+            setattr(mod, name, fn)
+    return prof
+
+
+def engine_k1024_phase(torch, np, nk, gpu, frame_lines, synthetic_line, eng,
+                       dev, n_short=1 << 20,
+                       n_long=256, batch=131072, checked=65536) -> dict:
+    rng = np.random.default_rng(SEED + 5)
+    pats = make_patterns(1024)
+    short = [synthetic_line(f"pod-{i % 512:04d}", f"c{i % 2}", i, CLOCK + i)
+             for i in range(n_short)]
+    for i in range(0, n_short, 100):  # 1% needles: minted and the 32-set's
+        nd = (minted_needle(int(rng.integers(0, 1200))) if i % 200
+              else NEEDLES[(i // 200) % len(NEEDLES)])
+        short[i] = short[i][:40] + nd + short[i][40:]
+    long_lines = []
+    for i in range(n_long):
+        n = int(rng.integers(4097, 64 * 1024 + 1))
+        body = bytearray(rng.integers(32, 127, size=n, dtype=np.uint8))
+        if i % 2:
+            nd = minted_needle(int(rng.integers(0, 992)))
+            p = int(rng.integers(0, n - len(nd)))
+            body[p:p + len(nd)] = nd
+        long_lines.append(bytes(body) + b"\n")
+    frames = [frame_lines(short[i:i + batch], strip_nl=False)[:2]
+              for i in range(0, n_short, batch)]
+    long_frame = frame_lines(long_lines, strip_nl=False)[:2]
+    eng.fetch_framed(eng.dispatch_framed(*frames[0]))  # warm-up
+    torch.cuda.synchronize()
+    stats = eng._stats
+    pf0 = (stats.pf_lines, stats.pf_candidates, stats.pf_tiles_total,
+           stats.pf_tiles_live)
+    nk.reset_launches()
+    verdicts, t0 = [], time.perf_counter()
+    for f in frames:
+        verdicts.append(eng.fetch_framed(eng.dispatch_framed(*f)))
+    t_short = time.perf_counter() - t0
+    short_launches = dict(nk.LAUNCHES)
+    pf_lines, pf_cand, pf_tiles, pf_live = (
+        a - b for a, b in zip((stats.pf_lines, stats.pf_candidates,
+                               stats.pf_tiles_total, stats.pf_tiles_live),
+                              pf0))
+    t0 = time.perf_counter()
+    long_v = eng.fetch_framed(eng.dispatch_framed(*long_frame))
+    t_long = time.perf_counter() - t0
+    launches = dict(nk.LAUNCHES)
+    got = np.concatenate(verdicts)
+    # The same short lines through K1 alone (no gate).
+    old = os.environ.get("KLOGS_TPU_SWEEP")
+    os.environ["KLOGS_TPU_SWEEP"] = "0"
+    try:
+        plain = gpu.GpuEngineFilter(pats, device=dev)
+    finally:
+        if old is None:
+            del os.environ["KLOGS_TPU_SWEEP"]
+        else:
+            os.environ["KLOGS_TPU_SWEEP"] = old
+    plain.fetch_framed(plain.dispatch_framed(*frames[0]))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k1_only = np.concatenate([plain.fetch_framed(plain.dispatch_framed(*f))
+                              for f in frames])
+    t_k1 = time.perf_counter() - t0
+    k1_prof = profile_batch(torch, plain, frames[0])
+    bodies = [ln.rstrip(b"\n") for ln in short[:checked] + long_lines]
+    exp = oracle_verdicts(pats, bodies)
+    bad = int((got[:checked] != np.asarray(exp[:checked])).sum()
+              + (long_v != np.asarray(exp[checked:])).sum())
+    vs_k1 = int((got != k1_only).sum())
+    prof = profile_gated_batch(torch, gpu, (eng, frames[0]))
+    res = dict(short_lines=n_short, long_lines=n_long, batch_lines=batch,
+               short_lines_per_s=n_short / t_short,
+               long_lines_per_s=n_long / t_long,
+               long_bytes_per_s=sum(map(len, long_lines)) / t_long,
+               oracle_checked=len(bodies), mismatches=bad,
+               k1_only_mismatches=vs_k1, matched_short=int(got.sum()),
+               matched_long=int(long_v.sum()), short_launches=short_launches,
+               launches=launches, gated_lines=pf_lines,
+               candidate_share=pf_cand / max(pf_lines, 1),
+               tiles_skipped=pf_tiles - pf_live, tiles=pf_tiles,
+               profile=prof, k1_only_short_lines_per_s=n_short / t_k1,
+               k1_only_profile=k1_prof)
+    emit({"phase": "engine_k1024", **res})
+    if (bad or vs_k1 or short_launches[nk.GATED] == 0
+            or short_launches[nk.GROUPED] != 0 or launches[nk.CHUNK] == 0
+            or not got.any()):
+        raise AssertionError(f"engine_k1024 phase failed: {res}")
+    return res
+
+
+def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
+                    n_pods=256, lines_per_pod=250, n_long=8) -> dict:
+    rng = np.random.default_rng(SEED + 6)
+    pats = make_patterns(1024)
+    fc = FakeCluster.synthetic(n_pods=n_pods, n_containers=1,
+                               lines_per_container=lines_per_pod,
+                               clock=lambda: CLOCK)
+    pods = fc.namespaces["default"]
+    for j, name in enumerate(sorted(pods)):
+        lines = pods[name].containers["c0"].lines
+        for k in range(j % 3, len(lines), 97):  # ~1% needles
+            ts, ln = lines[k]
+            lines[k] = (ts, ln[:40] + minted_needle(
+                int(rng.integers(0, 1200))) + ln[40:])
+        if j < n_long:
+            n = int(rng.integers(5000, 60 * 1024))
+            body = bytearray(rng.integers(32, 127, size=n, dtype=np.uint8))
+            if j % 2:
+                nd = minted_needle(int(rng.integers(0, 992)))
+                body[n // 2:n // 2 + len(nd)] = nd
+            lines.insert(50 + j, (CLOCK - 3000, bytes(body) + b"\n"))
+    all_lines = {name: [ln for _, ln in pods[name].containers["c0"].lines]
+                 for name in sorted(pods)}
+    flat = [ln for name in sorted(pods) for ln in all_lines[name]]
+    argv = ["-n", "default", "-a", "--stats", "-p", ""]
+    for p in pats:
+        argv += ["--match", p]
+    shapes: dict = {}
+    gated = nk.match_cls_grouped_gated
+
+    def recording(prog, live, acc, cls, words, want_stats=False):
+        entry = shapes.setdefault(tuple(cls.shape),
+                                  [0, (prog, live, acc, cls, words)])
+        entry[0] += 1
+        return gated(prog, live, acc, cls, words, want_stats=want_stats)
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        argv[5] = out_dir
+        opts = cli.parse_args(argv)
+        ui = io.StringIO()
+        term.set_ui_stream(ui)
+        nk.match_cls_grouped_gated = recording
+        try:
+            torch.cuda.synchronize()
+            nk.reset_launches()
+            t0 = time.perf_counter()
+            rc = asyncio.run(app.run_async(opts, backend=fc, device=dev))
+            seconds = time.perf_counter() - t0
+            launches = dict(nk.LAUNCHES)
+        finally:
+            nk.match_cls_grouped_gated = gated
+            term.set_ui_stream(None)
+        exp = oracle_verdicts(pats, [ln.rstrip(b"\n") for ln in flat])
+        bad, kept, at = [], 0, 0
+        for name in sorted(pods):
+            n = len(all_lines[name])
+            want = b"".join(ln for ln, v in zip(all_lines[name],
+                                                exp[at:at + n]) if v)
+            at += n
+            kept += sum(exp[at - n:at])
+            with open(os.path.join(out_dir, f"{name}__c0.log"), "rb") as f:
+                if f.read() != want:
+                    bad.append(name)
+        files = len(os.listdir(out_dir))
+    text = ui.getvalue()
+    pf_line = next((ln.strip() for ln in text.splitlines()
+                    if "prefilter:" in ln), None)
+    k3_batches = []
+    for n, args in sorted(shapes.values(), key=lambda e: -e[0])[:1]:
+        k3_batches.append(dict(launches=n, **k3_check(torch, bits, nk,
+                                                      *args, 20)))
+    res = dict(rc=rc, pods=len(pods), files=files, lines=len(flat),
+               kept_lines=kept, seconds=seconds,
+               lines_per_s=len(flat) / seconds, mismatched_files=bad,
+               launches=launches, prefilter_line=pf_line,
+               k3_shapes={f"{B}x{T}": e[0] for (B, T), e in shapes.items()},
+               k3_batches=k3_batches)
+    emit({"phase": "cli_k1024", **res})
+    if (rc != 0 or bad or files != len(pods) or not kept
+            or launches[nk.GATED] == 0 or launches[nk.GROUPED] != 0
+            or pf_line is None or not k3_batches
+            or any(b["max_abs_err"] for b in k3_batches)):
+        raise AssertionError(f"cli_k1024 phase failed: {res}")
     return res
 
 
@@ -473,10 +976,11 @@ def main() -> int:
 
     from klogs_tpu_torch import app, cli
     from klogs_tpu_torch.cluster.fake import FakeCluster, synthetic_line
-    from klogs_tpu_torch.filters.base import frame_lines
+    from klogs_tpu_torch.filters import gpu
+    from klogs_tpu_torch.filters.base import FilterStats, frame_lines
     from klogs_tpu_torch.filters.compiler.glushkov import compile_patterns
     from klogs_tpu_torch.filters.gpu import GpuEngineFilter
-    from klogs_tpu_torch.ops import _build, nfa
+    from klogs_tpu_torch.ops import _build, bits, nfa, sweep
     from klogs_tpu_torch.ops import nfa_kernels as nk
     from klogs_tpu_torch.ui import term
 
@@ -489,11 +993,21 @@ def main() -> int:
         engine_phase(torch, np, nk, GpuEngineFilter, frame_lines,
                      synthetic_line, dev)
         run = cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev)
+        # The union program of the 1024 patterns (the long-line path's)
+        # has 18878 positions, past the compiler's default cap of 4096.
+        os.environ["KLOGS_MAX_PATTERN_POSITIONS"] = "65536"
+        sw = sweep_phase(torch, np, sweep, bits, gpu, FilterStats,
+                         synthetic_line, dev)
+        k3 = k3_phase(torch, nfa, bits, nk, sw)
+        engine_k1024_phase(torch, np, nk, gpu, frame_lines, synthetic_line,
+                           sw["eng"], dev)
+        run3 = cli_k1024_phase(torch, np, nk, bits, app, cli, term,
+                               FakeCluster, dev)
     except Exception:
         traceback.print_exc()
         emit({"phase": "failed"})
         return 1
-    w, c = k1["w128"], k2["s512"]
+    w, c, g = k1["w128"], k2["s512"], run3["k3_batches"][0]
     emit({"kernels": [
         {"name": nk.GROUPED, "route": "cuda", "source": SOURCE,
          "replaces": "klogs_tpu/ops/pallas_nfa.py:200",
@@ -507,6 +1021,15 @@ def main() -> int:
          "max_abs_err": float(c["max_abs_err"]), "ms": c["ms"],
          "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
          "bound_by": c["bound_by"], "library_ms": None},
+        {"name": nk.GATED, "route": "cuda", "source": SOURCE,
+         "replaces": "klogs_tpu/ops/pallas_nfa.py:377",
+         "launches": run3["launches"][nk.GATED],
+         "max_abs_err": float(max(b["max_abs_err"] for b in
+                                  [g, k3["sweep_gate"], k3["random_gate"],
+                                   k3["sparse_gate"], k3["full"]])),
+         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+         "bound_by": g["bound_by"], "library_ms": None,
+         "wrapper_ms": g["wrapper_ms"]},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -30,6 +30,11 @@ class FilterStats:
     - batch (end to end): the sink's await, enqueue -> verdicts;
     - queue: enqueue -> device dispatch (recorded by AsyncFilterService);
     - device: dispatch -> verdicts fetched (AsyncFilterService).
+
+    On the gated path the engine also records what the gate let
+    through (``record_prefilter``: lines, candidate lines, tiles, live
+    tiles; ``record_sweep`` when the literal sweep made the gate), and
+    ``pf_disabled_reason`` says why a requested pair-CNF gate is off.
     """
 
     def __init__(self):
@@ -44,6 +49,14 @@ class FilterStats:
         # lines_per_sec counts from the first batch's dispatch, not from
         # construction, so engine warm-up does not deflate short runs.
         self.first_batch_started_at: float | None = None
+        self.pf_lines = 0
+        self.pf_candidates = 0
+        self.pf_tiles_total = 0
+        self.pf_tiles_live = 0
+        self.pf_disabled_reason: str | None = None
+        self.sweep_batches = 0
+        self.sweep_lines = 0
+        self.sweep_candidates = 0
 
     def mark_batch_started(self, t: float | None = None) -> None:
         with self._lock:
@@ -62,6 +75,21 @@ class FilterStats:
             self.lines_matched += n_matched
             self.batches += 1
             self._batch_s.append(latency_s)
+
+    def record_prefilter(self, n_lines: int, n_candidates: int,
+                         n_tiles: int, n_tiles_live: int) -> None:
+        with self._lock:
+            self.pf_lines += n_lines
+            self.pf_candidates += n_candidates
+            self.pf_tiles_total += n_tiles
+            self.pf_tiles_live += n_tiles_live
+
+    def record_sweep(self, n_lines: int, n_candidates: int) -> None:
+        """One batch narrowed by the device literal sweep."""
+        with self._lock:
+            self.sweep_batches += 1
+            self.sweep_lines += n_lines
+            self.sweep_candidates += n_candidates
 
     def record_queue_wait(self, wait_s: float) -> None:
         with self._lock:

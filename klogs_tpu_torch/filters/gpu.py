@@ -16,6 +16,14 @@ the file writes.
   verdicts are the same.
 - Trailing newlines are stripped before matching, so ``$`` sees the
   logical end of the line; a ``match_all`` pattern set skips the device.
+- The thousand-pattern path: when the gate policy (``filters/cpu.py``)
+  picks the device literal sweep (auto: K >= ``KLOGS_INDEX_MIN_K`` on
+  ``cuda``), or ``KLOGS_TPU_PREFILTER=1`` asks for the pair-CNF gate,
+  short lines get per-(line, group) candidate bits on the device (the
+  sweep over the bytes already there, or the pair-CNF over the class
+  ids) and run the gated kernel K3 (``match_cls_grouped_gated``)
+  instead of K1. Long lines stay on K2, ungated, as in the JAX engine.
+  A failed table build or launch raises; nothing falls back to K1.
 
 ``dispatch``/``dispatch_framed`` enqueue the device work on the calling
 thread's current stream, start the copies of the verdicts into pinned
@@ -23,7 +31,9 @@ host memory and record a CUDA event; ``fetch``/``fetch_framed`` wait on
 that event only, so they may run on any thread (AsyncFilterService
 fetches from its executor threads, whose current stream differs). On a
 CPU device everything runs synchronously through the kernels' plain
-versions.
+versions. With a ``FilterStats``, the gate's per-batch counts ride back
+with the verdicts (same pinned copy, same event) and are recorded at
+fetch.
 """
 
 import numpy as np
@@ -31,7 +41,14 @@ import torch
 
 from klogs_tpu_torch.filters.base import LogFilter, frame_lines, pack_framed_rows
 from klogs_tpu_torch.filters.compiler.glushkov import compile_patterns
-from klogs_tpu_torch.ops import nfa, nfa_kernels
+from klogs_tpu_torch.filters.compiler.groups import analyze, plan_groups
+from klogs_tpu_torch.filters.compiler.index import FactorIndex
+from klogs_tpu_torch.filters.compiler.prefilter import compile_prefilter
+from klogs_tpu_torch.filters.cpu import device_gate_choice, note_sweep_supersedes
+from klogs_tpu_torch.ops import nfa, nfa_kernels, prefilter, sweep
+from klogs_tpu_torch.ops.bits import pack_bits
+from klogs_tpu_torch.ui import term
+from klogs_tpu_torch.utils.env import read as env_read
 
 # Smallest pad width; also the bucket floor.
 MIN_BUCKET = 128
@@ -78,9 +95,10 @@ class GpuEngineFilter(LogFilter):
     SEQ_SCAN_BYTES = 128 * 1024
 
     def __init__(self, patterns: list[str], ignore_case: bool = False,
-                 chunk_bytes: int = 4096, device=None):
+                 chunk_bytes: int = 4096, device=None, stats=None):
         self.device = nfa.resolve_device(device)
         self._chunk_bytes = chunk_bytes
+        self._stats = stats
         prog = compile_patterns(patterns, ignore_case=ignore_case)
         self._match_all = prog.match_all
         # Full-line batches: patterns binned into automata of <= 128
@@ -91,6 +109,54 @@ class GpuEngineFilter(LogFilter):
         # state space to carry across chunks).
         self._aug = nfa.pack_program(nfa.augment(prog), device=self.device)
         self._live, self._acc = prog.n_states, prog.n_states + 1
+        # The gate of the grouped kernel: at most one of the two.
+        self._n_patterns = len(patterns)
+        self._pf_tables = None
+        if env_read("KLOGS_TPU_PREFILTER", "0") == "1":
+            self._pf_tables = self._build_prefilter(patterns, ignore_case)
+        self._sweep_tables = None
+        if device_gate_choice(len(patterns), self._pf_tables is not None,
+                              self.device) == "sweep":
+            self._sweep_tables = self._build_sweep(patterns, ignore_case)
+            if self._pf_tables is not None:
+                note_sweep_supersedes()
+                self._pf_tables = None
+
+    def _build_prefilter(self, patterns: list[str], ignore_case: bool):
+        """The pair-CNF tables (class domain, else byte domain), or None
+        with the reason said (and kept in the stats) when the set is not
+        ``usable``."""
+        pf = compile_prefilter(patterns, ignore_case=ignore_case)
+        if not pf.usable:
+            culprits = [p for p, n in zip(patterns, pf.clause_counts or [])
+                        if n == 0]
+            if culprits:
+                reason = ("prefilter disabled: no mandatory byte pairs "
+                          "for pattern(s) %s" %
+                          ", ".join(repr(p) for p in culprits[:4]))
+            else:
+                reason = ("prefilter disabled: clause slot table "
+                          "exhausted (pattern set too diverse)")
+            term.info("%s", reason)
+            if self._stats is not None:
+                self._stats.pf_disabled_reason = reason
+            return None
+        g = self._grouped
+        self._onehot = prefilter.pattern_group_onehot(
+            g.pattern_group, g.follow.shape[0], device=self.device)
+        return (prefilter.class_tables(pf, g.byte_class.cpu().numpy(),
+                                       g.n_classes, device=self.device)
+                or prefilter.device_tables(pf, device=self.device))
+
+    def _build_sweep(self, patterns: list[str], ignore_case: bool):
+        """The literal sweep's tables, packed against the grouped
+        program's pattern -> group map."""
+        infos = analyze(patterns, ignore_case=ignore_case)
+        g = self._grouped
+        prog = FactorIndex(infos, plan_groups(infos)).sweep_program(
+            group_of=np.asarray(g.pattern_group, dtype=np.int32),
+            n_groups=int(g.follow.shape[0]))
+        return sweep.device_sweep_tables(prog, device=self.device)
 
     def match_lines(self, lines: list[bytes]) -> list[bool]:
         return self.fetch(self.dispatch(lines))
@@ -136,11 +202,11 @@ class GpuEngineFilter(LogFilter):
                     lens=lens[sel])
                 lengths = np.zeros(rows, dtype=np.int32)
                 lengths[:len(sel)] = sub_lens
-                parts.append((sel, self._match_short(batch, lengths)))
+                parts.append((sel, *self._match_short(batch, lengths)))
         if not bool(short.all()):
             rest = np.nonzero(~short)[0]
             bodies = [payload[int(starts[i]):int(ends[i])] for i in rest]
-            parts.append((rest, self._match_long(bodies)))
+            parts.append((rest, self._match_long(bodies), None))
         return self._start_fetch(n, parts)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -149,14 +215,35 @@ class GpuEngineFilter(LogFilter):
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _match_short(self, batch: np.ndarray, lengths: np.ndarray) -> torch.Tensor:
-        """[rows, width] bytes + lengths -> [rows] bool on the device: the
-        main path (device classify, then the grouped kernel)."""
-        cls = nfa.classify_chunk(self._grouped, self._to_device(batch),
-                                 self._to_device(lengths), first=True,
+    def _match_short(self, batch: np.ndarray, lengths: np.ndarray):
+        """[rows, width] bytes + lengths -> ([rows] bool, gate stats [3]
+        or None), on the device: the main path (device classify, then
+        K1, or the gate and K3)."""
+        batch_d, lengths_d = self._to_device(batch), self._to_device(lengths)
+        g = self._grouped
+        cls = nfa.classify_chunk(g, batch_d, lengths_d, first=True,
                                  final=True)
-        return nfa_kernels.match_cls_grouped(self._grouped, self._g_live,
-                                             self._g_acc, cls)
+        gate = self._gate_bits(batch_d, lengths_d, cls)
+        if gate is None:
+            return nfa_kernels.match_cls_grouped(g, self._g_live,
+                                                 self._g_acc, cls), None
+        return nfa_kernels.match_cls_grouped_gated(
+            g, self._g_live, self._g_acc, cls, gate,
+            want_stats=self._stats is not None)
+
+    def _gate_bits(self, batch: torch.Tensor, lengths: torch.Tensor,
+                   cls: torch.Tensor) -> "torch.Tensor | None":
+        """[rows, GW] group words of the active gate, or None."""
+        if self._sweep_tables is not None:
+            return sweep.sweep_group_bits(self._sweep_tables, batch, lengths)
+        if self._pf_tables is None:
+            return None
+        if len(self._pf_tables) == 4:
+            pm = prefilter.candidate_matrix_from_cls(self._pf_tables, cls)
+        else:
+            pm = prefilter.candidate_matrix(self._pf_tables, batch, lengths)
+        return pack_bits(prefilter.group_candidates(pm, self._onehot,
+                                                    self._n_patterns))
 
     def _match_long(self, bodies: list[bytes]) -> torch.Tensor:
         """Carried-state chunked matching: every long line advances in
@@ -183,15 +270,20 @@ class GpuEngineFilter(LogFilter):
         return matched
 
     def _start_fetch(self, n: int, parts: list):
-        """Start the verdict copies to the host; on CUDA, record the event
-        fetch waits on."""
+        """Start the copies of the verdicts (and gate stats) to the host;
+        on CUDA, record the event fetch waits on."""
         if self.device.type != "cuda":
-            return (n, [(idx, m[:len(idx)]) for idx, m in parts], None)
+            return (n, [(idx, m[:len(idx)], st) for idx, m, st in parts],
+                    None)
         host = []
-        for idx, m in parts:
+        for idx, m, st in parts:
             h = torch.empty(len(idx), dtype=torch.bool, pin_memory=True)
             h.copy_(m[:len(idx)], non_blocking=True)
-            host.append((idx, h))
+            hs = None
+            if st is not None:
+                hs = torch.empty(st.shape, dtype=st.dtype, pin_memory=True)
+                hs.copy_(st, non_blocking=True)
+            host.append((idx, h, hs))
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(self.device))
         return (n, host, done)
@@ -203,6 +295,17 @@ class GpuEngineFilter(LogFilter):
         if done is not None:
             done.synchronize()
         out = np.zeros(n, dtype=bool)
-        for idx, h in parts:
+        for idx, h, st in parts:
             out[idx] = h.numpy()
+            if st is not None and self._stats is not None:
+                self._record_gate(len(idx), *st.tolist())
         return out
+
+    def _record_gate(self, n_lines: int, n_cand: int, n_live: int,
+                     n_tiles: int) -> None:
+        """One gated sub-batch's counts (padding rows can count as
+        candidates, hence the clamp)."""
+        n_cand = min(n_cand, n_lines)
+        self._stats.record_prefilter(n_lines, n_cand, n_tiles, n_live)
+        if self._sweep_tables is not None:
+            self._stats.record_sweep(n_lines, n_cand)

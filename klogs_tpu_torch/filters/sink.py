@@ -107,6 +107,16 @@ class FilterPipeline:
                 s.percentile_device_s(50) * 1e3,
                 s.percentile_device_s(99) * 1e3,
             )
+        if s.pf_lines:
+            term.info(
+                "  prefilter: %.1f%% candidates (%d/%d lines), "
+                "%d/%d tiles skipped",
+                100.0 * s.pf_candidates / s.pf_lines,
+                s.pf_candidates, s.pf_lines,
+                s.pf_tiles_total - s.pf_tiles_live, s.pf_tiles_total,
+            )
+        elif s.pf_disabled_reason:
+            term.info("  %s", s.pf_disabled_reason)
 
 
 def make_pipeline(patterns: list[str], backend: str = "cuda",
@@ -123,7 +133,7 @@ def make_pipeline(patterns: list[str], backend: str = "cuda",
     stats = FilterStats()
     log_filter = build_include_exclude(
         lambda pats: GpuEngineFilter(pats, ignore_case=ignore_case,
-                                     device=device),
+                                     device=device, stats=stats),
         patterns, exclude)
     return FilterPipeline(
         log_filter=log_filter,

@@ -17,6 +17,25 @@
 // sits inside the block and the block ORs `acc` itself before writing
 // one byte per line.
 //
+// grouped_nfa_gated_kernel (the GATED instantiations of the same
+// template) replaces pallas_nfa.py:_grouped_kernel_gated, the
+// scalar-prefetch pallas_call of _launch_grouped's gated tail: it runs
+// K1's body only where a per-(line, group) gate bit says a group can
+// match, computing
+//
+//     out[b] = OR over g of (gate[b, g] AND acc_g(b))
+//
+// (match_all is ORed in by the wrapper). On the TPU the gate became
+// per-(tile, group) flags and a dead grid cell skipped its scan loop.
+// Here the wrapper clusters candidate lines (any gate bit) to the front
+// and hands over the candidate count on the device; a block wholly past
+// it writes zeros and exits (the TPU's dead tiles), a live block skips
+// group g when no line of its 128 has g's bit (__syncthreads_or: the
+// (tile, group) skip), and inside a live group a warp whose lines all
+// lack the bit skips the steps (divergent threads simply idle). What
+// bounds it is what bounds K1, paid only on live (block, group) cells:
+// the dependent step chain of the lines in those cells.
+//
 // chunk_nfa_kernel replaces pallas_nfa.py:_kernel (the pallas_call in
 // _launch_chunk): the same step over the single augmented union
 // automaton, with the state carried in and out across chunks of a long
@@ -147,21 +166,40 @@ constexpr size_t reg_smem_words(int C) {
   return (size_t)32 * W * W + (size_t)C * W + (size_t)NL * (TT + 1);
 }
 
-template <int W>
+// The grouped scan (K1) and, with GATED, the gated one (K3). gate is
+// [B, GW] words (bit g % 32 of word g / 32 = group g may match line b),
+// and n_cand points at the number of leading lines with any bit set;
+// both are ignored when !GATED.
+template <int W, bool GATED>
 __global__ void __launch_bounds__(GROUPED_LINES)
     grouped_nfa_kernel(const int16_t* __restrict__ cls, int B, int T,
                        const uint32_t* __restrict__ follow,
                        const uint32_t* __restrict__ mask, int G, int C,
-                       int live, int acc, uint8_t* __restrict__ out) {
+                       int live, int acc, const uint32_t* __restrict__ gate,
+                       int GW, const int* __restrict__ n_cand,
+                       uint8_t* __restrict__ out) {
   constexpr int S = 32 * W;
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* f_s = smem;
   uint32_t* m_s = f_s + S * W;
   int* tile = reinterpret_cast<int*>(m_s + C * W);
   const int line0 = blockIdx.x * GROUPED_LINES;
+  const int line = line0 + threadIdx.x;
+  if (GATED && line0 >= *n_cand) {  // a dead block: no candidate line
+    if (line < B) out[line] = 0;
+    return;
+  }
   const int* my = tile + threadIdx.x * (TT + 1);
   bool matched = false;
+  uint32_t word = 0u;
   for (int g = 0; g < G; ++g) {
+    bool mine = true;
+    if (GATED) {
+      if ((g & 31) == 0)
+        word = line < B ? gate[(size_t)line * GW + (g >> 5)] : 0u;
+      mine = (word >> (g & 31)) & 1u;
+      if (!__syncthreads_or(mine)) continue;  // no line of the block
+    }
     __syncthreads();  // the previous group's steps are done with f_s/m_s
     copy_rows<W>(f_s, follow + (size_t)g * S * W, S, GROUPED_LINES);
     copy_rows<W>(m_s, mask + (size_t)g * C * W, C, GROUPED_LINES);
@@ -174,11 +212,11 @@ __global__ void __launch_bounds__(GROUPED_LINES)
       load_cls_tile<GROUPED_LINES>(cls, B, T, line0, t0, tile);
       __syncthreads();
       const int n = min(TT, T - t0);
-      for (int tt = 0; tt < n; ++tt) nfa_step<W>(v, f_s, m_s, C, my[tt]);
+      if (mine)
+        for (int tt = 0; tt < n; ++tt) nfa_step<W>(v, f_s, m_s, C, my[tt]);
     }
-    matched = matched || test_bit<W>(v, acc);
+    matched = matched || (mine && test_bit<W>(v, acc));
   }
-  const int line = line0 + threadIdx.x;
   if (line < B) out[line] = matched ? 1 : 0;
 }
 
@@ -311,10 +349,13 @@ __device__ __forceinline__ bool wide_bit(const uint32_t* v, int s) {
   return (v[s >> 5] >> (s & 31)) & 1u;
 }
 
+template <bool GATED>
 __global__ void grouped_nfa_wide(const int16_t* __restrict__ cls, int B,
                                  int T, const uint32_t* __restrict__ follow,
                                  const uint32_t* __restrict__ mask, int G,
                                  int S, int C, int live, int acc,
+                                 const uint32_t* __restrict__ gate, int GW,
+                                 const int* __restrict__ n_cand,
                                  uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int W = S / 32, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -322,7 +363,13 @@ __global__ void grouped_nfa_wide(const int16_t* __restrict__ cls, int B,
   uint32_t* r = v + W;
   const int line = blockIdx.x * (blockDim.x >> 5) + warp;
   bool matched = false;
-  for (int g = 0; g < G; ++g) {
+  // A line past the candidates has no gate bit: it scans nothing. The
+  // gate is per line here (a warp is a line), so each group is skipped
+  // or scanned by the whole warp.
+  const bool scan = !GATED || line < *n_cand;
+  for (int g = 0; scan && g < G; ++g) {
+    if (GATED && !((gate[(size_t)line * GW + (g >> 5)] >> (g & 31)) & 1u))
+      continue;
     for (int k = lane; k < W; k += 32)
       v[k] = k == (live >> 5) ? 1u << (live & 31) : 0u;
     wide_scan(v, r, W, lane, cls, B, T, line, follow + (size_t)g * S * W,
@@ -387,17 +434,42 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-template <int W>
+template <int W, bool GATED>
 cudaError_t launch_grouped(const int16_t* cls, int B, int T,
                            const uint32_t* follow, const uint32_t* mask, int G,
-                           int C, int live, int acc, uint8_t* out,
+                           int C, int live, int acc, const uint32_t* gate,
+                           int GW, const int* n_cand, uint8_t* out,
                            cudaStream_t stream) {
   const size_t smem = reg_smem_words<W, GROUPED_LINES>(C) * 4;
-  cudaError_t e = allow_smem(grouped_nfa_kernel<W>, smem);
+  cudaError_t e = allow_smem(grouped_nfa_kernel<W, GATED>, smem);
   if (e != cudaSuccess) return e;
   const int blocks = (B + GROUPED_LINES - 1) / GROUPED_LINES;
-  grouped_nfa_kernel<W><<<blocks, GROUPED_LINES, smem, stream>>>(
-      cls, B, T, follow, mask, G, C, live, acc, out);
+  grouped_nfa_kernel<W, GATED><<<blocks, GROUPED_LINES, smem, stream>>>(
+      cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out);
+  return cudaGetLastError();
+}
+
+// K1 (GATED false: gate and n_cand unused) or K3 over any S.
+template <bool GATED>
+cudaError_t launch_grouped_any(const int16_t* cls, int B, int T,
+                               const uint32_t* follow, const uint32_t* mask,
+                               int G, int S, int C, int live, int acc,
+                               const uint32_t* gate, int GW, const int* n_cand,
+                               uint8_t* out, cudaStream_t st) {
+  switch (S / 32) {
+    case 4: return launch_grouped<4, GATED>(cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out, st);
+    case 8: return launch_grouped<8, GATED>(cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out, st);
+    case 16: return launch_grouped<16, GATED>(cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out, st);
+    case 32: return launch_grouped<32, GATED>(cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out, st);
+    default: break;
+  }
+  const int nw = S > 32 * 32 ? wide_warps(S) : 0;
+  if (nw == 0) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)2 * (S / 32) * nw * 4;
+  cudaError_t e = allow_smem(grouped_nfa_wide<GATED>, smem);
+  if (e != cudaSuccess) return e;
+  grouped_nfa_wide<GATED><<<(B + nw - 1) / nw, 32 * nw, smem, st>>>(
+      cls, B, T, follow, mask, G, S, C, live, acc, gate, GW, n_cand, out);
   return cudaGetLastError();
 }
 
@@ -434,22 +506,24 @@ int klogs_grouped_nfa(const int16_t* cls, int B, int T,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   if (B <= 0) return cudaSuccess;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (S / 32) {
-    case 4: return launch_grouped<4>(cls, B, T, follow, mask, G, C, live, acc, out, st);
-    case 8: return launch_grouped<8>(cls, B, T, follow, mask, G, C, live, acc, out, st);
-    case 16: return launch_grouped<16>(cls, B, T, follow, mask, G, C, live, acc, out, st);
-    case 32: return launch_grouped<32>(cls, B, T, follow, mask, G, C, live, acc, out, st);
-    default: break;
-  }
-  const int nw = S > 32 * 32 ? wide_warps(S) : 0;
-  if (nw == 0) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)2 * (S / 32) * nw * 4;
-  e = allow_smem(grouped_nfa_wide, smem);
+  return launch_grouped_any<false>(cls, B, T, follow, mask, G, S, C, live,
+                                   acc, nullptr, 0, nullptr, out,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// As klogs_grouped_nfa, gated: gate [B, GW] uint32 words (lines with any
+// bit set first), n_cand a device int holding how many lines have one.
+int klogs_grouped_nfa_gated(const int16_t* cls, int B, int T,
+                            const uint32_t* follow, const uint32_t* mask,
+                            int G, int S, int C, int live, int acc,
+                            const uint32_t* gate, int GW, const int* n_cand,
+                            uint8_t* out, void* stream, int device) {
+  cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  grouped_nfa_wide<<<(B + nw - 1) / nw, 32 * nw, smem, st>>>(
-      cls, B, T, follow, mask, G, S, C, live, acc, out);
-  return cudaGetLastError();
+  if (B <= 0) return cudaSuccess;
+  return launch_grouped_any<true>(cls, B, T, follow, mask, G, S, C, live,
+                                  acc, gate, GW, n_cand, out,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // cls [B, T] int16, follow [S, S/32] and mask [C, S/32] bit tables, v0

@@ -82,9 +82,11 @@ def _tensors(device, char_mask, follow, inject, accept, byte_class) -> dict:
                     np.array(byte_class, dtype=np.int32)).to(device))
 
 
-def pack_program(prog: NFAProgram, device="cpu") -> TorchProgram:
+def pack_program(prog: NFAProgram, device=None) -> TorchProgram:
     """Pad the compiler's dense arrays (``nfa.pack_program``): padded
-    states have all-zero rows/cols, padded classes all-zero mask rows."""
+    states have all-zero rows/cols, padded classes all-zero mask rows.
+    ``device`` follows ``resolve_device`` (None means ``cuda``)."""
+    device = resolve_device(device)
     S = max(STATE_PAD, _pad_to(prog.n_states, STATE_PAD))
     C = _pad_to(prog.n_classes, 8)
     char_mask = np.zeros((C, S), dtype=np.int8)
@@ -137,13 +139,15 @@ def augment(prog: NFAProgram) -> NFAProgram:
 
 
 def compile_grouped(patterns: list[str], ignore_case: bool = False,
-                    max_positions: int = 126, device="cpu"):
+                    max_positions: int = 126, device=None):
     """K patterns -> G augmented automata over one shared byte
     classifier (``nfa.compile_grouped``). Returns (program with [G, ...]
     tables, live, acc); live/acc sit at S-2/S-1 and BEGIN/END/PAD at
     C-3/C-2/C-1 in every group. Bins are first-fit-decreasing by
     position count, so any-match over groups == any-match over
-    patterns, and ``pattern_group`` reports each pattern's bin."""
+    patterns, and ``pattern_group`` reports each pattern's bin.
+    ``device`` follows ``resolve_device`` (None means ``cuda``)."""
+    device = resolve_device(device)
     if not patterns:
         raise ValueError("compile_grouped needs at least one pattern")
     sized = [(compile_patterns([p], ignore_case=ignore_case).n_states, i)
@@ -205,13 +209,14 @@ def compile_grouped(patterns: list[str], ignore_case: bool = False,
 
 
 def program_from_jax(leaves: "dict[str, np.ndarray]", meta: dict,
-                     device="cpu") -> TorchProgram:
+                     device=None) -> TorchProgram:
     """A JAX ``DeviceProgram`` carried across: ``leaves`` holds
     ``np.asarray`` of its array leaves (char_mask, follow, inject,
     accept, byte_class), ``meta`` its static fields (begin_class,
     end_class, pad_class, n_classes, n_states, match_all and, for
     grouped programs, pattern_group). 0/1 tables of any dtype become
-    int8."""
+    int8. ``device`` follows ``resolve_device`` (None means ``cuda``)."""
+    device = resolve_device(device)
     return TorchProgram(
         **_tensors(device, *(np.asarray(leaves[k]) != 0 for k in
                              ("char_mask", "follow", "inject", "accept")),

@@ -1,6 +1,6 @@
-"""The two NFA scan kernels: wrappers, plain versions, launch counts.
+"""The NFA scan kernels: wrappers, plain versions, launch counts.
 
-Counterpart of ``klogs_tpu/ops/pallas_nfa.py``. Both kernels run the
+Counterpart of ``klogs_tpu/ops/pallas_nfa.py``. The kernels run the
 augmented step ``v' = reach(v) & mask[cls[t]]`` (ops/nfa.py) over class
 ids laid out BEGIN, body, END, PAD latch:
 
@@ -8,6 +8,13 @@ ids laid out BEGIN, body, END, PAD latch:
   ``_grouped_kernel``): a ``compile_grouped`` program of G automata,
   each started at ``{live}``; the verdict is state ``acc`` ORed over the
   groups, then ``match_all``;
+- ``match_cls_grouped_gated`` (K3, ``grouped_nfa_gated_kernel``,
+  replacing ``_grouped_kernel_gated``): K1 under a per-(line, group)
+  gate, ``out[b] = match_all or OR_g (gate[b, g] and acc_g(b))``; the
+  thousand-pattern path feeds it the literal sweep's or the pair-CNF's
+  group candidates, and dead (block, group) cells are skipped
+  (``cluster_gate`` orders its operands, ``launch_gated`` is the
+  kernel alone);
 - ``match_chunk_cls`` (K2, ``chunk_nfa_kernel``, replacing ``_kernel``):
   the single augmented union automaton with the [B, S] int8 state
   carried across the chunks of long lines.
@@ -24,12 +31,19 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from klogs_tpu_torch.ops.bits import pack_bits, to_int32, unpack_bits
 from klogs_tpu_torch.ops.nfa import TorchProgram
+from klogs_tpu_torch.ops.prefilter import cluster_candidates
 
 GROUPED = "grouped_nfa_kernel"
+GATED = "grouped_nfa_gated_kernel"
 CHUNK = "chunk_nfa_kernel"
 
-LAUNCHES = {GROUPED: 0, CHUNK: 0}
+LAUNCHES = {GROUPED: 0, GATED: 0, CHUNK: 0}
+
+# Lines per block of the register kernels (GROUPED_LINES in the CUDA
+# source): the unit the gated kernel skips, and its stats' "tile".
+GATE_TILE = 128
 
 # State words per line that the register kernels are built for; a
 # program of another width up to 32 words runs at the next of them.
@@ -64,6 +78,9 @@ def _library():
             lib.klogs_grouped_nfa.argtypes = [p, i, i, p, p, i, i, i, i, i,
                                               p, p, i]
             lib.klogs_grouped_nfa.restype = i
+            lib.klogs_grouped_nfa_gated.argtypes = [p, i, i, p, p, i, i, i,
+                                                    i, i, p, i, p, p, p, i]
+            lib.klogs_grouped_nfa_gated.restype = i
             lib.klogs_chunk_nfa.argtypes = [p, i, i, p, p, i, i, i, p, p, p,
                                             p, i]
             lib.klogs_chunk_nfa.restype = i
@@ -86,13 +103,7 @@ def _or_match_all(prog: TorchProgram, matched: torch.Tensor) -> torch.Tensor:
 def bit_table(table: torch.Tensor) -> torch.Tensor:
     """[..., S] 0/1 -> [..., S/32] int32 words holding the bit pattern of
     uint32 words: bit b of word w is column 32w+b."""
-    *lead, S = table.shape
-    t = (table != 0).reshape(*lead, S // 32, 32).to(torch.int64)
-    weights = torch.tensor([1 << b for b in range(32)], dtype=torch.int64,
-                           device=table.device)
-    words = (t * weights).sum(-1)
-    return torch.where(words >= 2**31, words - 2**32, words) \
-        .to(torch.int32).contiguous()
+    return to_int32(pack_bits(table != 0)).contiguous()
 
 
 def kernel_states(S: int) -> int:
@@ -171,13 +182,15 @@ def _mask_table(char_mask: torch.Tensor, cls: torch.Tensor):
     return table, torch.where((c >= 0) & (c < C), c, C)
 
 
-def match_cls_grouped_plain(prog: TorchProgram, live: int, acc: int,
-                            cls: torch.Tensor, work: dict | None = None
-                            ) -> torch.Tensor:
-    """Plain version of ``match_cls_grouped``: a loop over T of the
-    boolean step on a [G, B, S] state. ``work``, when given, receives
-    under "active" the number of state bits the steps read (summed over
-    groups, lines and steps): the follow rows the bitset kernel ORs."""
+def _group_accepts_plain(prog: TorchProgram, live: int, acc: int,
+                         cls: torch.Tensor, work: "dict | None",
+                         cells: "torch.Tensor | None" = None) -> torch.Tensor:
+    """[G, B] bool: group g's automaton, started at ``{live}``, holds
+    ``acc`` after the last step — a loop over T of the boolean step on
+    a [G, B, S] state. ``work``, when given, receives under "active" the
+    number of state bits the steps read (summed over groups, lines and
+    steps; only over the [G, B] ``cells`` when given): the follow rows
+    the bitset kernel ORs."""
     B, T = cls.shape
     G, C, S = prog.char_mask.shape
     follow = prog.follow.float()  # [G, S, S]
@@ -187,12 +200,117 @@ def match_cls_grouped_plain(prog: TorchProgram, live: int, acc: int,
     active = torch.zeros((), dtype=torch.int64, device=cls.device)
     for t in range(T):
         if work is not None:
-            active += v.sum()
+            active += (v if cells is None else v & cells[:, :, None]).sum()
         reach = torch.bmm(v.float(), follow) > 0
         v = reach & table.index_select(1, idx[:, t])
     if work is not None:
         work["active"] = work.get("active", 0) + int(active)
-    return _or_match_all(prog, v[:, :, acc].any(dim=0))
+    return v[:, :, acc]
+
+
+def match_cls_grouped_plain(prog: TorchProgram, live: int, acc: int,
+                            cls: torch.Tensor, work: dict | None = None
+                            ) -> torch.Tensor:
+    """Plain version of ``match_cls_grouped``; ``work`` as in
+    ``_group_accepts_plain``."""
+    return _or_match_all(
+        prog, _group_accepts_plain(prog, live, acc, cls, work).any(dim=0))
+
+
+# ---- K3: gated grouped full-line match -----------------------------------
+
+
+def _gate_words(prog: TorchProgram, cls: torch.Tensor,
+                gate_bits: torch.Tensor) -> torch.Tensor:
+    G = prog.follow.shape[0]
+    if gate_bits.shape != (cls.shape[0], (G + 31) // 32):
+        raise ValueError(f"gate_bits must be [{cls.shape[0]}, "
+                         f"{(G + 31) // 32}] words, got "
+                         f"{tuple(gate_bits.shape)}")
+    if gate_bits.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"gate_bits must be int32 or int64 words, got "
+                        f"{gate_bits.dtype}")
+    if gate_bits.device != cls.device:
+        raise ValueError(f"gate_bits on {gate_bits.device}, cls on "
+                         f"{cls.device}")
+    return gate_bits
+
+
+def cluster_gate(prog: TorchProgram, cls: torch.Tensor,
+                 gate_bits: torch.Tensor):
+    """K3's operands with the candidate lines (any gate bit) first:
+    (cls [B, T] int16, gate [B, GW] int32 words, n_cand [] int32, inv
+    [B] that undoes the order, stats [3] int64: candidate lines, live
+    tiles, tiles), all on ``cls``'s device."""
+    gate_bits = _gate_words(prog, cls, gate_bits)
+    order, inv, tile_live, n_cand = cluster_candidates(
+        (gate_bits != 0).any(dim=1), GATE_TILE)
+    stats = torch.stack([n_cand, tile_live.sum(),
+                         torch.full_like(n_cand, tile_live.numel())])
+    words = gate_bits if gate_bits.dtype == torch.int32 else to_int32(gate_bits)
+    return (_cls16(prog, cls).index_select(0, order).contiguous(),
+            words.index_select(0, order).contiguous(),
+            n_cand.to(torch.int32), inv, stats)
+
+
+def launch_gated(prog: TorchProgram, live: int, acc: int, cls: torch.Tensor,
+                 gate: torch.Tensor, n_cand: torch.Tensor) -> torch.Tensor:
+    """K3 alone on ``cluster_gate``'s operands (CUDA tensors) -> [B]
+    uint8 verdicts in the clustered order, ``match_all`` not applied.
+    A block wholly past ``n_cand`` writes zeros and exits."""
+    if cls.device.type != "cuda":
+        raise ValueError(f"launch_gated needs CUDA tensors, got {cls.device}")
+    _check_states(prog)
+    cls = _cls16(prog, cls)
+    B, T = cls.shape
+    G, C, S = prog.char_mask.shape
+    follow_bits, mask_bits = _bit_tables(prog)
+    out = torch.empty(B, dtype=torch.uint8, device=cls.device)
+    stream = torch.cuda.current_stream(cls.device).cuda_stream
+    err = _library().klogs_grouped_nfa_gated(
+        cls.data_ptr(), B, T, follow_bits.data_ptr(), mask_bits.data_ptr(),
+        G, kernel_states(S), C, live, acc, gate.data_ptr(), gate.shape[1],
+        n_cand.data_ptr(), out.data_ptr(), stream, cls.device.index or 0)
+    _count(GATED)
+    _check(err, GATED)
+    return out
+
+
+def match_cls_grouped_gated(prog: TorchProgram, live: int, acc: int,
+                            cls: torch.Tensor, gate_bits: torch.Tensor,
+                            want_stats: bool = False):
+    """[B, T] class ids + [B, GW] group words (bit g % 32 of word g // 32:
+    group g may match line b) -> (matched [B] bool, stats or None), with
+    ``matched[b] = match_all or OR_g (gate[b, g] and acc_g(b))``: for a
+    necessary gate, K1's verdict. ``stats`` is ``cluster_gate``'s [3]
+    int64 tensor on the device, read with the verdicts. Nothing waits
+    on the host."""
+    if prog.follow.dim() != 3:
+        raise ValueError(
+            "match_cls_grouped_gated needs a compile_grouped program")
+    if cls.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {cls.device}")
+    # Candidates first: the kernel's blocks past n_cand are dead.
+    cls_p, gate_p, n_cand, inv, stats = cluster_gate(prog, cls, gate_bits)
+    if cls.device.type == "cpu":
+        matched = match_cls_grouped_gated_plain(prog, live, acc, cls,
+                                                gate_bits)
+    else:
+        matched = _or_match_all(prog, launch_gated(
+            prog, live, acc, cls_p, gate_p, n_cand).index_select(0, inv).bool())
+    return matched, (stats if want_stats else None)
+
+
+def match_cls_grouped_gated_plain(prog: TorchProgram, live: int, acc: int,
+                                  cls: torch.Tensor, gate_bits: torch.Tensor,
+                                  work: dict | None = None) -> torch.Tensor:
+    """Plain version of ``match_cls_grouped_gated``: the plain K1 step
+    over every (line, group), ANDed with the gate. ``work`` counts the
+    state bits read on the gated cells only."""
+    gate_bits = _gate_words(prog, cls, gate_bits)
+    cells = unpack_bits(gate_bits.long(), prog.follow.shape[0]).T  # [G, B]
+    accepts = _group_accepts_plain(prog, live, acc, cls, work, cells)
+    return _or_match_all(prog, (accepts & cells).any(dim=0))
 
 
 # ---- K2: carried-state chunk match ---------------------------------------

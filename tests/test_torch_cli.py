@@ -137,3 +137,45 @@ def test_missing_namespace_and_picker_are_fatal(tmp_path):
         opts = cli.parse_args(argv + ["-p", str(tmp_path), "--match", "x"])
         with pytest.raises(term.FatalError):
             asyncio.run(app.run_async(opts, backend=fc, device="cpu"))
+
+
+@pytest.mark.parametrize("env,expect", [
+    ({"KLOGS_TPU_SWEEP": "1"}, "prefilter: "),
+    ({"KLOGS_TPU_PREFILTER": "1"}, "prefilter: "),
+], ids=["sweep", "prefilter"])
+def test_stats_prints_prefilter_line_under_a_gate(tmp_path, capsys, monkeypatch,
+                                                  env, expect):
+    """The gated path behind the user's entry point: the same files as
+    the ungated run, and --stats says what the gate let through."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    fc = FakeCluster.synthetic(n_pods=2, lines_per_container=40,
+                               clock=lambda: CLOCK)
+    out = tmp_path / "gated"
+    opts = cli.parse_args(["-n", "default", "-a", "-p", str(out), "--match",
+                           "ERROR", "--match", "latency=4[0-9]ms",
+                           "--stats"])
+    assert asyncio.run(app.run_async(opts, backend=fc, device="cpu")) == 0
+    text = capsys.readouterr().out
+    assert expect in text and "tiles skipped" in text
+    for k in env:
+        monkeypatch.delenv(k)
+    plain = tmp_path / "plain"
+    opts = cli.parse_args(["-n", "default", "-a", "-p", str(plain), "--match",
+                           "ERROR", "--match", "latency=4[0-9]ms"])
+    fc = FakeCluster.synthetic(n_pods=2, lines_per_container=40,
+                               clock=lambda: CLOCK)
+    assert asyncio.run(app.run_async(opts, backend=fc, device="cpu")) == 0
+    assert read_all(out) == read_all(plain)
+    assert any(read_all(out).values())
+
+
+def test_stats_says_why_prefilter_is_off(tmp_path, capsys, monkeypatch):
+    monkeypatch.setenv("KLOGS_TPU_PREFILTER", "1")
+    fc = FakeCluster.synthetic(n_pods=1, lines_per_container=10,
+                               clock=lambda: CLOCK)
+    opts = cli.parse_args(["-n", "default", "-a", "-p", str(tmp_path),
+                           "--match", "E.*", "--stats"])
+    assert asyncio.run(app.run_async(opts, backend=fc, device="cpu")) == 0
+    assert "  prefilter disabled: no mandatory byte pairs" in \
+        capsys.readouterr().out

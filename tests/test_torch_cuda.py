@@ -77,13 +77,109 @@ def test_kernels_count_launches(dev):
     assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED] == 1
 
 
-def test_engine_on_card_equals_cpu(dev):
+@pytest.mark.parametrize("env", [{}, {"KLOGS_TPU_SWEEP": "1"},
+                                 {"KLOGS_TPU_PREFILTER": "1"}],
+                         ids=["k1", "sweep", "prefilter"])
+def test_engine_on_card_equals_cpu(dev, env, monkeypatch):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
     rng = np.random.default_rng(9)
     lines = [rng.integers(32, 127, size=int(n), dtype=np.uint8).tobytes()
              for n in rng.integers(0, 9000, size=300)]
     lines += [b"panic: now", b"start", b"the end", b"x" * 5000 + b"code=503",
               b"y" * (140 * 1024) + b"FATAL code=1"]
+    nfa_kernels.reset_launches()
     gpu = GpuEngineFilter(PATTERNS, device=dev).match_lines(lines)
+    assert (nfa_kernels.LAUNCHES[nfa_kernels.GATED] > 0) == bool(env)
     cpu = GpuEngineFilter(PATTERNS, device="cpu").match_lines(lines)
     assert gpu == cpu
     assert sum(gpu) >= 5
+
+
+@pytest.mark.parametrize("patterns", [
+    PATTERNS,
+    ["a" * 200 + "b", r"x\d+y"] + [f"lit{i:02d}x" for i in range(40)],
+    ["q" * 1100 + "z", "panic:"] + [f"w{i:02d}yz" for i in range(40)],
+], ids=["s128", "s256", "wide"])
+def test_gated_kernel_equals_plain(dev, patterns):
+    """K3 against its plain version under random gates: dense, sparse,
+    empty, and one that leaves whole blocks of candidates dead."""
+    from klogs_tpu_torch.ops import bits
+
+    prog, live, acc = nfa.compile_grouped(patterns, device=dev)
+    G = int(prog.follow.shape[0])
+    rng = np.random.default_rng(G)
+    for B, T, share in ((1, 5, 1.0), (300, 67, 0.5), (1000, 131, 0.02),
+                        (700, 40, 0.0)):
+        cls = random_cls(prog, B, T, B).to(dev)
+        gate = torch.from_numpy(rng.random((B, G)) < share)
+        gate[B // 2:] = False  # a dead tail: blocks past the candidates
+        words = bits.pack_bits(gate).to(dev)
+        got, stats = nfa_kernels.match_cls_grouped_gated(
+            prog, live, acc, cls, words, want_stats=True)
+        exp = nfa_kernels.match_cls_grouped_gated_plain(prog, live, acc,
+                                                        cls, words)
+        assert torch.equal(got, exp)
+        assert int(stats[0]) == int(gate.any(1).sum())
+
+
+def test_gated_launch_alone_equals_wrapper(dev):
+    """launch_gated on cluster_gate's operands, un-permuted, is the
+    wrapper's verdict; each call counts one launch."""
+    from klogs_tpu_torch.ops import bits
+
+    prog, live, acc = nfa.compile_grouped(PATTERNS, device=dev)
+    G = int(prog.follow.shape[0])
+    cls = random_cls(prog, 900, 50, 4).to(dev)
+    gate = torch.from_numpy(np.random.default_rng(4).random((900, G)) < 0.1)
+    words = bits.pack_bits(gate).to(dev)
+    cls_p, gate_p, n_cand, inv, stats = nfa_kernels.cluster_gate(
+        prog, cls, words)
+    assert int(n_cand) == int(gate.any(1).sum()) == int(stats[0])
+    nfa_kernels.reset_launches()
+    out = nfa_kernels.launch_gated(prog, live, acc, cls_p, gate_p, n_cand)
+    got, _ = nfa_kernels.match_cls_grouped_gated(prog, live, acc, cls, words)
+    assert torch.equal(out.index_select(0, inv).bool(), got)
+    assert not out[int(n_cand):].any()
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GATED] == 2
+
+
+def test_gated_kernel_all_ones_equals_k1(dev):
+    from klogs_tpu_torch.ops import bits
+
+    prog, live, acc = nfa.compile_grouped(PATTERNS, device=dev)
+    cls = random_cls(prog, 2000, 70, 3).to(dev)
+    ones = bits.pack_bits(torch.ones((2000, prog.follow.shape[0]),
+                                     dtype=torch.bool)).to(dev)
+    nfa_kernels.reset_launches()
+    got, _ = nfa_kernels.match_cls_grouped_gated(prog, live, acc, cls, ones)
+    assert torch.equal(got, nfa_kernels.match_cls_grouped(prog, live, acc,
+                                                          cls))
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GATED] == 1
+
+
+@pytest.mark.parametrize("env", [{}, {"KLOGS_TPU_SWEEP": "1"},
+                                 {"KLOGS_TPU_PREFILTER": "1"}],
+                         ids=["k1", "sweep", "prefilter"])
+def test_dispatch_does_not_wait_on_host(dev, env, monkeypatch):
+    """Dispatch enqueues the classify, the gate, the kernel and the
+    copies back (verdicts and gate stats) without a host synchronisation;
+    only fetch waits, on its event."""
+    from klogs_tpu_torch.filters.base import FilterStats, frame_lines
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    stats = FilterStats()
+    eng = GpuEngineFilter(PATTERNS, device=dev, stats=stats)
+    lines = [b"panic: x", b"x code=503", b"nothing here", b"q" * 300] * 100
+    payload, offsets, _ = frame_lines(lines, strip_nl=False)
+    exp = eng.fetch_framed(eng.dispatch_framed(payload, offsets))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = eng.dispatch_framed(payload, offsets)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert eng.fetch_framed(handle).tolist() == exp.tolist()
+    assert exp.sum() == 200
+    assert stats.pf_lines == (2 * len(lines) if env else 0)

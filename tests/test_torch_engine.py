@@ -9,6 +9,7 @@ import re
 import numpy as np
 import pytest
 
+import bench
 from klogs_tpu.filters.base import IncludeExcludeFilter as JaxIncludeExclude
 from klogs_tpu.filters.tpu import NFAEngineFilter
 from klogs_tpu_torch.filters.base import build_include_exclude, frame_lines
@@ -127,3 +128,93 @@ def test_cuda_device_raises_without_card():
         GpuEngineFilter(["x"], device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         GpuEngineFilter(["x"])
+
+
+# ---- the thousand-pattern gates ------------------------------------------
+
+K64 = bench.make_patterns(64)
+
+
+def k64_lines() -> list[bytes]:
+    lines = [ln for ln in bench.make_lines(40)]
+    lines += [b"svc-0008 unreachable\n", b"errcode=00009", b"CRIT00011 x",
+              b"x tenant-0010 y quota exceeded", b"svc-0001 unreachable",
+              b"PANIC job-00014", b"user=u000015 denied\n", b"", b"panic: a",
+              b"retry 3/5", b"z" * 300 + b" deploy/rel-0013 failed"]
+    return lines
+
+
+@pytest.mark.parametrize("env", [{"KLOGS_TPU_SWEEP": "1"},
+                                 {"KLOGS_TPU_PREFILTER": "1"}],
+                         ids=["sweep", "prefilter"])
+def test_gated_engine_equals_jax_and_oracle(env, monkeypatch):
+    """Both engines gated the same way (the port's K3 plain version, the
+    JAX gated Pallas kernel in interpret mode) give the oracle's
+    verdicts, and the port records what the gate let through."""
+    from klogs_tpu_torch.filters.base import FilterStats
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    stats = FilterStats()
+    port = GpuEngineFilter(K64, chunk_bytes=CHUNK, device="cpu", stats=stats)
+    ref = NFAEngineFilter(K64, chunk_bytes=CHUNK, kernel="interpret")
+    swept = "KLOGS_TPU_SWEEP" in env
+    assert (port._sweep_tables is not None) == swept
+    assert (port._pf_tables is not None) == (not swept)
+    assert (ref._sweep_tables is not None) == swept
+    lines = k64_lines()
+    payload, offsets, _ = frame_lines(lines, strip_nl=False)
+    got = port.fetch_framed(port.dispatch_framed(payload, offsets)).tolist()
+    exp = [oracle(K64, ln) for ln in lines]
+    assert got == exp and sum(exp) >= 8
+    assert ref.match_lines(lines) == exp
+    n_short = sum(len(ln.rstrip(b"\n")) <= CHUNK for ln in lines)
+    assert stats.pf_lines == n_short
+    assert 0 < stats.pf_candidates <= n_short
+    assert 0 < stats.pf_tiles_live <= stats.pf_tiles_total
+    assert stats.sweep_lines == (n_short if swept else 0)
+
+
+def test_gate_rules(monkeypatch):
+    """Auto keeps the sweep off on the CPU; KLOGS_INDEX_MIN_K moves the
+    threshold of the cuda rule; a forced sweep beats the prefilter; a
+    malformed KLOGS_TPU_SWEEP raises."""
+    import torch
+
+    from klogs_tpu_torch.filters import cpu
+
+    cuda, host = torch.device("cuda"), torch.device("cpu")
+    monkeypatch.delenv("KLOGS_TPU_SWEEP", raising=False)
+    monkeypatch.delenv("KLOGS_INDEX_MIN_K", raising=False)
+    assert GpuEngineFilter(K64, device="cpu")._sweep_tables is None
+    assert not cpu.device_sweep_wanted(1024, host)
+    assert cpu.device_sweep_wanted(64, cuda)
+    assert not cpu.device_sweep_wanted(63, cuda)
+    monkeypatch.setenv("KLOGS_INDEX_MIN_K", "10")
+    assert cpu.index_min_k() == 10 and cpu.device_sweep_wanted(10, cuda)
+    monkeypatch.setenv("KLOGS_INDEX_MIN_K", "junk")
+    assert cpu.index_min_k() == cpu.INDEX_MIN_K
+    assert cpu.device_gate_choice(100, True, cuda) == "prefilter"
+    monkeypatch.setenv("KLOGS_TPU_SWEEP", "1")
+    assert cpu.device_gate_choice(2, True, host) == "sweep"
+    monkeypatch.setenv("KLOGS_TPU_PREFILTER", "1")
+    both = GpuEngineFilter(["panic:", "code=50[34]"], device="cpu")
+    assert both._sweep_tables is not None and both._pf_tables is None
+    monkeypatch.setenv("KLOGS_TPU_SWEEP", "0")
+    assert cpu.device_gate_choice(1024, False, cuda) == "off"
+    monkeypatch.setenv("KLOGS_TPU_SWEEP", "bogus")
+    with pytest.raises(ValueError, match="KLOGS_TPU_SWEEP"):
+        GpuEngineFilter(["x"], device="cpu")
+
+
+def test_unusable_prefilter_says_why(monkeypatch):
+    from klogs_tpu_torch.filters.base import FilterStats
+
+    monkeypatch.setenv("KLOGS_TPU_PREFILTER", "1")
+    stats = FilterStats()
+    eng = GpuEngineFilter(["panic:", "a.*"], device="cpu", stats=stats)
+    assert eng._pf_tables is None
+    assert "prefilter disabled" in stats.pf_disabled_reason
+    assert "'a.*'" in stats.pf_disabled_reason
+    assert eng.match_lines([b"panic: x", b"b"]) == [True, False]
+    assert stats.pf_lines == 0

@@ -73,9 +73,28 @@ def test_port_package_imports_without_jax():
 def test_cuda_entry_points_raise_without_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    from klogs_tpu_torch.filters.compiler.glushkov import compile_patterns
+    from klogs_tpu_torch.filters.compiler.prefilter import compile_prefilter
     from klogs_tpu_torch.filters.gpu import GpuEngineFilter
     from klogs_tpu_torch.filters.sink import make_pipeline
+    from klogs_tpu_torch.ops import nfa, prefilter, sweep
+    from klogs_tpu_torch.ops.nfa import augment, pack_program
+    from klogs_tpu_torch.filters.compiler.groups import analyze, plan_groups
+    from klogs_tpu_torch.filters.compiler.index import FactorIndex
 
+    union = compile_patterns(["x"])
+    infos = analyze(["xyz1"])
+    prog = FactorIndex(infos, plan_groups(infos)).sweep_program()
+    pf = compile_prefilter(["xyz1"])
+    for entry in (lambda: pack_program(augment(union)),
+                  lambda: nfa.compile_grouped(["x"]),
+                  lambda: nfa.program_from_jax({}, {}),
+                  lambda: sweep.device_sweep_tables(prog),
+                  lambda: prefilter.device_tables(pf),
+                  lambda: prefilter.class_tables(pf, [0] * 256, 8),
+                  lambda: prefilter.pattern_group_onehot((0,), 1)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            entry()
     with pytest.raises(RuntimeError, match="cuda"):
         GpuEngineFilter(["x"])
     with pytest.raises(RuntimeError, match="cuda"):
@@ -132,3 +151,25 @@ def test_chip_smoke_patterns_are_the_bench_set():
     import chip_smoke
 
     assert chip_smoke.PATTERNS == bench.PATTERNS
+
+
+def test_chip_smoke_k1024_patterns_are_the_bench_set():
+    import chip_smoke
+
+    assert chip_smoke.make_patterns(1024) == bench.make_patterns(1024)
+    assert chip_smoke.make_patterns(32) == bench.PATTERNS
+
+
+def test_chip_smoke_minted_needles():
+    """A minted needle of member i < 992 matches that member's pattern;
+    past the 1024 set it is a near miss that matches nothing."""
+    import re
+
+    import chip_smoke
+
+    pats = chip_smoke.make_patterns(1024)
+    union = re.compile("|".join(f"(?:{p})" for p in pats).encode())
+    for i in (0, 1, 2, 3, 4, 5, 6, 7, 500, 991):
+        assert re.search(pats[32 + i].encode(), chip_smoke.minted_needle(i))
+    for i in range(992, 1000):
+        assert not union.search(chip_smoke.minted_needle(i))

@@ -44,7 +44,7 @@ def host_table(jdp):
                                          (False, False), (False, True)])
 def test_classify_chunk_equals_host(first, final):
     jdp, _, _ = jnfa.compile_grouped(bench.PATTERNS)
-    tp, _, _ = nfa.compile_grouped(bench.PATTERNS)
+    tp, _, _ = nfa.compile_grouped(bench.PATTERNS, device="cpu")
     L = 16
     rows, _ = seeded_rows(3, 12, L)
     # Ended lines, END on every edge of the window, and continuing ones.
@@ -64,7 +64,7 @@ def test_classify_chunk_equals_host(first, final):
     [r"[a-m]+X", r"[h-z]+Y", r"\d\d", "q"],
 ], ids=["bench", "needles", "match_all", "clash"])
 def test_grouped_plain_equals_pallas(patterns):
-    tp, live, acc = nfa.compile_grouped(patterns)
+    tp, live, acc = nfa.compile_grouped(patterns, device="cpu")
     jdp, _, _ = jnfa.compile_grouped(patterns)
     rows, lens = seeded_rows(7, 48, 64)
     cls = nfa.classify_chunk(tp, torch.from_numpy(rows), torch.from_numpy(lens),
@@ -82,7 +82,7 @@ def test_grouped_plain_equals_pallas(patterns):
 def test_grouped_plain_kills_out_of_range_classes():
     """A class id outside [0, C) zeroes the state (the one-hot product's
     semantics), in the plain version as in the Pallas kernel."""
-    tp, live, acc = nfa.compile_grouped(["ab"])
+    tp, live, acc = nfa.compile_grouped(["ab"], device="cpu")
     jdp, _, _ = jnfa.compile_grouped(["ab"])
     a, b = (int(tp.byte_class[ord(ch)]) for ch in "ab")
     C = tp.n_classes
@@ -101,7 +101,7 @@ def test_chunk_plain_equals_pallas_chained():
     before the last chunk; matched flags and carries equal per chunk."""
     pats = bench.PATTERNS
     union = compile_patterns(pats)
-    tp = nfa.pack_program(nfa.augment(union))
+    tp = nfa.pack_program(nfa.augment(union), device="cpu")
     jdp = jnfa.pack_program(jnfa.augment(jax_compile(pats)), dtype=jnp.int8)
     live, acc = union.n_states, union.n_states + 1
     L = 48
@@ -159,7 +159,8 @@ def test_bit_tables_pad_with_dead_states():
     rows and columns are all zero, and whose first 640 decode to the
     program's own follow and mask tables."""
     pats = ["q" * 600 + "z", "panic:"]
-    prog = nfa.pack_program(nfa.augment(compile_patterns(pats)))
+    prog = nfa.pack_program(nfa.augment(compile_patterns(pats)),
+                            device="cpu")
     assert prog.n_states == 640
     follow_bits, mask_bits = nfa_kernels._bit_tables(prog)
     assert follow_bits.shape == (1024, 32)
@@ -180,19 +181,201 @@ def test_bit_tables_pad_with_dead_states():
 def test_wrappers_count_only_kernel_launches():
     """The plain versions (CPU tensors) never count as launches."""
     nfa_kernels.reset_launches()
-    tp, live, acc = nfa.compile_grouped(["abc"])
+    tp, live, acc = nfa.compile_grouped(["abc"], device="cpu")
     cls = torch.full((4, 5), tp.pad_class, dtype=torch.int16)
     nfa_kernels.match_cls_grouped(tp, live, acc, cls)
+    nfa_kernels.match_cls_grouped_gated(
+        tp, live, acc, cls, torch.ones((4, 1), dtype=torch.int64))
     assert nfa_kernels.LAUNCHES == {nfa_kernels.GROUPED: 0,
+                                    nfa_kernels.GATED: 0,
                                     nfa_kernels.CHUNK: 0}
 
 
 def test_wrappers_reject_mismatched_programs():
-    tp, live, acc = nfa.compile_grouped(["abc"])
-    single = nfa.pack_program(nfa.augment(compile_patterns(["abc"])))
+    tp, live, acc = nfa.compile_grouped(["abc"], device="cpu")
+    single = nfa.pack_program(nfa.augment(compile_patterns(["abc"])),
+                              device="cpu")
     cls = torch.zeros((2, 4), dtype=torch.int16)
     with pytest.raises(ValueError):
         nfa_kernels.match_cls_grouped(single, live, acc, cls)
     with pytest.raises(ValueError):
         nfa_kernels.match_chunk_cls(tp, acc, cls,
                                     torch.zeros((2, 128), dtype=torch.int8))
+
+
+# ---- K3: the gated grouped kernel's plain version ------------------------
+
+K64 = bench.make_patterns(64)
+MINTED = [b"svc-0008 unreachable", b"errcode=00009", b"CRIT00011",
+          b"tenant-0010 x quota exceeded", b"deploy/rel-0013 failed",
+          b"svc-0001 unreachable", b"trace=ab span=000012"]
+
+
+def k64_rows(seed: int, B: int = 48, width: int = 64):
+    """[B, width] rows: FakeCluster-like printable bytes, the 32-set's
+    needles and minted-family needles (some near misses)."""
+    rows, lens = seeded_rows(seed, B, width)
+    rng = np.random.default_rng(seed + 1)
+    for i in range(1, B, 3):
+        nd = MINTED[(i // 3) % len(MINTED)]
+        lens[i] = max(lens[i], len(nd))
+        p = int(rng.integers(0, lens[i] - len(nd) + 1))
+        rows[i, p:p + len(nd)] = np.frombuffer(nd, dtype=np.uint8)
+    return rows, lens
+
+
+def k64_programs():
+    from klogs_tpu_torch.filters.compiler.groups import analyze, plan_groups
+    from klogs_tpu_torch.filters.compiler.index import FactorIndex
+
+    tp, live, acc = nfa.compile_grouped(K64, device="cpu")
+    jdp, _, _ = jnfa.compile_grouped(K64)
+    infos = analyze(K64)
+    prog = FactorIndex(infos, plan_groups(infos)).sweep_program(
+        group_of=np.asarray(tp.pattern_group, np.int32),
+        n_groups=int(tp.follow.shape[0]))
+    return tp, jdp, live, acc, prog
+
+
+def test_gated_plain_equals_pallas_sweep():
+    """Under the literal sweep's gate: the same verdicts and candidate
+    count as the JAX fused path (sweep + gated Pallas kernel)."""
+    from klogs_tpu.ops.sweep import device_sweep_tables as jtables
+    from klogs_tpu_torch.ops import sweep
+
+    tp, jdp, live, acc, prog = k64_programs()
+    rows, lens = k64_rows(21)
+    exp, jstats = pallas_nfa.match_batch_grouped_pallas(
+        jdp, live, acc, rows, lens, tile_b=16, interpret=True,
+        sweep_tables=jtables(prog), return_stats=True)
+    batch, lengths = torch.from_numpy(rows), torch.from_numpy(lens)
+    cls = nfa.classify_chunk(tp, batch, lengths, True, True)
+    words = sweep.sweep_group_bits(
+        sweep.device_sweep_tables(prog, device="cpu"), batch, lengths)
+    got, stats = nfa_kernels.match_cls_grouped_gated(tp, live, acc, cls,
+                                                     words, want_stats=True)
+    assert got.tolist() == np.asarray(exp).tolist()
+    assert int(stats[0]) == int(jstats[0])
+    assert got.tolist() == [any(re.search(p.encode(), bytes(r[:n]))
+                                for p in K64) for r, n in zip(rows, lens)]
+    assert got.any()
+
+
+def test_gated_plain_equals_pallas_prefilter():
+    """Under the class-domain pair-CNF gate: the same verdicts and
+    candidate count as the JAX gated kernel over class ids."""
+    from klogs_tpu.filters.compiler.prefilter import compile_prefilter as jcp
+    from klogs_tpu.ops import prefilter as jpf
+    from klogs_tpu_torch.filters.compiler.prefilter import compile_prefilter
+    from klogs_tpu_torch.ops import bits, prefilter
+
+    tp, jdp, live, acc, _ = k64_programs()
+    rows, lens = k64_rows(22)
+    cls = nfa.classify_chunk(tp, torch.from_numpy(rows),
+                             torch.from_numpy(lens), True, True)
+    jt = jpf.class_tables(jcp(K64), jdp.byte_class, jdp.n_classes)
+    exp, jstats = pallas_nfa.match_cls_grouped_pallas(
+        jdp, live, acc, cls.numpy().astype(np.int32), tile_b=16,
+        interpret=True, prefilter_tables=jt, return_stats=True)
+    tt = prefilter.class_tables(compile_prefilter(K64), tp.byte_class.numpy(),
+                                tp.n_classes, device="cpu")
+    onehot = prefilter.pattern_group_onehot(
+        tp.pattern_group, tp.follow.shape[0], device="cpu")
+    gm = prefilter.group_candidates(
+        prefilter.candidate_matrix_from_cls(tt, cls), onehot, len(K64))
+    got, stats = nfa_kernels.match_cls_grouped_gated(
+        tp, live, acc, cls, bits.pack_bits(gm), want_stats=True)
+    assert got.tolist() == np.asarray(exp).tolist()
+    assert int(stats[0]) == int(jstats[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_gated_plain_formula_under_random_gate(dtype):
+    """out[b] = OR over g of (gate[b, g] and group g accepts b): groups
+    partition the patterns, so 'group g accepts b' is 're finds one of
+    g's patterns in b'. A random gate drops real matches; K1's verdict
+    is the all-ones gate."""
+    from klogs_tpu_torch.ops import bits
+
+    tp, _, live, acc, _ = k64_programs()
+    rows, lens = k64_rows(23)
+    cls = nfa.classify_chunk(tp, torch.from_numpy(rows),
+                             torch.from_numpy(lens), True, True)
+    G = int(tp.follow.shape[0])
+    gate = np.random.default_rng(5).random((len(rows), G)) < 0.5
+    words = bits.pack_bits(torch.from_numpy(gate))
+    if dtype == torch.int32:
+        words = bits.to_int32(words)
+    got, stats = nfa_kernels.match_cls_grouped_gated(tp, live, acc, cls,
+                                                     words, want_stats=True)
+    exp = [any(gate[b, tp.pattern_group[p]]
+               and re.search(pat.encode(), bytes(rows[b, :lens[b]]))
+               for p, pat in enumerate(K64)) for b in range(len(rows))]
+    assert got.tolist() == exp
+    k1 = nfa_kernels.match_cls_grouped(tp, live, acc, cls)
+    assert sum(exp) < int(k1.sum())
+    full = bits.pack_bits(torch.ones((len(rows), G), dtype=torch.bool))
+    assert torch.equal(nfa_kernels.match_cls_grouped_gated(
+        tp, live, acc, cls, full)[0], k1)
+    B = len(rows)
+    assert stats.tolist() == [int(gate.any(1).sum()),
+                              -(-int(gate.any(1).sum()) // 128), -(-B // 128)]
+
+
+def test_cluster_gate_puts_candidates_first():
+    """K3's operands: candidate rows (any gate bit) first in their own
+    order, int16 class ids and int32 words, inv undoing the order."""
+    from klogs_tpu_torch.ops import bits
+
+    tp, live, acc = nfa.compile_grouped(bench.PATTERNS, device="cpu")
+    rows, lens = seeded_rows(25, 300, 32)
+    cls = nfa.classify_chunk(tp, torch.from_numpy(rows),
+                             torch.from_numpy(lens), True, True)
+    G = int(tp.follow.shape[0])
+    gate = torch.from_numpy(np.random.default_rng(6).random((300, G)) < 0.1)
+    cls_p, gate_p, n_cand, inv, stats = nfa_kernels.cluster_gate(
+        tp, cls, bits.pack_bits(gate))
+    cand = gate.any(1)
+    n = int(cand.sum())
+    assert cls_p.dtype == torch.int16 and gate_p.dtype == torch.int32
+    assert n_cand.dtype == torch.int32 and int(n_cand) == n
+    assert torch.equal(cls_p[:n], cls[cand]) and torch.equal(
+        cls_p[n:], cls[~cand])
+    assert torch.equal(cls_p.index_select(0, inv), cls)
+    assert not gate_p[n:].any()
+    assert stats.tolist() == [n, -(-n // nfa_kernels.GATE_TILE),
+                              -(-300 // nfa_kernels.GATE_TILE)]
+
+
+def test_gated_plain_counts_only_gated_cells():
+    """The plain version's work count (the kernel's operation bound)
+    reads state bits on gated (line, group) cells only."""
+    from klogs_tpu_torch.ops import bits
+
+    tp, live, acc = nfa.compile_grouped(bench.PATTERNS, device="cpu")
+    rows, lens = seeded_rows(24, 16, 32)
+    cls = nfa.classify_chunk(tp, torch.from_numpy(rows),
+                             torch.from_numpy(lens), True, True)
+    G = int(tp.follow.shape[0])
+    all_work, none_work = {}, {}
+    nfa_kernels.match_cls_grouped_plain(tp, live, acc, cls, work=all_work)
+    ones = bits.pack_bits(torch.ones((16, G), dtype=torch.bool))
+    nfa_kernels.match_cls_grouped_gated_plain(tp, live, acc, cls, ones,
+                                              work=none_work)
+    assert none_work == all_work
+    zero = torch.zeros((16, 1), dtype=torch.int64)
+    work: dict = {}
+    got = nfa_kernels.match_cls_grouped_gated_plain(tp, live, acc, cls, zero,
+                                                    work=work)
+    assert work["active"] == 0 and not got.any()
+
+
+def test_gated_wrapper_rejects_bad_gates():
+    tp, live, acc = nfa.compile_grouped(["abc", "def"], device="cpu")
+    cls = torch.zeros((4, 6), dtype=torch.int16)
+    with pytest.raises(ValueError, match="gate_bits"):
+        nfa_kernels.match_cls_grouped_gated(
+            tp, live, acc, cls, torch.zeros((4, 2), dtype=torch.int64))
+    with pytest.raises(TypeError, match="gate_bits"):
+        nfa_kernels.match_cls_grouped_gated(
+            tp, live, acc, cls, torch.zeros((4, 1), dtype=torch.uint8))

@@ -51,7 +51,8 @@ def assert_same_program(tp, jdp):
 @pytest.mark.parametrize("ignore_case", [False, True], ids=["case", "nocase"])
 @pytest.mark.parametrize("patterns", PATTERN_SETS, ids=IDS)
 def test_compile_grouped_equals_jax(patterns, ignore_case):
-    tp, live, acc = nfa.compile_grouped(patterns, ignore_case=ignore_case)
+    tp, live, acc = nfa.compile_grouped(patterns, ignore_case=ignore_case,
+                                        device="cpu")
     jdp, jlive, jacc = jnfa.compile_grouped(patterns, ignore_case=ignore_case)
     assert (live, acc) == (jlive, jacc)
     assert_same_program(tp, jdp)
@@ -60,7 +61,8 @@ def test_compile_grouped_equals_jax(patterns, ignore_case):
 
 @pytest.mark.parametrize("patterns", PATTERN_SETS, ids=IDS)
 def test_augment_pack_equals_jax(patterns):
-    tp = nfa.pack_program(nfa.augment(compile_patterns(patterns)))
+    tp = nfa.pack_program(nfa.augment(compile_patterns(patterns)),
+                          device="cpu")
     jdp = jnfa.pack_program(jnfa.augment(jax_compile(patterns)),
                             dtype=jnp.int8)
     assert_same_program(tp, jdp)
@@ -69,12 +71,12 @@ def test_augment_pack_equals_jax(patterns):
 def test_bench_set_shapes():
     """The 32-pattern main-path set: G=4 groups of S=128 states over C=64
     classes; its augmented union automaton is S=512."""
-    tp, live, acc = nfa.compile_grouped(bench.PATTERNS)
+    tp, live, acc = nfa.compile_grouped(bench.PATTERNS, device="cpu")
     assert tuple(tp.follow.shape) == (4, 128, 128)
     assert (tp.n_classes, live, acc) == (64, 126, 127)
     union = compile_patterns(bench.PATTERNS)
     assert union.n_states == 400
-    assert nfa.pack_program(nfa.augment(union)).n_states == 512
+    assert nfa.pack_program(nfa.augment(union), device="cpu").n_states == 512
 
 
 @pytest.mark.parametrize("grouped", [True, False], ids=["grouped", "union"])
@@ -82,13 +84,14 @@ def test_program_from_jax_round_trips(grouped):
     pats = ["panic:", r"retry \d+/\d+", "^start", "end$"]
     if grouped:
         jdp, _, _ = jnfa.compile_grouped(pats)
-        mine, _, _ = nfa.compile_grouped(pats)
+        mine, _, _ = nfa.compile_grouped(pats, device="cpu")
     else:
         jdp = jnfa.pack_program(jnfa.augment(jax_compile(pats)))
-        mine = nfa.pack_program(nfa.augment(compile_patterns(pats)))
+        mine = nfa.pack_program(nfa.augment(compile_patterns(pats)),
+                                device="cpu")
     leaves = {k: np.asarray(getattr(jdp, k)) for k in LEAVES}
     meta = {k: getattr(jdp, k) for k in META + ("pattern_group",)}
-    tp = nfa.program_from_jax(leaves, meta)
+    tp = nfa.program_from_jax(leaves, meta, device="cpu")
     assert_same_program(tp, jdp)
     for k in LEAVES:
         assert np.array_equal(getattr(tp, k).numpy(), getattr(mine, k).numpy())
@@ -96,7 +99,7 @@ def test_program_from_jax_round_trips(grouped):
 
 def test_compile_grouped_rejects_empty():
     with pytest.raises(ValueError):
-        nfa.compile_grouped([])
+        nfa.compile_grouped([], device="cpu")
 
 
 def test_resolve_device_refuses_missing_card():
