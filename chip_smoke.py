@@ -29,24 +29,45 @@ these phases, each printing one JSON line:
    grouped_nfa_kernel is held against its plain version and timed on
    the run's own class batches, at its two most frequent shapes.
 
+The fused-groups path, under ``KLOGS_TPU_FUSED_GROUPS=1`` (set and
+restored around these two phases):
+
+6. engine_fused: the fused engine on the engine phase's frames; its
+   verdicts equal the K1 engine's on every line, short lines run
+   grouped_nfa_fused_kernel (K4) and never K1, long ones K2; short
+   lines/s and the device-busy share.
+7. cli_fused: the cli phase again under the variable, this path's main
+   run (counts zeroed just before, read just after; K4 must launch, K1
+   must not); every file equal to the oracle's lines. Then K4 is held
+   against its plain version and K1, and timed with its plain version,
+   on the run's own batches.
+8. tune: ``ops/tune.py`` ``tune_grouped`` times K1 and K4 on the fused
+   engine's 131072 x 131 batch and caches the winner (in a temporary
+   ``XDG_CACHE_HOME``); both lines/s and the winner are printed.
+
 The thousand-pattern path, on ``make_patterns(1024)`` (``bench.py``'s
 K axis: 156 groups of 128 states, 64 classes):
 
-6. sweep: the device literal sweep's tables (920 factors, 5 group
+9. sweep: the device literal sweep's tables (920 factors, 5 group
    words) over 131072 FakeCluster rows at the 128-byte bucket, 1% with
    a minted-family needle; the card's mask equals the same function on
    the CPU, exactly.
-7. grouped_nfa_gated_kernel (K3) against its plain version on 8192 of
+10. grouped_nfa_gated_kernel (K3) against its plain version on 8192 of
    those rows under the sweep's gate and under a seeded random gate,
    and against ungated K1 on all 131072, under the sweep's gate and
    under that gate kept on 3% of the lines (dead blocks); K3's kernel
    alone, its whole wrapper and K1 timed on that batch.
-8. engine_k1024: GpuEngineFilter on 1M FakeCluster lines (1% needles)
+11. grouped_nfa_fused_kernel (K4) against its plain version and K1,
+   K4 and K1 timed in turns: 8192 rows and all 131072 of K1's w128
+   batch, the 4096 bucket, the 1280-state wide program, and at K = 1024
+   (156 groups in chunks, ungated) the sweep's 131072 x 131 batch and
+   the engine's 256-byte bucket (2048 x 259).
+12. engine_k1024: GpuEngineFilter on 1M FakeCluster lines (1% needles)
    and 256 lines of 4-64 KiB; verdicts equal a K1-only engine's on the
    short lines (that engine timed too) and a Python ``re`` oracle (one
    alternation of the 1024 patterns) on the first 65536 lines and all
    long ones.
-9. cli_k1024: ``app.run_async`` over 256 pods x 250 lines plus 8 long
+13. cli_k1024: ``app.run_async`` over 256 pods x 250 lines plus 8 long
    lines with ``--match`` x1024, ``--stats`` and ``-p`` a temporary
    directory: this path's main run (counts zeroed just before, read
    just after; K3 must launch), every file equal to the oracle's lines
@@ -62,6 +83,7 @@ outside a checkout.
 
 import asyncio
 import concurrent.futures
+import contextlib
 import functools
 import io
 import json
@@ -132,6 +154,20 @@ SOURCE = "klogs_tpu_torch/ops/csrc/nfa_kernels.cu"
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def env_set(name: str, value: str):
+    """``os.environ[name] = value`` for the block, restored after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -255,11 +291,47 @@ def k1_check(torch, nk, dp, live, acc, cls, reps: int) -> dict:
                 **step_bounds(n_bytes, S, C, B * G * T, work["active"]))
 
 
+def k4_check(torch, nk, dp, live, acc, cls, reps: int,
+             time_plain: bool = False, step: "int | None" = None) -> dict:
+    """K4 against its plain version (over slices of ``step`` rows) and
+    against K1 on one cls batch; K1 and K4 timed in turns, each beside
+    the bounds of K1's function (K4 computes it over the same bytes).
+    ``plain_ms`` only with ``time_plain``."""
+    got = nk.match_cls_grouped_fused(dp, live, acc, cls)
+    k1 = nk.match_cls_grouped(dp, live, acc, cls)
+    B, T = cls.shape
+    step = step or B
+    work: dict = {}
+    err = 0
+    for i in range(0, B, step):
+        exp = nk.match_cls_grouped_fused_plain(dp, live, acc,
+                                               cls[i:i + step], work=work)
+        err = max(err, int((got[i:i + step].int() - exp.int()).abs().max()))
+    torch.cuda.synchronize()
+    k1_ms = cuda_ms(torch, lambda: nk.match_cls_grouped(dp, live, acc, cls),
+                    reps)
+    ms = cuda_ms(torch, lambda: nk.match_cls_grouped_fused(dp, live, acc,
+                                                           cls), reps)
+    G, C, S = dp.char_mask.shape
+    n_bytes = B * T * 2 + G * (S + C) * (S // 32) * 4 + B * 4
+    res = dict(rows=B, T=T, states=S, groups=G, max_abs_err=err,
+               k1_mismatches=int((got != k1).sum()), ms=ms, k1_ms=k1_ms,
+               matched=int(got.sum()), active_per_step=work["active"]
+               / (B * G * T), **step_bounds(n_bytes, S, C, B * G * T,
+                                           work["active"]))
+    if time_plain:
+        res["plain_ms"] = cuda_ms(torch, lambda: (
+            nk.match_cls_grouped_fused_plain(dp, live, acc, cls)), 1)
+    return res
+
+
 def k1_phase(torch, np, nfa, nk, synthetic_line, dev, rows_128=131072,
-             rows_4096=4096) -> dict:
+             rows_4096=4096):
+    """K1's cases; returns (results, {case: (program, live, acc, cls)})
+    for the K4 phase to reuse."""
     rng = np.random.default_rng(SEED)
     dp, live, acc = nfa.compile_grouped(PATTERNS, device=dev)
-    results = {}
+    results, batches = {}, {}
     # rows_128 rows at the 128-byte bucket: half synthetic log lines,
     # half random bytes with planted needles.
     B, W = rows_128, 128
@@ -272,12 +344,14 @@ def k1_phase(torch, np, nfa, nk, synthetic_line, dev, rows_128=131072,
     cls = nfa.classify_chunk(dp, torch.from_numpy(rows).to(dev),
                              torch.from_numpy(lens).to(dev), True, True)
     results["w128"] = k1_check(torch, nk, dp, live, acc, cls, 20)
+    batches["w128"] = (dp, live, acc, cls)
     # rows_4096 rows at the 4096 bucket.
     B, W = rows_4096, 4096
     rows, lens = rows_with_needles(np, rng, B, W, 2049, printable=False)
     cls = nfa.classify_chunk(dp, torch.from_numpy(rows).to(dev),
                              torch.from_numpy(lens).to(dev), True, True)
     results["w4096"] = k1_check(torch, nk, dp, live, acc, cls, 5)
+    batches["w4096"] = (dp, live, acc, cls)
     # A 256-state group (register path, W=8) and a 1280-state group (the
     # shared-memory "wide" path).
     for name, pats in (("s256", ["a" * 200 + "b", r"x\d+y"]),
@@ -289,11 +363,12 @@ def k1_phase(torch, np, nfa, nk, synthetic_line, dev, rows_128=131072,
         cls = nfa.classify_chunk(dpx, torch.from_numpy(rows).to(dev),
                                  torch.from_numpy(lens).to(dev), True, True)
         results[name] = k1_check(torch, nk, dpx, lx, ax, cls, 1)
+        batches[name] = (dpx, lx, ax, cls)
     emit({"phase": "grouped_nfa_kernel", **results})
     worst = max(r["max_abs_err"] for r in results.values())
     if worst != 0 or results["s1280"]["matched"] == 0:
         raise AssertionError(f"grouped_nfa_kernel disagrees: {results}")
-    return results
+    return results, batches
 
 
 def chunk_chain(torch, np, nfa, nk, prog, live, acc, rows, lens, L, dev):
@@ -484,11 +559,91 @@ def engine_phase(torch, np, nk, GpuEngineFilter, frame_lines, synthetic_line,
     if (bad or len(got) != len(exp) or launches[nk.GROUPED] == 0
             or launches[nk.CHUNK] == 0):
         raise AssertionError(f"engine phase failed: {res}")
+    return dict(res, frames=frames, long_frame=long_frame,
+                verdicts=np.asarray(got))
+
+
+def engine_fused_phase(torch, np, nk, GpuEngineFilter, base, dev) -> dict:
+    """GpuEngineFilter(PATTERNS) under KLOGS_TPU_FUSED_GROUPS=1 (the
+    caller sets it) on the engine phase's frames: its verdicts equal the
+    K1 engine's on every line, short lines go through K4 only, long ones
+    through K2. Returns the run's most frequent class batch (131072 x
+    131: the 128-byte bucket of a whole frame) for the tune phase."""
+    frames, long_frame = base["frames"], base["long_frame"]
+    eng = GpuEngineFilter(PATTERNS, device=dev)
+    fused = nk.match_cls_grouped_fused
+    batches: dict = {}
+
+    def recording(prog, live, acc, cls):
+        entry = batches.setdefault(tuple(cls.shape),
+                                   [0, (prog, live, acc, cls)])
+        entry[0] += 1
+        return fused(prog, live, acc, cls)
+
+    eng.fetch_framed(eng.dispatch_framed(*frames[0]))  # warm-up
+    torch.cuda.synchronize()
+    nk.match_cls_grouped_fused = recording
+    try:
+        nk.reset_launches()
+        t0 = time.perf_counter()
+        verdicts = [eng.fetch_framed(eng.dispatch_framed(*f)) for f in frames]
+        t_short = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        long_v = eng.fetch_framed(eng.dispatch_framed(*long_frame))
+        t_long = time.perf_counter() - t0
+        launches = dict(nk.LAUNCHES)
+    finally:
+        nk.match_cls_grouped_fused = fused
+    got = np.concatenate(verdicts + [long_v])
+    n_short = sum(len(v) for v in verdicts)
+    bad = int((got != base["verdicts"]).sum()) if len(got) == len(
+        base["verdicts"]) else -1
+    prof = profile_batch(torch, eng, frames[0])
+    res = dict(fused=eng._fused, short_lines=n_short,
+               short_lines_per_s=n_short / t_short,
+               k1_engine_short_lines_per_s=base["short_lines_per_s"],
+               long_lines=len(long_v), long_lines_per_s=len(long_v) / t_long,
+               mismatches_vs_k1_engine=bad, matched=int(got.sum()),
+               device_busy=prof["device_busy"], launches=launches,
+               k4_shapes={f"{B}x{T}": e[0] for (B, T), e in batches.items()},
+               profile=prof)
+    emit({"phase": "engine_fused", **res})
+    main_shape = max(batches, key=lambda k: batches[k][0]) if batches else None
+    if (bad or not eng._fused or launches[nk.FUSED] == 0
+            or launches[nk.GROUPED] != 0 or launches[nk.CHUNK] == 0
+            or main_shape is None or main_shape[1] != 131):
+        raise AssertionError(f"engine_fused phase failed: {res}")
+    return dict(res, batch=batches[main_shape][1])
+
+
+def tune_phase(torch, tune, batch) -> dict:
+    """The port's tune_grouped with its own timing on the card, on the
+    fused engine's 131072 x 131 class batch at K = 32, the cache in a
+    temporary directory."""
+    dp, live, acc, cls = batch
+    with tempfile.TemporaryDirectory() as cache, \
+            env_set("XDG_CACHE_HOME", cache):
+        best = tune.tune_grouped(dp, live, acc, cls, quiet=True)
+        cached = tune.load_cached(dp, cls.shape, tune.device_kind(cls.device))
+    seen = {"fused" if r.get("fused") else "plain": r["lines_per_s"]
+            for r in best["results"]}
+    res = dict(rows=cls.shape[0], T=cls.shape[1], groups=dp.follow.shape[0],
+               plain_lines_per_s=seen.get("plain"),
+               fused_lines_per_s=seen.get("fused"),
+               winner="fused" if best.get("fused") else "plain",
+               cached=cached == best)
+    emit({"phase": "tune", **res})
+    if len(seen) != 2 or cached != best:
+        raise AssertionError(f"tune phase failed: {res}")
     return res
 
 
 def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
-              lines_per_pod=4000) -> dict:
+              lines_per_pod=4000, fused=False) -> dict:
+    """The K = 32 main path through ``app.run_async``; with ``fused``
+    (KLOGS_TPU_FUSED_GROUPS=1, set by the caller) its short lines must
+    run K4 and never K1, and K4 is held against its plain version and K1
+    on the run's own batches."""
     rng = np.random.default_rng(SEED + 3)
     ora = oracle_fn()
     fc = FakeCluster.synthetic(n_pods=n_pods, n_containers=1,
@@ -507,10 +662,12 @@ def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
     argv = ["-n", "default", "-a", "-p", ""]
     for p in PATTERNS:
         argv += ["--match", p]
-    # The [B, T] class batches the main path hands K1: per shape, its
-    # launches and the first such batch, to time K1 on after the run.
+    # The [B, T] class batches the main path hands its kernel (K1, or
+    # K4): per shape, its launches and the first such batch, to time the
+    # kernel on after the run.
     shapes: dict = {}
-    grouped = nk.match_cls_grouped
+    wrapper = "match_cls_grouped_fused" if fused else "match_cls_grouped"
+    grouped = getattr(nk, wrapper)
 
     def recording(prog, live, acc, cls):
         entry = shapes.setdefault(tuple(cls.shape),
@@ -523,7 +680,7 @@ def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
         opts = cli.parse_args(argv)
         ui = io.StringIO()
         term.set_ui_stream(ui)
-        nk.match_cls_grouped = recording
+        setattr(nk, wrapper, recording)
         try:
             torch.cuda.synchronize()
             nk.reset_launches()
@@ -532,7 +689,7 @@ def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
             seconds = time.perf_counter() - t0
             launches = dict(nk.LAUNCHES)
         finally:
-            nk.match_cls_grouped = grouped
+            setattr(nk, wrapper, grouped)
             term.set_ui_stream(None)
         files = sorted(os.listdir(out_dir))
         bad = []
@@ -544,22 +701,30 @@ def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
             with open(os.path.join(out_dir, f"{name}__c0.log"), "rb") as f:
                 if f.read() != exp:
                     bad.append(name)
-    # K1 timed (and held against its plain version) on the main path's
-    # own batches, its two most frequent shapes.
-    k1_batches = []
+    # The kernel timed (and held against its plain version, K4 against
+    # K1 too) on the main path's own batches, its two most frequent
+    # shapes.
+    key = "k4" if fused else "k1"
+    batches = []
     for n, args in sorted(shapes.values(), key=lambda e: -e[0])[:2]:
-        k1_batches.append(dict(launches=n,
-                               **k1_check(torch, nk, *args, 20)))
+        check = (k4_check(torch, nk, *args, 20, time_plain=True) if fused
+                 else k1_check(torch, nk, *args, 20))
+        batches.append(dict(launches=n, **check))
     res = dict(rc=rc, pods=len(pods), files=len(files), lines=n_lines,
                kept_lines=kept, seconds=seconds, lines_per_s=n_lines / seconds,
                mismatched_files=bad, launches=launches,
-               k1_shapes={f"{B}x{T}": e[0] for (B, T), e in shapes.items()},
-               k1_batches=k1_batches)
-    emit({"phase": "cli", **res})
-    if (rc != 0 or bad or len(files) != len(pods)
-            or launches[nk.GROUPED] == 0 or launches[nk.CHUNK] == 0
-            or any(b["max_abs_err"] for b in k1_batches)):
-        raise AssertionError(f"cli phase failed: {res}")
+               **{f"{key}_shapes": {f"{B}x{T}": e[0]
+                                    for (B, T), e in shapes.items()},
+                  f"{key}_batches": batches})
+    name = "cli_fused" if fused else "cli"
+    emit({"phase": name, **res})
+    ran, idle = (nk.FUSED, nk.GROUPED) if fused else (nk.GROUPED, nk.FUSED)
+    if (rc != 0 or bad or len(files) != len(pods) or not batches
+            or launches[ran] == 0 or launches[idle] != 0
+            or launches[nk.CHUNK] == 0
+            or any(b["max_abs_err"] or b.get("k1_mismatches")
+                   for b in batches)):
+        raise AssertionError(f"{name} phase failed: {res}")
     return res
 
 
@@ -762,6 +927,43 @@ def k3_phase(torch, nfa, bits, nk, sw, small=8192, kept=0.03) -> dict:
     return res
 
 
+def k4_phase(torch, nfa, nk, k1_batches, sw, small=8192) -> dict:
+    """K4 against its plain version and K1 (verdicts equal), K4 and K1
+    timed in turns: 8192 rows of K1's w128 mix (its plain version timed
+    too), the whole 131072-row w128 batch, the 4096 bucket, the
+    1280-state wide program, and at K = 1024 (156 groups, ungated) the
+    sweep phase's 131072 x 131 batch. The K = 1024 256-byte bucket
+    follows in ``k4_b256_check``, on the batch the engine launched."""
+    dp, live, acc, cls = k1_batches["w128"]
+    res = {"w128_8192": k4_check(torch, nk, dp, live, acc, cls[:small], 20,
+                                 time_plain=True),
+           "w128": k4_check(torch, nk, dp, live, acc, cls, 20),
+           "w4096": k4_check(torch, nk, *k1_batches["w4096"], 5),
+           "s1280": k4_check(torch, nk, *k1_batches["s1280"], 1)}
+    eng = sw["eng"]
+    dp, live, acc = eng._grouped, eng._g_live, eng._g_acc
+    cls = nfa.classify_chunk(dp, sw["batch"], sw["lens"], True, True)
+    res["k1024"] = k4_check(torch, nk, dp, live, acc, cls, 3, step=small)
+    emit({"phase": nk.FUSED, **res})
+    if (any(r["max_abs_err"] or r["k1_mismatches"] for r in res.values())
+            or not res["s1280"]["matched"]):
+        raise AssertionError(f"{nk.FUSED} disagrees: {res}")
+    return res
+
+
+def k4_b256_check(torch, nk, k4: dict, batch) -> None:
+    """K4 against its plain version and K1 on the K = 1024 256-byte
+    bucket that the K1-only engine of ``engine_k1024`` launched on its
+    first 131072-line batch (captured there), added to ``k4``."""
+    if batch is None:
+        raise AssertionError("engine_k1024 launched no 256-byte bucket")
+    r = k4_check(torch, nk, *batch, 3)
+    k4["k1024_b256"] = r
+    emit({"phase": nk.FUSED, "k1024_b256": r})
+    if r["max_abs_err"] or r["k1_mismatches"] or not r["matched"]:
+        raise AssertionError(f"{nk.FUSED} disagrees on the bucket: {r}")
+
+
 def profile_gated_batch(torch, gpu, frame) -> dict:
     """profile_batch with the sweep and K3 wrapped in named ranges, for
     their shares of the batch's device time."""
@@ -830,17 +1032,22 @@ def engine_k1024_phase(torch, np, nk, gpu, frame_lines, synthetic_line, eng,
     t_long = time.perf_counter() - t0
     launches = dict(nk.LAUNCHES)
     got = np.concatenate(verdicts)
-    # The same short lines through K1 alone (no gate).
-    old = os.environ.get("KLOGS_TPU_SWEEP")
-    os.environ["KLOGS_TPU_SWEEP"] = "0"
-    try:
+    # The same short lines through K1 alone (no gate). Its warm-up
+    # captures the 256-byte bucket's K1 launch for k4_b256_check.
+    with env_set("KLOGS_TPU_SWEEP", "0"):
         plain = gpu.GpuEngineFilter(pats, device=dev)
+    grouped, b256 = nk.match_cls_grouped, []
+
+    def recording(prog, live, acc, cls):
+        if cls.shape[1] == 256 + 3:
+            b256.append((prog, live, acc, cls))
+        return grouped(prog, live, acc, cls)
+
+    nk.match_cls_grouped = recording
+    try:
+        plain.fetch_framed(plain.dispatch_framed(*frames[0]))  # warm-up
     finally:
-        if old is None:
-            del os.environ["KLOGS_TPU_SWEEP"]
-        else:
-            os.environ["KLOGS_TPU_SWEEP"] = old
-    plain.fetch_framed(plain.dispatch_framed(*frames[0]))  # warm-up
+        nk.match_cls_grouped = grouped
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     k1_only = np.concatenate([plain.fetch_framed(plain.dispatch_framed(*f))
@@ -870,7 +1077,7 @@ def engine_k1024_phase(torch, np, nk, gpu, frame_lines, synthetic_line, eng,
             or short_launches[nk.GROUPED] != 0 or launches[nk.CHUNK] == 0
             or not got.any()):
         raise AssertionError(f"engine_k1024 phase failed: {res}")
-    return res
+    return dict(res, b256=b256[0] if b256 else None)
 
 
 def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
@@ -980,7 +1187,7 @@ def main() -> int:
     from klogs_tpu_torch.filters.base import FilterStats, frame_lines
     from klogs_tpu_torch.filters.compiler.glushkov import compile_patterns
     from klogs_tpu_torch.filters.gpu import GpuEngineFilter
-    from klogs_tpu_torch.ops import _build, bits, nfa, sweep
+    from klogs_tpu_torch.ops import _build, bits, nfa, sweep, tune
     from klogs_tpu_torch.ops import nfa_kernels as nk
     from klogs_tpu_torch.ui import term
 
@@ -988,19 +1195,30 @@ def main() -> int:
     try:
         card = card_phase(torch)
         build_phase(nk, _build)
-        k1 = k1_phase(torch, np, nfa, nk, synthetic_line, dev)
+        k1, k1_batches = k1_phase(torch, np, nfa, nk, synthetic_line, dev)
         k2 = k2_phase(torch, np, nfa, nk, compile_patterns, dev)
-        engine_phase(torch, np, nk, GpuEngineFilter, frame_lines,
-                     synthetic_line, dev)
+        eng = engine_phase(torch, np, nk, GpuEngineFilter, frame_lines,
+                           synthetic_line, dev)
         run = cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev)
+        # The fused-groups path: K4 for K1 on short lines.
+        with env_set("KLOGS_TPU_FUSED_GROUPS", "1"):
+            engf = engine_fused_phase(torch, np, nk, GpuEngineFilter, eng,
+                                      dev)
+            run4 = cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev,
+                             fused=True)
+        del eng
+        tune_phase(torch, tune, engf.pop("batch"))
         # The union program of the 1024 patterns (the long-line path's)
         # has 18878 positions, past the compiler's default cap of 4096.
         os.environ["KLOGS_MAX_PATTERN_POSITIONS"] = "65536"
         sw = sweep_phase(torch, np, sweep, bits, gpu, FilterStats,
                          synthetic_line, dev)
         k3 = k3_phase(torch, nfa, bits, nk, sw)
-        engine_k1024_phase(torch, np, nk, gpu, frame_lines, synthetic_line,
-                           sw["eng"], dev)
+        k4 = k4_phase(torch, nfa, nk, k1_batches, sw)
+        del k1_batches
+        ek = engine_k1024_phase(torch, np, nk, gpu, frame_lines,
+                                synthetic_line, sw["eng"], dev)
+        k4_b256_check(torch, nk, k4, ek.pop("b256"))
         run3 = cli_k1024_phase(torch, np, nk, bits, app, cli, term,
                                FakeCluster, dev)
     except Exception:
@@ -1008,6 +1226,7 @@ def main() -> int:
         emit({"phase": "failed"})
         return 1
     w, c, g = k1["w128"], k2["s512"], run3["k3_batches"][0]
+    f = run4["k4_batches"][0]
     emit({"kernels": [
         {"name": nk.GROUPED, "route": "cuda", "source": SOURCE,
          "replaces": "klogs_tpu/ops/pallas_nfa.py:200",
@@ -1030,6 +1249,13 @@ def main() -> int:
          "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
          "bound_by": g["bound_by"], "library_ms": None,
          "wrapper_ms": g["wrapper_ms"]},
+        {"name": nk.FUSED, "route": "cuda", "source": SOURCE,
+         "replaces": "klogs_tpu/ops/pallas_nfa.py:334",
+         "launches": run4["launches"][nk.FUSED],
+         "max_abs_err": float(max(b["max_abs_err"] for b in
+                                  run4["k4_batches"] + list(k4.values()))),
+         "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+         "bound_by": f["bound_by"], "library_ms": None, "k1_ms": f["k1_ms"]},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

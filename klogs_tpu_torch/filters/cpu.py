@@ -11,7 +11,9 @@ own variables, through ``utils/env.py``:
   is forced;
 - ``KLOGS_INDEX_MIN_K``: the K threshold of auto mode;
 - ``KLOGS_TPU_PREFILTER=1``: the pair-CNF gate, which an auto sweep
-  does not override (a forced sweep does).
+  does not override (a forced sweep does);
+- ``KLOGS_TPU_FUSED_GROUPS=1`` (``ops/tune.py``): the fused-groups
+  kernel, which has no gated variant (``check_fused_gates``).
 """
 
 import torch
@@ -80,3 +82,26 @@ def note_sweep_supersedes() -> None:
     term.info(
         "KLOGS_TPU_SWEEP=1 supersedes KLOGS_TPU_PREFILTER: "
         "the literal sweep subsumes the pair-CNF gate")
+
+
+def check_fused_gates(n_patterns: int, device: torch.device) -> None:
+    """The fused-versus-gate rule, settled once when the engine is
+    built (the JAX engine meets it at every dispatch): the fused kernel
+    has no gated variant. A forced gate, KLOGS_TPU_PREFILTER=1 or
+    KLOGS_TPU_SWEEP=1, raises in the JAX launcher's words: running
+    another kernel than the one asked for would corrupt a measurement.
+    An auto sweep that would turn on stays off, with a notice; that is
+    what the JAX engine ends up running once its dispatch degrades."""
+    if env_read("KLOGS_TPU_PREFILTER", "0") == "1":
+        raise ValueError(
+            "fused=True (KLOGS_TPU_FUSED_GROUPS) has no gated variant; "
+            "drop the prefilter tables or unset KLOGS_TPU_PREFILTER")
+    if device_sweep_env() == "1":
+        raise ValueError(
+            "fused=True (KLOGS_TPU_FUSED_GROUPS) has no gated variant; "
+            "drop the sweep tables or unset KLOGS_TPU_SWEEP")
+    if device_sweep_wanted(n_patterns, device):
+        term.info(
+            "KLOGS_TPU_FUSED_GROUPS=1 active; device sweep stays off (the "
+            "fused kernel has no gated variant; unset "
+            "KLOGS_TPU_FUSED_GROUPS to gate)")

@@ -24,6 +24,14 @@ the file writes.
   ids) and run the gated kernel K3 (``match_cls_grouped_gated``)
   instead of K1. Long lines stay on K2, ungated, as in the JAX engine.
   A failed table build or launch raises; nothing falls back to K1.
+- ``KLOGS_TPU_FUSED_GROUPS=1`` (``ops/tune.py`` ``chain_selection``)
+  runs the fused-groups kernel K4 (``match_cls_grouped_fused``) on
+  short lines instead of K1. K4 has no gated variant: an auto sweep
+  stays off, a forced gate raises (``check_fused_gates``), both when
+  the engine is built. Long lines stay on K2.
+
+So short lines run K1 by default, K3 under a gate, K4 under
+``KLOGS_TPU_FUSED_GROUPS=1``; long lines run K2 always.
 
 ``dispatch``/``dispatch_framed`` enqueue the device work on the calling
 thread's current stream, start the copies of the verdicts into pinned
@@ -44,8 +52,12 @@ from klogs_tpu_torch.filters.compiler.glushkov import compile_patterns
 from klogs_tpu_torch.filters.compiler.groups import analyze, plan_groups
 from klogs_tpu_torch.filters.compiler.index import FactorIndex
 from klogs_tpu_torch.filters.compiler.prefilter import compile_prefilter
-from klogs_tpu_torch.filters.cpu import device_gate_choice, note_sweep_supersedes
-from klogs_tpu_torch.ops import nfa, nfa_kernels, prefilter, sweep
+from klogs_tpu_torch.filters.cpu import (
+    check_fused_gates,
+    device_gate_choice,
+    note_sweep_supersedes,
+)
+from klogs_tpu_torch.ops import nfa, nfa_kernels, prefilter, sweep, tune
 from klogs_tpu_torch.ops.bits import pack_bits
 from klogs_tpu_torch.ui import term
 from klogs_tpu_torch.utils.env import read as env_read
@@ -97,6 +109,11 @@ class GpuEngineFilter(LogFilter):
     def __init__(self, patterns: list[str], ignore_case: bool = False,
                  chunk_bytes: int = 4096, device=None, stats=None):
         self.device = nfa.resolve_device(device)
+        # The short-line kernel: K4 under KLOGS_TPU_FUSED_GROUPS=1 (no
+        # gate: checked before anything is built), else K1 or K3.
+        self._fused = bool(tune.chain_selection().get("fused"))
+        if self._fused:
+            check_fused_gates(len(patterns), self.device)
         self._chunk_bytes = chunk_bytes
         self._stats = stats
         prog = compile_patterns(patterns, ignore_case=ignore_case)
@@ -109,12 +126,19 @@ class GpuEngineFilter(LogFilter):
         # state space to carry across chunks).
         self._aug = nfa.pack_program(nfa.augment(prog), device=self.device)
         self._live, self._acc = prog.n_states, prog.n_states + 1
-        # The gate of the grouped kernel: at most one of the two.
+        # The gate of the grouped kernel: at most one of the two, and
+        # none with K4.
         self._n_patterns = len(patterns)
         self._pf_tables = None
+        self._sweep_tables = None
+        if not self._fused:
+            self._build_gate(patterns, ignore_case)
+
+    def _build_gate(self, patterns: list[str], ignore_case: bool) -> None:
+        """The pair-CNF tables when asked for, then the sweep's when the
+        policy picks it (a forced sweep supersedes the prefilter)."""
         if env_read("KLOGS_TPU_PREFILTER", "0") == "1":
             self._pf_tables = self._build_prefilter(patterns, ignore_case)
-        self._sweep_tables = None
         if device_gate_choice(len(patterns), self._pf_tables is not None,
                               self.device) == "sweep":
             self._sweep_tables = self._build_sweep(patterns, ignore_case)
@@ -218,15 +242,16 @@ class GpuEngineFilter(LogFilter):
     def _match_short(self, batch: np.ndarray, lengths: np.ndarray):
         """[rows, width] bytes + lengths -> ([rows] bool, gate stats [3]
         or None), on the device: the main path (device classify, then
-        K1, or the gate and K3)."""
+        K1 or K4, or the gate and K3)."""
         batch_d, lengths_d = self._to_device(batch), self._to_device(lengths)
         g = self._grouped
         cls = nfa.classify_chunk(g, batch_d, lengths_d, first=True,
                                  final=True)
         gate = self._gate_bits(batch_d, lengths_d, cls)
         if gate is None:
-            return nfa_kernels.match_cls_grouped(g, self._g_live,
-                                                 self._g_acc, cls), None
+            kernel = (nfa_kernels.match_cls_grouped_fused if self._fused
+                      else nfa_kernels.match_cls_grouped)
+            return kernel(g, self._g_live, self._g_acc, cls), None
         return nfa_kernels.match_cls_grouped_gated(
             g, self._g_live, self._g_acc, cls, gate,
             want_stats=self._stats is not None)

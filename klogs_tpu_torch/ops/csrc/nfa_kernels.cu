@@ -36,6 +36,27 @@
 // bounds it is what bounds K1, paid only on live (block, group) cells:
 // the dependent step chain of the lines in those cells.
 //
+// grouped_nfa_fused_kernel replaces pallas_nfa.py:334 _grouped_kernel_fused
+// (the fused pallas_call of _launch_grouped). It computes K1's function,
+// out[b] = OR over g of acc_g(b), over the same bytes, so its bounds are
+// K1's. On the TPU the fusion put all G groups in one grid cell: one
+// one-hot per step shared by every group and one stacked [G*S, C] mask
+// product, both there to feed the matrix unit. What it computes is kept
+// here, not that layout: every group advances at each step off one class
+// read. K1's block walks its groups one after another, so its chain is
+// G x T steps, and a launch of few lines (a wide bucket at G = 156)
+// leaves most SMs idle for all of them. Here the groups run side by
+// side: a block holds NL lines x GC groups, one thread per (line, group)
+// pair with its own register state, the class tile of its lines is
+// staged once per TT steps and read by every group's threads, and the GC
+// groups' tables sit in shared memory together, so a block's chain is T
+// steps. The groups are cut into chunks of GC (as many as shared memory
+// holds, at most FUSED_THREADS / 32) along gridDim.y. Blocks run in no
+// order, so a block ORs its lines' verdicts across its groups in shared
+// memory, then into a zeroed word per line with atomicOr. Programs wider
+// than 32 words run grouped_nfa_fused_wide: a warp per (line, group)
+// pair, a line's groups on neighbouring warps.
+//
 // chunk_nfa_kernel replaces pallas_nfa.py:_kernel (the pallas_call in
 // _launch_chunk): the same step over the single augmented union
 // automaton, with the state carried in and out across chunks of a long
@@ -75,16 +96,18 @@ namespace {
 constexpr int TT = 32;            // class-id steps staged per shared tile
 constexpr int GROUPED_LINES = 128;  // lines (threads) per block, grouped
 constexpr int CHUNK_LINES = 32;     // lines per block, chunk (few lines)
+constexpr int FUSED_THREADS = 256;  // threads per block, fused: lines x groups
 constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may use
 
-// Stage cls[line0 .. line0+NL) x [t0, t0+TT) into tile[NL][TT+1] as int32.
-// A warp reads TT consecutive ids of one line (a 64-byte row segment);
-// the +1 pad puts line l's row on bank l mod 32 for the per-step reads.
-template <int NL>
+// Stage cls[line0 .. line0+nl) x [t0, t0+TT) into tile[nl][TT+1] as
+// int32, with the block's `nthreads` threads. A warp reads TT
+// consecutive ids of one line (a 64-byte row segment); the +1 pad puts
+// line l's row on bank l mod 32 for the per-step reads.
 __device__ __forceinline__ void load_cls_tile(const int16_t* __restrict__ cls,
                                               int B, int T, int line0, int t0,
-                                              int* tile) {
-  for (int k = threadIdx.x; k < NL * TT; k += NL) {
+                                              int* tile, int nl,
+                                              int nthreads) {
+  for (int k = threadIdx.x; k < nl * TT; k += nthreads) {
     const int l = k / TT, tt = k % TT;
     const int line = line0 + l, t = t0 + tt;
     int c = -1;
@@ -209,7 +232,7 @@ __global__ void __launch_bounds__(GROUPED_LINES)
       v[j] = (j == (live >> 5)) ? (1u << (live & 31)) : 0u;
     for (int t0 = 0; t0 < T; t0 += TT) {
       __syncthreads();  // tile readers are done (and tables are written)
-      load_cls_tile<GROUPED_LINES>(cls, B, T, line0, t0, tile);
+      load_cls_tile(cls, B, T, line0, t0, tile, GROUPED_LINES, GROUPED_LINES);
       __syncthreads();
       const int n = min(TT, T - t0);
       if (mine)
@@ -218,6 +241,64 @@ __global__ void __launch_bounds__(GROUPED_LINES)
     matched = matched || (mine && test_bit<W>(v, acc));
   }
   if (line < B) out[line] = matched ? 1 : 0;
+}
+
+// Shared-memory layout of the fused kernel: follow [GC][S][W], mask
+// [GC][C][W], the class tile [NL][TT+1], then one hit word per line.
+template <int W>
+size_t fused_smem_bytes(int C, int NL, int GC) {
+  return ((size_t)GC * (32 * W + C) * W + (size_t)NL * (TT + 2)) * 4;
+}
+
+// K4: NL lines x GC groups per block, thread (l, g) = threadIdx.x
+// (l + NL * g), so a warp is 32 lines of one group and reads the class
+// tile as K1 does. Block (x, y) takes lines [x * NL, x * NL + NL) and
+// groups [y * GC, y * GC + GC); the last chunk may hold fewer groups,
+// and its surplus threads only join the barriers. `out` is zeroed by
+// the caller; a block sets the word of each line one of its groups
+// accepts.
+template <int W>
+__global__ void __launch_bounds__(FUSED_THREADS)
+    grouped_nfa_fused_kernel(const int16_t* __restrict__ cls, int B, int T,
+                             const uint32_t* __restrict__ follow,
+                             const uint32_t* __restrict__ mask, int G, int C,
+                             int live, int acc, int NL, int GC,
+                             uint32_t* __restrict__ out) {
+  constexpr int S = 32 * W;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* f_s = smem;
+  uint32_t* m_s = f_s + (size_t)GC * S * W;
+  int* tile = reinterpret_cast<int*>(m_s + (size_t)GC * C * W);
+  uint32_t* hit = reinterpret_cast<uint32_t*>(tile + NL * (TT + 1));
+  const int nthreads = NL * GC;
+  const int g0 = blockIdx.y * GC, ng = min(GC, G - g0);
+  copy_rows<W>(f_s, follow + (size_t)g0 * S * W, ng * S, nthreads);
+  copy_rows<W>(m_s, mask + (size_t)g0 * C * W, ng * C, nthreads);
+  if (threadIdx.x < NL) hit[threadIdx.x] = 0u;
+  const int l = threadIdx.x % NL, g = threadIdx.x / NL;
+  const int line0 = blockIdx.x * NL;
+  const bool mine = g < ng;  // warp-uniform: NL is a multiple of 32
+  const uint32_t* f_g = f_s + (size_t)g * S * W;
+  const uint32_t* m_g = m_s + (size_t)g * C * W;
+  const int* my = tile + l * (TT + 1);
+  uint32_t v[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j)
+    v[j] = (j == (live >> 5)) ? (1u << (live & 31)) : 0u;
+  for (int t0 = 0; t0 < T; t0 += TT) {
+    __syncthreads();  // tile readers are done (and tables are written)
+    load_cls_tile(cls, B, T, line0, t0, tile, NL, nthreads);
+    __syncthreads();
+    const int n = min(TT, T - t0);
+    if (mine)
+      for (int tt = 0; tt < n; ++tt) nfa_step<W>(v, f_g, m_g, C, my[tt]);
+  }
+  __syncthreads();  // hit is zeroed even when the loop ran no barrier
+  if (mine && test_bit<W>(v, acc)) atomicOr(&hit[l], 1u);
+  __syncthreads();
+  const int line = line0 + threadIdx.x;
+  if (threadIdx.x < NL && line < B && hit[threadIdx.x])
+    atomicOr(out + line, 1u);
 }
 
 // Four int8 lanes of a 32-bit word -> a 4-bit "nonzero" nibble.
@@ -266,7 +347,7 @@ __global__ void __launch_bounds__(CHUNK_LINES)
   const int* my = tile + threadIdx.x * (TT + 1);
   for (int t0 = 0; t0 < T; t0 += TT) {
     __syncthreads();
-    load_cls_tile<CHUNK_LINES>(cls, B, T, line0, t0, tile);
+    load_cls_tile(cls, B, T, line0, t0, tile, CHUNK_LINES, CHUNK_LINES);
     __syncthreads();
     const int n = min(TT, T - t0);
     for (int tt = 0; tt < n; ++tt) nfa_step<W>(v, f_s, m_s, C, my[tt]);
@@ -380,6 +461,30 @@ __global__ void grouped_nfa_wide(const int16_t* __restrict__ cls, int B,
   if (line < B && lane == 0) out[line] = matched ? 1 : 0;
 }
 
+// K4 past 32 words: one warp per (line, group) pair, pair p = line * G +
+// g, so a line's groups run side by side on neighbouring warps (and read
+// its class ids through the same L1 lines). `out` as for the fused
+// kernel: zeroed by the caller, a word set per accepted line.
+__global__ void grouped_nfa_fused_wide(const int16_t* __restrict__ cls,
+                                       int B, int T,
+                                       const uint32_t* __restrict__ follow,
+                                       const uint32_t* __restrict__ mask,
+                                       int G, int S, int C, int live, int acc,
+                                       uint32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int W = S / 32, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* v = smem + (size_t)warp * 2 * W;
+  uint32_t* r = v + W;
+  const long long pair = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  const int line = (int)(pair / G), g = (int)(pair % G);
+  if (line >= B) return;  // the whole warp: a warp is one pair
+  for (int k = lane; k < W; k += 32)
+    v[k] = k == (live >> 5) ? 1u << (live & 31) : 0u;
+  wide_scan(v, r, W, lane, cls, B, T, line, follow + (size_t)g * S * W,
+            mask + (size_t)g * C * W, C);
+  if (wide_bit(v, acc) && lane == 0) atomicOr(out + line, 1u);
+}
+
 __global__ void chunk_nfa_wide(const int16_t* __restrict__ cls, int B, int T,
                                const uint32_t* __restrict__ follow,
                                const uint32_t* __restrict__ mask, int S,
@@ -473,6 +578,39 @@ cudaError_t launch_grouped_any(const int16_t* cls, int B, int T,
   return cudaGetLastError();
 }
 
+// Lines per fused block for GC groups: the rest of FUSED_THREADS, in
+// whole warps.
+int fused_lines(int gc) {
+  const int nl = FUSED_THREADS / gc / 32 * 32;
+  return nl > 32 ? nl : 32;
+}
+
+template <int W>
+cudaError_t launch_fused(const int16_t* cls, int B, int T,
+                         const uint32_t* follow, const uint32_t* mask, int G,
+                         int C, int live, int acc, uint32_t* out,
+                         cudaStream_t stream) {
+  // The most groups a block's shared memory holds, at most a warp of
+  // lines each; then as few chunks as that allows, evened out.
+  int gc = G < FUSED_THREADS / 32 ? G : FUSED_THREADS / 32;
+  while (gc > 0 &&
+         fused_smem_bytes<W>(C, fused_lines(gc), gc) > (size_t)MAX_SMEM)
+    --gc;
+  if (gc == 0) return cudaErrorInvalidValue;
+  const int chunks = (G + gc - 1) / gc;
+  const int even = (G + chunks - 1) / chunks;
+  if (fused_smem_bytes<W>(C, fused_lines(even), even) <= (size_t)MAX_SMEM)
+    gc = even;
+  const int nl = fused_lines(gc);
+  const size_t smem = fused_smem_bytes<W>(C, nl, gc);
+  cudaError_t e = allow_smem(grouped_nfa_fused_kernel<W>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((B + nl - 1) / nl, (G + gc - 1) / gc);
+  grouped_nfa_fused_kernel<W><<<grid, nl * gc, smem, stream>>>(
+      cls, B, T, follow, mask, G, C, live, acc, nl, gc, out);
+  return cudaGetLastError();
+}
+
 template <int W>
 cudaError_t launch_chunk(const int16_t* cls, int B, int T,
                          const uint32_t* follow, const uint32_t* mask, int C,
@@ -524,6 +662,36 @@ int klogs_grouped_nfa_gated(const int16_t* cls, int B, int T,
   return launch_grouped_any<true>(cls, B, T, follow, mask, G, S, C, live,
                                   acc, gate, GW, n_cand, out,
                                   static_cast<cudaStream_t>(stream));
+}
+
+// K4: as klogs_grouped_nfa, with out [B] uint32 words that the caller
+// zeroed (a word is set to 1 for each matching line).
+int klogs_grouped_nfa_fused(const int16_t* cls, int B, int T,
+                            const uint32_t* follow, const uint32_t* mask,
+                            int G, int S, int C, int live, int acc,
+                            uint32_t* out, void* stream, int device) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if (B <= 0) return cudaSuccess;
+  if (G <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (S / 32) {
+    case 4: return launch_fused<4>(cls, B, T, follow, mask, G, C, live, acc, out, st);
+    case 8: return launch_fused<8>(cls, B, T, follow, mask, G, C, live, acc, out, st);
+    case 16: return launch_fused<16>(cls, B, T, follow, mask, G, C, live, acc, out, st);
+    case 32: return launch_fused<32>(cls, B, T, follow, mask, G, C, live, acc, out, st);
+    default: break;
+  }
+  const int nw = S > 32 * 32 ? wide_warps(S) : 0;
+  if (nw == 0) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)2 * (S / 32) * nw * 4;
+  e = allow_smem(grouped_nfa_fused_wide, smem);
+  if (e != cudaSuccess) return e;
+  const long long pairs = (long long)B * G;
+  grouped_nfa_fused_wide<<<(unsigned)((pairs + nw - 1) / nw), 32 * nw, smem,
+                           st>>>(cls, B, T, follow, mask, G, S, C, live, acc,
+                                 out);
+  return cudaGetLastError();
 }
 
 // cls [B, T] int16, follow [S, S/32] and mask [C, S/32] bit tables, v0

@@ -15,6 +15,11 @@ ids laid out BEGIN, body, END, PAD latch:
   group candidates, and dead (block, group) cells are skipped
   (``cluster_gate`` orders its operands, ``launch_gated`` is the
   kernel alone);
+- ``match_cls_grouped_fused`` (K4, ``grouped_nfa_fused_kernel``,
+  replacing ``_grouped_kernel_fused``): K1's function with the groups
+  advancing side by side, one thread per (line, group) pair, instead
+  of one after another; the engine runs it under
+  ``KLOGS_TPU_FUSED_GROUPS=1`` (``ops/tune.py``);
 - ``match_chunk_cls`` (K2, ``chunk_nfa_kernel``, replacing ``_kernel``):
   the single augmented union automaton with the [B, S] int8 state
   carried across the chunks of long lines.
@@ -38,8 +43,9 @@ from klogs_tpu_torch.ops.prefilter import cluster_candidates
 GROUPED = "grouped_nfa_kernel"
 GATED = "grouped_nfa_gated_kernel"
 CHUNK = "chunk_nfa_kernel"
+FUSED = "grouped_nfa_fused_kernel"
 
-LAUNCHES = {GROUPED: 0, GATED: 0, CHUNK: 0}
+LAUNCHES = {GROUPED: 0, GATED: 0, CHUNK: 0, FUSED: 0}
 
 # Lines per block of the register kernels (GROUPED_LINES in the CUDA
 # source): the unit the gated kernel skips, and its stats' "tile".
@@ -81,6 +87,9 @@ def _library():
             lib.klogs_grouped_nfa_gated.argtypes = [p, i, i, p, p, i, i, i,
                                                     i, i, p, i, p, p, p, i]
             lib.klogs_grouped_nfa_gated.restype = i
+            lib.klogs_grouped_nfa_fused.argtypes = [p, i, i, p, p, i, i, i, i,
+                                                    i, p, p, i]
+            lib.klogs_grouped_nfa_fused.restype = i
             lib.klogs_chunk_nfa.argtypes = [p, i, i, p, p, i, i, i, p, p, p,
                                             p, i]
             lib.klogs_chunk_nfa.restype = i
@@ -143,15 +152,28 @@ def _check_states(prog: TorchProgram) -> None:
         raise ValueError(f"n_states={prog.n_states} is not a multiple of 128")
 
 
-# ---- K1: grouped full-line match ----------------------------------------
+# ---- K1 and K4: grouped full-line match ---------------------------------
 
 
 def match_cls_grouped(prog: TorchProgram, live: int, acc: int,
                       cls: torch.Tensor) -> torch.Tensor:
     """[B, T] class ids -> [B] bool: any group's automaton, started at
     ``{live}``, holds ``acc`` after the last step; or ``match_all``."""
+    return _match_grouped(prog, live, acc, cls, fused=False)
+
+
+def match_cls_grouped_fused(prog: TorchProgram, live: int, acc: int,
+                            cls: torch.Tensor) -> torch.Tensor:
+    """``match_cls_grouped``'s function through K4, which steps the
+    groups side by side rather than one after another."""
+    return _match_grouped(prog, live, acc, cls, fused=True)
+
+
+def _match_grouped(prog: TorchProgram, live: int, acc: int,
+                   cls: torch.Tensor, fused: bool) -> torch.Tensor:
+    name = FUSED if fused else GROUPED
     if prog.follow.dim() != 3:
-        raise ValueError("match_cls_grouped needs a compile_grouped program")
+        raise ValueError(f"{name} needs a compile_grouped program")
     if cls.device.type == "cpu":
         return match_cls_grouped_plain(prog, live, acc, cls)
     if cls.device.type != "cuda":
@@ -161,13 +183,20 @@ def match_cls_grouped(prog: TorchProgram, live: int, acc: int,
     B, T = cls.shape
     G, C, S = prog.char_mask.shape
     follow_bits, mask_bits = _bit_tables(prog)
-    out = torch.empty(B, dtype=torch.uint8, device=cls.device)
+    lib = _library()
     stream = torch.cuda.current_stream(cls.device).cuda_stream
-    err = _library().klogs_grouped_nfa(
-        cls.data_ptr(), B, T, follow_bits.data_ptr(), mask_bits.data_ptr(),
-        G, kernel_states(S), C, live, acc, out.data_ptr(), stream, cls.device.index or 0)
-    _count(GROUPED)
-    _check(err, GROUPED)
+    if fused:
+        # K4's blocks (group chunks) OR into a zeroed word per line.
+        out = torch.zeros(B, dtype=torch.int32, device=cls.device)
+        entry = lib.klogs_grouped_nfa_fused
+    else:
+        out = torch.empty(B, dtype=torch.uint8, device=cls.device)
+        entry = lib.klogs_grouped_nfa
+    err = entry(cls.data_ptr(), B, T, follow_bits.data_ptr(),
+                mask_bits.data_ptr(), G, kernel_states(S), C, live, acc,
+                out.data_ptr(), stream, cls.device.index or 0)
+    _count(name)
+    _check(err, name)
     return _or_match_all(prog, out.bool())
 
 
@@ -215,6 +244,12 @@ def match_cls_grouped_plain(prog: TorchProgram, live: int, acc: int,
     ``_group_accepts_plain``."""
     return _or_match_all(
         prog, _group_accepts_plain(prog, live, acc, cls, work).any(dim=0))
+
+
+# K4 computes K1's function, and the plain version already steps all G
+# groups together on one [G, B, S] state off one class index per step:
+# K4's own formulation.
+match_cls_grouped_fused_plain = match_cls_grouped_plain
 
 
 # ---- K3: gated grouped full-line match -----------------------------------

@@ -75,6 +75,78 @@ def test_kernels_count_launches(dev):
     nfa_kernels.reset_launches()
     nfa_kernels.match_cls_grouped(prog, live, acc, random_cls(prog, 8, 9, 0).to(dev))
     assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED] == 1
+    nfa_kernels.match_cls_grouped_fused(prog, live, acc,
+                                        random_cls(prog, 8, 9, 0).to(dev))
+    assert nfa_kernels.LAUNCHES[nfa_kernels.FUSED] == 1
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED] == 1
+
+
+# ---- K4: the fused-groups kernel -------------------------------------------
+
+
+@pytest.mark.parametrize("patterns", [
+    PATTERNS,  # W = 4
+    ["a" * 200 + "b", r"x\d+y"],  # W = 8
+    ["q" * 600 + "z", "r" * 600 + "y", "panic:"],  # 640 states run at W = 32,
+    # one group per block (shared memory), so three group chunks
+    ["q" * 1100 + "z", "panic:"],  # wider than 1024 states
+], ids=["w4", "w8", "w32", "wide"])
+def test_fused_kernel_equals_plain_and_k1(dev, patterns):
+    prog, live, acc = nfa.compile_grouped(patterns, device=dev)
+    for B, T in ((1, 5), (130, 67), (1000, 300)):
+        cls = random_cls(prog, B, T, B).to(dev)
+        got = nfa_kernels.match_cls_grouped_fused(prog, live, acc, cls)
+        exp = nfa_kernels.match_cls_grouped_fused_plain(prog, live, acc, cls)
+        assert got.dtype == torch.bool and got.shape == (B,)
+        assert torch.equal(got, exp)
+        assert torch.equal(got, nfa_kernels.match_cls_grouped(prog, live, acc,
+                                                              cls))
+
+
+def test_fused_kernel_group_chunks_at_k1024(dev, monkeypatch):
+    """156 groups: chunks of 8 per block, the last one ragged (4), over
+    line counts that are not a multiple of a block's 32 lines; FakeCluster
+    lines with minted needles, so some lines match."""
+    from chip_smoke import make_patterns, minted_needle
+
+    from klogs_tpu_torch.cluster.fake import synthetic_line
+
+    monkeypatch.setenv("KLOGS_MAX_PATTERN_POSITIONS", "65536")
+    prog, live, acc = nfa.compile_grouped(make_patterns(1024), device=dev)
+    assert prog.follow.shape[0] == 156
+    for B, width in ((1000, 128), (77, 256)):
+        rows = np.zeros((B, width), dtype=np.uint8)
+        lens = np.zeros(B, dtype=np.int32)
+        for i in range(B):
+            ln = synthetic_line(f"pod-{i:04d}", "c0", i, 1.7e9 + i).rstrip(b"\n")
+            if i % 3 == 0:
+                ln = ln[:30] + minted_needle(i * 7 % 1000) + ln[30:]
+            ln = ln[:width]
+            rows[i, :len(ln)] = np.frombuffer(ln, dtype=np.uint8)
+            lens[i] = len(ln)
+        cls = nfa.classify_chunk(prog, torch.from_numpy(rows).to(dev),
+                                 torch.from_numpy(lens).to(dev), True, True)
+        got = nfa_kernels.match_cls_grouped_fused(prog, live, acc, cls)
+        assert torch.equal(got, nfa_kernels.match_cls_grouped_fused_plain(
+            prog, live, acc, cls))
+        assert torch.equal(got, nfa_kernels.match_cls_grouped(prog, live, acc,
+                                                              cls))
+        assert got.any() and not got.all()
+
+
+def test_fused_engine_on_card_equals_cpu(dev, monkeypatch):
+    monkeypatch.setenv("KLOGS_TPU_FUSED_GROUPS", "1")
+    rng = np.random.default_rng(10)
+    lines = [rng.integers(32, 127, size=int(n), dtype=np.uint8).tobytes()
+             for n in rng.integers(0, 9000, size=300)]
+    lines += [b"panic: now", b"start", b"the end", b"x" * 5000 + b"code=503"]
+    nfa_kernels.reset_launches()
+    gpu = GpuEngineFilter(PATTERNS, device=dev).match_lines(lines)
+    assert nfa_kernels.LAUNCHES[nfa_kernels.FUSED] > 0
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED] == 0
+    assert nfa_kernels.LAUNCHES[nfa_kernels.CHUNK] > 0
+    assert gpu == GpuEngineFilter(PATTERNS, device="cpu").match_lines(lines)
+    assert sum(gpu) >= 4
 
 
 @pytest.mark.parametrize("env", [{}, {"KLOGS_TPU_SWEEP": "1"},
@@ -159,12 +231,13 @@ def test_gated_kernel_all_ones_equals_k1(dev):
 
 
 @pytest.mark.parametrize("env", [{}, {"KLOGS_TPU_SWEEP": "1"},
-                                 {"KLOGS_TPU_PREFILTER": "1"}],
-                         ids=["k1", "sweep", "prefilter"])
+                                 {"KLOGS_TPU_PREFILTER": "1"},
+                                 {"KLOGS_TPU_FUSED_GROUPS": "1"}],
+                         ids=["k1", "sweep", "prefilter", "fused"])
 def test_dispatch_does_not_wait_on_host(dev, env, monkeypatch):
     """Dispatch enqueues the classify, the gate, the kernel and the
     copies back (verdicts and gate stats) without a host synchronisation;
-    only fetch waits, on its event."""
+    only fetch waits, on its event. The fused kernel has no gate."""
     from klogs_tpu_torch.filters.base import FilterStats, frame_lines
 
     for k, v in env.items():
@@ -182,4 +255,5 @@ def test_dispatch_does_not_wait_on_host(dev, env, monkeypatch):
         torch.cuda.set_sync_debug_mode("default")
     assert eng.fetch_framed(handle).tolist() == exp.tolist()
     assert exp.sum() == 200
-    assert stats.pf_lines == (2 * len(lines) if env else 0)
+    gated = bool(env) and "KLOGS_TPU_FUSED_GROUPS" not in env
+    assert stats.pf_lines == (2 * len(lines) if gated else 0)

@@ -1,6 +1,6 @@
 """Guardrails of the port: it imports neither JAX nor the JAX package,
-its CUDA entry points refuse to run without a card (no silent CPU
-fallback), its kernel build refuses without nvcc, and chip_smoke.py
+its CUDA entry points (the fused path's too) refuse to run without a
+card (no silent CPU fallback), its kernel build refuses without nvcc, and chip_smoke.py
 exits non-zero, printing no result, where there is no GPU or no
 checkout beside it."""
 
@@ -40,6 +40,9 @@ def imported_modules(path: str) -> list[str]:
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = port_sources()
     assert len(files) > 20
+    for mod in ("ops/tune.py", "ops/nfa_kernels.py", "filters/gpu.py",
+                "filters/cpu.py"):
+        assert os.path.join(PORT, mod) in files
     bad = []
     for path in files:
         for mod in imported_modules(path):
@@ -70,7 +73,7 @@ def test_port_package_imports_without_jax():
     assert out.stdout.strip() == "ok"
 
 
-def test_cuda_entry_points_raise_without_card(tmp_path):
+def test_cuda_entry_points_raise_without_card(tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from klogs_tpu_torch.filters.compiler.glushkov import compile_patterns
@@ -99,6 +102,22 @@ def test_cuda_entry_points_raise_without_card(tmp_path):
         GpuEngineFilter(["x"])
     with pytest.raises(RuntimeError, match="cuda"):
         make_pipeline(["x"])
+    # The fused path: its engine, its tuner's default timing, and its
+    # wrapper on a tensor that is neither on the CPU nor on a card.
+    from klogs_tpu_torch.ops import nfa_kernels, tune
+
+    monkeypatch.setenv("KLOGS_TPU_FUSED_GROUPS", "1")
+    with pytest.raises(RuntimeError, match="cuda"):
+        GpuEngineFilter(["x"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_pipeline(["x"])
+    dp, live, acc = nfa.compile_grouped(["x"], device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tune.tune_grouped(dp, live, acc, torch.zeros((8, 5), dtype=torch.int16))
+    with pytest.raises(ValueError, match="device"):
+        nfa_kernels.match_cls_grouped_fused(
+            dp, live, acc, torch.zeros((8, 5), dtype=torch.int16,
+                                       device="meta"))
     with pytest.raises(ValueError):
         make_pipeline(["x"], backend="tpu", device="cpu")
 

@@ -184,11 +184,13 @@ def test_wrappers_count_only_kernel_launches():
     tp, live, acc = nfa.compile_grouped(["abc"], device="cpu")
     cls = torch.full((4, 5), tp.pad_class, dtype=torch.int16)
     nfa_kernels.match_cls_grouped(tp, live, acc, cls)
+    nfa_kernels.match_cls_grouped_fused(tp, live, acc, cls)
     nfa_kernels.match_cls_grouped_gated(
         tp, live, acc, cls, torch.ones((4, 1), dtype=torch.int64))
     assert nfa_kernels.LAUNCHES == {nfa_kernels.GROUPED: 0,
                                     nfa_kernels.GATED: 0,
-                                    nfa_kernels.CHUNK: 0}
+                                    nfa_kernels.CHUNK: 0,
+                                    nfa_kernels.FUSED: 0}
 
 
 def test_wrappers_reject_mismatched_programs():
