@@ -18,7 +18,8 @@ these phases, each printing one JSON line:
    program: 1024 lines of 4 KiB to 128 KiB chained chunk by chunk (some
    ending exactly on a chunk edge), a 640-state union program (run
    padded to 1024 states) and one wider than 1024 states. Matched flags
-   and carries must be equal.
+   and carries must be equal; each case prints ms per launch and µs per
+   step.
 4. engine: GpuEngineFilter on 1M synthetic log lines and 2000 long
    lines (4 KiB to 192 KiB); verdicts equal a Python ``re`` oracle.
 5. cli: the user's entry point, ``app.run_async`` over a 256-pod
@@ -27,7 +28,9 @@ these phases, each printing one JSON line:
    hold exactly the oracle's lines. This is the main path: the launch
    counts are zeroed just before it and read just after. After it,
    grouped_nfa_kernel is held against its plain version and timed on
-   the run's own class batches, at its two most frequent shapes.
+   the run's own class batches, at its two most frequent shapes, and
+   chunk_nfa_kernel on the long lines' own chunk batch (with its
+   carry) at its most frequent shape.
 
 The fused-groups path, under ``KLOGS_TPU_FUSED_GROUPS=1`` (set and
 restored around these two phases):
@@ -40,7 +43,7 @@ restored around these two phases):
    run (counts zeroed just before, read just after; K4 must launch, K1
    must not); every file equal to the oracle's lines. Then K4 is held
    against its plain version and K1, and timed with its plain version,
-   on the run's own batches.
+   on the run's own batches, and K2 as in cli.
 8. tune: ``ops/tune.py`` ``tune_grouped`` times K1 and K4 on the fused
    engine's 131072 x 131 batch and caches the winner (in a temporary
    ``XDG_CACHE_HOME``); both lines/s and the winner are printed.
@@ -409,13 +412,37 @@ def chunk_chain(torch, np, nfa, nk, prog, live, acc, rows, lens, L, dev):
         steps += B * T
     n = n_chunks
     res = dict(lines=B, chunks=n, states=S, max_abs_err=err, ms=k_ms / n,
-               plain_ms=p_ms / n, matched=int(m.sum()),
-               active_per_step=work["active"] / steps,
+               us_per_step=k_ms * 1e3 / (steps / B), plain_ms=p_ms / n,
+               matched=int(m.sum()), active_per_step=work["active"] / steps,
                **step_bounds(n_bytes, S, C, steps, work["active"]))
     # Per launch, like ms.
     for k in ("bound_ms", "dense_bound_ms", "bytes_ms"):
         res[k] /= n
     return res
+
+
+def k2_check(torch, nk, prog, acc, cls, v0, final, reps: int) -> dict:
+    """K2 against its plain version (carry and matched) on one chunk
+    batch, timed, with its bounds."""
+    v, m = nk.match_chunk_cls(prog, acc, cls, v0, final)
+    work: dict = {}
+    vp, mp = nk.match_chunk_cls_plain(prog, acc, cls, v0, work=work)
+    if final and prog.match_all:
+        mp = torch.ones_like(mp)
+    torch.cuda.synchronize()
+    err = max(int((v.int() - vp.int()).abs().max()),
+              int((m.int() - mp.int()).abs().max()))
+    ms = cuda_ms(torch, lambda: nk.match_chunk_cls(prog, acc, cls, v0, final),
+                 reps)
+    plain_ms = cuda_ms(
+        torch, lambda: nk.match_chunk_cls_plain(prog, acc, cls, v0), 1)
+    B, T = cls.shape
+    C, S = prog.char_mask.shape
+    n_bytes = B * T * 2 + 2 * B * S + B + (S + C) * (S // 32) * 4
+    return dict(rows=B, T=T, states=S, final=final, max_abs_err=err, ms=ms,
+                us_per_step=ms * 1e3 / T, plain_ms=plain_ms,
+                matched=int(m.sum()), active_per_step=work["active"] / (B * T),
+                **step_bounds(n_bytes, S, C, B * T, work["active"]))
 
 
 def k2_phase(torch, np, nfa, nk, compile_patterns, dev, lines=1024,
@@ -675,12 +702,24 @@ def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
         entry[0] += 1
         return grouped(prog, live, acc, cls)
 
+    # Likewise the [B, T] chunk batches (and carries) the long lines hand
+    # K2.
+    chunks: dict = {}
+    chunk = nk.match_chunk_cls
+
+    def recording_chunk(prog, acc, cls, v0, final=True):
+        entry = chunks.setdefault(tuple(cls.shape),
+                                  [0, (prog, acc, cls, v0, final)])
+        entry[0] += 1
+        return chunk(prog, acc, cls, v0, final)
+
     with tempfile.TemporaryDirectory() as out_dir:
         argv[4] = out_dir
         opts = cli.parse_args(argv)
         ui = io.StringIO()
         term.set_ui_stream(ui)
         setattr(nk, wrapper, recording)
+        nk.match_chunk_cls = recording_chunk
         try:
             torch.cuda.synchronize()
             nk.reset_launches()
@@ -690,6 +729,7 @@ def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
             launches = dict(nk.LAUNCHES)
         finally:
             setattr(nk, wrapper, grouped)
+            nk.match_chunk_cls = chunk
             term.set_ui_stream(None)
         files = sorted(os.listdir(out_dir))
         bad = []
@@ -710,20 +750,26 @@ def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
         check = (k4_check(torch, nk, *args, 20, time_plain=True) if fused
                  else k1_check(torch, nk, *args, 20))
         batches.append(dict(launches=n, **check))
+    # K2 held against its plain version and timed on its most frequent
+    # chunk shape.
+    k2 = [dict(launches=n, **k2_check(torch, nk, *args, 10))
+          for n, args in sorted(chunks.values(), key=lambda e: -e[0])[:1]]
     res = dict(rc=rc, pods=len(pods), files=len(files), lines=n_lines,
                kept_lines=kept, seconds=seconds, lines_per_s=n_lines / seconds,
                mismatched_files=bad, launches=launches,
                **{f"{key}_shapes": {f"{B}x{T}": e[0]
                                     for (B, T), e in shapes.items()},
-                  f"{key}_batches": batches})
+                  f"{key}_batches": batches},
+               k2_shapes={f"{B}x{T}": e[0] for (B, T), e in chunks.items()},
+               k2_batches=k2)
     name = "cli_fused" if fused else "cli"
     emit({"phase": name, **res})
     ran, idle = (nk.FUSED, nk.GROUPED) if fused else (nk.GROUPED, nk.FUSED)
-    if (rc != 0 or bad or len(files) != len(pods) or not batches
+    if (rc != 0 or bad or len(files) != len(pods) or not batches or not k2
             or launches[ran] == 0 or launches[idle] != 0
             or launches[nk.CHUNK] == 0
             or any(b["max_abs_err"] or b.get("k1_mismatches")
-                   for b in batches)):
+                   for b in batches + k2)):
         raise AssertionError(f"{name} phase failed: {res}")
     return res
 
@@ -1226,7 +1272,7 @@ def main() -> int:
         emit({"phase": "failed"})
         return 1
     w, c, g = k1["w128"], k2["s512"], run3["k3_batches"][0]
-    f = run4["k4_batches"][0]
+    f, cc = run4["k4_batches"][0], run["k2_batches"][0]
     emit({"kernels": [
         {"name": nk.GROUPED, "route": "cuda", "source": SOURCE,
          "replaces": "klogs_tpu/ops/pallas_nfa.py:200",
@@ -1237,9 +1283,12 @@ def main() -> int:
         {"name": nk.CHUNK, "route": "cuda", "source": SOURCE,
          "replaces": "klogs_tpu/ops/pallas_nfa.py:50",
          "launches": run["launches"][nk.CHUNK],
-         "max_abs_err": float(c["max_abs_err"]), "ms": c["ms"],
-         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-         "bound_by": c["bound_by"], "library_ms": None},
+         "max_abs_err": float(max(r["max_abs_err"] for r in
+                                  list(k2.values()) + run["k2_batches"]
+                                  + run4["k2_batches"])),
+         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+         "bound_by": c["bound_by"], "library_ms": None,
+         "cli_ms": cc["ms"], "cli_shape": f"{cc['rows']}x{cc['T']}"},
         {"name": nk.GATED, "route": "cuda", "source": SOURCE,
          "replaces": "klogs_tpu/ops/pallas_nfa.py:377",
          "launches": run3["launches"][nk.GATED],

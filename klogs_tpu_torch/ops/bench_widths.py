@@ -4,13 +4,21 @@ The register kernels are built for 4, 8, 16 and 32 state words (S = 128,
 256, 512, 1024); a program of another width up to 32 words runs padded
 to the next of them. This script times both kernels on union programs
 of S = 256, 384, 512 and 640 states, so a tree that pads can be held
-against one built for each width:
+against one built for each width. K2 runs one 4096-byte chunk of 1024
+lines, and of 8 lines (the size of the long-line batches the CLI
+hands it; rows without the needle). Then K2 runs the 32-pattern union
+of ``chip_smoke.PATTERNS`` (400 states, run at 512) on one mid-line
+4096-byte chunk of 8 and of 1024 lines, printable and random bytes,
+needles in every third row, held against its plain version:
 
     python3 klogs_tpu_torch/ops/bench_widths.py [--tree DIR] [--label L]
 
 ``--tree`` is the root of the checkout whose ``klogs_tpu_torch`` is
-timed (default: the one holding this file). It needs a CUDA device and
-nvcc, and prints one JSON line per (kernel, width).
+timed (default: the one holding this file). Two trees are compared on
+one card by running the script once per tree, in turns (``--tree
+dist/prev`` for an unpacked ``git archive`` of the parent). It needs a
+CUDA device and nvcc, and prints one JSON line per (kernel, width,
+lines).
 """
 
 import argparse
@@ -22,6 +30,7 @@ SEED = 20261016
 WIDTHS = (256, 384, 512, 640)
 K1_ROWS, K1_WIDTH = 16384, 256  # a CLI-sized batch at the 256-byte bucket
 K2_LINES, K2_CHUNK = 1024, 4096  # one 4096-byte chunk of 1024 long lines
+K2_CLI_LINES = 8  # the CLI's long-line batch (its smallest row bucket)
 
 
 def patterns_for(S: int) -> list[str]:
@@ -89,12 +98,48 @@ def main(argv=None) -> int:
         cls = nfa.classify_chunk(prog, torch.from_numpy(r).to(dev),
                                  torch.from_numpy(lens).to(dev), True, False)
         v0 = nk.initial_state(prog, union.n_states, K2_LINES)
-        ms = cuda_ms(torch, lambda: nk.match_chunk_cls(
-            prog, union.n_states + 1, cls, v0, False), 5)
-        print(json.dumps({"tree": label, "kernel": nk.CHUNK,
-                          "states": prog.n_states, "lines": K2_LINES,
-                          "T": cls.shape[1], "ms": ms}), flush=True)
+        # All lines, then rows 1..8 (row 0 holds the needle).
+        for c, v in ((cls, v0), (cls[1:1 + K2_CLI_LINES].contiguous(),
+                                 v0[:K2_CLI_LINES])):
+            ms = cuda_ms(torch, lambda: nk.match_chunk_cls(
+                prog, union.n_states + 1, c, v, False), 5)
+            print(json.dumps({"tree": label, "kernel": nk.CHUNK,
+                              "states": prog.n_states, "lines": c.shape[0],
+                              "T": c.shape[1], "ms": ms,
+                              "us_per_step": ms * 1e3 / c.shape[1]}),
+                  flush=True)
+    k2_bench32(np, torch, compile_patterns, nfa, nk, dev, label)
     return 0
+
+
+def k2_bench32(np, torch, compile_patterns, nfa, nk, dev, label: str) -> None:
+    """K2 on the 32-pattern union, one chunk inside long lines (no
+    BEGIN or END column), timed and held against its plain version."""
+    import chip_smoke
+
+    union = compile_patterns(chip_smoke.PATTERNS)
+    prog = nfa.pack_program(nfa.augment(union), device=dev)
+    live, acc = union.n_states, union.n_states + 1
+    rng = np.random.default_rng(7)
+    for B, printable in ((8, True), (8, False), (1024, False), (1024, True)):
+        r, _ = chip_smoke.rows_with_needles(np, rng, B, K2_CHUNK, K2_CHUNK,
+                                            printable=printable)
+        rem = torch.full((B,), 2 * K2_CHUNK, dtype=torch.int32, device=dev)
+        cls = nfa.classify_chunk(prog, torch.from_numpy(r).to(dev), rem,
+                                 False, False)
+        v0 = nk.initial_state(prog, live, B)
+        v, m = nk.match_chunk_cls(prog, acc, cls, v0, False)
+        vp, mp = nk.match_chunk_cls_plain(prog, acc, cls, v0)
+        ms = cuda_ms(torch, lambda: nk.match_chunk_cls(prog, acc, cls, v0,
+                                                       False), 10)
+        print(json.dumps({"tree": label, "kernel": nk.CHUNK,
+                          "patterns": "chip_smoke.PATTERNS",
+                          "states": prog.n_states, "lines": B,
+                          "T": cls.shape[1], "printable": printable,
+                          "equal": bool(torch.equal(v, vp)
+                                        and torch.equal(m, mp)),
+                          "ms": ms, "us_per_step": ms * 1e3 / cls.shape[1]}),
+              flush=True)
 
 
 if __name__ == "__main__":

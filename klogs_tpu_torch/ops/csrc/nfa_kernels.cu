@@ -57,28 +57,56 @@
 // than 32 words run grouped_nfa_fused_wide: a warp per (line, group)
 // pair, a line's groups on neighbouring warps.
 //
-// chunk_nfa_kernel replaces pallas_nfa.py:_kernel (the pallas_call in
-// _launch_chunk): the same step over the single augmented union
-// automaton, with the state carried in and out across chunks of a long
-// line in the JAX package's [B, S] int8 layout.
+// What bounds K1, K3 and K4 on an H100: the step is a chain of T
+// dependent updates per line, each an OR of follow rows chosen by the
+// set bits of v. The TPU kernels spent two dense int8 matmuls per step
+// on it; a Glushkov state set holds a handful of states, so here each
+// step costs one 16-byte shared-memory row load per set bit plus one
+// mask row -- shared-memory latency along the chain, not bytes (a
+// [B, T] int16 class array is read once per group) and not dense
+// arithmetic. The design keeps the chain on chip: the state lives in
+// registers (one thread per line, W = S/32 words, W one of 4, 8, 16,
+// 32: a program of another width up to 32 words runs padded with dead
+// states to the next of them), the follow and mask bit tables of the
+// current group sit in shared memory, and class ids are staged TT steps
+// at a time in a padded shared tile so the global reads are row
+// segments and the per-step reads hit distinct banks. These batches
+// are wide (thousands of short lines), so a thread per line fills the
+// card.
 //
-// What bounds them on an H100: the step is a chain of T dependent
-// updates per line, each an OR of follow rows chosen by the set bits of
-// v. The TPU kernel spent two dense int8 matmuls per step on it; a
-// Glushkov state set holds a handful of states, so here each step costs
-// one 16-byte shared-memory row load per set bit plus one mask row --
-// shared-memory latency along the chain, not bytes (a [B, T] int16
-// class array is read once per group) and not dense arithmetic. The
-// design keeps the chain on chip: the state lives in registers (one
-// thread per line, W = S/32 words, W one of 4, 8, 16, 32: a program of
-// another width up to 32 words runs padded with dead states to the
-// next of them), the follow and mask bit tables of the current group
-// sit in shared memory, and class ids are staged TT steps at a time in a
-// padded shared tile so the global reads are row segments and the
-// per-step reads hit distinct banks.
-// Parallelism is one thread per line, so a batch of few lines (long-line
-// chunks) occupies few SMs; splitting a line's words across threads is
-// left to a later change.
+// chunk_nfa_kernel (K2) replaces pallas_nfa.py:50 _kernel (the
+// pallas_call in _launch_chunk): the same step over the single augmented
+// union automaton, with the state carried in and out across chunks of a
+// long line in the JAX package's [B, S] int8 layout. Its batches are
+// the opposite: few lines (the CLI's long-line bucket holds 8 rows) by
+// thousands of steps, so a launch lasts as long as one line's chain and
+// the step's latency is all that counts. So a line gets a warp, its W
+// words spread over the lanes: lane j holds word j in a register (lanes
+// >= W hold 0). A step is a ballot for the nonzero words, a shuffle
+// that names a set state's row, and per set bit one 4-byte
+// shared-memory load per lane (word j of that follow row), ANDed with
+// word j of the class's mask row. What bounds it is that chain, T x
+// (ballot, shuffle, one shared load per set bit), not bytes or
+// arithmetic. Against the thread-per-line kernel it replaced:
+// - a warp is one line, so its loops are the line's own set bits, not
+//   the union of 32 lines' (no divergence);
+// - no thread scans W words: the ballot finds the nonzero ones;
+// - the lanes read consecutive words of a row: no bank conflicts;
+// - class ids never pass through shared memory or a barrier: each lane
+//   holds one id of the next 32 steps, loaded a tile ahead and walked
+//   by shuffles. The step loop has no __syncthreads.
+// Two exact shortcuts take most steps off that chain. The augmented
+// live state is always set, so the reach of the "sticky" states (a
+// self-loop, in every nonzero mask row) is kept from step to step, and
+// a step whose other states are empty needs no row load; and while v
+// is only those states, the steps whose class maps v to itself are
+// skipped a run at a time (one ballot per 32 steps finds them). The
+// tables are read through 32-bit shared-window addresses held in
+// registers: through generic pointers the compiler rebuilt the window
+// base (special-register reads) on every step. A block is CHUNK_WARPS
+// lines sharing one copy of the tables (follow [S][W] and mask [C][W]
+// words in shared memory, 136 KB at S = 1024 and C = 64), so 1024 lines
+// spread over 128 SMs.
 //
 // Programs wider than S = 1024 (W > 32): the *_wide kernels give each
 // line a warp, its state in shared memory, and read follow/mask rows
@@ -95,7 +123,7 @@ namespace {
 
 constexpr int TT = 32;            // class-id steps staged per shared tile
 constexpr int GROUPED_LINES = 128;  // lines (threads) per block, grouped
-constexpr int CHUNK_LINES = 32;     // lines per block, chunk (few lines)
+constexpr int CHUNK_WARPS = 8;      // lines (a warp each) per block, chunk
 constexpr int FUSED_THREADS = 256;  // threads per block, fused: lines x groups
 constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may use
 
@@ -313,8 +341,131 @@ __device__ __forceinline__ uint32_t spread4(uint32_t bits) {
          ((bits >> 3) & 1u) << 24;
 }
 
+// State word w of a line's [S] int8 carry: its 32 bytes at p = row +
+// 32 w, two 16-byte loads, a bit per nonzero byte.
+__device__ __forceinline__ uint32_t carry_word(const int8_t* p) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  const uint4 a = q[0], b = q[1];
+  return nz4(a.x) | nz4(a.y) << 4 | nz4(a.z) << 8 | nz4(a.w) << 12 |
+         nz4(b.x) << 16 | nz4(b.y) << 20 | nz4(b.z) << 24 | nz4(b.w) << 28;
+}
+
+// The inverse: state word x as 32 0/1 bytes at p.
+__device__ __forceinline__ void store_carry_word(int8_t* p, uint32_t x) {
+  uint4* q = reinterpret_cast<uint4*>(p);
+  q[0] = make_uint4(spread4(x), spread4(x >> 4), spread4(x >> 8),
+                    spread4(x >> 12));
+  q[1] = make_uint4(spread4(x >> 16), spread4(x >> 20), spread4(x >> 24),
+                    spread4(x >> 28));
+}
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// K2 reads its tables through 32-bit shared-window addresses: a generic
+// pointer into shared memory makes the compiler rebuild the window base
+// (S2R SR_CgaCtaId and address arithmetic) on the step's path.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The value of x, opaque to the compiler: a base address so passed is
+// kept in a register rather than rebuilt from threadIdx and the window
+// base (both special-register reads) at each use.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// volatile keeps the load below the barrier that publishes the tables.
+__device__ __forceinline__ uint32_t lds(uint32_t addr) {
+  uint32_t x;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(x) : "r"(addr));
+  return x;
+}
+
+// K2's mask word for a lane: word `lane` of mask row c (m_lane is the
+// address of the lane's word of row 0), 0 past W and for a class id
+// outside [0, C), which kills every state, as the one-hot product of the
+// JAX kernels does.
 template <int W>
-__global__ void __launch_bounds__(CHUNK_LINES)
+__device__ __forceinline__ uint32_t mask_word(uint32_t m_lane, int C, int c,
+                                              int lane) {
+  const bool in = (unsigned)c < (unsigned)C;  // no branch: row 0 stands in
+  const uint32_t w = lds(m_lane + (in ? c : 0) * W * 4);
+  return lane < W && in ? w : 0u;
+}
+
+// A lane's word of reach(x), x being the warp's W-word state subset
+// spread over the lanes (lane j: word j), and nz the ballot of its
+// nonzero words. f_lane is the address of the lane's word of follow
+// row 0. Most steps hold one bit, so that case is straight-line: each
+// lane names the row of its highest set bit (one FLO, issued beside
+// the ballot), the highest nonzero word's lane is taken, and one
+// shuffle of that row number and one load follow. Whatever bits
+// remain are walked after that load is issued: the owner of each
+// nonzero word broadcasts it, and its rows are read four a round, the
+// loads issued before any is used (a missing bit repeats the last one:
+// OR is idempotent).
+template <int W>
+__device__ __forceinline__ uint32_t reach_word(uint32_t nz, uint32_t x,
+                                               uint32_t f_lane, int lane) {
+  const int hi = 31 - __clz(x);   // -1 where x == 0: never taken
+  const int q = 31 - __clz(nz);  // -1 when nz == 0: row 0 stands in
+  const int s = __shfl_sync(FULL, 32 * lane + hi, q & 31);
+  const uint32_t r0 = lds(f_lane + (nz ? s : 0) * W * 4);
+  uint32_t r = nz ? r0 : 0u;
+  if (lane == q) x &= ~(1u << hi);
+  nz = __ballot_sync(FULL, x != 0u);
+  if (__builtin_expect(nz == 0u, 1)) return r;
+  while (nz) {
+    const int w = __ffs(nz) - 1;
+    nz &= nz - 1u;
+    uint32_t bits = __shfl_sync(FULL, x, w);
+    const uint32_t rows = f_lane + w * 32 * W * 4;
+    while (bits) {
+      const int b0 = __ffs(bits) - 1;
+      bits &= bits - 1u;
+      const int b1 = bits ? __ffs(bits) - 1 : b0;
+      bits &= bits - 1u;
+      const int b2 = bits ? __ffs(bits) - 1 : b1;
+      bits &= bits - 1u;
+      const int b3 = bits ? __ffs(bits) - 1 : b2;
+      bits &= bits - 1u;
+      r |= lds(rows + b0 * W * 4) | lds(rows + b1 * W * 4) |
+           lds(rows + b2 * W * 4) | lds(rows + b3 * W * 4);
+    }
+  }
+  return r;
+}
+
+// The classes that map the state vs to itself when reach(vs) = rs:
+// bit c % 32 of lane c / 32's word is set iff (rs & mask[c]) == vs on
+// every word. A class id outside [0, C) is never one.
+template <int W>
+__device__ uint32_t fixed_classes(uint32_t vs, uint32_t rs, uint32_t m_lane,
+                                  int C, int lane) {
+  uint32_t fw = 0u;
+#pragma unroll 8
+  for (int c = 0; c < C; ++c) {
+    const uint32_t w = lds(m_lane + c * W * 4);
+    const bool ok = lane >= W || (rs & w) == vs;
+    if (__all_sync(FULL, ok) && lane == (c >> 5)) fw |= 1u << (c & 31);
+  }
+  return fw;
+}
+
+// The ballot of a tile's fixed steps: lane l holds the class id of step
+// t0 + l (past T: -1, never fixed). fw covers ids below 32 * 32.
+__device__ __forceinline__ uint32_t fixed_steps(int id, uint32_t fw, int C) {
+  const bool in = (unsigned)id < (unsigned)min(C, 32 * 32);
+  const uint32_t w = __shfl_sync(FULL, fw, in ? id >> 5 : 0);
+  return __ballot_sync(FULL, in && (w >> (id & 31) & 1u));
+}
+
+// K2: warp (threadIdx.x / 32) of block x is line x * CHUNK_WARPS + warp,
+// lane j holding state word j of it (see the note at the top).
+template <int W>
+__global__ void __launch_bounds__(CHUNK_WARPS * 32)
     chunk_nfa_kernel(const int16_t* __restrict__ cls, int B, int T,
                      const uint32_t* __restrict__ follow,
                      const uint32_t* __restrict__ mask, int C, int acc,
@@ -324,46 +475,69 @@ __global__ void __launch_bounds__(CHUNK_LINES)
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* f_s = smem;
   uint32_t* m_s = f_s + S * W;
-  int* tile = reinterpret_cast<int*>(m_s + C * W);
-  const int line0 = blockIdx.x * CHUNK_LINES;
-  const int line = line0 + threadIdx.x;
-  copy_rows<W>(f_s, follow, S, CHUNK_LINES);
-  copy_rows<W>(m_s, mask, C, CHUNK_LINES);
-  // Carry in: the line's S int8 lanes, 32 bytes (two 16-byte loads) per
-  // state word.
-  uint32_t v[W];
-#pragma unroll
-  for (int j = 0; j < W; ++j) {
-    v[j] = 0u;
-    if (line < B) {
-      const uint4* p =
-          reinterpret_cast<const uint4*>(v0 + (size_t)line * S + 32 * j);
-      const uint4 a = p[0], b = p[1];
-      v[j] = nz4(a.x) | nz4(a.y) << 4 | nz4(a.z) << 8 | nz4(a.w) << 12 |
-             nz4(b.x) << 16 | nz4(b.y) << 20 | nz4(b.z) << 24 |
-             nz4(b.w) << 28;
+  copy_rows<W>(f_s, follow, S, CHUNK_WARPS * 32);
+  copy_rows<W>(m_s, mask, C, CHUNK_WARPS * 32);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int line = blockIdx.x * CHUNK_WARPS + (threadIdx.x >> 5);
+  if (line >= B) return;  // a pad row: the whole warp, after the copy
+  uint32_t v = lane < W ? carry_word(v0 + (size_t)line * S + 32 * lane) : 0u;
+  // Lanes past W read (and drop) the words of lanes lane % W: the same
+  // addresses, so the reads broadcast and stay in bounds.
+  const uint32_t f_lane = opaque(smem_addr(f_s + (lane & (W - 1))));
+  const uint32_t m_lane = opaque(smem_addr(m_s + (lane & (W - 1))));
+  // Sticky states: a self-loop, and a member of every nonzero mask row
+  // (a zero row kills every state). Once set they stay set until a
+  // kill: the augmented live and acc states. reach is OR-linear, so
+  // reach(v) = reach(v & sticky) | reach(v & ~sticky), and the first
+  // term, rs, is kept from the last step whose sticky part vs it was
+  // computed for. When v is just vs, a class c with rs & mask[c] == vs
+  // maps v to itself (fw: those classes), so the steps of such classes
+  // are skipped, a run at a time: most steps, where v = {live}. Both
+  // are keyed on the exact sticky part, so they are exact whatever this
+  // set holds.
+  uint32_t sticky = 0u;
+  if (lane < W)
+    for (int b = 0; b < 32; ++b)
+      sticky |= (f_s[(32 * lane + b) * W + lane] >> b & 1u) << b;
+  for (int c = 0; c < C; ++c) {
+    const uint32_t w = lane < W ? m_s[c * W + lane] : 0u;
+    if (__any_sync(FULL, w != 0u)) sticky &= w;
+  }
+  uint32_t vs = 0u, rs = 0u;  // reach of the empty set
+  uint32_t fw = fixed_classes<W>(vs, rs, m_lane, C, lane);
+  // cur holds the ids of steps [t0, t0 + 32) (lane l: step t0 + l), nxt
+  // those of the 32 after, loaded a tile ahead; an id past T is never
+  // stepped on.
+  const int16_t* ids = cls + (size_t)line * T;
+  int cur = lane < T ? ids[lane] : -1;
+  int nxt = 32 + lane < T ? ids[32 + lane] : -1;
+  for (int t0 = 0; t0 < T; t0 += 32) {
+    const int n = min(32, T - t0);
+    uint32_t fx = fixed_steps(cur, fw, C);
+    for (int tt = 0; tt < n; ++tt) {
+      const uint32_t x = v & ~sticky;
+      const uint32_t nz = __ballot_sync(FULL, x != 0u);
+      if (__builtin_expect(__any_sync(FULL, (v & sticky) != vs), 0)) {
+        vs = v & sticky;
+        rs = reach_word<W>(__ballot_sync(FULL, vs != 0u), vs, f_lane, lane);
+        fw = fixed_classes<W>(vs, rs, m_lane, C, lane);
+        fx = fixed_steps(cur, fw, C);
+      }
+      if (nz == 0u) {  // v == vs: skip the steps that keep it
+        const uint32_t run = ~(fx >> tt);
+        tt = run ? tt + __ffs(run) - 1 : 32;
+        if (tt >= n) break;
+      }
+      const uint32_t m = mask_word<W>(m_lane, C, __shfl_sync(FULL, cur, tt),
+                                      lane);
+      v = (rs | reach_word<W>(nz, x, f_lane, lane)) & m;
     }
+    cur = nxt;
+    nxt = t0 + 64 + lane < T ? ids[t0 + 64 + lane] : -1;
   }
-  const int* my = tile + threadIdx.x * (TT + 1);
-  for (int t0 = 0; t0 < T; t0 += TT) {
-    __syncthreads();
-    load_cls_tile(cls, B, T, line0, t0, tile, CHUNK_LINES, CHUNK_LINES);
-    __syncthreads();
-    const int n = min(TT, T - t0);
-    for (int tt = 0; tt < n; ++tt) nfa_step<W>(v, f_s, m_s, C, my[tt]);
-  }
-  if (line < B) {
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      uint4* p = reinterpret_cast<uint4*>(vout + (size_t)line * S + 32 * j);
-      const uint32_t x = v[j];
-      p[0] = make_uint4(spread4(x), spread4(x >> 4), spread4(x >> 8),
-                        spread4(x >> 12));
-      p[1] = make_uint4(spread4(x >> 16), spread4(x >> 20), spread4(x >> 24),
-                        spread4(x >> 28));
-    }
-    matched[line] = test_bit<W>(v, acc) ? 1 : 0;
-  }
+  if (lane < W) store_carry_word(vout + (size_t)line * S + 32 * lane, v);
+  if (lane == (acc >> 5)) matched[line] = (v >> (acc & 31)) & 1u;
 }
 
 // ---- programs wider than 32 words ------------------------------------
@@ -375,8 +549,6 @@ __global__ void __launch_bounds__(CHUNK_LINES)
 // ... of the row). Tables stay in device memory, read through L2. Each
 // lane touches only its own words, so the warp needs no barrier inside
 // a step.
-
-constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ void wide_step(uint32_t* v, uint32_t* r, int W,
                                           int lane,
@@ -497,27 +669,12 @@ __global__ void chunk_nfa_wide(const int16_t* __restrict__ cls, int B, int T,
   uint32_t* v = smem + (size_t)warp * 2 * W;
   uint32_t* r = v + W;
   const int line = blockIdx.x * (blockDim.x >> 5) + warp;
-  for (int k = lane; k < W; k += 32) {
-    uint32_t word = 0u;
-    if (line < B) {
-      const uint4* p =
-          reinterpret_cast<const uint4*>(v0 + (size_t)line * S + 32 * k);
-      const uint4 a = p[0], b = p[1];
-      word = nz4(a.x) | nz4(a.y) << 4 | nz4(a.z) << 8 | nz4(a.w) << 12 |
-             nz4(b.x) << 16 | nz4(b.y) << 20 | nz4(b.z) << 24 | nz4(b.w) << 28;
-    }
-    v[k] = word;
-  }
+  for (int k = lane; k < W; k += 32)
+    v[k] = line < B ? carry_word(v0 + (size_t)line * S + 32 * k) : 0u;
   wide_scan(v, r, W, lane, cls, B, T, line, follow, mask, C);
   if (line < B) {
-    for (int k = lane; k < W; k += 32) {
-      uint4* p = reinterpret_cast<uint4*>(vout + (size_t)line * S + 32 * k);
-      const uint32_t x = v[k];
-      p[0] = make_uint4(spread4(x), spread4(x >> 4), spread4(x >> 8),
-                        spread4(x >> 12));
-      p[1] = make_uint4(spread4(x >> 16), spread4(x >> 20), spread4(x >> 24),
-                        spread4(x >> 28));
-    }
+    for (int k = lane; k < W; k += 32)
+      store_carry_word(vout + (size_t)line * S + 32 * k, v[k]);
     const bool m = wide_bit(v, acc);
     if (lane == 0) matched[line] = m ? 1 : 0;
   }
@@ -616,11 +773,11 @@ cudaError_t launch_chunk(const int16_t* cls, int B, int T,
                          const uint32_t* follow, const uint32_t* mask, int C,
                          int acc, const int8_t* v0, int8_t* vout,
                          uint8_t* matched, cudaStream_t stream) {
-  const size_t smem = reg_smem_words<W, CHUNK_LINES>(C) * 4;
+  const size_t smem = ((size_t)32 * W + C) * W * 4;  // follow, mask
   cudaError_t e = allow_smem(chunk_nfa_kernel<W>, smem);
   if (e != cudaSuccess) return e;
-  const int blocks = (B + CHUNK_LINES - 1) / CHUNK_LINES;
-  chunk_nfa_kernel<W><<<blocks, CHUNK_LINES, smem, stream>>>(
+  const int blocks = (B + CHUNK_WARPS - 1) / CHUNK_WARPS;
+  chunk_nfa_kernel<W><<<blocks, CHUNK_WARPS * 32, smem, stream>>>(
       cls, B, T, follow, mask, C, acc, v0, vout, matched);
   return cudaGetLastError();
 }

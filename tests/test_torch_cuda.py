@@ -53,21 +53,68 @@ def test_grouped_kernel_equals_plain(dev, patterns):
         assert torch.equal(got, exp)
 
 
-@pytest.mark.parametrize("patterns", [
-    PATTERNS, ["q" * 600 + "z", "panic:"], ["w" * 1100 + "k", "EPIPE"],
-], ids=["s128", "s640", "wide"])
-def test_chunk_kernel_equals_plain_chained(dev, patterns):
+def chunk_rows(B: int, L: int, n_chunks: int, needle: bytes, seed: int):
+    """[B, n_chunks * L] printable rows and lengths for chained chunks:
+    row 0 a dense-state line (700 q's, then z), every 7th from row 1
+    ending on a chunk edge, the needle planted in every 5th from row 2."""
+    rng = np.random.default_rng(seed)
+    width = n_chunks * L
+    rows = rng.integers(32, 127, size=(B, width), dtype=np.uint8)
+    lens = rng.integers(0, width + 1, size=B)
+    lens[1::7] = L * rng.integers(1, n_chunks + 1, size=len(lens[1::7]))
+    for i in range(2, B, 5):
+        if lens[i] >= len(needle):
+            p = int(rng.integers(0, lens[i] - len(needle) + 1))
+            rows[i, p:p + len(needle)] = np.frombuffer(needle, np.uint8)
+    rows[0, :700] = ord("q")
+    rows[0, 700] = ord("z")
+    lens[0] = 701
+    return rows, lens.astype(np.int32)
+
+
+@pytest.mark.parametrize("B", [1, 8, 33, 1024])
+@pytest.mark.parametrize("patterns,needle", [
+    (PATTERNS, b"panic: x"),  # 128 states, W = 4
+    (["a" * 200 + "b", r"x\d+y"], b"x123y"),  # 256, W = 8
+    (None, b"code=503"),  # the 32 bench patterns: 512, W = 16
+    (["q" * 600 + "z", "panic:"], b"panic:"),  # 640, run at W = 32
+    (["w" * 1100 + "k", "EPIPE"], b"EPIPE"),  # 1152: the wide kernel
+], ids=["w4", "w8", "w16", "w32", "wide"])
+def test_chunk_kernel_equals_plain_chained(dev, patterns, needle, B):
+    """K2 equals its plain version bit for bit, carries and matched,
+    chained over 3 chunks of real class ids: lines ending on a chunk
+    edge, a ragged last block (B = 33) and blocks of several warps, a
+    dense-state line (row 0: with q{600}z, hundreds of set bits a step
+    over many words), and class ids outside [0, C) (-1 and C + 5) in
+    the middle chunk."""
+    if patterns is None:
+        from chip_smoke import PATTERNS as patterns  # = bench.PATTERNS
     union = compile_patterns(patterns)
     prog = nfa.pack_program(nfa.augment(union), device=dev)
     live, acc = union.n_states, union.n_states + 1
-    B = 70
+    L, n_chunks = 256, 3
+    rows, lens = chunk_rows(B, L, n_chunks, needle, B)
+    rows_d = torch.from_numpy(rows).to(dev)
+    lens_d = torch.from_numpy(lens).to(dev)
     v = nfa_kernels.initial_state(prog, live, B)
     vp = v.clone()
-    for k in range(3):
-        cls = random_cls(prog, B, 129, k).to(dev)
-        v, m = nfa_kernels.match_chunk_cls(prog, acc, cls, v, final=k == 2)
+    for k in range(n_chunks):
+        final = k == n_chunks - 1
+        chunk = rows_d[:, k * L:(k + 1) * L].contiguous()
+        cls = nfa.classify_chunk(prog, chunk, lens_d - k * L, k == 0, final)
+        if k == 1:
+            cls[4::17, 5] = prog.n_classes + 5
+            cls[3::19, 9] = -1
+        v, m = nfa_kernels.match_chunk_cls(prog, acc, cls, v, final=final)
         vp, mp = nfa_kernels.match_chunk_cls_plain(prog, acc, cls, vp)
+        if final and prog.match_all:
+            mp = torch.ones_like(mp)
+        assert v.dtype == torch.int8 and v.shape == (B, prog.n_states)
         assert torch.equal(v, vp) and torch.equal(m, mp)
+    if B >= 8:
+        assert m.any() and not m.all()
+    if patterns[0].startswith("q" * 600):
+        assert bool(m[0])
 
 
 def test_kernels_count_launches(dev):

@@ -95,13 +95,24 @@ def test_grouped_plain_kills_out_of_range_classes():
     assert got.tolist() == exp.tolist() == [True, False, False]
 
 
-def test_chunk_plain_equals_pallas_chained():
+@pytest.mark.parametrize("pats,edge,across,states", [
+    (["panic:", r"retry \d+/\d+", "code=50[34]", "^start", "end$",
+      r"(?:FATAL|CRIT).*code=\d+", "disk .*full"], b"panic:", b"code=503",
+     128),
+    (["a" * 200 + "b", r"x\d+y"], b"x1234y", b"x99y", 256),
+    (bench.PATTERNS, b"panic:", b"EPIPE!", 512),
+    (["q" * 1000 + "z", "panic:"], b"panic:", b"panic:", 1024),
+], ids=["s128", "s256", "s512", "s1024"])
+def test_chunk_plain_equals_pallas_chained(pats, edge, across, states):
     """Long lines chained chunk by chunk with the carry: lines ending on
     a chunk edge (END deferred to the next chunk), inside a chunk, and
-    before the last chunk; matched flags and carries equal per chunk."""
-    pats = bench.PATTERNS
+    before the last chunk; matched flags and carries equal per chunk.
+    One union program per register width of the CUDA kernel (4, 8, 16
+    and 32 state words): the plain version it is held against on the
+    card is held against the Pallas kernel at each."""
     union = compile_patterns(pats)
     tp = nfa.pack_program(nfa.augment(union), device="cpu")
+    assert tp.n_states == states
     jdp = jnfa.pack_program(jnfa.augment(jax_compile(pats)), dtype=jnp.int8)
     live, acc = union.n_states, union.n_states + 1
     L = 48
@@ -109,8 +120,10 @@ def test_chunk_plain_equals_pallas_chained():
                      100, 130, 144], np.int32)
     B, n_chunks = len(lens), 3
     rows, _ = seeded_rows(11, B, n_chunks * L)
-    rows[5, 2 * L - 6:2 * L] = np.frombuffer(b"panic:", np.uint8)  # ends on edge
-    rows[7, L - 3:L + 3] = np.frombuffer(b"EPIPE!", np.uint8)  # spans an edge
+    # Row 5 ends on an edge with a needle; row 7's needle spans one.
+    rows[5, 2 * L - len(edge):2 * L] = np.frombuffer(edge, np.uint8)
+    p = L - len(across) // 2
+    rows[7, p:p + len(across)] = np.frombuffer(across, np.uint8)
     v = nfa_kernels.initial_state(tp, live, B)
     jv = pallas_nfa.initial_state_kernel(jdp, live, B)
     tab = host_table(jdp)
