@@ -291,6 +291,7 @@ def k1_check(torch, nk, dp, live, acc, cls, reps: int) -> dict:
     return dict(rows=B, T=T, states=S, groups=G, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, matched=int(exp.sum()),
                 active_per_step=work["active"] / (B * G * T),
+                exc_per_step=work["exc"] / (B * G * T),
                 **step_bounds(n_bytes, S, C, B * G * T, work["active"]))
 
 
@@ -320,8 +321,8 @@ def k4_check(torch, nk, dp, live, acc, cls, reps: int,
     res = dict(rows=B, T=T, states=S, groups=G, max_abs_err=err,
                k1_mismatches=int((got != k1).sum()), ms=ms, k1_ms=k1_ms,
                matched=int(got.sum()), active_per_step=work["active"]
-               / (B * G * T), **step_bounds(n_bytes, S, C, B * G * T,
-                                           work["active"]))
+               / (B * G * T), exc_per_step=work["exc"] / (B * G * T),
+               **step_bounds(n_bytes, S, C, B * G * T, work["active"]))
     if time_plain:
         res["plain_ms"] = cuda_ms(torch, lambda: (
             nk.match_cls_grouped_fused_plain(dp, live, acc, cls)), 1)

@@ -1,4 +1,5 @@
-"""Time the NFA kernels at program widths off the main path.
+"""Time the NFA kernels at program widths off the main path, and K1 and
+K4 on the main path's shapes.
 
 The register kernels are built for 4, 8, 16 and 32 state words (S = 128,
 256, 512, 1024); a program of another width up to 32 words runs padded
@@ -9,21 +10,33 @@ lines, and of 8 lines (the size of the long-line batches the CLI
 hands it; rows without the needle). Then K2 runs the 32-pattern union
 of ``chip_smoke.PATTERNS`` (400 states, run at 512) on one mid-line
 4096-byte chunk of 8 and of 1024 lines, printable and random bytes,
-needles in every third row, held against its plain version:
+needles in every third row, held against its plain version. Then K1
+and K4, each held equal to the other, on the batches of their main
+paths: the CLI's 16384 x 131 (FakeCluster lines, 1% with a
+``chip_smoke`` needle), ``chip_smoke``'s w128 (131072 x 131) and w4096
+(4096 x 4099) mixes at the 32 patterns, and at 1024 patterns the
+131072 x 131 batch and the 256-byte bucket (2048 x 259) of
+``chip_smoke.k1024_rows``; K3 alone (``cluster_gate`` then
+``launch_gated``) on 8192 x 131 of those rows under a seeded 5% gate,
+as a control. These rows give each kernel's device time alone
+(torch.profiler), and K1's and K4's wrapper time by CUDA events beside
+it (``wrapper_ms``). Last, what ptxas reported for each kernel
+(registers, spills):
 
-    python3 klogs_tpu_torch/ops/bench_widths.py [--tree DIR] [--label L]
+    python3 klogs_tpu_torch/ops/bench_widths.py [--tree DIR] [--label L] [--main]
 
 ``--tree`` is the root of the checkout whose ``klogs_tpu_torch`` is
 timed (default: the one holding this file). Two trees are compared on
 one card by running the script once per tree, in turns (``--tree
 dist/prev`` for an unpacked ``git archive`` of the parent). It needs a
 CUDA device and nvcc, and prints one JSON line per (kernel, width,
-lines).
+lines) or shape. ``--main`` runs the main-path rows only.
 """
 
 import argparse
 import json
 import os
+import re
 import sys
 
 SEED = 20261016
@@ -52,6 +65,24 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(torch, fn, reps: int) -> float:
+    """Mean device ms a run of ``fn`` spends in the kernels of
+    ``ops/csrc/nfa_kernels.cu`` (named in an anonymous namespace there),
+    by torch.profiler: the kernel alone, without the wrapper's own
+    tensor ops and launch gaps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if "anonymous namespace" in e.key)
+    return us / 1e3 / reps
+
+
 def rows(np, rng, B: int, width: int, needle: bytes):
     """Printable random rows of full width, the needle in every 64th."""
     r = rng.integers(32, 127, size=(B, width), dtype=np.uint8)
@@ -65,6 +96,8 @@ def main(argv=None) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(here)))
     ap.add_argument("--label", default="")
+    ap.add_argument("--main", action="store_true",
+                    help="only K1 and K4 on the main path's batches (and K3)")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import numpy as np
@@ -80,7 +113,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
     label = args.label or os.path.abspath(args.tree)
-    for S in WIDTHS:
+    for S in () if args.main else WIDTHS:
         pats = patterns_for(S)
         needle = pats[0].encode()
         dp, live, acc = nfa.compile_grouped(pats, device=dev)
@@ -108,7 +141,19 @@ def main(argv=None) -> int:
                               "T": c.shape[1], "ms": ms,
                               "us_per_step": ms * 1e3 / c.shape[1]}),
                   flush=True)
-    k2_bench32(np, torch, compile_patterns, nfa, nk, dev, label)
+    if not args.main:
+        k2_bench32(np, torch, compile_patterns, nfa, nk, dev, label)
+    main_path_bench(np, torch, nfa, nk, dev, label)
+    from klogs_tpu_torch.ops import _build
+
+    for m in re.finditer(r"entry function '([^']+)'.*?(\d+) bytes spill "
+                         r"stores, (\d+) bytes spill loads.*?Used (\d+) "
+                         r"registers", _build.build_logs.get("nfa_kernels", ""),
+                         re.S):
+        print(json.dumps({"tree": label, "ptxas": m.group(1),
+                          "spill_stores": int(m.group(2)),
+                          "spill_loads": int(m.group(3)),
+                          "registers": int(m.group(4))}), flush=True)
     return 0
 
 
@@ -140,6 +185,96 @@ def k2_bench32(np, torch, compile_patterns, nfa, nk, dev, label: str) -> None:
                                         and torch.equal(m, mp)),
                           "ms": ms, "us_per_step": ms * 1e3 / cls.shape[1]}),
               flush=True)
+
+
+def main_path_rows(np, synthetic_line, B: int, seed: int):
+    """[B, 128] FakeCluster rows, 1% with a chip_smoke needle."""
+    import chip_smoke
+
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((B, 128), dtype=np.uint8)
+    lens = np.zeros(B, dtype=np.int32)
+    for i in range(B):
+        ln = synthetic_line(f"pod-{i % 256:04d}", "c0", i,
+                            chip_smoke.CLOCK + i).rstrip(b"\n")
+        if i % 100 == 0:
+            nd = chip_smoke.NEEDLES[(i // 100) % len(chip_smoke.NEEDLES)]
+            p = int(rng.integers(0, 40))
+            ln = ln[:p] + nd + ln[p:]
+        ln = ln[:128]
+        rows[i, :len(ln)] = np.frombuffer(ln, dtype=np.uint8)
+        lens[i] = len(ln)
+    return rows, lens
+
+
+def w128_rows(np, synthetic_line, rng, B: int):
+    """chip_smoke's w128 mix: half FakeCluster lines, half random bytes
+    with planted needles."""
+    import chip_smoke
+
+    rows, lens = chip_smoke.rows_with_needles(np, rng, B, 128, 0,
+                                              printable=False)
+    for i in range(B // 2):
+        ln = synthetic_line(f"pod-{i % 256:04d}", f"c{i % 3}", i,
+                            chip_smoke.CLOCK + i).rstrip(b"\n")
+        rows[i, :len(ln)] = np.frombuffer(ln, dtype=np.uint8)
+        lens[i] = len(ln)
+    return rows, lens
+
+
+def main_path_bench(np, torch, nfa, nk, dev, label: str) -> None:
+    """K1 and K4 timed one after the other on each main-path batch, each
+    held equal to the other; then K3 alone, the control."""
+    import chip_smoke
+    from klogs_tpu_torch.cluster.fake import synthetic_line
+    from klogs_tpu_torch.ops.bits import pack_bits
+
+    os.environ.setdefault("KLOGS_MAX_PATTERN_POSITIONS", "65536")
+    rng = np.random.default_rng(SEED)
+    p32 = nfa.compile_grouped(chip_smoke.PATTERNS, device=dev)
+    p1024 = nfa.compile_grouped(chip_smoke.make_patterns(1024), device=dev)
+    cases = (
+        ("cli", p32, main_path_rows(np, synthetic_line, 16384, SEED), 200),
+        ("w128", p32, w128_rows(np, synthetic_line, rng, 131072), 50),
+        ("w4096", p32, chip_smoke.rows_with_needles(np, rng, 4096, 4096, 2049,
+                                                    printable=False), 10),
+        ("k1024", p1024, chip_smoke.k1024_rows(np, synthetic_line, 131072, 128,
+                                               SEED + 4), 5),
+        ("k1024_b256", p1024, chip_smoke.k1024_rows(np, synthetic_line, 2048,
+                                                    256, SEED + 5), 20),
+    )
+    for name, (dp, live, acc), (r, lens), reps in cases:
+        cls = nfa.classify_chunk(dp, torch.from_numpy(r).to(dev),
+                                 torch.from_numpy(lens).to(dev), True, True)
+
+        def k1():
+            return nk.match_cls_grouped(dp, live, acc, cls)
+
+        def k4():
+            return nk.match_cls_grouped_fused(dp, live, acc, cls)
+
+        print(json.dumps({"tree": label, "case": name,
+                          "rows": cls.shape[0], "T": cls.shape[1],
+                          "groups": dp.follow.shape[0],
+                          "equal": bool(torch.equal(k1(), k4())),
+                          "matched": int(k1().sum()),
+                          nk.GROUPED: kernel_ms(torch, k1, reps),
+                          nk.FUSED: kernel_ms(torch, k4, reps),
+                          "wrapper_ms": {nk.GROUPED: cuda_ms(torch, k1, reps),
+                                         nk.FUSED: cuda_ms(torch, k4, reps)}}),
+              flush=True)
+    dp, live, acc = p1024
+    r, lens = chip_smoke.k1024_rows(np, synthetic_line, 8192, 128, SEED + 6)
+    cls = nfa.classify_chunk(dp, torch.from_numpy(r).to(dev),
+                             torch.from_numpy(lens).to(dev), True, True)
+    G = dp.follow.shape[0]
+    words = pack_bits(torch.from_numpy(rng.random((8192, G)) < 0.05).to(dev))
+    cls_p, gate_p, n_cand, _, _ = nk.cluster_gate(dp, cls, words)
+    ms = kernel_ms(torch, lambda: nk.launch_gated(dp, live, acc, cls_p, gate_p,
+                                                  n_cand), 20)
+    print(json.dumps({"tree": label, "case": "k1024_gated_5pct",
+                      "rows": cls.shape[0], "T": cls.shape[1], "groups": G,
+                      nk.GATED: ms}), flush=True)
 
 
 if __name__ == "__main__":

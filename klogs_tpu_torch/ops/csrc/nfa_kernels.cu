@@ -1,27 +1,75 @@
 // Batch NFA scan kernels for Hopper (sm_90a), bound to Python with ctypes.
 //
-// Both kernels run the augmented Glushkov step of ops/nfa.py over
-// host- or device-classified class ids:
+// The kernels run the augmented Glushkov step of ops/nfa.py over
+// device-classified class ids:
 //
 //     v' = reach(v) & mask[cls[t]],   reach(v) = OR of follow[s] over s in v
 //
 // with a line's state set v held as a bitset of S/32 words (bit b of
 // word w is state 32w+b).
 //
-// grouped_nfa_kernel replaces klogs_tpu/ops/pallas_nfa.py:_grouped_kernel
-// / _grouped_kernel_body (the ungated pallas_call in _launch_grouped):
-// G automata of S states over one shared classifier, v starting at
-// {live} in every group, the verdict being row `acc` ORed over groups.
-// On the TPU the group axis was a sequential grid axis whose output
-// block carried that OR; blocks share nothing here, so the group loop
-// sits inside the block and the block ORs `acc` itself before writing
-// one byte per line.
+// K1 and K4 compute one function over the same bytes, G automata of S
+// states over one shared classifier, v starting at {live} in every
+// group, the verdict being row `acc` ORed over groups:
 //
-// grouped_nfa_gated_kernel (the GATED instantiations of the same
-// template) replaces pallas_nfa.py:_grouped_kernel_gated, the
-// scalar-prefetch pallas_call of _launch_grouped's gated tail: it runs
-// K1's body only where a per-(line, group) gate bit says a group can
-// match, computing
+//     out[b] = OR over g of acc_g(b)
+//
+// K1 (grouped_shift_kernel<W, true>) replaces
+// klogs_tpu/ops/pallas_nfa.py:200 _grouped_kernel (the ungated
+// pallas_call of _launch_grouped), whose group axis was a sequential
+// grid axis whose output block carried that OR. K4
+// (grouped_shift_kernel<W, false>) replaces pallas_nfa.py:334
+// _grouped_kernel_fused (the fused pallas_call), which put all G groups
+// in one grid cell, one one-hot per step feeding one stacked [G*S, C]
+// mask product: a TPU layout for the matrix unit. Both are one thread
+// per (line, group) pair here, the pairs of a block being NL lines x GC
+// groups (a warp is 32 lines of one group) whose tables sit in shared
+// memory together. They differ in what happens when G > GC: K1's block
+// walks the chunks of GC groups in turn (its chain: ceil(G / GC) x T
+// steps) and writes one byte per line; K4 puts the chunks on grid y and
+// ORs into a zeroed word per line with atomicOr. Blocks are a warp of
+// lines per group, more only where every SM still gets BLOCKS_PER_SM
+// blocks.
+//
+// What bounds them on an H100. The step v' = reach(v) & mask[c] is a
+// chain of T dependent updates per pair; a Glushkov state set holds a
+// handful of states, so the bytes (a [B, T] int16 class array) and the
+// nonzero terms are tiny, and a launch lasts as long as the instructions
+// of its steps take to dispatch (many pairs an SM) or the latency of one
+// chain (few). The step the port ran before walked every set bit of v,
+// the always-set `live` included, each a dependent 16-byte shared load
+// of a follow row, and its warp ran the union of 32 lines' loops. Here
+// the Glushkov numbering does that work in registers: a position is
+// mostly followed by the next one, so
+//
+//     reach(v) = shl1(v & SH) | (v & SELF) | (live in v ? RL : 0)
+//                | OR of follow[s] over s in v & EX
+//
+// exactly, with four [W]-word constants per group built by the wrapper
+// from the padded follow table: SH (s+1 follows s), SELF (s follows s),
+// RL (the row of live) and EX (the "exception" states, whose rows hold
+// any other edge; live excluded). shl1 is a one-bit funnel shift across
+// the W words. The step is then a few register operations a word; a
+// follow row is read only for a set exception bit (4-6% of pair-steps
+// on FakeCluster lines at the 32 bench patterns, 0.1-0.2% at 1024).
+// live's bit is picked by a select tree and smeared to a word mask. The
+// mask row m depends only on the class id, so step t+1's row is loaded
+// during step t: no load is on the chain. A thread loads its line's
+// class ids into registers ID_AHEAD steps ahead (the GC threads of a
+// line share its L1 lines), each turned into the word offset of its
+// mask row (an id outside [0, C) reads a zero row, which kills every
+// state, as the one-hot product of the JAX kernels does), so the step
+// loop has neither a device-memory read on its chain nor a barrier. (A double-buffered shared tile of ids, one
+// barrier a tile, ran 1.4x slower on a 131072 x 131 batch: PERF.md.)
+// The constants live in registers up to W = 8 (the main path's groups
+// are 128 states, W = 4) and are read as warp broadcasts from shared
+// memory past that.
+//
+// grouped_nfa_gated_kernel (K3, the GATED instantiations of the template
+// that K1 used before the shift step) replaces
+// pallas_nfa.py:_grouped_kernel_gated, the scalar-prefetch pallas_call of
+// _launch_grouped's gated tail: it scans a group only where a
+// per-(line, group) gate bit says it can match, computing
 //
 //     out[b] = OR over g of (gate[b, g] AND acc_g(b))
 //
@@ -32,47 +80,14 @@
 // it writes zeros and exits (the TPU's dead tiles), a live block skips
 // group g when no line of its 128 has g's bit (__syncthreads_or: the
 // (tile, group) skip), and inside a live group a warp whose lines all
-// lack the bit skips the steps (divergent threads simply idle). What
-// bounds it is what bounds K1, paid only on live (block, group) cells:
-// the dependent step chain of the lines in those cells.
-//
-// grouped_nfa_fused_kernel replaces pallas_nfa.py:334 _grouped_kernel_fused
-// (the fused pallas_call of _launch_grouped). It computes K1's function,
-// out[b] = OR over g of acc_g(b), over the same bytes, so its bounds are
-// K1's. On the TPU the fusion put all G groups in one grid cell: one
-// one-hot per step shared by every group and one stacked [G*S, C] mask
-// product, both there to feed the matrix unit. What it computes is kept
-// here, not that layout: every group advances at each step off one class
-// read. K1's block walks its groups one after another, so its chain is
-// G x T steps, and a launch of few lines (a wide bucket at G = 156)
-// leaves most SMs idle for all of them. Here the groups run side by
-// side: a block holds NL lines x GC groups, one thread per (line, group)
-// pair with its own register state, the class tile of its lines is
-// staged once per TT steps and read by every group's threads, and the GC
-// groups' tables sit in shared memory together, so a block's chain is T
-// steps. The groups are cut into chunks of GC (as many as shared memory
-// holds, at most FUSED_THREADS / 32) along gridDim.y. Blocks run in no
-// order, so a block ORs its lines' verdicts across its groups in shared
-// memory, then into a zeroed word per line with atomicOr. Programs wider
-// than 32 words run grouped_nfa_fused_wide: a warp per (line, group)
-// pair, a line's groups on neighbouring warps.
-//
-// What bounds K1, K3 and K4 on an H100: the step is a chain of T
-// dependent updates per line, each an OR of follow rows chosen by the
-// set bits of v. The TPU kernels spent two dense int8 matmuls per step
-// on it; a Glushkov state set holds a handful of states, so here each
-// step costs one 16-byte shared-memory row load per set bit plus one
-// mask row -- shared-memory latency along the chain, not bytes (a
-// [B, T] int16 class array is read once per group) and not dense
-// arithmetic. The design keeps the chain on chip: the state lives in
-// registers (one thread per line, W = S/32 words, W one of 4, 8, 16,
-// 32: a program of another width up to 32 words runs padded with dead
-// states to the next of them), the follow and mask bit tables of the
-// current group sit in shared memory, and class ids are staged TT steps
-// at a time in a padded shared tile so the global reads are row
-// segments and the per-step reads hit distinct banks. These batches
-// are wide (thousands of short lines), so a thread per line fills the
-// card.
+// lack the bit skips the steps (divergent threads simply idle). A block
+// walks its groups one after another, one thread per line: the state in
+// registers (W = S/32 words, W one of 4, 8, 16, 32: a program of another
+// width up to 32 words runs padded with dead states to the next of them),
+// the current group's follow and mask bit tables in shared memory, class
+// ids staged TT steps at a time in a padded shared tile. Each step ORs
+// one follow row (a 16-byte shared load) per set bit. What bounds it is
+// that chain, G x T steps of the lines of the live (block, group) cells.
 //
 // chunk_nfa_kernel (K2) replaces pallas_nfa.py:50 _kernel (the
 // pallas_call in _launch_chunk): the same step over the single augmented
@@ -121,10 +136,9 @@
 
 namespace {
 
-constexpr int TT = 32;            // class-id steps staged per shared tile
-constexpr int GROUPED_LINES = 128;  // lines (threads) per block, grouped
+constexpr int TT = 32;            // class-id steps staged per shared tile, K3
+constexpr int GROUPED_LINES = 128;  // lines (threads) per block, K3
 constexpr int CHUNK_WARPS = 8;      // lines (a warp each) per block, chunk
-constexpr int FUSED_THREADS = 256;  // threads per block, fused: lines x groups
 constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may use
 
 // Stage cls[line0 .. line0+nl) x [t0, t0+TT) into tile[nl][TT+1] as
@@ -210,17 +224,17 @@ __device__ __forceinline__ void copy_rows(uint32_t* dst,
   for (int k = threadIdx.x; k < n; k += nthreads) d4[k] = s4[k];
 }
 
-// Shared-memory layout of the register kernels: follow [S][W], mask
-// [C][W], then the class tile [NL][TT+1].
+// Shared-memory layout of K3: follow [S][W], mask [C][W], then the
+// class tile [NL][TT+1].
 template <int W, int NL>
 constexpr size_t reg_smem_words(int C) {
   return (size_t)32 * W * W + (size_t)C * W + (size_t)NL * (TT + 1);
 }
 
-// The grouped scan (K1) and, with GATED, the gated one (K3). gate is
+// The gated scan (K3), instantiated with GATED only: K3 is kept as it
+// was while K1 moved to the shift step (GATED false was K1). gate is
 // [B, GW] words (bit g % 32 of word g / 32 = group g may match line b),
-// and n_cand points at the number of leading lines with any bit set;
-// both are ignored when !GATED.
+// and n_cand points at the number of leading lines with any bit set.
 template <int W, bool GATED>
 __global__ void __launch_bounds__(GROUPED_LINES)
     grouped_nfa_kernel(const int16_t* __restrict__ cls, int B, int T,
@@ -271,62 +285,249 @@ __global__ void __launch_bounds__(GROUPED_LINES)
   if (line < B) out[line] = matched ? 1 : 0;
 }
 
-// Shared-memory layout of the fused kernel: follow [GC][S][W], mask
-// [GC][C][W], the class tile [NL][TT+1], then one hit word per line.
+// ---- K1 and K4: the shift-and-exceptions step ----------------------
+// (see the note at the top)
+
+constexpr int ID_AHEAD = 4;  // steps of class ids a thread loads ahead
+// Blocks each SM should get before a block takes more than a warp of
+// lines per group (fewer blocks copy the tables fewer times).
+constexpr int BLOCKS_PER_SM = 8;
+
+// Threads per block of the shift kernels (lines x groups): the register
+// bound is 128 a thread at 512, 255 at 256.
 template <int W>
-size_t fused_smem_bytes(int C, int NL, int GC) {
-  return ((size_t)GC * (32 * W + C) * W + (size_t)NL * (TT + 2)) * 4;
+__host__ __device__ constexpr int shift_threads() {
+  return W <= 8 ? 512 : 256;
 }
 
-// K4: NL lines x GC groups per block, thread (l, g) = threadIdx.x
-// (l + NL * g), so a warp is 32 lines of one group and reads the class
-// tile as K1 does. Block (x, y) takes lines [x * NL, x * NL + NL) and
-// groups [y * GC, y * GC + GC); the last chunk may hold fewer groups,
-// and its surplus threads only join the barriers. `out` is zeroed by
-// the caller; a block sets the word of each line one of its groups
-// accepts.
+// Words per group of the shift kernels' shared tables: follow [S][W],
+// mask [C+1][W] (row C all zero: the row an id outside [0, C) reads,
+// which kills every state), then the step's constants [W][4].
 template <int W>
-__global__ void __launch_bounds__(FUSED_THREADS)
-    grouped_nfa_fused_kernel(const int16_t* __restrict__ cls, int B, int T,
-                             const uint32_t* __restrict__ follow,
-                             const uint32_t* __restrict__ mask, int G, int C,
-                             int live, int acc, int NL, int GC,
-                             uint32_t* __restrict__ out) {
+__host__ __device__ constexpr size_t shift_group_words(int C) {
+  return (size_t)32 * W * W + (size_t)(C + 1) * W + 4 * W;
+}
+
+// One group's constants, word j = (SH, SELF, RL, EX): in registers up
+// to 8 words, else read from shared memory at each use (a warp is one
+// group, so each read is a broadcast).
+template <int W, bool REG = (W <= 8)>
+struct ShiftConsts {
+  uint4 k[W];
+  __device__ __forceinline__ explicit ShiftConsts(const uint4* p) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) k[j] = p[j];
+  }
+  __device__ __forceinline__ uint4 operator[](int j) const { return k[j]; }
+};
+
+template <int W>
+struct ShiftConsts<W, false> {
+  const uint4* p;
+  __device__ __forceinline__ explicit ShiftConsts(const uint4* q) : p(q) {}
+  __device__ __forceinline__ uint4 operator[](int j) const { return p[j]; }
+};
+
+template <int W>
+__device__ __forceinline__ void load_row(uint32_t (&r)[W],
+                                         const uint32_t* p) {
+  const uint4* p4 = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int q = 0; q < W / 4; ++q) {
+    const uint4 x = p4[q];
+    r[4 * q] = x.x;
+    r[4 * q + 1] = x.y;
+    r[4 * q + 2] = x.z;
+    r[4 * q + 3] = x.w;
+  }
+}
+
+// Word lw of v, by a select tree (lw is the same at every step, so its
+// bit tests leave the loop): log2(W) selects on the step's chain.
+template <int W>
+__device__ __forceinline__ uint32_t word_at(const uint32_t (&v)[W], int lw) {
+  uint32_t t[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) t[j] = v[j];
+#pragma unroll
+  for (int h = 1; h < W; h <<= 1)
+#pragma unroll
+    for (int j = 0; j + h < W; j += 2 * h) t[j] = (lw & h) ? t[j + h] : t[j];
+  return t[0];
+}
+
+// One step, v' = reach(v) & m, with reach(v) split exactly:
+//
+//   shl1(v & SH) | (v & SELF) | (live in v ? RL : 0) | OR of follow[s], s in v & EX
+//
+// shl1 carries bit 31 of word j into bit 0 of word j+1. The first three
+// terms are register arithmetic; f_g (the group's follow table [S][W]
+// in shared memory) is read only for set exception bits, and the whole
+// row is ORed (reach is a union, so rows that repeat a shift or self
+// edge are exact). live is bit lsh of word lw; m is the class's mask
+// row, loaded before the step (it depends on the class id only).
+template <int W, bool REG>
+__device__ __forceinline__ void shift_step(uint32_t (&v)[W],
+                                           const ShiftConsts<W, REG>& k,
+                                           int lw, int lsh,
+                                           const uint32_t* f_g,
+                                           const uint32_t (&m)[W]) {
+  const uint32_t keep =
+      (uint32_t)((int)(word_at<W>(v, lw) << (31 - lsh)) >> 31);
+  uint32_t r[W], x = 0u, prev = 0u;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    const uint4 c = k[j];
+    const uint32_t a = v[j] & c.x;
+    r[j] = __funnelshift_l(prev, a, 1) | (v[j] & c.y);
+    x |= v[j] & c.w;
+    prev = a;
+  }
+  if (x) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      uint32_t bits = v[w] & k[w].w;
+      while (bits) {
+        const int b = __ffs(bits) - 1;
+        bits &= bits - 1u;
+        uint32_t row[W];
+        load_row<W>(row, f_g + (size_t)(w * 32 + b) * W);
+#pragma unroll
+        for (int j = 0; j < W; ++j) r[j] |= row[j];
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < W; ++j) v[j] = (r[j] | (k[j].z & keep)) & m[j];
+}
+
+// Copy groups [g0, g0 + ng) into shared memory, gw words each: follow
+// rows, mask rows, the zero row, constants.
+template <int W>
+__device__ __forceinline__ void stage_groups(
+    uint32_t* dst, const uint32_t* __restrict__ follow,
+    const uint32_t* __restrict__ mask, const uint32_t* __restrict__ consts,
+    int g0, int ng, int C) {
   constexpr int S = 32 * W;
+  const int fq = S * W / 4, mq = C * W / 4, zq = W / 4;  // in uint4
+  const int per = fq + mq + zq + W;
+  const uint4* f4 = reinterpret_cast<const uint4*>(follow);
+  const uint4* m4 = reinterpret_cast<const uint4*>(mask);
+  const uint4* k4 = reinterpret_cast<const uint4*>(consts);
+  uint4* d4 = reinterpret_cast<uint4*>(dst);
+  for (int e = threadIdx.x; e < ng * per; e += blockDim.x) {
+    const int gi = e / per, q = e % per, g = g0 + gi;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (q < fq)
+      x = f4[(size_t)g * fq + q];
+    else if (q < fq + mq)
+      x = m4[(size_t)g * mq + q - fq];
+    else if (q >= fq + mq + zq)
+      x = k4[(size_t)g * W + q - fq - mq - zq];
+    d4[e] = x;
+  }
+}
+
+// Steps [t0, t0 + ID_AHEAD) of one line's class ids (-1 past T), held
+// in registers ID_AHEAD steps before they are stepped.
+__device__ __forceinline__ void fetch_ids(int (&ids)[ID_AHEAD],
+                                          const int16_t* __restrict__ row,
+                                          int t0, int T) {
+#pragma unroll
+  for (int i = 0; i < ID_AHEAD; ++i)
+    ids[i] = t0 + i < T ? row[t0 + i] : -1;
+}
+
+// The word offset of class id c's mask row: row C (all zero) for an id
+// outside [0, C).
+template <int W>
+__device__ __forceinline__ int row_of(int c, int C) {
+  return (int)min((unsigned)c, (unsigned)C) * W;
+}
+
+// K1 (SERIAL) and K4. Thread (l, g) = threadIdx.x (l + NL * g) steps
+// line blockIdx.x * NL + l in group g of a chunk of GC groups, so a warp
+// is 32 lines of one group. K1's block walks every chunk in turn and
+// writes one byte per line; K4's block takes chunk blockIdx.y and ORs
+// into the caller's zeroed word per line. The follow table holds, after
+// its [G][S][W] words, the step's constants [G][W][4]. A chunk's last
+// group may be short, and its surplus threads only stage and join the
+// barriers. A thread reads its own line's class ids ID_AHEAD steps ahead
+// (the GC threads of a line hit one L1 line), so the step loop holds
+// neither a device-memory read on its chain nor a barrier: a chunk costs
+// two barriers, around the copy of its tables.
+template <int W, bool SERIAL>
+__global__ void __launch_bounds__(shift_threads<W>())
+    grouped_shift_kernel(const int16_t* __restrict__ cls, int B, int T,
+                         const uint32_t* __restrict__ follow,
+                         const uint32_t* __restrict__ mask, int G, int C,
+                         int live, int acc, int NL, int GC,
+                         void* __restrict__ out) {
+  constexpr int S = 32 * W;
+  const size_t gw = shift_group_words<W>(C);
   extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* f_s = smem;
-  uint32_t* m_s = f_s + (size_t)GC * S * W;
-  int* tile = reinterpret_cast<int*>(m_s + (size_t)GC * C * W);
-  uint32_t* hit = reinterpret_cast<uint32_t*>(tile + NL * (TT + 1));
-  const int nthreads = NL * GC;
-  const int g0 = blockIdx.y * GC, ng = min(GC, G - g0);
-  copy_rows<W>(f_s, follow + (size_t)g0 * S * W, ng * S, nthreads);
-  copy_rows<W>(m_s, mask + (size_t)g0 * C * W, ng * C, nthreads);
-  if (threadIdx.x < NL) hit[threadIdx.x] = 0u;
+  uint32_t* hit = smem + GC * gw;
+  const uint32_t* consts = follow + (size_t)G * S * W;
   const int l = threadIdx.x % NL, g = threadIdx.x / NL;
   const int line0 = blockIdx.x * NL;
-  const bool mine = g < ng;  // warp-uniform: NL is a multiple of 32
-  const uint32_t* f_g = f_s + (size_t)g * S * W;
-  const uint32_t* m_g = m_s + (size_t)g * C * W;
-  const int* my = tile + l * (TT + 1);
-  uint32_t v[W];
-#pragma unroll
-  for (int j = 0; j < W; ++j)
-    v[j] = (j == (live >> 5)) ? (1u << (live & 31)) : 0u;
-  for (int t0 = 0; t0 < T; t0 += TT) {
-    __syncthreads();  // tile readers are done (and tables are written)
-    load_cls_tile(cls, B, T, line0, t0, tile, NL, nthreads);
+  // A line past B steps row B - 1 and writes nothing.
+  const int16_t* row = cls + (size_t)min(line0 + l, B - 1) * T;
+  const uint32_t* f_g = smem + g * gw;
+  const uint32_t* m_g = f_g + S * W;
+  const uint4* c_g = reinterpret_cast<const uint4*>(m_g + (C + 1) * W);
+  const int lw = live >> 5, lsh = live & 31;
+  if (threadIdx.x < NL) hit[threadIdx.x] = 0u;
+  const int c_begin = SERIAL ? 0 : (int)blockIdx.y;
+  const int c_end = SERIAL ? (G + GC - 1) / GC : c_begin + 1;
+  bool matched = false;
+  for (int ch = c_begin; ch < c_end; ++ch) {
+    const int g0 = ch * GC, ng = min(GC, G - g0);
+    __syncthreads();  // the last chunk's steps are done with the tables
+    stage_groups<W>(smem, follow, mask, consts, g0, ng, C);
     __syncthreads();
-    const int n = min(TT, T - t0);
-    if (mine)
-      for (int tt = 0; tt < n; ++tt) nfa_step<W>(v, f_g, m_g, C, my[tt]);
+    if (g >= ng) continue;  // warp-uniform: NL is a multiple of 32
+    const ShiftConsts<W> k(c_g);
+    uint32_t v[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) v[j] = j == lw ? 1u << lsh : 0u;
+    // cur: the row offsets of steps [t0, t0 + ID_AHEAD); nxt: the ids
+    // of the ID_AHEAD steps after, in flight. Step i's mask row m is
+    // loaded during step i - 1: no load is on the step's chain.
+    int cur[ID_AHEAD], nxt[ID_AHEAD];
+    fetch_ids(nxt, row, 0, T);
+#pragma unroll
+    for (int i = 0; i < ID_AHEAD; ++i) cur[i] = row_of<W>(nxt[i], C);
+    fetch_ids(nxt, row, ID_AHEAD, T);
+    uint32_t m[W];
+    load_row<W>(m, m_g + cur[0]);
+    for (int t0 = 0; t0 < T; t0 += ID_AHEAD) {
+      const int n = min(ID_AHEAD, T - t0);
+#pragma unroll
+      for (int i = 0; i < ID_AHEAD; ++i) {
+        if (i < n) {
+          uint32_t mn[W];
+          load_row<W>(mn, m_g + (i + 1 < ID_AHEAD ? cur[i + 1]
+                                                  : row_of<W>(nxt[0], C)));
+          shift_step<W>(v, k, lw, lsh, f_g, m);
+#pragma unroll
+          for (int j = 0; j < W; ++j) m[j] = mn[j];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < ID_AHEAD; ++i) cur[i] = row_of<W>(nxt[i], C);
+      fetch_ids(nxt, row, t0 + 2 * ID_AHEAD, T);
+    }
+    matched = matched || test_bit<W>(v, acc);
   }
-  __syncthreads();  // hit is zeroed even when the loop ran no barrier
-  if (mine && test_bit<W>(v, acc)) atomicOr(&hit[l], 1u);
+  if (matched) hit[l] = 1u;
   __syncthreads();
   const int line = line0 + threadIdx.x;
-  if (threadIdx.x < NL && line < B && hit[threadIdx.x])
-    atomicOr(out + line, 1u);
+  if (threadIdx.x < NL && line < B) {
+    if (SERIAL)
+      static_cast<uint8_t*>(out)[line] = hit[threadIdx.x] ? 1 : 0;
+    else if (hit[threadIdx.x])
+      atomicOr(static_cast<uint32_t*>(out) + line, 1u);
+  }
 }
 
 // Four int8 lanes of a 32-bit word -> a 4-bit "nonzero" nibble.
@@ -711,20 +912,15 @@ cudaError_t launch_grouped(const int16_t* cls, int B, int T,
   return cudaGetLastError();
 }
 
-// K1 (GATED false: gate and n_cand unused) or K3 over any S.
+// Programs wider than 32 words: K1 (GATED false: gate and n_cand
+// unused) or K3.
 template <bool GATED>
-cudaError_t launch_grouped_any(const int16_t* cls, int B, int T,
-                               const uint32_t* follow, const uint32_t* mask,
-                               int G, int S, int C, int live, int acc,
-                               const uint32_t* gate, int GW, const int* n_cand,
-                               uint8_t* out, cudaStream_t st) {
-  switch (S / 32) {
-    case 4: return launch_grouped<4, GATED>(cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out, st);
-    case 8: return launch_grouped<8, GATED>(cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out, st);
-    case 16: return launch_grouped<16, GATED>(cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out, st);
-    case 32: return launch_grouped<32, GATED>(cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out, st);
-    default: break;
-  }
+cudaError_t launch_grouped_wide(const int16_t* cls, int B, int T,
+                                const uint32_t* follow, const uint32_t* mask,
+                                int G, int S, int C, int live, int acc,
+                                const uint32_t* gate, int GW,
+                                const int* n_cand, uint8_t* out,
+                                cudaStream_t st) {
   const int nw = S > 32 * 32 ? wide_warps(S) : 0;
   if (nw == 0) return cudaErrorInvalidValue;
   const size_t smem = (size_t)2 * (S / 32) * nw * 4;
@@ -735,35 +931,65 @@ cudaError_t launch_grouped_any(const int16_t* cls, int B, int T,
   return cudaGetLastError();
 }
 
-// Lines per fused block for GC groups: the rest of FUSED_THREADS, in
-// whole warps.
-int fused_lines(int gc) {
-  const int nl = FUSED_THREADS / gc / 32 * 32;
-  return nl > 32 ? nl : 32;
+// K3 over any S.
+cudaError_t launch_gated_any(const int16_t* cls, int B, int T,
+                             const uint32_t* follow, const uint32_t* mask,
+                             int G, int S, int C, int live, int acc,
+                             const uint32_t* gate, int GW, const int* n_cand,
+                             uint8_t* out, cudaStream_t st) {
+  switch (S / 32) {
+    case 4: return launch_grouped<4, true>(cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out, st);
+    case 8: return launch_grouped<8, true>(cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out, st);
+    case 16: return launch_grouped<16, true>(cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out, st);
+    case 32: return launch_grouped<32, true>(cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out, st);
+    default: break;
+  }
+  return launch_grouped_wide<true>(cls, B, T, follow, mask, G, S, C, live,
+                                   acc, gate, GW, n_cand, out, st);
 }
 
 template <int W>
-cudaError_t launch_fused(const int16_t* cls, int B, int T,
+size_t shift_smem_bytes(int C, int nl, int gc) {
+  return (gc * shift_group_words<W>(C) + nl) * 4;
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
+}
+
+// K1 (SERIAL: chunks in turn inside a block, a byte per line) or K4
+// (chunks along grid y, a zeroed word per line ORed).
+template <int W, bool SERIAL>
+cudaError_t launch_shift(const int16_t* cls, int B, int T,
                          const uint32_t* follow, const uint32_t* mask, int G,
-                         int C, int live, int acc, uint32_t* out,
+                         int C, int live, int acc, void* out,
                          cudaStream_t stream) {
-  // The most groups a block's shared memory holds, at most a warp of
-  // lines each; then as few chunks as that allows, evened out.
-  int gc = G < FUSED_THREADS / 32 ? G : FUSED_THREADS / 32;
-  while (gc > 0 &&
-         fused_smem_bytes<W>(C, fused_lines(gc), gc) > (size_t)MAX_SMEM)
-    --gc;
+  constexpr int maxt = shift_threads<W>();
+  // The most groups whose tables fit beside a warp of lines each; then
+  // as few chunks as that allows, evened out (never more groups).
+  int gc = G < maxt / 32 ? G : maxt / 32;
+  while (gc > 0 && shift_smem_bytes<W>(C, 32, gc) > (size_t)MAX_SMEM) --gc;
   if (gc == 0) return cudaErrorInvalidValue;
   const int chunks = (G + gc - 1) / gc;
-  const int even = (G + chunks - 1) / chunks;
-  if (fused_smem_bytes<W>(C, fused_lines(even), even) <= (size_t)MAX_SMEM)
-    gc = even;
-  const int nl = fused_lines(gc);
-  const size_t smem = fused_smem_bytes<W>(C, nl, gc);
-  cudaError_t e = allow_smem(grouped_nfa_fused_kernel<W>, smem);
+  gc = (G + chunks - 1) / chunks;
+  // Lines per block: a warp of each group, more only where every SM
+  // still gets BLOCKS_PER_SM blocks.
+  const long long blocks32 =
+      (long long)((B + 31) / 32) * (SERIAL ? 1 : chunks);
+  long long k = blocks32 / ((long long)sm_count() * BLOCKS_PER_SM);
+  if (k > maxt / (32 * gc)) k = maxt / (32 * gc);
+  if (k < 1) k = 1;
+  while (k > 1 && shift_smem_bytes<W>(C, 32 * (int)k, gc) > (size_t)MAX_SMEM)
+    --k;
+  const int nl = 32 * (int)k;
+  const size_t smem = shift_smem_bytes<W>(C, nl, gc);
+  cudaError_t e = allow_smem(grouped_shift_kernel<W, SERIAL>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((B + nl - 1) / nl, (G + gc - 1) / gc);
-  grouped_nfa_fused_kernel<W><<<grid, nl * gc, smem, stream>>>(
+  const dim3 grid((B + nl - 1) / nl, SERIAL ? 1 : chunks);
+  grouped_shift_kernel<W, SERIAL><<<grid, nl * gc, smem, stream>>>(
       cls, B, T, follow, mask, G, C, live, acc, nl, gc, out);
   return cudaGetLastError();
 }
@@ -793,7 +1019,10 @@ const char* klogs_error_string(int err) {
 // cls [B, T] int16 (row-major), follow [G, S, S/32] and mask [G, C, S/32]
 // bit tables, out [B] uint8. S/32 is a register width (4, 8, 16 or 32)
 // or above 32 (the wide kernel); the caller pads a program of another
-// width up to the next register width with dead states.
+// width up to the next register width with dead states. At a register
+// width the follow buffer holds, after its G * S * S/32 words, the shift
+// step's constants [G, S/32, 4] (per word: SH, SELF, RL, EX; see
+// ops/nfa_kernels.py shift_constants).
 int klogs_grouped_nfa(const int16_t* cls, int B, int T,
                       const uint32_t* follow, const uint32_t* mask, int G,
                       int S, int C, int live, int acc, uint8_t* out,
@@ -801,9 +1030,17 @@ int klogs_grouped_nfa(const int16_t* cls, int B, int T,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   if (B <= 0) return cudaSuccess;
-  return launch_grouped_any<false>(cls, B, T, follow, mask, G, S, C, live,
-                                   acc, nullptr, 0, nullptr, out,
-                                   static_cast<cudaStream_t>(stream));
+  if (G <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (S / 32) {
+    case 4: return launch_shift<4, true>(cls, B, T, follow, mask, G, C, live, acc, out, st);
+    case 8: return launch_shift<8, true>(cls, B, T, follow, mask, G, C, live, acc, out, st);
+    case 16: return launch_shift<16, true>(cls, B, T, follow, mask, G, C, live, acc, out, st);
+    case 32: return launch_shift<32, true>(cls, B, T, follow, mask, G, C, live, acc, out, st);
+    default: break;
+  }
+  return launch_grouped_wide<false>(cls, B, T, follow, mask, G, S, C, live,
+                                    acc, nullptr, 0, nullptr, out, st);
 }
 
 // As klogs_grouped_nfa, gated: gate [B, GW] uint32 words (lines with any
@@ -816,13 +1053,13 @@ int klogs_grouped_nfa_gated(const int16_t* cls, int B, int T,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   if (B <= 0) return cudaSuccess;
-  return launch_grouped_any<true>(cls, B, T, follow, mask, G, S, C, live,
-                                  acc, gate, GW, n_cand, out,
-                                  static_cast<cudaStream_t>(stream));
+  return launch_gated_any(cls, B, T, follow, mask, G, S, C, live, acc, gate,
+                          GW, n_cand, out, static_cast<cudaStream_t>(stream));
 }
 
-// K4: as klogs_grouped_nfa, with out [B] uint32 words that the caller
-// zeroed (a word is set to 1 for each matching line).
+// K4: as klogs_grouped_nfa (the same follow buffer), with out [B] uint32
+// words that the caller zeroed (a word is set to 1 for each matching
+// line).
 int klogs_grouped_nfa_fused(const int16_t* cls, int B, int T,
                             const uint32_t* follow, const uint32_t* mask,
                             int G, int S, int C, int live, int acc,
@@ -833,10 +1070,10 @@ int klogs_grouped_nfa_fused(const int16_t* cls, int B, int T,
   if (G <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (S / 32) {
-    case 4: return launch_fused<4>(cls, B, T, follow, mask, G, C, live, acc, out, st);
-    case 8: return launch_fused<8>(cls, B, T, follow, mask, G, C, live, acc, out, st);
-    case 16: return launch_fused<16>(cls, B, T, follow, mask, G, C, live, acc, out, st);
-    case 32: return launch_fused<32>(cls, B, T, follow, mask, G, C, live, acc, out, st);
+    case 4: return launch_shift<4, false>(cls, B, T, follow, mask, G, C, live, acc, out, st);
+    case 8: return launch_shift<8, false>(cls, B, T, follow, mask, G, C, live, acc, out, st);
+    case 16: return launch_shift<16, false>(cls, B, T, follow, mask, G, C, live, acc, out, st);
+    case 32: return launch_shift<32, false>(cls, B, T, follow, mask, G, C, live, acc, out, st);
     default: break;
   }
   const int nw = S > 32 * 32 ? wide_warps(S) : 0;

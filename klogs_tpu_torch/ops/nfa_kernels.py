@@ -7,7 +7,9 @@ ids laid out BEGIN, body, END, PAD latch:
 - ``match_cls_grouped`` (K1, ``grouped_nfa_kernel``, replacing
   ``_grouped_kernel``): a ``compile_grouped`` program of G automata,
   each started at ``{live}``; the verdict is state ``acc`` ORed over the
-  groups, then ``match_all``;
+  groups, then ``match_all``. K1 and K4 run the step split as
+  ``shift_constants`` describes (a shift, a self-loop mask, live's row,
+  and the rows of the few "exception" states);
 - ``match_cls_grouped_gated`` (K3, ``grouped_nfa_gated_kernel``,
   replacing ``_grouped_kernel_gated``): K1 under a per-(line, group)
   gate, ``out[b] = match_all or OR_g (gate[b, g] and acc_g(b))``; the
@@ -16,10 +18,11 @@ ids laid out BEGIN, body, END, PAD latch:
   (``cluster_gate`` orders its operands, ``launch_gated`` is the
   kernel alone);
 - ``match_cls_grouped_fused`` (K4, ``grouped_nfa_fused_kernel``,
-  replacing ``_grouped_kernel_fused``): K1's function with the groups
-  advancing side by side, one thread per (line, group) pair, instead
-  of one after another; the engine runs it under
-  ``KLOGS_TPU_FUSED_GROUPS=1`` (``ops/tune.py``);
+  replacing ``_grouped_kernel_fused``): K1's function and schedule (one
+  thread per (line, group) pair), with the chunks of groups that a
+  block's shared memory holds spread over blocks instead of walked in
+  turn; the engine runs it under ``KLOGS_TPU_FUSED_GROUPS=1``
+  (``ops/tune.py``);
 - ``match_chunk_cls`` (K2, ``chunk_nfa_kernel``, replacing ``_kernel``):
   the single augmented union automaton with the [B, S] int8 state
   carried across the chunks of long lines.
@@ -47,8 +50,8 @@ FUSED = "grouped_nfa_fused_kernel"
 
 LAUNCHES = {GROUPED: 0, GATED: 0, CHUNK: 0, FUSED: 0}
 
-# Lines per block of the register kernels (GROUPED_LINES in the CUDA
-# source): the unit the gated kernel skips, and its stats' "tile".
+# Lines per block of the gated kernel (GROUPED_LINES in the CUDA
+# source): the unit it skips, and its stats' "tile".
 GATE_TILE = 128
 
 # State words per line that the register kernels are built for; a
@@ -137,6 +140,57 @@ def _bit_tables(prog: TorchProgram):
     return tabs
 
 
+def shift_masks(follow: torch.Tensor, live: int):
+    """(SH, SELF, RL, EX), [..., S] bool each, of a [..., S, S] 0/1
+    follow table, which split reach exactly:
+
+        reach(v) = shl1(v & SH) | (v & SELF) | (live in v ? RL : 0)
+                   | OR of follow[s] over s in v & EX
+
+    SH[s]: s+1 follows s; SELF[s]: s follows s; RL: the row of
+    ``live``; EX[s]: s is not ``live`` and its row holds another edge
+    (an "exception" state)."""
+    f = follow != 0
+    S = f.shape[-1]
+    s = torch.arange(S, device=f.device)
+    self_loop = f[..., s, s]
+    shift = torch.zeros_like(self_loop)
+    shift[..., :-1] = f[..., s[:-1], s[1:]]
+    other = f.clone()
+    other[..., s, s] = False
+    other[..., s[:-1], s[1:]] = False
+    exc = other.any(dim=-1)
+    exc[..., live] = False
+    return shift, self_loop, f[..., live, :], exc
+
+
+def shift_constants(follow_bits: torch.Tensor, live: int) -> torch.Tensor:
+    """[G, Sk, W] padded follow bit words -> the [G, W, 4] int32 words
+    (SH, SELF, RL, EX of ``shift_masks``, word j of each) that K1 and K4
+    step with; bit b of word j is state 32j+b."""
+    masks = shift_masks(unpack_bits(follow_bits, follow_bits.shape[-2]), live)
+    return to_int32(torch.stack([pack_bits(m) for m in masks],
+                                dim=-1)).contiguous()
+
+
+def _shift_tables(prog: TorchProgram, live: int):
+    """K1's and K4's operands (follow, mask): at a register width the
+    follow bit table [G, Sk, Sk/32] followed, in one buffer, by
+    ``shift_constants`` [G, Sk/32, 4]; past 32 words (the wide kernels)
+    the bit tables as they are. Built once per ``live`` on the
+    program's device."""
+    follow_bits, mask_bits = _bit_tables(prog)
+    if follow_bits.shape[-1] not in REGISTER_WORDS:
+        return follow_bits, mask_bits
+    key = ("shift", live)
+    buf = prog.cache.get(key)
+    if buf is None:
+        buf = torch.cat([follow_bits.reshape(-1),
+                         shift_constants(follow_bits, live).reshape(-1)])
+        prog.cache[key] = buf
+    return buf, mask_bits
+
+
 def _cls16(prog: TorchProgram, cls: torch.Tensor) -> torch.Tensor:
     if cls.dim() != 2:
         raise ValueError(f"cls must be [B, T], got shape {tuple(cls.shape)}")
@@ -182,7 +236,7 @@ def _match_grouped(prog: TorchProgram, live: int, acc: int,
     cls = _cls16(prog, cls)
     B, T = cls.shape
     G, C, S = prog.char_mask.shape
-    follow_bits, mask_bits = _bit_tables(prog)
+    follow, mask_bits = _shift_tables(prog, live)
     lib = _library()
     stream = torch.cuda.current_stream(cls.device).cuda_stream
     if fused:
@@ -192,7 +246,7 @@ def _match_grouped(prog: TorchProgram, live: int, acc: int,
     else:
         out = torch.empty(B, dtype=torch.uint8, device=cls.device)
         entry = lib.klogs_grouped_nfa
-    err = entry(cls.data_ptr(), B, T, follow_bits.data_ptr(),
+    err = entry(cls.data_ptr(), B, T, follow.data_ptr(),
                 mask_bits.data_ptr(), G, kernel_states(S), C, live, acc,
                 out.data_ptr(), stream, cls.device.index or 0)
     _count(name)
@@ -218,8 +272,9 @@ def _group_accepts_plain(prog: TorchProgram, live: int, acc: int,
     ``acc`` after the last step — a loop over T of the boolean step on
     a [G, B, S] state. ``work``, when given, receives under "active" the
     number of state bits the steps read (summed over groups, lines and
-    steps; only over the [G, B] ``cells`` when given): the follow rows
-    the bitset kernel ORs."""
+    steps; only over the [G, B] ``cells`` when given), and under "exc"
+    those of exception states (``shift_masks``): the follow rows K1 and
+    K4 read."""
     B, T = cls.shape
     G, C, S = prog.char_mask.shape
     follow = prog.follow.float()  # [G, S, S]
@@ -227,13 +282,20 @@ def _group_accepts_plain(prog: TorchProgram, live: int, acc: int,
     v = torch.zeros((G, B, S), dtype=torch.bool, device=cls.device)
     v[:, :, live] = True
     active = torch.zeros((), dtype=torch.int64, device=cls.device)
+    exc = torch.zeros((), dtype=torch.int64, device=cls.device)
+    if work is not None:
+        ex = shift_masks(prog.follow, live)[3][:, None, :]  # [G, 1, S]
+        if cells is not None:
+            ex = ex & cells[:, :, None]
     for t in range(T):
         if work is not None:
             active += (v if cells is None else v & cells[:, :, None]).sum()
+            exc += (v & ex).sum()
         reach = torch.bmm(v.float(), follow) > 0
         v = reach & table.index_select(1, idx[:, t])
     if work is not None:
         work["active"] = work.get("active", 0) + int(active)
+        work["exc"] = work.get("exc", 0) + int(exc)
     return v[:, :, acc]
 
 

@@ -35,22 +35,79 @@ def random_cls(prog, B: int, T: int, seed: int) -> torch.Tensor:
     cls[:, -2] = prog.end_class
     cls[:, -1] = prog.pad_class
     cls[::17, T // 2] = prog.n_classes + 5
+    cls[5::23, T // 3] = -1
     return torch.from_numpy(cls.astype(np.int16))
 
 
-@pytest.mark.parametrize("patterns", [
-    PATTERNS,
-    ["a" * 200 + "b", r"x\d+y"],  # a 256-state group
-    ["q" * 600 + "z", "panic:"],  # 640 states, run padded to 1024
-    ["q" * 1100 + "z", "panic:"],  # a group wider than 1024 states
-], ids=["s128", "s256", "s640", "wide"])
-def test_grouped_kernel_equals_plain(dev, patterns):
+def text_cls(prog, B: int, width: int, needles: list, seed: int, dev):
+    """Class ids of printable rows (lengths in [0, width], a needle in
+    every other row) classified on the card, T = width + 3, with ids
+    outside [0, C) in some rows."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(32, 127, size=(B, width), dtype=np.uint8)
+    lens = rng.integers(0, width + 1, size=B).astype(np.int32)
+    for i in range(0, B, 2):
+        nd = needles[(i // 2) % len(needles)][:width]
+        if lens[i] >= len(nd):
+            p = int(rng.integers(0, lens[i] - len(nd) + 1))
+            rows[i, p:p + len(nd)] = np.frombuffer(nd, np.uint8)
+    cls = nfa.classify_chunk(prog, torch.from_numpy(rows).to(dev),
+                             torch.from_numpy(lens).to(dev), True, True)
+    cls[3::11, (width + 3) // 3] = prog.n_classes + 5
+    cls[6::13, (width + 3) // 2] = -1
+    return cls
+
+
+# An exception-heavy set (alternations, stars, classes: many states
+# with edges other than a shift or a self-loop) and a literal whose
+# states cross the word edges 31/32 and 63/64.
+EXC_PATS = [r"(a|b|c)+d", r"x.*y.*z", r"(foo|bar|baz)qux",
+            r"[0-9]+(\.[0-9]+)*e", r"(ab|cd)*ef", r"(?:FATAL|CRIT).*code=\d+",
+            r"k(e|i)+y", "disk .*full"]
+EXC_NEEDLES = [b"abcd", b"x1y2z", b"bazqux", b"1.2.3e", b"abcdef",
+               b"CRIT at code=4", b"keiy", b"disk is full"]
+EDGE_PATS = ["abcdefghijklmnopqrstuvwxyz0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ",
+             "panic:"]
+EDGE_NEEDLES = [EDGE_PATS[0].encode(), EDGE_PATS[0][:40].encode(), b"panic:"]
+# K1 and K4 cases: (patterns, needles) at W = 4, 8, 16, 32 (640 states
+# padded to 1024) and past 32 words.
+W_CASES = {
+    4: (PATTERNS, [b"panic: x", b"retry 3/5", b"FATAL a code=9",
+                   b"disk is full"]),
+    8: (["a" * 200 + "b", r"x\d+y"], [b"a" * 200 + b"b", b"x12y"]),
+    16: (["b" * 400 + "c", "panic:"], [b"b" * 400 + b"c", b"panic:"]),
+    32: (["q" * 600 + "z", "panic:"], [b"q" * 600 + b"z", b"panic:"]),
+    "wide": (["q" * 1100 + "z", "panic:"], [b"q" * 1100 + b"z", b"panic:"]),
+}
+
+
+def grouped_batches(prog, needles, dev):
+    """Random ids at B = 1, 33, 1000 (T odd: rows of int16 not 4-byte
+    aligned), then text rows at B = 33 and 1000."""
+    width = (max(len(n) for n in needles) + 39) // 2 * 2  # T odd
+    for B, T in ((1, 5), (33, 67), (1000, 131)):
+        yield random_cls(prog, B, T, B).to(dev)
+    for B in (33, 1000):
+        yield text_cls(prog, B, width, needles, B, dev)
+
+
+@pytest.mark.parametrize("patterns,needles", [
+    W_CASES[4], W_CASES[8], W_CASES[16], W_CASES[32], W_CASES["wide"],
+    (EXC_PATS, EXC_NEEDLES), (EDGE_PATS, EDGE_NEEDLES),
+], ids=["s128", "s256", "s512", "s640", "wide", "exceptions", "word_edge"])
+def test_grouped_kernel_equals_plain(dev, patterns, needles):
+    """K1 equals its plain version at each register width, past them, on
+    an exception-heavy set and across word edges, over random and text
+    class ids with ids outside [0, C)."""
     prog, live, acc = nfa.compile_grouped(patterns, device=dev)
-    for B, T in ((1, 5), (130, 67), (1000, 300)):
-        cls = random_cls(prog, B, T, B).to(dev)
+    matched = 0
+    for cls in grouped_batches(prog, needles, dev):
         got = nfa_kernels.match_cls_grouped(prog, live, acc, cls)
         exp = nfa_kernels.match_cls_grouped_plain(prog, live, acc, cls)
+        assert got.dtype == torch.bool and got.shape == (cls.shape[0],)
         assert torch.equal(got, exp)
+        matched += int(got.sum())
+    assert matched > 0
 
 
 def chunk_rows(B: int, L: int, n_chunks: int, needle: bytes, seed: int):
@@ -131,17 +188,16 @@ def test_kernels_count_launches(dev):
 # ---- K4: the fused-groups kernel -------------------------------------------
 
 
-@pytest.mark.parametrize("patterns", [
-    PATTERNS,  # W = 4
-    ["a" * 200 + "b", r"x\d+y"],  # W = 8
-    ["q" * 600 + "z", "r" * 600 + "y", "panic:"],  # 640 states run at W = 32,
-    # one group per block (shared memory), so three group chunks
-    ["q" * 1100 + "z", "panic:"],  # wider than 1024 states
-], ids=["w4", "w8", "w32", "wide"])
-def test_fused_kernel_equals_plain_and_k1(dev, patterns):
+@pytest.mark.parametrize("patterns,needles", [
+    W_CASES[4], W_CASES[8], W_CASES[16],
+    (["q" * 600 + "z", "r" * 600 + "y", "panic:"],  # 640 states run at W =
+     [b"q" * 600 + b"z", b"r" * 600 + b"y"]),  # 32, a group a block: 3 chunks
+    W_CASES["wide"], (EXC_PATS, EXC_NEEDLES), (EDGE_PATS, EDGE_NEEDLES),
+], ids=["w4", "w8", "w16", "w32", "wide", "exceptions", "word_edge"])
+def test_fused_kernel_equals_plain_and_k1(dev, patterns, needles):
     prog, live, acc = nfa.compile_grouped(patterns, device=dev)
-    for B, T in ((1, 5), (130, 67), (1000, 300)):
-        cls = random_cls(prog, B, T, B).to(dev)
+    for cls in grouped_batches(prog, needles, dev):
+        B = cls.shape[0]
         got = nfa_kernels.match_cls_grouped_fused(prog, live, acc, cls)
         exp = nfa_kernels.match_cls_grouped_fused_plain(prog, live, acc, cls)
         assert got.dtype == torch.bool and got.shape == (B,)
@@ -151,8 +207,9 @@ def test_fused_kernel_equals_plain_and_k1(dev, patterns):
 
 
 def test_fused_kernel_group_chunks_at_k1024(dev, monkeypatch):
-    """156 groups: chunks of 8 per block, the last one ragged (4), over
-    line counts that are not a multiple of a block's 32 lines; FakeCluster
+    """156 groups: 10 chunks of 16, the last one ragged (12), walked in
+    turn inside a block by K1 and spread over the grid by K4, over line
+    counts that are not a multiple of a block's 32 lines; FakeCluster
     lines with minted needles, so some lines match."""
     from chip_smoke import make_patterns, minted_needle
 

@@ -1,0 +1,191 @@
+"""The shift-and-exceptions step of K1 and K4, on the CPU.
+
+``nfa_kernels.shift_constants`` splits each group's padded follow table
+into four [W]-word constants (SH, SELF, RL, EX); the kernels step with
+
+    v' = (shl1(v & SH) | (v & SELF) | (live in v ? RL : 0)
+          | OR of follow[s] over s in v & EX) & mask[c]
+
+The constants must rebuild every row of the padded table, and a numpy
+transcription of that step (a helper of this file, word for word as
+the CUDA source runs it, not a second path of the port) must equal the
+plain version and the JAX Pallas grouped and fused kernels in interpret
+mode on the same class ids. Exact equality: verdicts are booleans."""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import chip_smoke
+from klogs_tpu.ops import nfa as jnfa
+from klogs_tpu.ops import pallas_nfa
+from klogs_tpu_torch.ops import nfa, nfa_kernels
+
+# A literal whose Glushkov positions run across bits 31 -> 32 (word 0
+# into word 1), and on into word 2.
+EDGE_PATS = ["abcdefghijklmnopqrstuvwxyz0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ",
+             "panic:"]
+# Alternations, stars and classes: many states with edges that are
+# neither a shift nor a self-loop.
+EXC_PATS = [r"(a|b|c)+d", r"x.*y.*z", r"(foo|bar|baz)qux",
+            r"[0-9]+(\.[0-9]+)*e", r"(ab|cd)*ef", r"(?:FATAL|CRIT).*code=\d+",
+            r"k(e|i)+y", "disk .*full"]
+GROUPED_PATS = ["panic:", "code=50[34]", "^FATAL", r"x[0-9]{2,}y", "a.*b.*c",
+                r"(?:err|warn)\d+", "end$"] * 3
+
+
+def words_np(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+def unpack_np(words: np.ndarray, n: int) -> np.ndarray:
+    """[..., W] uint32 words -> [..., n] bool (bit b of word j: 32j+b)."""
+    bits = np.unpackbits(np.ascontiguousarray(words).view(np.uint8), axis=-1,
+                         bitorder="little")
+    return bits[..., :n].astype(bool)
+
+
+def kernel_operands(prog, live):
+    """(follow words [G, Sk, W], constants [G, W, 4], mask words
+    [G, C, W], Sk) as the kernels receive them: the follow buffer of
+    ``_shift_tables`` cut at its G * Sk * W words."""
+    G = prog.follow.shape[0]
+    buf, mask = nfa_kernels._shift_tables(prog, live)
+    Sk = nfa_kernels.kernel_states(prog.n_states)
+    W = Sk // 32
+    buf = words_np(buf)
+    assert buf.shape == (G * Sk * W + G * W * 4,)
+    return (buf[:G * Sk * W].reshape(G, Sk, W),
+            buf[G * Sk * W:].reshape(G, W, 4), words_np(mask), Sk)
+
+
+@pytest.mark.parametrize("patterns,states", [
+    (chip_smoke.PATTERNS, 128),
+    (["a" * 200 + "b", r"x\d+y"], 256),
+    (["q" * 600 + "z", "panic:"], 1024),  # 640 states, padded to 1024
+    (EDGE_PATS, 128),
+    (EXC_PATS, 128),
+    (None, 128),  # chip_smoke.make_patterns(1024): 156 groups
+], ids=["bench32", "s256", "s640_padded", "word_edge", "exceptions", "k1024"])
+def test_constants_rebuild_padded_follow(patterns, states):
+    """shl1(SH) | SELF | RL (live's row) | the rows of EX gives back
+    every row of each group's padded follow table, and no constant bit
+    lies outside it: SH and SELF only where the edge exists, nothing
+    past the last state, EX only where a row holds another edge."""
+    if patterns is None:
+        patterns = chip_smoke.make_patterns(1024)
+    prog, live, acc = nfa.compile_grouped(patterns, device="cpu")
+    follow_w, consts, _, Sk = kernel_operands(prog, live)
+    assert Sk == states
+    G = prog.follow.shape[0]
+    pad = Sk - prog.n_states
+    ref = (F.pad(prog.follow, (0, pad, 0, pad)) != 0).numpy()  # [G, Sk, Sk]
+    assert np.array_equal(unpack_np(follow_w, Sk), ref)
+    sh, self_loop, rl, ex = (unpack_np(consts[..., k], Sk) for k in range(4))
+    s = np.arange(Sk)
+    rows = np.zeros_like(ref)
+    rows[:, s[:-1], s[1:]] = sh[:, :-1]
+    rows[:, s, s] |= self_loop
+    rows[:, live] |= rl
+    rows |= ex[:, :, None] & ref
+    assert np.array_equal(rows, ref)
+    assert not sh[:, -1].any() and not ex[:, live].any()
+    other = ref.copy()
+    other[:, s, s] = False
+    other[:, s[:-1], s[1:]] = False
+    assert np.array_equal(ex, other.any(-1) & (s != live))
+    if patterns is chip_smoke.PATTERNS or G == 156:
+        # The main path's sets: shift edges are most of the graph, the
+        # exception states a few a group (47 over the 4 bench groups).
+        assert sh.sum() > 5 * ex.sum()
+        assert ex.sum() == 47 if G == 4 else ex.sum() < 12 * G
+    if states == 1024:
+        assert not (sh | self_loop | ex)[:, prog.n_states:].any()
+
+
+def shift_scan_np(prog, live, acc, cls: np.ndarray):
+    """[B, T] class ids -> ([B] bool, exception rows read), stepping
+    every (line, group) with the kernels' word arithmetic on the
+    kernels' operands: shl1 as a funnel shift carrying bit 31 of word j
+    into word j+1, live's row kept by a word mask, the rows of set
+    exception bits ORed, an id outside [0, C) reading an all-zero mask
+    row."""
+    follow_w, consts, mask_w, Sk = kernel_operands(prog, live)
+    G, C, W = mask_w.shape
+    B, T = cls.shape
+    row = np.minimum(cls.astype(np.int64) & 0xFFFFFFFF, C)  # unsigned min
+    matched = np.zeros(B, dtype=bool)
+    n_exc = 0
+    for g in range(G):
+        sh, self_loop, rl, ex = (consts[g, :, k] for k in range(4))
+        masks = np.concatenate([mask_w[g], np.zeros((1, W), np.uint32)])
+        v = np.zeros((B, W), dtype=np.uint32)
+        v[:, live >> 5] = np.uint32(1 << (live & 31))
+        for t in range(T):
+            keep = np.where(v[:, live >> 5] >> np.uint32(live & 31) & 1,
+                            np.uint32(0xFFFFFFFF), np.uint32(0))
+            a = v & sh
+            prev = np.concatenate([np.zeros((B, 1), np.uint32), a[:, :-1]], 1)
+            r = (a << np.uint32(1)) | (prev >> np.uint32(31)) | (v & self_loop)
+            r |= rl & keep[:, None]
+            for n, s in zip(*np.nonzero(unpack_np(v & ex, Sk))):
+                r[n] |= follow_w[g, s]
+                n_exc += 1
+            v = r & masks[row[:, t]]
+        matched |= (v[:, acc >> 5] >> np.uint32(acc & 31) & 1).astype(bool)
+    return matched | prog.match_all, n_exc
+
+
+def text_rows(seed: int, B: int, width: int, needles: list):
+    """[B, width] printable rows, lengths in [0, width], a needle in
+    every other row."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(32, 127, size=(B, width), dtype=np.uint8)
+    lens = rng.integers(0, width + 1, size=B).astype(np.int32)
+    for i in range(0, B, 2):
+        nd = needles[(i // 2) % len(needles)]
+        if lens[i] >= len(nd):
+            p = int(rng.integers(0, lens[i] - len(nd) + 1))
+            rows[i, p:p + len(nd)] = np.frombuffer(nd, np.uint8)
+    return rows, lens
+
+
+@pytest.mark.parametrize("patterns,needles,width,max_positions", [
+    (chip_smoke.PATTERNS, chip_smoke.NEEDLES, 61, 126),
+    (EDGE_PATS, [EDGE_PATS[0].encode(), EDGE_PATS[0][:40].encode(),
+                 b"panic:"], 77, 126),
+    (EXC_PATS, [b"abcd", b"x1y2z", b"bazqux", b"1.2.3e", b"abcdef",
+                b"CRIT at code=4", b"keiy", b"disk is full"], 45, 126),
+    (GROUPED_PATS, [b"panic: now", b"code=504", b"x123y", b"a-b-c",
+                    b"warn77", b"the end"], 32, 24),
+    (["a" * 200 + "b", r"x\d+y"], [b"a" * 200 + b"b", b"x12y"], 230, 126),
+], ids=["bench32", "word_edge", "exceptions", "multi_group", "s256"])
+def test_shift_step_equals_plain_and_pallas(patterns, needles, width,
+                                            max_positions):
+    """The step transcribed from the kernels equals the plain version and
+    the Pallas grouped and fused kernels (interpret mode), with class ids
+    outside [0, C) (C + 5 and -1) in some rows; the plain version's
+    ``work["exc"]`` counts the exception rows the step reads."""
+    prog, live, acc = nfa.compile_grouped(patterns, device="cpu",
+                                          max_positions=max_positions)
+    jdp, _, _ = jnfa.compile_grouped(patterns, max_positions=max_positions)
+    rows, lens = text_rows(len(patterns) + width, 40, width, needles)
+    cls = nfa.classify_chunk(prog, torch.from_numpy(rows),
+                             torch.from_numpy(lens), True, True)
+    T = cls.shape[1]
+    cls[3::11, T // 3] = prog.n_classes + 5
+    cls[6::13, T // 2] = -1
+    got, n_exc = shift_scan_np(prog, live, acc, cls.numpy())
+    work: dict = {}
+    plain = nfa_kernels.match_cls_grouped_plain(prog, live, acc, cls,
+                                                work=work).numpy()
+    assert work["exc"] == n_exc < work["active"]
+    c32 = cls.numpy().astype(np.int32)
+    grouped = np.asarray(pallas_nfa.match_cls_grouped_pallas(
+        jdp, live, acc, c32, tile_b=8, interpret=True))
+    fused = np.asarray(pallas_nfa.match_cls_grouped_pallas(
+        jdp, live, acc, c32, tile_b=8, interpret=True, fused=True))
+    assert np.array_equal(got, plain)
+    assert np.array_equal(got, grouped) and np.array_equal(got, fused)
+    assert got.any() and not got.all()
