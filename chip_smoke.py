@@ -58,8 +58,9 @@ K axis: 156 groups of 128 states, 64 classes):
 10. grouped_nfa_gated_kernel (K3) against its plain version on 8192 of
    those rows under the sweep's gate and under a seeded random gate,
    and against ungated K1 on all 131072, under the sweep's gate and
-   under that gate kept on 3% of the lines (dead blocks); K3's kernel
-   alone, its whole wrapper and K1 timed on that batch.
+   under that gate kept on 3% of the lines; on each batch the card's
+   pair list (``gate_pairs``) equals its plain version, and K3's launch
+   alone, its pair builder, its whole wrapper and K1 are timed.
 11. grouped_nfa_fused_kernel (K4) against its plain version and K1,
    K4 and K1 timed in turns: 8192 rows and all 131072 of K1's w128
    batch, the 4096 bucket, the 1280-state wide program, and at K = 1024
@@ -75,7 +76,8 @@ K axis: 156 groups of 128 states, 64 classes):
    directory: this path's main run (counts zeroed just before, read
    just after; K3 must launch), every file equal to the oracle's lines
    and the ``prefilter:`` stats line printed. Then K3 is held against
-   its plain version and timed on the run's own most frequent batch.
+   its plain version and timed on the run's own most frequent batch
+   (its pair list held against the plain one there too).
 
 Then a ``kernels`` line (each kernel's time beside its bound and its
 plain version's time, with its launches on its main path), the card
@@ -514,7 +516,7 @@ def profile_batch(torch, eng, frame) -> dict:
     top = sorted(rows, key=lambda r: -r[1])[:6]
     kernels: dict = {}
     for k, ms in rows:  # the hand-written kernels, by template instance
-        m = re.search(r"\w*nfa\w*(?:<[^>]*>)?", k)
+        m = re.search(r"\w*(?:nfa|gate_pairs)\w*(?:<[^>]*>)?", k)
         if m:
             kernels[m.group(0)] = kernels.get(m.group(0), 0.0) + ms
     cp = cProfile.Profile()
@@ -795,41 +797,47 @@ def k1024_rows(np, synthetic_line, B: int, width: int, seed: int):
     return rows, lens
 
 
-def gate_cells(torch, bits, nk, words, G: int) -> dict:
-    """The (block, group) cells K3 scans once candidates are clustered:
-    the share of live blocks, the mean and the most live groups in a
-    live block (a block steps through its live groups one after
-    another), and the share of live cells."""
-    gm = bits.unpack_bits(words.long(), G)  # [B, G]
-    cand = gm.any(1)
-    gm = gm[torch.argsort((~cand).to(torch.int8), stable=True)]
-    B = gm.shape[0]
-    pad = -B % nk.GATE_TILE
-    gm = torch.nn.functional.pad(gm, (0, 0, 0, pad))
-    cells = gm.reshape(-1, nk.GATE_TILE, G).any(1)  # [blocks, G]
-    live = cells.any(1)
-    width = cells[live].sum(1).float()
-    return dict(live_block_share=float(live.float().mean()),
-                groups_per_live_block=float(width.mean()) if live.any()
-                else 0.0,
-                groups_per_live_block_max=int(width.max()) if live.any()
-                else 0,
-                live_cell_share=float(cells.float().mean()))
+def gate_cells(bits, nk, words, G: int) -> dict:
+    """The gate as K3 meets it: its (line, group) pairs, the candidate
+    lines' share, their groups (mean, most), and the share of GATE_TILE
+    tiles that the candidates fill once clustered (the stats' live
+    tiles)."""
+    per_line = bits.unpack_bits(words.long(), G).sum(1)  # [B]
+    cand = per_line > 0
+    B, n = len(per_line), int(cand.sum())
+    return dict(pairs=int(per_line.sum()), candidate_share=n / max(B, 1),
+                groups_per_candidate=float(per_line[cand].float().mean())
+                if n else 0.0,
+                groups_per_line_max=int(per_line.max()) if B else 0,
+                live_tile_share=-(-n // nk.GATE_TILE)
+                / max(-(-B // nk.GATE_TILE), 1))
 
 
-def k3_kernel_ms(torch, nk, dp, live, acc, cls, words, reps: int) -> float:
-    """ms of K3's launch alone (``launch_gated``), on operands that the
-    wrapper's preparation (``cluster_gate``) made once beforehand."""
-    cls_p, gate_p, n_cand, _, _ = nk.cluster_gate(dp, cls, words)
-    return cuda_ms(torch, lambda: nk.launch_gated(dp, live, acc, cls_p,
-                                                  gate_p, n_cand), reps)
+def k3_parts(torch, nk, dp, live, acc, cls, words, reps: int) -> dict:
+    """K3's two parts apart, on one batch: the card's pair list against
+    its plain version (``pairs_mismatches``: count, entries and stats
+    that differ), the pair builder's ms (``gate_pairs``: its count, scan
+    and scatter kernels) and the launch alone on its list (``ms``:
+    ``launch_gated``, the verdicts' zeroing and the kernel), by CUDA
+    events."""
+    G = int(dp.follow.shape[0])
+    pairs, n_pairs, stats = nk.gate_pairs(words, G)
+    exp_pairs, exp_n, exp_stats = nk.gate_pairs(words.cpu(), G)
+    n, m = int(n_pairs), min(int(n_pairs), int(exp_n))
+    bad = (abs(n - int(exp_n)) + int((pairs[:m].cpu() != exp_pairs[:m]).sum())
+           + int((stats.cpu() != exp_stats).sum()))
+    return dict(
+        pairs_mismatches=bad,
+        pairs_ms=cuda_ms(torch, lambda: nk.gate_pairs(words, G), reps),
+        ms=cuda_ms(torch, lambda: nk.launch_gated(dp, live, acc, cls, pairs,
+                                                  n_pairs), reps))
 
 
 def k3_check(torch, bits, nk, dp, live, acc, cls, words, reps: int) -> dict:
     """K3 against its plain version on one batch, with the bound over
-    the gated (line, group) cells. ``ms`` times the kernel alone,
-    ``wrapper_ms`` the whole wrapper (gate OR, clustering, gathers,
-    kernel, un-permute), ``plain_ms`` the plain version."""
+    the gated (line, group) cells. ``ms`` times the launch alone on its
+    pair list, ``pairs_ms`` the pair builder, ``wrapper_ms`` the whole
+    wrapper (pair list, launch), ``plain_ms`` the plain version."""
     got, stats = nk.match_cls_grouped_gated(dp, live, acc, cls, words,
                                             want_stats=True)
     work: dict = {}
@@ -837,7 +845,7 @@ def k3_check(torch, bits, nk, dp, live, acc, cls, words, reps: int) -> dict:
                                            work=work)
     torch.cuda.synchronize()
     err = int((got.int() - exp.int()).abs().max()) if len(got) else 0
-    ms = k3_kernel_ms(torch, nk, dp, live, acc, cls, words, reps)
+    parts = k3_parts(torch, nk, dp, live, acc, cls, words, reps)
     wrapper_ms = cuda_ms(torch, lambda: nk.match_cls_grouped_gated(
         dp, live, acc, cls, words), reps)
     plain_ms = cuda_ms(torch, lambda: nk.match_cls_grouped_gated_plain(
@@ -845,15 +853,16 @@ def k3_check(torch, bits, nk, dp, live, acc, cls, words, reps: int) -> dict:
     B, T = cls.shape
     G, C, S = dp.char_mask.shape
     GW = words.shape[1]
-    gated = int(bits.unpack_bits(words.long(), G).sum())
-    n_bytes = B * T * 2 + B * GW * 4 + G * (S + C) * (S // 32) * 4 + B
-    return dict(rows=B, T=T, groups=G, max_abs_err=err, ms=ms,
+    cells = gate_cells(bits, nk, words, G)
+    n_bytes = (B * T * 2 + B * GW * 4 + G * (S + C) * (S // 32) * 4 + B
+               + 4 * cells["pairs"] + 4)
+    return dict(rows=B, T=T, groups=G, max_abs_err=err, **parts,
                 wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                 matched=int(exp.sum()),
                 candidate_lines=int(stats[0]), live_tiles=int(stats[1]),
-                tiles=int(stats[2]),
-                **gate_cells(torch, bits, nk, words, G), gated_cells=gated,
-                **step_bounds(n_bytes, S, C, gated * T, work["active"]))
+                tiles=int(stats[2]), **cells,
+                **step_bounds(n_bytes, S, C, cells["pairs"] * T,
+                              work["active"]))
 
 
 def sweep_phase(torch, np, sweep, bits, gpu, FilterStats, synthetic_line,
@@ -909,8 +918,8 @@ def k3_phase(torch, nfa, bits, nk, sw, small=8192, kept=0.03) -> dict:
     ungated K1 on the sweep phase's batch; K3 and K1 timed there. Then
     the sweep's gate kept on a seeded 3% of the lines only (the share of
     candidates the host sweep leaves on the repository's needle corpus):
-    whole blocks past the candidates are dead, and K3 must equal K1 on
-    the kept lines and be false elsewhere."""
+    K3 must equal K1 on the kept lines and be false elsewhere. On every
+    batch the card's pair list must equal its plain version."""
     eng = sw["eng"]
     dp, live, acc = eng._grouped, eng._g_live, eng._g_acc
     cls = nfa.classify_chunk(dp, sw["batch"], sw["lens"], True, True)
@@ -940,14 +949,16 @@ def k3_phase(torch, nfa, bits, nk, sw, small=8192, kept=0.03) -> dict:
     k1_ms = cuda_ms(torch, lambda: nk.match_cls_grouped(dp, live, acc, cls), 3)
 
     def timed(w, active: int) -> dict:
-        gated = int(bits.unpack_bits(w, G).sum())
+        cells = gate_cells(bits, nk, w, G)
+        parts = k3_parts(torch, nk, dp, live, acc, cls, w, 10)
         return dict(
-            k3_ms=k3_kernel_ms(torch, nk, dp, live, acc, cls, w, 10),
+            k3_ms=parts["ms"], k3_pairs_ms=parts["pairs_ms"],
+            pairs_mismatches=parts["pairs_mismatches"],
             k3_wrapper_ms=cuda_ms(torch, lambda: nk.match_cls_grouped_gated(
                 dp, live, acc, cls, w), 10),
-            k1_ms=k1_ms, gated_cells=gated,
-            **gate_cells(torch, bits, nk, w, G),
-            **step_bounds(n_bytes, S, C, gated * T, active))
+            k1_ms=k1_ms, **cells,
+            **step_bounds(n_bytes + 4 * cells["pairs"] + 4, S, C,
+                          cells["pairs"] * T, active))
 
     full = dict(rows=B, T=T, max_abs_err=plain_err,
                 k3_vs_k1_mismatches=int((k3 != k1).sum()),
@@ -965,11 +976,11 @@ def k3_phase(torch, nfa, bits, nk, sw, small=8192, kept=0.03) -> dict:
         matched=int(k3s.sum()), **timed(sparse, work["active"]))
     res["full"] = full
     emit({"phase": nk.GATED, **res})
-    if (any(r["max_abs_err"] for r in res.values())
+    if (any(r["max_abs_err"] or r["pairs_mismatches"] for r in res.values())
             or full["k3_vs_k1_mismatches"] or not full["matched"]
             or res["sparse_gate"]["k3_vs_k1_mismatches"]
             or not res["sparse_gate"]["matched"]
-            or res["sparse_gate"]["live_block_share"] > 0.5):
+            or res["sparse_gate"]["live_tile_share"] > 0.5):
         raise AssertionError(f"{nk.GATED} disagrees: {res}")
     return res
 
@@ -1118,9 +1129,13 @@ def engine_k1024_phase(torch, np, nk, gpu, frame_lines, synthetic_line, eng,
                candidate_share=pf_cand / max(pf_lines, 1),
                tiles_skipped=pf_tiles - pf_live, tiles=pf_tiles,
                profile=prof, k1_only_short_lines_per_s=n_short / t_k1,
-               k1_only_profile=k1_prof)
+               k1_only_profile=k1_prof,
+               # One batch's device time, gated (sweep and K3) and K1 only.
+               gated_device_ms=prof["device_ms"],
+               k1_only_device_ms=k1_prof["device_ms"])
     emit({"phase": "engine_k1024", **res})
     if (bad or vs_k1 or short_launches[nk.GATED] == 0
+            or short_launches[nk.PAIRS] == 0
             or short_launches[nk.GROUPED] != 0 or launches[nk.CHUNK] == 0
             or not got.any()):
         raise AssertionError(f"engine_k1024 phase failed: {res}")
@@ -1206,9 +1221,10 @@ def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
                k3_batches=k3_batches)
     emit({"phase": "cli_k1024", **res})
     if (rc != 0 or bad or files != len(pods) or not kept
-            or launches[nk.GATED] == 0 or launches[nk.GROUPED] != 0
-            or pf_line is None or not k3_batches
-            or any(b["max_abs_err"] for b in k3_batches)):
+            or launches[nk.GATED] == 0 or launches[nk.PAIRS] == 0
+            or launches[nk.GROUPED] != 0 or pf_line is None or not k3_batches
+            or any(b["max_abs_err"] or b["pairs_mismatches"]
+                   for b in k3_batches)):
         raise AssertionError(f"cli_k1024 phase failed: {res}")
     return res
 
@@ -1298,7 +1314,11 @@ def main() -> int:
                                    k3["sparse_gate"], k3["full"]])),
          "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
          "bound_by": g["bound_by"], "library_ms": None,
-         "wrapper_ms": g["wrapper_ms"]},
+         "wrapper_ms": g["wrapper_ms"], "pairs_ms": g["pairs_ms"],
+         "pairs": g["pairs"], "pairs_launches": run3["launches"][nk.PAIRS],
+         "pairs_mismatches": max(b["pairs_mismatches"] for b in
+                                 [g, k3["sweep_gate"], k3["random_gate"],
+                                  k3["sparse_gate"], k3["full"]])},
         {"name": nk.FUSED, "route": "cuda", "source": SOURCE,
          "replaces": "klogs_tpu/ops/pallas_nfa.py:334",
          "launches": run4["launches"][nk.FUSED],

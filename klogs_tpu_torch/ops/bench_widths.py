@@ -16,12 +16,18 @@ paths: the CLI's 16384 x 131 (FakeCluster lines, 1% with a
 ``chip_smoke`` needle), ``chip_smoke``'s w128 (131072 x 131) and w4096
 (4096 x 4099) mixes at the 32 patterns, and at 1024 patterns the
 131072 x 131 batch and the 256-byte bucket (2048 x 259) of
-``chip_smoke.k1024_rows``; K3 alone (``cluster_gate`` then
-``launch_gated``) on 8192 x 131 of those rows under a seeded 5% gate,
-as a control. These rows give each kernel's device time alone
-(torch.profiler), and K1's and K4's wrapper time by CUDA events beside
-it (``wrapper_ms``). Last, what ptxas reported for each kernel
-(registers, spills):
+``chip_smoke.k1024_rows``. These rows give each kernel's device time
+alone (torch.profiler), and K1's and K4's wrapper time by CUDA events
+beside it (``wrapper_ms``). Then K3 through ``match_cls_grouped_gated``
+(a name every tree has) at 1024 patterns: 8192 x 131 rows under a
+seeded 5% gate, and the engine's literal sweep gate on 8192 and 131072
+rows of ``chip_smoke.k1024_rows`` and on all 131072 with the gate kept
+on a seeded 3% of the lines; each row gives the device time of every
+hand-written kernel the wrapper ran, by name (``kernels_ms``: K3's own
+kernel apart from its pair builder), K3's own (under its name), the
+wrapper by CUDA events (``wrapper_ms``), and its verdicts held against
+the plain version (8192 rows) or ungated K1 (``"equal"``). Last, what
+ptxas reported for each kernel (registers, spills):
 
     python3 klogs_tpu_torch/ops/bench_widths.py [--tree DIR] [--label L] [--main]
 
@@ -65,11 +71,12 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(torch, fn, reps: int) -> float:
-    """Mean device ms a run of ``fn`` spends in the kernels of
+def kernels_ms(torch, fn, reps: int) -> dict:
+    """Mean device ms a run of ``fn`` spends in each kernel of
     ``ops/csrc/nfa_kernels.cu`` (named in an anonymous namespace there),
-    by torch.profiler: the kernel alone, without the wrapper's own
-    tensor ops and launch gaps."""
+    by kernel name with its template arguments, by torch.profiler: the
+    kernels alone, without the wrapper's own tensor ops and launch
+    gaps."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -78,9 +85,19 @@ def kernel_ms(torch, fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if "anonymous namespace" in e.key)
-    return us / 1e3 / reps
+    out: dict = {}
+    for e in prof.key_averages():
+        if "anonymous namespace" in e.key:
+            m = re.search(r"::(\w+(?:<[^>]*>)?)", e.key)
+            name = m.group(1) if m else e.key
+            ms = e.self_device_time_total / 1e3 / reps
+            out[name] = out.get(name, 0.0) + ms
+    return out
+
+
+def kernel_ms(torch, fn, reps: int) -> float:
+    """The sum of ``kernels_ms``: every hand-written kernel ``fn`` ran."""
+    return sum(kernels_ms(torch, fn, reps).values())
 
 
 def rows(np, rng, B: int, width: int, needle: bytes):
@@ -224,10 +241,9 @@ def w128_rows(np, synthetic_line, rng, B: int):
 
 def main_path_bench(np, torch, nfa, nk, dev, label: str) -> None:
     """K1 and K4 timed one after the other on each main-path batch, each
-    held equal to the other; then K3 alone, the control."""
+    held equal to the other; then K3 (``k3_bench``)."""
     import chip_smoke
     from klogs_tpu_torch.cluster.fake import synthetic_line
-    from klogs_tpu_torch.ops.bits import pack_bits
 
     os.environ.setdefault("KLOGS_MAX_PATTERN_POSITIONS", "65536")
     rng = np.random.default_rng(SEED)
@@ -263,18 +279,57 @@ def main_path_bench(np, torch, nfa, nk, dev, label: str) -> None:
                           "wrapper_ms": {nk.GROUPED: cuda_ms(torch, k1, reps),
                                          nk.FUSED: cuda_ms(torch, k4, reps)}}),
               flush=True)
-    dp, live, acc = p1024
-    r, lens = chip_smoke.k1024_rows(np, synthetic_line, 8192, 128, SEED + 6)
-    cls = nfa.classify_chunk(dp, torch.from_numpy(r).to(dev),
-                             torch.from_numpy(lens).to(dev), True, True)
+    k3_bench(np, torch, nfa, nk, dev, label, rng)
+
+
+def k3_bench(np, torch, nfa, nk, dev, label: str, rng) -> None:
+    """K3 through ``match_cls_grouped_gated`` on the four gated batches
+    at 1024 patterns (see the module's note), on the engine's own
+    program and sweep tables."""
+    import chip_smoke
+    from klogs_tpu_torch.cluster.fake import synthetic_line
+    from klogs_tpu_torch.filters.gpu import GpuEngineFilter
+    from klogs_tpu_torch.ops import sweep
+    from klogs_tpu_torch.ops.bits import pack_bits, unpack_bits
+
+    eng = GpuEngineFilter(chip_smoke.make_patterns(1024), device=dev)
+    dp, live, acc = eng._grouped, eng._g_live, eng._g_acc
     G = dp.follow.shape[0]
-    words = pack_bits(torch.from_numpy(rng.random((8192, G)) < 0.05).to(dev))
-    cls_p, gate_p, n_cand, _, _ = nk.cluster_gate(dp, cls, words)
-    ms = kernel_ms(torch, lambda: nk.launch_gated(dp, live, acc, cls_p, gate_p,
-                                                  n_cand), 20)
-    print(json.dumps({"tree": label, "case": "k1024_gated_5pct",
-                      "rows": cls.shape[0], "T": cls.shape[1], "groups": G,
-                      nk.GATED: ms}), flush=True)
+
+    def classified(r, lens):
+        r, lens = torch.from_numpy(r).to(dev), torch.from_numpy(lens).to(dev)
+        return r, lens, nfa.classify_chunk(dp, r, lens, True, True)
+
+    _, _, cls_r = classified(*chip_smoke.k1024_rows(
+        np, synthetic_line, 8192, 128, SEED + 6))
+    rand = pack_bits(torch.from_numpy(rng.random((8192, G)) < 0.05).to(dev))
+    batch, lens, cls = classified(*chip_smoke.k1024_rows(
+        np, synthetic_line, 131072, 128, SEED + 4))
+    words = sweep.sweep_group_bits(eng._sweep_tables, batch, lens)
+    keep = torch.from_numpy(np.random.default_rng(SEED).random(131072)
+                            < 0.03).to(dev)
+    kept = torch.where(keep[:, None], words, torch.zeros_like(words))
+    k1 = nk.match_cls_grouped(dp, live, acc, cls)
+    cases = (("k1024_gated_5pct", cls_r, rand, None),
+             ("k3_sweep_8192", cls[:8192], words[:8192], None),
+             ("k3_sweep", cls, words, k1),
+             ("k3_sweep_kept_3pct", cls, kept, k1 & keep))
+    for name, c, w, ref in cases:
+        def k3():
+            return nk.match_cls_grouped_gated(dp, live, acc, c, w)[0]
+
+        if ref is None:
+            ref = nk.match_cls_grouped_gated_plain(dp, live, acc, c, w)
+        per = kernels_ms(torch, k3, 20)
+        print(json.dumps({"tree": label, "case": name, "rows": c.shape[0],
+                          "T": c.shape[1], "groups": G,
+                          "pairs": int(unpack_bits(w.long(), G).sum()),
+                          "equal": bool(torch.equal(k3(), ref)),
+                          "kernels_ms": per,
+                          nk.GATED: sum(v for k, v in per.items()
+                                        if k.startswith("grouped_nfa")),
+                          "wrapper_ms": cuda_ms(torch, k3, 20)}),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -65,29 +65,34 @@
 // are 128 states, W = 4) and are read as warp broadcasts from shared
 // memory past that.
 //
-// grouped_nfa_gated_kernel (K3, the GATED instantiations of the template
-// that K1 used before the shift step) replaces
-// pallas_nfa.py:_grouped_kernel_gated, the scalar-prefetch pallas_call of
-// _launch_grouped's gated tail: it scans a group only where a
-// per-(line, group) gate bit says it can match, computing
+// grouped_nfa_gated_kernel (K3) replaces
+// pallas_nfa.py:377 _grouped_kernel_gated, the scalar-prefetch
+// pallas_call of _launch_grouped's gated tail: it scans a group only
+// where a per-(line, group) gate bit says it can match, computing
 //
 //     out[b] = OR over g of (gate[b, g] AND acc_g(b))
 //
 // (match_all is ORed in by the wrapper). On the TPU the gate became
-// per-(tile, group) flags and a dead grid cell skipped its scan loop.
-// Here the wrapper clusters candidate lines (any gate bit) to the front
-// and hands over the candidate count on the device; a block wholly past
-// it writes zeros and exits (the TPU's dead tiles), a live block skips
-// group g when no line of its 128 has g's bit (__syncthreads_or: the
-// (tile, group) skip), and inside a live group a warp whose lines all
-// lack the bit skips the steps (divergent threads simply idle). A block
-// walks its groups one after another, one thread per line: the state in
-// registers (W = S/32 words, W one of 4, 8, 16, 32: a program of another
-// width up to 32 words runs padded with dead states to the next of them),
-// the current group's follow and mask bit tables in shared memory, class
-// ids staged TT steps at a time in a padded shared tile. Each step ORs
-// one follow row (a 16-byte shared load) per set bit. What bounds it is
-// that chain, G x T steps of the lines of the live (block, group) cells.
+// per-(tile, group) flags over lines clustered candidates first, and a
+// dead grid cell skipped its scan loop, so a live tile still ran every
+// line of it. Here the unit of work is the candidate (line, group) pair
+// itself. Three small kernels, launched by one call (gate_pairs_count,
+// gate_pairs_scan of its counts, gate_pairs_scatter), compact the
+// gate's set bits into a list of pairs g * B + line on the device,
+// group-major and lines ascending, and leave its length there; K3 is
+// then K1's thread (the shift-and-exceptions step, class ids ID_AHEAD
+// steps ahead in registers, no barrier) on one listed pair, in a
+// persistent grid that strides over the list, and ORs an accepted
+// line's verdict byte in place with atomicOr, so neither the class ids
+// nor the verdicts are permuted. A launch then costs the listed pairs'
+// T steps, whatever lines they share a block with: the rate their
+// steps' instructions dispatch at when they fill the card, one pair's
+// chain of T steps when they do not (the bytes, a class row per pair
+// and the list, are small). Consecutive threads take consecutive pairs,
+// so a warp is mostly 32 lines of one group, and the group's tables,
+// read through L1 rather than staged (a block's pairs may span many
+// groups), are shared by the warp: its constants are one broadcast load
+// per pair, its mask rows a handful of cache lines.
 //
 // chunk_nfa_kernel (K2) replaces pallas_nfa.py:50 _kernel (the
 // pallas_call in _launch_chunk): the same step over the single augmented
@@ -124,9 +129,10 @@
 // spread over 128 SMs.
 //
 // Programs wider than S = 1024 (W > 32): the *_wide kernels give each
-// line a warp, its state in shared memory, and read follow/mask rows
-// from device memory through L2 in coalesced row passes, so every
-// pattern set the compiler accepts runs.
+// line (K1, K2), (line, group) pair (K4) or listed pair (K3) a warp,
+// its state in shared memory, and read follow/mask rows from device
+// memory through L2 in coalesced row passes, so every pattern set the
+// compiler accepts runs.
 //
 // Every entry point returns the cudaError_t of its launch (0 = success)
 // and never synchronises.
@@ -136,72 +142,9 @@
 
 namespace {
 
-constexpr int TT = 32;            // class-id steps staged per shared tile, K3
-constexpr int GROUPED_LINES = 128;  // lines (threads) per block, K3
 constexpr int CHUNK_WARPS = 8;      // lines (a warp each) per block, chunk
 constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may use
-
-// Stage cls[line0 .. line0+nl) x [t0, t0+TT) into tile[nl][TT+1] as
-// int32, with the block's `nthreads` threads. A warp reads TT
-// consecutive ids of one line (a 64-byte row segment); the +1 pad puts
-// line l's row on bank l mod 32 for the per-step reads.
-__device__ __forceinline__ void load_cls_tile(const int16_t* __restrict__ cls,
-                                              int B, int T, int line0, int t0,
-                                              int* tile, int nl,
-                                              int nthreads) {
-  for (int k = threadIdx.x; k < nl * TT; k += nthreads) {
-    const int l = k / TT, tt = k % TT;
-    const int line = line0 + l, t = t0 + tt;
-    int c = -1;
-    if (line < B && t < T) c = cls[(size_t)line * T + t];
-    tile[l * (TT + 1) + tt] = c;
-  }
-}
-
-// One step on a register-resident state of W words. `follow` is [S][W]
-// and `mask` [C][W], both in shared memory; W is a multiple of 4, so a
-// row is whole 16-byte vectors. A class id outside [0, C) kills every
-// state, as the one-hot product of the JAX kernels does.
-template <int W>
-__device__ __forceinline__ void nfa_step(uint32_t (&v)[W],
-                                         const uint32_t* follow,
-                                         const uint32_t* mask, int C, int c) {
-  uint32_t reach[W];
-#pragma unroll
-  for (int j = 0; j < W; ++j) reach[j] = 0u;
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    uint32_t bits = v[w];
-    while (bits) {
-      const int b = __ffs(bits) - 1;
-      bits &= bits - 1u;
-      const uint4* row =
-          reinterpret_cast<const uint4*>(follow + (size_t)(w * 32 + b) * W);
-#pragma unroll
-      for (int q = 0; q < W / 4; ++q) {
-        const uint4 r = row[q];
-        reach[4 * q] |= r.x;
-        reach[4 * q + 1] |= r.y;
-        reach[4 * q + 2] |= r.z;
-        reach[4 * q + 3] |= r.w;
-      }
-    }
-  }
-  if ((unsigned)c < (unsigned)C) {
-    const uint4* m = reinterpret_cast<const uint4*>(mask + (size_t)c * W);
-#pragma unroll
-    for (int q = 0; q < W / 4; ++q) {
-      const uint4 r = m[q];
-      v[4 * q] = reach[4 * q] & r.x;
-      v[4 * q + 1] = reach[4 * q + 1] & r.y;
-      v[4 * q + 2] = reach[4 * q + 2] & r.z;
-      v[4 * q + 3] = reach[4 * q + 3] & r.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < W; ++j) v[j] = 0u;
-  }
-}
+constexpr unsigned FULL = 0xffffffffu;
 
 // Bit `s` of a register-resident state (static indexing only, so the
 // array stays in registers).
@@ -222,67 +165,6 @@ __device__ __forceinline__ void copy_rows(uint32_t* dst,
   const uint4* s4 = reinterpret_cast<const uint4*>(src);
   uint4* d4 = reinterpret_cast<uint4*>(dst);
   for (int k = threadIdx.x; k < n; k += nthreads) d4[k] = s4[k];
-}
-
-// Shared-memory layout of K3: follow [S][W], mask [C][W], then the
-// class tile [NL][TT+1].
-template <int W, int NL>
-constexpr size_t reg_smem_words(int C) {
-  return (size_t)32 * W * W + (size_t)C * W + (size_t)NL * (TT + 1);
-}
-
-// The gated scan (K3), instantiated with GATED only: K3 is kept as it
-// was while K1 moved to the shift step (GATED false was K1). gate is
-// [B, GW] words (bit g % 32 of word g / 32 = group g may match line b),
-// and n_cand points at the number of leading lines with any bit set.
-template <int W, bool GATED>
-__global__ void __launch_bounds__(GROUPED_LINES)
-    grouped_nfa_kernel(const int16_t* __restrict__ cls, int B, int T,
-                       const uint32_t* __restrict__ follow,
-                       const uint32_t* __restrict__ mask, int G, int C,
-                       int live, int acc, const uint32_t* __restrict__ gate,
-                       int GW, const int* __restrict__ n_cand,
-                       uint8_t* __restrict__ out) {
-  constexpr int S = 32 * W;
-  extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* f_s = smem;
-  uint32_t* m_s = f_s + S * W;
-  int* tile = reinterpret_cast<int*>(m_s + C * W);
-  const int line0 = blockIdx.x * GROUPED_LINES;
-  const int line = line0 + threadIdx.x;
-  if (GATED && line0 >= *n_cand) {  // a dead block: no candidate line
-    if (line < B) out[line] = 0;
-    return;
-  }
-  const int* my = tile + threadIdx.x * (TT + 1);
-  bool matched = false;
-  uint32_t word = 0u;
-  for (int g = 0; g < G; ++g) {
-    bool mine = true;
-    if (GATED) {
-      if ((g & 31) == 0)
-        word = line < B ? gate[(size_t)line * GW + (g >> 5)] : 0u;
-      mine = (word >> (g & 31)) & 1u;
-      if (!__syncthreads_or(mine)) continue;  // no line of the block
-    }
-    __syncthreads();  // the previous group's steps are done with f_s/m_s
-    copy_rows<W>(f_s, follow + (size_t)g * S * W, S, GROUPED_LINES);
-    copy_rows<W>(m_s, mask + (size_t)g * C * W, C, GROUPED_LINES);
-    uint32_t v[W];
-#pragma unroll
-    for (int j = 0; j < W; ++j)
-      v[j] = (j == (live >> 5)) ? (1u << (live & 31)) : 0u;
-    for (int t0 = 0; t0 < T; t0 += TT) {
-      __syncthreads();  // tile readers are done (and tables are written)
-      load_cls_tile(cls, B, T, line0, t0, tile, GROUPED_LINES, GROUPED_LINES);
-      __syncthreads();
-      const int n = min(TT, T - t0);
-      if (mine)
-        for (int tt = 0; tt < n; ++tt) nfa_step<W>(v, f_s, m_s, C, my[tt]);
-    }
-    matched = matched || (mine && test_bit<W>(v, acc));
-  }
-  if (line < B) out[line] = matched ? 1 : 0;
 }
 
 // ---- K1 and K4: the shift-and-exceptions step ----------------------
@@ -445,6 +327,50 @@ __device__ __forceinline__ int row_of(int c, int C) {
   return (int)min((unsigned)c, (unsigned)C) * W;
 }
 
+// One group's automaton, started at {live} (bit lsh of word lw), over
+// one line's T class ids at `row`: whether it holds `acc` after the last
+// step. f_g and m_g are the group's follow [S][W] and mask [C+1][W]
+// words (row C all zero), in shared or device memory. cur holds the row
+// offsets of steps [t0, t0 + ID_AHEAD), nxt the ids of the ID_AHEAD
+// steps after, in flight; step i's mask row m is loaded during step
+// i - 1, so no load is on the step's chain.
+template <int W, bool REG>
+__device__ __forceinline__ bool scan_line(const ShiftConsts<W, REG>& k,
+                                          int lw, int lsh, int acc,
+                                          const uint32_t* f_g,
+                                          const uint32_t* m_g,
+                                          const int16_t* __restrict__ row,
+                                          int T, int C) {
+  uint32_t v[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) v[j] = j == lw ? 1u << lsh : 0u;
+  int cur[ID_AHEAD], nxt[ID_AHEAD];
+  fetch_ids(nxt, row, 0, T);
+#pragma unroll
+  for (int i = 0; i < ID_AHEAD; ++i) cur[i] = row_of<W>(nxt[i], C);
+  fetch_ids(nxt, row, ID_AHEAD, T);
+  uint32_t m[W];
+  load_row<W>(m, m_g + cur[0]);
+  for (int t0 = 0; t0 < T; t0 += ID_AHEAD) {
+    const int n = min(ID_AHEAD, T - t0);
+#pragma unroll
+    for (int i = 0; i < ID_AHEAD; ++i) {
+      if (i < n) {
+        uint32_t mn[W];
+        load_row<W>(mn, m_g + (i + 1 < ID_AHEAD ? cur[i + 1]
+                                                : row_of<W>(nxt[0], C)));
+        shift_step<W>(v, k, lw, lsh, f_g, m);
+#pragma unroll
+        for (int j = 0; j < W; ++j) m[j] = mn[j];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < ID_AHEAD; ++i) cur[i] = row_of<W>(nxt[i], C);
+    fetch_ids(nxt, row, t0 + 2 * ID_AHEAD, T);
+  }
+  return test_bit<W>(v, acc);
+}
+
 // K1 (SERIAL) and K4. Thread (l, g) = threadIdx.x (l + NL * g) steps
 // line blockIdx.x * NL + l in group g of a chunk of GC groups, so a warp
 // is 32 lines of one group. K1's block walks every chunk in turn and
@@ -487,37 +413,7 @@ __global__ void __launch_bounds__(shift_threads<W>())
     __syncthreads();
     if (g >= ng) continue;  // warp-uniform: NL is a multiple of 32
     const ShiftConsts<W> k(c_g);
-    uint32_t v[W];
-#pragma unroll
-    for (int j = 0; j < W; ++j) v[j] = j == lw ? 1u << lsh : 0u;
-    // cur: the row offsets of steps [t0, t0 + ID_AHEAD); nxt: the ids
-    // of the ID_AHEAD steps after, in flight. Step i's mask row m is
-    // loaded during step i - 1: no load is on the step's chain.
-    int cur[ID_AHEAD], nxt[ID_AHEAD];
-    fetch_ids(nxt, row, 0, T);
-#pragma unroll
-    for (int i = 0; i < ID_AHEAD; ++i) cur[i] = row_of<W>(nxt[i], C);
-    fetch_ids(nxt, row, ID_AHEAD, T);
-    uint32_t m[W];
-    load_row<W>(m, m_g + cur[0]);
-    for (int t0 = 0; t0 < T; t0 += ID_AHEAD) {
-      const int n = min(ID_AHEAD, T - t0);
-#pragma unroll
-      for (int i = 0; i < ID_AHEAD; ++i) {
-        if (i < n) {
-          uint32_t mn[W];
-          load_row<W>(mn, m_g + (i + 1 < ID_AHEAD ? cur[i + 1]
-                                                  : row_of<W>(nxt[0], C)));
-          shift_step<W>(v, k, lw, lsh, f_g, m);
-#pragma unroll
-          for (int j = 0; j < W; ++j) m[j] = mn[j];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < ID_AHEAD; ++i) cur[i] = row_of<W>(nxt[i], C);
-      fetch_ids(nxt, row, t0 + 2 * ID_AHEAD, T);
-    }
-    matched = matched || test_bit<W>(v, acc);
+    if (scan_line<W>(k, lw, lsh, acc, f_g, m_g, row, T, C)) matched = true;
   }
   if (matched) hit[l] = 1u;
   __syncthreads();
@@ -527,6 +423,206 @@ __global__ void __launch_bounds__(shift_threads<W>())
       static_cast<uint8_t*>(out)[line] = hit[threadIdx.x] ? 1 : 0;
     else if (hit[threadIdx.x])
       atomicOr(static_cast<uint32_t*>(out) + line, 1u);
+  }
+}
+
+// ---- K3: the gate's pair list, and a thread per pair ----------------
+// (see the note at the top)
+
+constexpr int PAIR_SLAB = 256;  // lines per block of the pair builder
+constexpr int GATED_THREADS = 128;  // threads (pairs in flight) per K3 block
+
+// Word wd of a line's gate: the words are read every `stride` 32-bit
+// words (1: int32 words; 2: the low half of int64 words holding 32
+// bits), bits at or past G are cleared, and a line past B has none.
+__device__ __forceinline__ uint32_t gate_word(const uint32_t* __restrict__ gate,
+                                              int B, int GW, int stride,
+                                              int G, int line, int wd) {
+  if (line >= B) return 0u;
+  const uint32_t w = gate[((size_t)line * GW + wd) * stride];
+  const int rest = G - 32 * wd;
+  return rest >= 32 ? w : w & ((1u << rest) - 1u);
+}
+
+// Lane b's share of a warp's words w: how many lanes have bit b set.
+__device__ __forceinline__ int bit_count(uint32_t w, int lane) {
+  int c = 0;
+#pragma unroll
+  for (int b = 0; b < 32; ++b) {
+    const int n = __popc(__ballot_sync(FULL, (w >> b) & 1u));
+    if (lane == b) c = n;
+  }
+  return c;
+}
+
+// Pass 1 of the pair list: block x reads lines [256 x, 256 x + 256)
+// (a slab), counts[g * slabs + x] gets group g's set bits in it, and
+// counts[G * slabs + x] its lines with any bit (candidate lines).
+__global__ void __launch_bounds__(PAIR_SLAB)
+    gate_pairs_count(const uint32_t* __restrict__ gate, int B, int GW,
+                     int stride, int G, int* __restrict__ counts) {
+  __shared__ int part[PAIR_SLAB / 32][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slabs = gridDim.x, x = blockIdx.x;
+  const int line = x * PAIR_SLAB + threadIdx.x;
+  bool any = false;
+  for (int wd = 0; wd < GW; ++wd) {
+    const uint32_t w = gate_word(gate, B, GW, stride, G, line, wd);
+    any = any || w != 0u;
+    part[warp][lane] = bit_count(w, lane);
+    __syncthreads();
+    const int g = 32 * wd + threadIdx.x;
+    if (threadIdx.x < 32 && g < G) {
+      int n = 0;
+#pragma unroll
+      for (int k = 0; k < PAIR_SLAB / 32; ++k) n += part[k][threadIdx.x];
+      counts[(size_t)g * slabs + x] = n;
+    }
+    __syncthreads();
+  }
+  const int n_any = __popc(__ballot_sync(FULL, any));
+  if (lane == 0) part[warp][0] = n_any;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int n = 0;
+#pragma unroll
+    for (int k = 0; k < PAIR_SLAB / 32; ++k) n += part[k][0];
+    counts[(size_t)G * slabs + x] = n;
+  }
+}
+
+// Inclusive scan of x over the warp's lanes.
+__device__ __forceinline__ int warp_scan(int x, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, d);
+    if (lane >= d) x += y;
+  }
+  return x;
+}
+
+// Between the passes: warp r of the grid scans row r of pass 1's
+// [rows][slabs] counts in place into running sums along the slabs (32
+// at a time, SCAN_AHEAD such pieces loaded, coalesced, before any is
+// summed), so a row's last entry is its total.
+constexpr int SCAN_WARPS = 8;
+constexpr int SCAN_AHEAD = 8;
+
+__global__ void __launch_bounds__(SCAN_WARPS * 32)
+    gate_pairs_scan(int* __restrict__ counts, int rows, int slabs) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * SCAN_WARPS + (threadIdx.x >> 5);
+  if (r >= rows) return;  // the whole warp
+  int* row = counts + (size_t)r * slabs;
+  int carry = 0;
+  for (int x0 = 0; x0 < slabs; x0 += 32 * SCAN_AHEAD) {
+    int v[SCAN_AHEAD];
+#pragma unroll
+    for (int k = 0; k < SCAN_AHEAD; ++k) {
+      const int x = x0 + 32 * k + lane;
+      v[k] = x < slabs ? row[x] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < SCAN_AHEAD; ++k) {
+      if (x0 + 32 * k >= slabs) break;  // warp-uniform
+      const int x = x0 + 32 * k + lane;
+      const int sum = warp_scan(v[k], lane) + carry;
+      if (x < slabs) row[x] = sum;
+      carry = __shfl_sync(FULL, sum, 31);
+    }
+  }
+}
+
+// Pass 2: after the scan, group g's pairs start past the totals of the
+// groups before it (each warp sums them, 32 groups a word, from the
+// rows' last entries), and its pairs of slab x past incl[g * slabs + x]
+// less their count. Each set bit (line, g) lands at that start plus the
+// set bits of g in the slab's lower warps and lower lanes: pairs[]
+// holds g * B + line, group-major, lines ascending. Block 0 writes the
+// pair count to *n_pairs and the stats: candidate lines (row G's
+// total), ceil(that / tile), ceil(B / tile).
+__global__ void __launch_bounds__(PAIR_SLAB)
+    gate_pairs_scatter(const uint32_t* __restrict__ gate, int B, int GW,
+                       int stride, int G, const int* __restrict__ incl,
+                       int tile, int* __restrict__ pairs,
+                       int* __restrict__ n_pairs,
+                       long long* __restrict__ stats) {
+  __shared__ int part[PAIR_SLAB / 32][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slabs = gridDim.x, x = blockIdx.x;
+  const int line = x * PAIR_SLAB + threadIdx.x;
+  const uint32_t below = (1u << lane) - 1u;
+  int base = 0;  // the pairs of groups [0, 32 wd)
+  for (int wd = 0; wd < GW; ++wd) {
+    const uint32_t w = gate_word(gate, B, GW, stride, G, line, wd);
+    part[warp][lane] = bit_count(w, lane);
+    __syncthreads();
+    // Lane b: where this warp's pairs of group 32 wd + b start.
+    int before = 0, all = 0;
+#pragma unroll
+    for (int k = 0; k < PAIR_SLAB / 32; ++k) {
+      const int n = part[k][lane];
+      all += n;
+      before += k < warp ? n : 0;
+    }
+    const int g_lane = 32 * wd + lane;
+    const int* row = incl + (size_t)g_lane * slabs;
+    const int total = g_lane < G ? row[slabs - 1] : 0;
+    const int upto = warp_scan(total, lane);  // groups [32 wd, g_lane]
+    const int start =
+        g_lane < G ? base + upto - total + row[x] - all + before : 0;
+    base += __shfl_sync(FULL, upto, 31);
+    __syncthreads();  // part is rewritten for the next word
+#pragma unroll 4
+    for (int b = 0; b < 32; ++b) {
+      const bool mine = (w >> b) & 1u;
+      const uint32_t ball = __ballot_sync(FULL, mine);
+      const int at = __shfl_sync(FULL, start, b) + __popc(ball & below);
+      if (mine) pairs[at] = (32 * wd + b) * B + line;
+    }
+  }
+  if (x == 0 && threadIdx.x == 0) {
+    *n_pairs = base;
+    const long long cand = incl[(size_t)G * slabs + slabs - 1];
+    stats[0] = cand;
+    stats[1] = (cand + tile - 1) / tile;
+    stats[2] = ((long long)B + tile - 1) / tile;
+  }
+}
+
+// Sets line's verdict byte in `out` (bytes, zeroed before the launch)
+// to 1.
+__device__ __forceinline__ void set_verdict(uint32_t* out, int line) {
+  atomicOr(out + (line >> 2), 1u << (8 * (line & 3)));
+}
+
+// K3: thread i of the grid takes pairs i, i + (grid threads), ... of
+// the list's first *n_pairs entries; pair p = g * B + line is group g's
+// automaton over line's class ids, read from the wrapper's tables in
+// device memory (follow [G][S][W] then the constants [G][W][4]; mask
+// [G][C+1][W], row C all zero). An accepting pair sets its line's byte.
+template <int W>
+__global__ void __launch_bounds__(GATED_THREADS)
+    grouped_nfa_gated_kernel(const int16_t* __restrict__ cls, int B, int T,
+                             const uint32_t* __restrict__ follow,
+                             const uint32_t* __restrict__ mask, int G, int C,
+                             int live, int acc, const int* __restrict__ pairs,
+                             const int* __restrict__ n_pairs,
+                             uint32_t* __restrict__ out) {
+  constexpr int S = 32 * W;
+  const uint4* consts =
+      reinterpret_cast<const uint4*>(follow + (size_t)G * S * W);
+  const int lw = live >> 5, lsh = live & 31;
+  const int n = *n_pairs;
+  for (int i = blockIdx.x * GATED_THREADS + threadIdx.x; i < n;
+       i += gridDim.x * GATED_THREADS) {
+    const unsigned p = (unsigned)pairs[i];
+    const int g = (int)(p / (unsigned)B), line = (int)(p - g * (unsigned)B);
+    const ShiftConsts<W> k(consts + (size_t)g * W);
+    if (scan_line<W>(k, lw, lsh, acc, follow + (size_t)g * S * W,
+                     mask + (size_t)g * (C + 1) * W,
+                     cls + (size_t)line * T, T, C))
+      set_verdict(out, line);
   }
 }
 
@@ -559,8 +655,6 @@ __device__ __forceinline__ void store_carry_word(int8_t* p, uint32_t x) {
   q[1] = make_uint4(spread4(x >> 16), spread4(x >> 20), spread4(x >> 24),
                     spread4(x >> 28));
 }
-
-constexpr unsigned FULL = 0xffffffffu;
 
 // K2 reads its tables through 32-bit shared-window addresses: a generic
 // pointer into shared memory makes the compiler rebuild the window base
@@ -803,13 +897,10 @@ __device__ __forceinline__ bool wide_bit(const uint32_t* v, int s) {
   return (v[s >> 5] >> (s & 31)) & 1u;
 }
 
-template <bool GATED>
 __global__ void grouped_nfa_wide(const int16_t* __restrict__ cls, int B,
                                  int T, const uint32_t* __restrict__ follow,
                                  const uint32_t* __restrict__ mask, int G,
                                  int S, int C, int live, int acc,
-                                 const uint32_t* __restrict__ gate, int GW,
-                                 const int* __restrict__ n_cand,
                                  uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int W = S / 32, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -817,13 +908,7 @@ __global__ void grouped_nfa_wide(const int16_t* __restrict__ cls, int B,
   uint32_t* r = v + W;
   const int line = blockIdx.x * (blockDim.x >> 5) + warp;
   bool matched = false;
-  // A line past the candidates has no gate bit: it scans nothing. The
-  // gate is per line here (a warp is a line), so each group is skipped
-  // or scanned by the whole warp.
-  const bool scan = !GATED || line < *n_cand;
-  for (int g = 0; scan && g < G; ++g) {
-    if (GATED && !((gate[(size_t)line * GW + (g >> 5)] >> (g & 31)) & 1u))
-      continue;
+  for (int g = 0; g < G; ++g) {
     for (int k = lane; k < W; k += 32)
       v[k] = k == (live >> 5) ? 1u << (live & 31) : 0u;
     wide_scan(v, r, W, lane, cls, B, T, line, follow + (size_t)g * S * W,
@@ -832,6 +917,35 @@ __global__ void grouped_nfa_wide(const int16_t* __restrict__ cls, int B,
     __syncwarp();  // every lane has read v before the next group resets it
   }
   if (line < B && lane == 0) out[line] = matched ? 1 : 0;
+}
+
+// K3 past 32 words: one warp per listed pair, warp i of the grid taking
+// pairs i, i + (grid warps), ... of the first *n_pairs; `out` as for
+// the register K3.
+__global__ void grouped_nfa_gated_wide(const int16_t* __restrict__ cls, int B,
+                                       int T,
+                                       const uint32_t* __restrict__ follow,
+                                       const uint32_t* __restrict__ mask,
+                                       int S, int C, int live, int acc,
+                                       const int* __restrict__ pairs,
+                                       const int* __restrict__ n_pairs,
+                                       uint32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int W = S / 32, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  uint32_t* v = smem + (size_t)warp * 2 * W;
+  uint32_t* r = v + W;
+  const int n = *n_pairs;
+  for (int i = blockIdx.x * nw + warp; i < n; i += gridDim.x * nw) {
+    const unsigned p = (unsigned)pairs[i];
+    const int g = (int)(p / (unsigned)B), line = (int)(p - g * (unsigned)B);
+    for (int k = lane; k < W; k += 32)
+      v[k] = k == (live >> 5) ? 1u << (live & 31) : 0u;
+    wide_scan(v, r, W, lane, cls, B, T, line, follow + (size_t)g * S * W,
+              mask + (size_t)g * C * W, C);
+    if (wide_bit(v, acc) && lane == 0) set_verdict(out, line);
+    __syncwarp();  // every lane has read v before the next pair resets it
+  }
 }
 
 // K4 past 32 words: one warp per (line, group) pair, pair p = line * G +
@@ -897,55 +1011,19 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-template <int W, bool GATED>
-cudaError_t launch_grouped(const int16_t* cls, int B, int T,
-                           const uint32_t* follow, const uint32_t* mask, int G,
-                           int C, int live, int acc, const uint32_t* gate,
-                           int GW, const int* n_cand, uint8_t* out,
-                           cudaStream_t stream) {
-  const size_t smem = reg_smem_words<W, GROUPED_LINES>(C) * 4;
-  cudaError_t e = allow_smem(grouped_nfa_kernel<W, GATED>, smem);
-  if (e != cudaSuccess) return e;
-  const int blocks = (B + GROUPED_LINES - 1) / GROUPED_LINES;
-  grouped_nfa_kernel<W, GATED><<<blocks, GROUPED_LINES, smem, stream>>>(
-      cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out);
-  return cudaGetLastError();
-}
-
-// Programs wider than 32 words: K1 (GATED false: gate and n_cand
-// unused) or K3.
-template <bool GATED>
+// K1 past 32 words: a warp per line.
 cudaError_t launch_grouped_wide(const int16_t* cls, int B, int T,
                                 const uint32_t* follow, const uint32_t* mask,
                                 int G, int S, int C, int live, int acc,
-                                const uint32_t* gate, int GW,
-                                const int* n_cand, uint8_t* out,
-                                cudaStream_t st) {
+                                uint8_t* out, cudaStream_t st) {
   const int nw = S > 32 * 32 ? wide_warps(S) : 0;
   if (nw == 0) return cudaErrorInvalidValue;
   const size_t smem = (size_t)2 * (S / 32) * nw * 4;
-  cudaError_t e = allow_smem(grouped_nfa_wide<GATED>, smem);
+  cudaError_t e = allow_smem(grouped_nfa_wide, smem);
   if (e != cudaSuccess) return e;
-  grouped_nfa_wide<GATED><<<(B + nw - 1) / nw, 32 * nw, smem, st>>>(
-      cls, B, T, follow, mask, G, S, C, live, acc, gate, GW, n_cand, out);
+  grouped_nfa_wide<<<(B + nw - 1) / nw, 32 * nw, smem, st>>>(
+      cls, B, T, follow, mask, G, S, C, live, acc, out);
   return cudaGetLastError();
-}
-
-// K3 over any S.
-cudaError_t launch_gated_any(const int16_t* cls, int B, int T,
-                             const uint32_t* follow, const uint32_t* mask,
-                             int G, int S, int C, int live, int acc,
-                             const uint32_t* gate, int GW, const int* n_cand,
-                             uint8_t* out, cudaStream_t st) {
-  switch (S / 32) {
-    case 4: return launch_grouped<4, true>(cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out, st);
-    case 8: return launch_grouped<8, true>(cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out, st);
-    case 16: return launch_grouped<16, true>(cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out, st);
-    case 32: return launch_grouped<32, true>(cls, B, T, follow, mask, G, C, live, acc, gate, GW, n_cand, out, st);
-    default: break;
-  }
-  return launch_grouped_wide<true>(cls, B, T, follow, mask, G, S, C, live,
-                                   acc, gate, GW, n_cand, out, st);
 }
 
 template <int W>
@@ -958,6 +1036,51 @@ int sm_count() {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
   return n > 0 ? n : 1;
+}
+
+// Blocks of a persistent grid: as many as every SM holds at once.
+template <typename K>
+int resident_blocks(K kernel, int threads, size_t smem) {
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
+  return (per_sm > 0 ? per_sm : 1) * sm_count();
+}
+
+// K3: a persistent grid over the pair list (its length is on the
+// device), never more blocks than B * G pairs could fill.
+template <int W>
+cudaError_t launch_gated(const int16_t* cls, int B, int T,
+                         const uint32_t* follow, const uint32_t* mask, int G,
+                         int C, int live, int acc, const int* pairs,
+                         const int* n_pairs, uint32_t* out,
+                         cudaStream_t stream) {
+  static const int resident =
+      resident_blocks(grouped_nfa_gated_kernel<W>, GATED_THREADS, 0);
+  const long long need =
+      ((long long)B * G + GATED_THREADS - 1) / GATED_THREADS;
+  const int blocks = (int)(need < resident ? need : resident);
+  grouped_nfa_gated_kernel<W><<<blocks, GATED_THREADS, 0, stream>>>(
+      cls, B, T, follow, mask, G, C, live, acc, pairs, n_pairs, out);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_gated_wide(const int16_t* cls, int B, int T,
+                              const uint32_t* follow, const uint32_t* mask,
+                              int G, int S, int C, int live, int acc,
+                              const int* pairs, const int* n_pairs,
+                              uint32_t* out, cudaStream_t st) {
+  const int nw = S > 32 * 32 ? wide_warps(S) : 0;
+  if (nw == 0) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)2 * (S / 32) * nw * 4;
+  cudaError_t e = allow_smem(grouped_nfa_gated_wide, smem);
+  if (e != cudaSuccess) return e;
+  const long long need = ((long long)B * G + nw - 1) / nw;
+  const int resident = resident_blocks(grouped_nfa_gated_wide, 32 * nw, smem);
+  const int blocks = (int)(need < resident ? need : resident);
+  grouped_nfa_gated_wide<<<blocks, 32 * nw, smem, st>>>(
+      cls, B, T, follow, mask, S, C, live, acc, pairs, n_pairs, out);
+  return cudaGetLastError();
 }
 
 // K1 (SERIAL: chunks in turn inside a block, a byte per line) or K4
@@ -1039,22 +1162,62 @@ int klogs_grouped_nfa(const int16_t* cls, int B, int T,
     case 32: return launch_shift<32, true>(cls, B, T, follow, mask, G, C, live, acc, out, st);
     default: break;
   }
-  return launch_grouped_wide<false>(cls, B, T, follow, mask, G, S, C, live,
-                                    acc, nullptr, 0, nullptr, out, st);
+  return launch_grouped_wide(cls, B, T, follow, mask, G, S, C, live, acc,
+                             out, st);
 }
 
-// As klogs_grouped_nfa, gated: gate [B, GW] uint32 words (lines with any
-// bit set first), n_cand a device int holding how many lines have one.
-int klogs_grouped_nfa_gated(const int16_t* cls, int B, int T,
-                            const uint32_t* follow, const uint32_t* mask,
-                            int G, int S, int C, int live, int acc,
-                            const uint32_t* gate, int GW, const int* n_cand,
-                            uint8_t* out, void* stream, int device) {
+// K3's pair list: gate [B, GW] words read every `stride` 32-bit words
+// (1 for int32 words, 2 for int64 words of 32 bits), bits at or past G
+// ignored; counts [(G + 1) * ceil(B / 256) + 1] int32 scratch: the
+// per-slab counts, then the pair count, left in its last entry; pairs
+// [B * G] int32 gets that many entries, stats [3] int64 the gate's
+// counts in tiles of `tile` lines. Three launches: count, scan,
+// scatter.
+int klogs_gate_pairs(const uint32_t* gate, int B, int GW, int stride, int G,
+                     int* counts, int tile, int* pairs, long long* stats,
+                     void* stream, int device) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   if (B <= 0) return cudaSuccess;
-  return launch_gated_any(cls, B, T, follow, mask, G, S, C, live, acc, gate,
-                          GW, n_cand, out, static_cast<cudaStream_t>(stream));
+  if (G <= 0 || GW != (G + 31) / 32 || tile <= 0) return cudaErrorInvalidValue;
+  const int slabs = (B + PAIR_SLAB - 1) / PAIR_SLAB;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gate_pairs_count<<<slabs, PAIR_SLAB, 0, st>>>(gate, B, GW, stride, G,
+                                                counts);
+  gate_pairs_scan<<<(G + SCAN_WARPS) / SCAN_WARPS, SCAN_WARPS * 32, 0, st>>>(
+      counts, G + 1, slabs);
+  gate_pairs_scatter<<<slabs, PAIR_SLAB, 0, st>>>(
+      gate, B, GW, stride, G, counts, tile, pairs,
+      counts + (size_t)(G + 1) * slabs, stats);
+  return cudaGetLastError();
+}
+
+// K3: cls, follow (with its constants) and S as for klogs_grouped_nfa;
+// mask [G, C + 1, S/32] at a register width (row C all zero), [G, C,
+// S/32] past it; pairs and n_pairs from klogs_gate_pairs (on the
+// device); out ceil(B / 4) uint32 words, zeroed here, whose byte b is
+// set to 1 for each matching line b.
+int klogs_grouped_nfa_gated(const int16_t* cls, int B, int T,
+                            const uint32_t* follow, const uint32_t* mask,
+                            int G, int S, int C, int live, int acc,
+                            const int* pairs, const int* n_pairs,
+                            uint32_t* out, void* stream, int device) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if (B <= 0) return cudaSuccess;
+  if (G <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  e = cudaMemsetAsync(out, 0, (size_t)(B + 3) / 4 * 4, st);
+  if (e != cudaSuccess) return e;
+  switch (S / 32) {
+    case 4: return launch_gated<4>(cls, B, T, follow, mask, G, C, live, acc, pairs, n_pairs, out, st);
+    case 8: return launch_gated<8>(cls, B, T, follow, mask, G, C, live, acc, pairs, n_pairs, out, st);
+    case 16: return launch_gated<16>(cls, B, T, follow, mask, G, C, live, acc, pairs, n_pairs, out, st);
+    case 32: return launch_gated<32>(cls, B, T, follow, mask, G, C, live, acc, pairs, n_pairs, out, st);
+    default: break;
+  }
+  return launch_gated_wide(cls, B, T, follow, mask, G, S, C, live, acc, pairs,
+                           n_pairs, out, st);
 }
 
 // K4: as klogs_grouped_nfa (the same follow buffer), with out [B] uint32

@@ -14,9 +14,9 @@ ids laid out BEGIN, body, END, PAD latch:
   replacing ``_grouped_kernel_gated``): K1 under a per-(line, group)
   gate, ``out[b] = match_all or OR_g (gate[b, g] and acc_g(b))``; the
   thousand-pattern path feeds it the literal sweep's or the pair-CNF's
-  group candidates, and dead (block, group) cells are skipped
-  (``cluster_gate`` orders its operands, ``launch_gated`` is the
-  kernel alone);
+  group candidates. ``gate_pairs`` compacts the gate into a list of
+  candidate (line, group) pairs on the device, and ``launch_gated``
+  (the kernel alone) runs one thread per listed pair;
 - ``match_cls_grouped_fused`` (K4, ``grouped_nfa_fused_kernel``,
   replacing ``_grouped_kernel_fused``): K1's function and schedule (one
   thread per (line, group) pair), with the chunks of groups that a
@@ -41,18 +41,23 @@ import torch.nn.functional as F
 
 from klogs_tpu_torch.ops.bits import pack_bits, to_int32, unpack_bits
 from klogs_tpu_torch.ops.nfa import TorchProgram
-from klogs_tpu_torch.ops.prefilter import cluster_candidates
 
 GROUPED = "grouped_nfa_kernel"
 GATED = "grouped_nfa_gated_kernel"
 CHUNK = "chunk_nfa_kernel"
 FUSED = "grouped_nfa_fused_kernel"
+# K3's pair builder (gate_pairs_count, gate_pairs_scan and
+# gate_pairs_scatter, launched together: counted once per list built).
+PAIRS = "gate_pairs"
 
-LAUNCHES = {GROUPED: 0, GATED: 0, CHUNK: 0, FUSED: 0}
+LAUNCHES = {GROUPED: 0, GATED: 0, CHUNK: 0, FUSED: 0, PAIRS: 0}
 
-# Lines per block of the gated kernel (GROUPED_LINES in the CUDA
-# source): the unit it skips, and its stats' "tile".
+# Lines per tile of the gate's stats: the JAX engine counts candidate
+# lines clustered into tiles of its kernel's width, and the --stats
+# line reports live tiles of this many lines.
 GATE_TILE = 128
+# Lines per block of the pair builder (PAIR_SLAB in the CUDA source).
+PAIR_SLAB = 256
 
 # State words per line that the register kernels are built for; a
 # program of another width up to 32 words runs at the next of them.
@@ -88,8 +93,10 @@ def _library():
                                               p, p, i]
             lib.klogs_grouped_nfa.restype = i
             lib.klogs_grouped_nfa_gated.argtypes = [p, i, i, p, p, i, i, i,
-                                                    i, i, p, i, p, p, p, i]
+                                                    i, i, p, p, p, p, i]
             lib.klogs_grouped_nfa_gated.restype = i
+            lib.klogs_gate_pairs.argtypes = [p, i, i, i, i, p, i, p, p, p, i]
+            lib.klogs_gate_pairs.restype = i
             lib.klogs_grouped_nfa_fused.argtypes = [p, i, i, p, p, i, i, i, i,
                                                     i, p, p, i]
             lib.klogs_grouped_nfa_fused.restype = i
@@ -317,60 +324,138 @@ match_cls_grouped_fused_plain = match_cls_grouped_plain
 # ---- K3: gated grouped full-line match -----------------------------------
 
 
-def _gate_words(prog: TorchProgram, cls: torch.Tensor,
+def _gate_words(G: int, rows: int, device: torch.device,
                 gate_bits: torch.Tensor) -> torch.Tensor:
-    G = prog.follow.shape[0]
-    if gate_bits.shape != (cls.shape[0], (G + 31) // 32):
-        raise ValueError(f"gate_bits must be [{cls.shape[0]}, "
-                         f"{(G + 31) // 32}] words, got "
-                         f"{tuple(gate_bits.shape)}")
+    if gate_bits.shape != (rows, (G + 31) // 32):
+        raise ValueError(f"gate_bits must be [{rows}, {(G + 31) // 32}] "
+                         f"words, got {tuple(gate_bits.shape)}")
     if gate_bits.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"gate_bits must be int32 or int64 words, got "
                         f"{gate_bits.dtype}")
-    if gate_bits.device != cls.device:
-        raise ValueError(f"gate_bits on {gate_bits.device}, cls on "
-                         f"{cls.device}")
+    if gate_bits.device != device:
+        raise ValueError(f"gate_bits on {gate_bits.device}, expected "
+                         f"{device}")
     return gate_bits
 
 
-def cluster_gate(prog: TorchProgram, cls: torch.Tensor,
-                 gate_bits: torch.Tensor):
-    """K3's operands with the candidate lines (any gate bit) first:
-    (cls [B, T] int16, gate [B, GW] int32 words, n_cand [] int32, inv
-    [B] that undoes the order, stats [3] int64: candidate lines, live
-    tiles, tiles), all on ``cls``'s device."""
-    gate_bits = _gate_words(prog, cls, gate_bits)
-    order, inv, tile_live, n_cand = cluster_candidates(
-        (gate_bits != 0).any(dim=1), GATE_TILE)
-    stats = torch.stack([n_cand, tile_live.sum(),
-                         torch.full_like(n_cand, tile_live.numel())])
-    words = gate_bits if gate_bits.dtype == torch.int32 else to_int32(gate_bits)
-    return (_cls16(prog, cls).index_select(0, order).contiguous(),
-            words.index_select(0, order).contiguous(),
-            n_cand.to(torch.int32), inv, stats)
+def _gate_stats(n_cand: torch.Tensor, B: int) -> torch.Tensor:
+    """[3] int64: candidate lines, the GATE_TILE tiles they fill once
+    clustered, and the batch's tiles."""
+    n_cand = n_cand.reshape(()).to(torch.int64)
+    return torch.stack([n_cand, (n_cand + GATE_TILE - 1) // GATE_TILE,
+                        torch.full_like(n_cand, -(-B // GATE_TILE))])
+
+
+def gate_pairs(gate_bits: torch.Tensor, G: int):
+    """K3's pair list of a [B, GW] gate over G groups (bit g % 32 of word
+    g // 32: group g may match line b; bits at or past G are ignored;
+    GW = ceil(G / 32)) -> (pairs [B * G] int32, n_pairs [1] int32, stats
+    [3] int64), on the gate's device. ``pairs[:n_pairs]`` holds
+    ``g * B + b`` for every set bit, group-major with lines ascending (a
+    warp's pairs share one group's tables); the entries past it are
+    unspecified. ``stats`` is ``_gate_stats`` of the lines with any
+    bit. A CUDA gate is compacted by three kernels (count, scan,
+    scatter), and nothing waits on the host: the capacity is B * G, and
+    the count stays on the device."""
+    B = gate_bits.shape[0]
+    _gate_words(G, B, gate_bits.device, gate_bits)
+    if gate_bits.device.type == "cpu":
+        return gate_pairs_plain(gate_bits, G)
+    if gate_bits.device.type != "cuda":
+        raise ValueError(f"unsupported device {gate_bits.device}")
+    if B * G >= 2**30:
+        raise ValueError(f"{B} lines x {G} groups: too many pairs to list")
+    dev = gate_bits.device
+    pairs = torch.empty(B * G, dtype=torch.int32, device=dev)
+    stats = torch.empty(3, dtype=torch.int64, device=dev)
+    if B == 0:
+        return pairs, torch.zeros(1, dtype=torch.int32, device=dev), \
+            stats.zero_()
+    gate = gate_bits.contiguous()
+    stride = 2 if gate.dtype == torch.int64 else 1  # the low half of each
+    slabs = -(-B // PAIR_SLAB)
+    # Each group's bits per slab of lines (scanned in place), then the
+    # pair count.
+    counts = torch.empty((G + 1) * slabs + 1, dtype=torch.int32, device=dev)
+    err = _library().klogs_gate_pairs(
+        gate.data_ptr(), B, gate.shape[1], stride, G, counts.data_ptr(),
+        GATE_TILE, pairs.data_ptr(), stats.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
+    _count(PAIRS)
+    _check(err, PAIRS)
+    return pairs, counts[(G + 1) * slabs:], stats
+
+
+def gate_pairs_plain(gate_bits: torch.Tensor, G: int):
+    """Plain version of ``gate_pairs`` (the entries past the count are
+    zeros)."""
+    B = gate_bits.shape[0]
+    cells = unpack_bits(gate_bits.long(), G)  # [B, G]
+    hits = torch.nonzero(cells.T.reshape(-1)).reshape(-1)
+    pairs = torch.zeros(B * G, dtype=torch.int32, device=gate_bits.device)
+    pairs[:len(hits)] = hits.to(torch.int32)
+    n_pairs = torch.full((1,), len(hits), dtype=torch.int32,
+                         device=gate_bits.device)
+    return pairs, n_pairs, _gate_stats(cells.any(dim=1).sum(), B)
+
+
+def _gated_tables(prog: TorchProgram, live: int):
+    """K3's operands (follow, mask): K1's follow buffer, and at a
+    register width the mask bit table with an all-zero row appended to
+    each group ([G, C+1, Sk/32]: the row an id outside [0, C) reads);
+    past 32 words the bit tables as they are."""
+    follow, mask_bits = _shift_tables(prog, live)
+    if mask_bits.shape[-1] not in REGISTER_WORDS:
+        return follow, mask_bits
+    padded = prog.cache.get("mask_zero_row")
+    if padded is None:
+        padded = F.pad(mask_bits, (0, 0, 0, 1)).contiguous()
+        prog.cache["mask_zero_row"] = padded
+    return follow, padded
 
 
 def launch_gated(prog: TorchProgram, live: int, acc: int, cls: torch.Tensor,
-                 gate: torch.Tensor, n_cand: torch.Tensor) -> torch.Tensor:
-    """K3 alone on ``cluster_gate``'s operands (CUDA tensors) -> [B]
-    uint8 verdicts in the clustered order, ``match_all`` not applied.
-    A block wholly past ``n_cand`` writes zeros and exits."""
+                 pairs: torch.Tensor, n_pairs: torch.Tensor) -> torch.Tensor:
+    """K3 alone on ``gate_pairs``'s list -> [B] bool: some listed pair
+    (line b, group g) accepts, ``match_all`` not applied. A CPU tensor
+    runs ``launch_gated_plain``."""
+    if cls.device.type == "cpu":
+        return launch_gated_plain(prog, live, acc, cls, pairs, n_pairs)
     if cls.device.type != "cuda":
-        raise ValueError(f"launch_gated needs CUDA tensors, got {cls.device}")
+        raise ValueError(f"unsupported device {cls.device}")
     _check_states(prog)
     cls = _cls16(prog, cls)
     B, T = cls.shape
     G, C, S = prog.char_mask.shape
-    follow_bits, mask_bits = _bit_tables(prog)
-    out = torch.empty(B, dtype=torch.uint8, device=cls.device)
+    if (pairs.shape != (B * G,)
+            or {pairs.dtype, n_pairs.dtype} != {torch.int32}
+            or not pairs.device == n_pairs.device == cls.device):
+        raise ValueError("pairs and n_pairs must be gate_pairs' list for "
+                         "these lines")
+    follow, mask = _gated_tables(prog, live)
+    # A verdict byte per line, zeroed by the call and set in place
+    # through its 32-bit word.
+    out = torch.empty(-(-B // 4) * 4, dtype=torch.uint8, device=cls.device)
     stream = torch.cuda.current_stream(cls.device).cuda_stream
     err = _library().klogs_grouped_nfa_gated(
-        cls.data_ptr(), B, T, follow_bits.data_ptr(), mask_bits.data_ptr(),
-        G, kernel_states(S), C, live, acc, gate.data_ptr(), gate.shape[1],
-        n_cand.data_ptr(), out.data_ptr(), stream, cls.device.index or 0)
+        cls.data_ptr(), B, T, follow.data_ptr(), mask.data_ptr(), G,
+        kernel_states(S), C, live, acc, pairs.data_ptr(), n_pairs.data_ptr(),
+        out.data_ptr(), stream, cls.device.index or 0)
     _count(GATED)
     _check(err, GATED)
-    return out
+    return out[:B].view(torch.bool)
+
+
+def launch_gated_plain(prog: TorchProgram, live: int, acc: int,
+                       cls: torch.Tensor, pairs: torch.Tensor,
+                       n_pairs: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``launch_gated``: the plain K1 step over every
+    (line, group), kept on the listed pairs."""
+    B, G = cls.shape[0], prog.follow.shape[0]
+    cells = torch.zeros(G * B, dtype=torch.bool, device=cls.device)
+    cells[pairs[:int(n_pairs)].long()] = True
+    accepts = _group_accepts_plain(prog, live, acc, cls, None)  # [G, B]
+    return (accepts & cells.reshape(G, B)).any(dim=0)
 
 
 def match_cls_grouped_gated(prog: TorchProgram, live: int, acc: int,
@@ -379,7 +464,7 @@ def match_cls_grouped_gated(prog: TorchProgram, live: int, acc: int,
     """[B, T] class ids + [B, GW] group words (bit g % 32 of word g // 32:
     group g may match line b) -> (matched [B] bool, stats or None), with
     ``matched[b] = match_all or OR_g (gate[b, g] and acc_g(b))``: for a
-    necessary gate, K1's verdict. ``stats`` is ``cluster_gate``'s [3]
+    necessary gate, K1's verdict. ``stats`` is ``gate_pairs``' [3]
     int64 tensor on the device, read with the verdicts. Nothing waits
     on the host."""
     if prog.follow.dim() != 3:
@@ -387,14 +472,12 @@ def match_cls_grouped_gated(prog: TorchProgram, live: int, acc: int,
             "match_cls_grouped_gated needs a compile_grouped program")
     if cls.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {cls.device}")
-    # Candidates first: the kernel's blocks past n_cand are dead.
-    cls_p, gate_p, n_cand, inv, stats = cluster_gate(prog, cls, gate_bits)
-    if cls.device.type == "cpu":
-        matched = match_cls_grouped_gated_plain(prog, live, acc, cls,
-                                                gate_bits)
-    else:
-        matched = _or_match_all(prog, launch_gated(
-            prog, live, acc, cls_p, gate_p, n_cand).index_select(0, inv).bool())
+    cls = _cls16(prog, cls)
+    G = prog.follow.shape[0]
+    _gate_words(G, cls.shape[0], cls.device, gate_bits)
+    pairs, n_pairs, stats = gate_pairs(gate_bits, G)
+    matched = _or_match_all(prog, launch_gated(prog, live, acc, cls, pairs,
+                                               n_pairs))
     return matched, (stats if want_stats else None)
 
 
@@ -404,7 +487,8 @@ def match_cls_grouped_gated_plain(prog: TorchProgram, live: int, acc: int,
     """Plain version of ``match_cls_grouped_gated``: the plain K1 step
     over every (line, group), ANDed with the gate. ``work`` counts the
     state bits read on the gated cells only."""
-    gate_bits = _gate_words(prog, cls, gate_bits)
+    gate_bits = _gate_words(prog.follow.shape[0], cls.shape[0], cls.device,
+                            gate_bits)
     cells = unpack_bits(gate_bits.long(), prog.follow.shape[0]).T  # [G, B]
     accepts = _group_accepts_plain(prog, live, acc, cls, work, cells)
     return _or_match_all(prog, (accepts & cells).any(dim=0))

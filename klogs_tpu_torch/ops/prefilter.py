@@ -1,5 +1,6 @@
-"""The pair-CNF candidate masks and the candidate clustering of the
-gated path, as torch ops on the device.
+"""The pair-CNF candidate masks of the gated path, and the candidate
+clustering of the JAX package's gated launch, as torch ops on the
+device.
 
 Counterpart of ``klogs_tpu/ops/prefilter.py``. It evaluates the compiled
 pair-CNF (``filters/compiler/prefilter.py``, opted in by
@@ -14,8 +15,10 @@ pair-CNF (``filters/compiler/prefilter.py``, opted in by
 
 A False cell (b, p) proves pattern p cannot match line b.
 ``group_candidates`` reduces the per-pattern matrix to the kernel's
-groups; ``cluster_candidates`` orders candidate lines first, which is
-how the gated kernel (K3, ``ops/nfa_kernels.py``) skips dead blocks.
+groups (K3, ``ops/nfa_kernels.py``, lists their set bits as
+(line, group) pairs); ``cluster_candidates`` orders candidate lines
+first, the counterpart of the JAX gated launch's clustering, which the
+port's K3 does not need.
 Every function keeps its work on the input's device and never waits on
 the host.
 """

@@ -272,36 +272,79 @@ def test_engine_on_card_equals_cpu(dev, env, monkeypatch):
     assert sum(gpu) >= 5
 
 
-@pytest.mark.parametrize("patterns", [
-    PATTERNS,
+@pytest.mark.parametrize("B,G,share", [
+    (1, 3, 1.0), (45, 37, 0.3), (300, 64, 0.1), (700, 5, 0.0),
+    (1000, 156, 0.02), (8192, 156, 0.05), (3000, 40, 1.0),
+    (70000, 40, 0.1)])  # 274 slabs: a row of counts spans two scan pieces
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_gate_pairs_kernel_equals_plain(dev, B, G, share, dtype):
+    """The card's pair list equals the plain one byte for byte (count,
+    listed pairs, stats), over ragged line and group counts with stray
+    bits at or past G, int32 and int64 words, empty and full gates, and
+    more groups (rows of counts) than the scan has warps."""
+    from klogs_tpu_torch.ops import bits
+
+    rng = np.random.default_rng(B + G)
+    words = bits.pack_bits(torch.from_numpy(rng.random((B, G)) < share))
+    words[B // 3:B // 2] = 0  # a run of lines with no candidate
+    if G % 32:
+        words[::3, -1] |= (0xFFFFFFFF << (G % 32)) & 0xFFFFFFFF
+    if dtype == torch.int32:
+        words = bits.to_int32(words)
+    nfa_kernels.reset_launches()
+    pairs, n_pairs, stats = nfa_kernels.gate_pairs(words.to(dev), G)
+    assert nfa_kernels.LAUNCHES[nfa_kernels.PAIRS] == 1
+    exp_pairs, exp_n, exp_stats = nfa_kernels.gate_pairs(words, G)
+    n = int(n_pairs)
+    assert pairs.shape == exp_pairs.shape and n_pairs.dtype == torch.int32
+    assert n == int(exp_n)
+    assert torch.equal(pairs[:n].cpu(), exp_pairs[:n])
+    assert torch.equal(stats.cpu(), exp_stats)
+
+
+# K3 cases: W = 4, 8, 16, 32 (640 states padded to 1024) and past 32
+# words, each with several groups.
+GATED_CASES = [
+    PATTERNS + [f"t{i:02d}lit" for i in range(40)],
     ["a" * 200 + "b", r"x\d+y"] + [f"lit{i:02d}x" for i in range(40)],
+    ["b" * 400 + "c", "panic:"] + [f"v{i:02d}yz" for i in range(40)],
+    ["q" * 600 + "z", "panic:"] + [f"u{i:02d}yz" for i in range(40)],
     ["q" * 1100 + "z", "panic:"] + [f"w{i:02d}yz" for i in range(40)],
-], ids=["s128", "s256", "wide"])
+]
+
+
+@pytest.mark.parametrize("patterns", GATED_CASES,
+                         ids=["w4", "w8", "w16", "w32", "wide"])
 def test_gated_kernel_equals_plain(dev, patterns):
-    """K3 against its plain version under random gates: dense, sparse,
-    empty, and one that leaves whole blocks of candidates dead."""
+    """K3 against its plain version under random gates: all ones, dense,
+    sparse and empty, each over lines whose second half has no gate bit
+    (a dead half)."""
     from klogs_tpu_torch.ops import bits
 
     prog, live, acc = nfa.compile_grouped(patterns, device=dev)
     G = int(prog.follow.shape[0])
+    assert G > 1
     rng = np.random.default_rng(G)
     for B, T, share in ((1, 5, 1.0), (300, 67, 0.5), (1000, 131, 0.02),
-                        (700, 40, 0.0)):
+                        (700, 40, 0.0), (513, 99, 1.0)):
         cls = random_cls(prog, B, T, B).to(dev)
         gate = torch.from_numpy(rng.random((B, G)) < share)
-        gate[B // 2:] = False  # a dead tail: blocks past the candidates
+        if B > 1:
+            gate[B // 2:] = False  # a dead half
         words = bits.pack_bits(gate).to(dev)
         got, stats = nfa_kernels.match_cls_grouped_gated(
             prog, live, acc, cls, words, want_stats=True)
         exp = nfa_kernels.match_cls_grouped_gated_plain(prog, live, acc,
                                                         cls, words)
+        assert got.dtype == torch.bool and got.shape == (B,)
         assert torch.equal(got, exp)
         assert int(stats[0]) == int(gate.any(1).sum())
 
 
 def test_gated_launch_alone_equals_wrapper(dev):
-    """launch_gated on cluster_gate's operands, un-permuted, is the
-    wrapper's verdict; each call counts one launch."""
+    """launch_gated on gate_pairs' list is the wrapper's verdict, lines
+    off the list stay false; each launch_gated counts one launch and
+    each list one builder launch."""
     from klogs_tpu_torch.ops import bits
 
     prog, live, acc = nfa.compile_grouped(PATTERNS, device=dev)
@@ -309,15 +352,43 @@ def test_gated_launch_alone_equals_wrapper(dev):
     cls = random_cls(prog, 900, 50, 4).to(dev)
     gate = torch.from_numpy(np.random.default_rng(4).random((900, G)) < 0.1)
     words = bits.pack_bits(gate).to(dev)
-    cls_p, gate_p, n_cand, inv, stats = nfa_kernels.cluster_gate(
-        prog, cls, words)
-    assert int(n_cand) == int(gate.any(1).sum()) == int(stats[0])
     nfa_kernels.reset_launches()
-    out = nfa_kernels.launch_gated(prog, live, acc, cls_p, gate_p, n_cand)
+    pairs, n_pairs, stats = nfa_kernels.gate_pairs(words, G)
+    assert int(n_pairs) == int(gate.sum())
+    assert int(stats[0]) == int(gate.any(1).sum())
+    out = nfa_kernels.launch_gated(prog, live, acc, cls, pairs, n_pairs)
     got, _ = nfa_kernels.match_cls_grouped_gated(prog, live, acc, cls, words)
-    assert torch.equal(out.index_select(0, inv).bool(), got)
-    assert not out[int(n_cand):].any()
+    assert torch.equal(out, got)
+    assert not out[~gate.any(1).to(dev)].any()
     assert nfa_kernels.LAUNCHES[nfa_kernels.GATED] == 2
+    assert nfa_kernels.LAUNCHES[nfa_kernels.PAIRS] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_gated_wrapper_does_not_wait_on_host(dev, dtype):
+    """match_cls_grouped_gated (pair list, scan, kernel, stats) enqueues
+    everything without a host synchronisation."""
+    from klogs_tpu_torch.ops import bits
+
+    prog, live, acc = nfa.compile_grouped(GATED_CASES[1], device=dev)
+    G = int(prog.follow.shape[0])
+    cls = random_cls(prog, 2000, 70, 5).to(dev)
+    words = bits.pack_bits(torch.from_numpy(
+        np.random.default_rng(5).random((2000, G)) < 0.2)).to(dev)
+    if dtype == torch.int32:
+        words = bits.to_int32(words)
+    exp, _ = nfa_kernels.match_cls_grouped_gated(prog, live, acc, cls,
+                                                 words)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, stats = nfa_kernels.match_cls_grouped_gated(
+            prog, live, acc, cls, words, want_stats=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, exp)
+    assert torch.equal(got, nfa_kernels.match_cls_grouped_gated_plain(
+        prog, live, acc, cls, words))
 
 
 def test_gated_kernel_all_ones_equals_k1(dev):

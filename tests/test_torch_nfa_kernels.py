@@ -203,7 +203,8 @@ def test_wrappers_count_only_kernel_launches():
     assert nfa_kernels.LAUNCHES == {nfa_kernels.GROUPED: 0,
                                     nfa_kernels.GATED: 0,
                                     nfa_kernels.CHUNK: 0,
-                                    nfa_kernels.FUSED: 0}
+                                    nfa_kernels.FUSED: 0,
+                                    nfa_kernels.PAIRS: 0}
 
 
 def test_wrappers_reject_mismatched_programs():
@@ -337,29 +338,74 @@ def test_gated_plain_formula_under_random_gate(dtype):
                               -(-int(gate.any(1).sum()) // 128), -(-B // 128)]
 
 
-def test_cluster_gate_puts_candidates_first():
-    """K3's operands: candidate rows (any gate bit) first in their own
-    order, int16 class ids and int32 words, inv undoing the order."""
+def sweep_gate(prog, rows, lens):
+    """The literal sweep's [B, GW] words, and JAX's gated verdicts and
+    stats under the same sweep."""
+    from klogs_tpu.ops.sweep import device_sweep_tables as jtables
+    from klogs_tpu_torch.ops import sweep
+
+    return (sweep.sweep_group_bits(
+        sweep.device_sweep_tables(prog, device="cpu"), torch.from_numpy(rows),
+        torch.from_numpy(lens)),
+        dict(sweep_tables=jtables(prog)))
+
+
+def pair_cnf_gate(tp, jdp, cls):
+    """The class-domain pair-CNF gate's [B, GW] words, and JAX's gated
+    kernel arguments for the same gate."""
+    from klogs_tpu.filters.compiler.prefilter import compile_prefilter as jcp
+    from klogs_tpu.ops import prefilter as jpf
+    from klogs_tpu_torch.filters.compiler.prefilter import compile_prefilter
+    from klogs_tpu_torch.ops import bits, prefilter
+
+    tt = prefilter.class_tables(compile_prefilter(K64), tp.byte_class.numpy(),
+                                tp.n_classes, device="cpu")
+    onehot = prefilter.pattern_group_onehot(
+        tp.pattern_group, tp.follow.shape[0], device="cpu")
+    gm = prefilter.group_candidates(
+        prefilter.candidate_matrix_from_cls(tt, cls), onehot, len(K64))
+    return bits.pack_bits(gm), dict(prefilter_tables=jpf.class_tables(
+        jcp(K64), jdp.byte_class, jdp.n_classes))
+
+
+@pytest.mark.parametrize("kind", ["sweep", "pair_cnf"])
+def test_gate_pairs_and_plain_versions_equal_pallas(kind):
+    """Under each gate of the thousand-pattern path: the plain pair list
+    holds exactly the gate's (line, group) bits, group-major; K3's
+    plain version from the gate and from the pair list give JAX's gated
+    Pallas verdicts (interpret mode), and the pair count is the gated
+    cells' and the candidate count JAX's."""
     from klogs_tpu_torch.ops import bits
 
-    tp, live, acc = nfa.compile_grouped(bench.PATTERNS, device="cpu")
-    rows, lens = seeded_rows(25, 300, 32)
+    tp, jdp, live, acc, prog = k64_programs()
+    rows, lens = k64_rows(26)
     cls = nfa.classify_chunk(tp, torch.from_numpy(rows),
                              torch.from_numpy(lens), True, True)
+    if kind == "sweep":
+        words, jkw = sweep_gate(prog, rows, lens)
+        exp, jstats = pallas_nfa.match_batch_grouped_pallas(
+            jdp, live, acc, rows, lens, tile_b=16, interpret=True,
+            return_stats=True, **jkw)
+    else:
+        words, jkw = pair_cnf_gate(tp, jdp, cls)
+        exp, jstats = pallas_nfa.match_cls_grouped_pallas(
+            jdp, live, acc, cls.numpy().astype(np.int32), tile_b=16,
+            interpret=True, return_stats=True, **jkw)
     G = int(tp.follow.shape[0])
-    gate = torch.from_numpy(np.random.default_rng(6).random((300, G)) < 0.1)
-    cls_p, gate_p, n_cand, inv, stats = nfa_kernels.cluster_gate(
-        tp, cls, bits.pack_bits(gate))
-    cand = gate.any(1)
-    n = int(cand.sum())
-    assert cls_p.dtype == torch.int16 and gate_p.dtype == torch.int32
-    assert n_cand.dtype == torch.int32 and int(n_cand) == n
-    assert torch.equal(cls_p[:n], cls[cand]) and torch.equal(
-        cls_p[n:], cls[~cand])
-    assert torch.equal(cls_p.index_select(0, inv), cls)
-    assert not gate_p[n:].any()
-    assert stats.tolist() == [n, -(-n // nfa_kernels.GATE_TILE),
-                              -(-300 // nfa_kernels.GATE_TILE)]
+    cells = bits.unpack_bits(words, G)  # [B, G]
+    pairs, n_pairs, stats = nfa_kernels.gate_pairs(words, G)
+    n = int(n_pairs)
+    listed = pairs[:n].long()
+    assert n == int(cells.sum()) > 0
+    assert torch.equal(listed, torch.sort(listed).values)
+    assert cells[listed % len(rows), listed // len(rows)].all()
+    assert int(stats[0]) == int(jstats[0]) == int(cells.any(1).sum())
+    exp = np.asarray(exp).tolist()
+    assert nfa_kernels.launch_gated_plain(tp, live, acc, cls, pairs,
+                                          n_pairs).tolist() == exp
+    assert nfa_kernels.match_cls_grouped_gated_plain(
+        tp, live, acc, cls, words).tolist() == exp
+    assert any(exp)
 
 
 def test_gated_plain_counts_only_gated_cells():
