@@ -6,8 +6,12 @@ card and nvcc (``/usr/local/cuda`` or CUDA_HOME):
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``klogs_tpu_torch/ops/csrc`` and runs
-these phases, each printing one JSON line:
+It builds the CUDA kernels from ``klogs_tpu_torch/ops/csrc`` (one nvcc
+per source, all at once) and runs these phases, each printing one JSON
+line. Every phase that drives an entry point (engine, cli and their
+fused and thousand-pattern variants) fails unless its short rows and
+long-line chunks went through the ragged pack (``pack_rows``): the
+payload crosses to the card once per batch and is cut into rows there.
 
 1. card: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. grouped_nfa_kernel against its plain PyTorch version on the
@@ -22,7 +26,11 @@ these phases, each printing one JSON line:
    step.
 4. engine: GpuEngineFilter on 1M synthetic log lines and 2000 long
    lines (4 KiB to 192 KiB); verdicts equal a Python ``re`` oracle.
-5. cli: the user's entry point, ``app.run_async`` over a 256-pod
+5. pack: pack_rows against its plain version, byte for byte, on what
+   the engine stages for the engine phase's first frame (every width
+   bucket) and for its long frame (every 4096-byte chunk), both timed,
+   with the bound.
+6. cli: the user's entry point, ``app.run_async`` over a 256-pod
    FakeCluster (4000 lines each, plus long lines) with ``--match`` on
    the 32 patterns and ``-p`` a temporary directory; every file must
    hold exactly the oracle's lines. This is the main path: the launch
@@ -30,48 +38,49 @@ these phases, each printing one JSON line:
    grouped_nfa_kernel is held against its plain version and timed on
    the run's own class batches, at its two most frequent shapes, and
    chunk_nfa_kernel on the long lines' own chunk batch (with its
-   carry) at its most frequent shape.
+   carry) at its most frequent shape. The run is repeated under
+   cProfile for the host's top functions.
 
 The fused-groups path, under ``KLOGS_TPU_FUSED_GROUPS=1`` (set and
 restored around these two phases):
 
-6. engine_fused: the fused engine on the engine phase's frames; its
+7. engine_fused: the fused engine on the engine phase's frames; its
    verdicts equal the K1 engine's on every line, short lines run
    grouped_nfa_fused_kernel (K4) and never K1, long ones K2; short
    lines/s and the device-busy share.
-7. cli_fused: the cli phase again under the variable, this path's main
+8. cli_fused: the cli phase again under the variable, this path's main
    run (counts zeroed just before, read just after; K4 must launch, K1
    must not); every file equal to the oracle's lines. Then K4 is held
    against its plain version and K1, and timed with its plain version,
    on the run's own batches, and K2 as in cli.
-8. tune: ``ops/tune.py`` ``tune_grouped`` times K1 and K4 on the fused
+9. tune: ``ops/tune.py`` ``tune_grouped`` times K1 and K4 on the fused
    engine's 131072 x 131 batch and caches the winner (in a temporary
    ``XDG_CACHE_HOME``); both lines/s and the winner are printed.
 
 The thousand-pattern path, on ``make_patterns(1024)`` (``bench.py``'s
 K axis: 156 groups of 128 states, 64 classes):
 
-9. sweep: the device literal sweep's tables (920 factors, 5 group
+10. sweep: the device literal sweep's tables (920 factors, 5 group
    words) over 131072 FakeCluster rows at the 128-byte bucket, 1% with
    a minted-family needle; the card's mask equals the same function on
    the CPU, exactly.
-10. grouped_nfa_gated_kernel (K3) against its plain version on 8192 of
+11. grouped_nfa_gated_kernel (K3) against its plain version on 8192 of
    those rows under the sweep's gate and under a seeded random gate,
    and against ungated K1 on all 131072, under the sweep's gate and
    under that gate kept on 3% of the lines; on each batch the card's
    pair list (``gate_pairs``) equals its plain version, and K3's launch
    alone, its pair builder, its whole wrapper and K1 are timed.
-11. grouped_nfa_fused_kernel (K4) against its plain version and K1,
+12. grouped_nfa_fused_kernel (K4) against its plain version and K1,
    K4 and K1 timed in turns: 8192 rows and all 131072 of K1's w128
    batch, the 4096 bucket, the 1280-state wide program, and at K = 1024
    (156 groups in chunks, ungated) the sweep's 131072 x 131 batch and
    the engine's 256-byte bucket (2048 x 259).
-12. engine_k1024: GpuEngineFilter on 1M FakeCluster lines (1% needles)
+13. engine_k1024: GpuEngineFilter on 1M FakeCluster lines (1% needles)
    and 256 lines of 4-64 KiB; verdicts equal a K1-only engine's on the
    short lines (that engine timed too) and a Python ``re`` oracle (one
    alternation of the 1024 patterns) on the first 65536 lines and all
    long ones.
-13. cli_k1024: ``app.run_async`` over 256 pods x 250 lines plus 8 long
+14. cli_k1024: ``app.run_async`` over 256 pods x 250 lines plus 8 long
    lines with ``--match`` x1024, ``--stats`` and ``-p`` a temporary
    directory: this path's main run (counts zeroed just before, read
    just after; K3 must launch), every file equal to the oracle's lines
@@ -254,15 +263,24 @@ def oracle_verdicts(patterns: list, bodies: list) -> list:
         return [v for part in parts for v in part]
 
 
-def build_phase(nk, build):
+def build_phase(nk, pack, build):
+    """Every kernel source compiled at once (one nvcc each, in parallel),
+    then loaded."""
     t0 = time.perf_counter()
+    names = sorted(f[:-3] for f in os.listdir(build.CSRC) if f.endswith(".cu"))
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+        list(ex.map(build.build, names))
     nk._library()
+    pack._library()
     seconds = time.perf_counter() - t0
     regs = []
-    for m in re.finditer(r"entry function '([^']+)'.*?Used (\d+) registers",
-                         build.build_logs.get("nfa_kernels", ""), re.S):
-        regs.append({"kernel": m.group(1), "registers": int(m.group(2))})
-    emit({"phase": "build", "seconds": seconds, "ptxas": regs})
+    for name in names:
+        for m in re.finditer(
+                r"entry function '([^']+)'.*?Used (\d+) registers",
+                build.build_logs.get(name, ""), re.S):
+            regs.append({"kernel": m.group(1), "registers": int(m.group(2))})
+    emit({"phase": "build", "sources": names, "seconds": seconds,
+          "ptxas": regs})
 
 
 def card_phase(torch) -> str:
@@ -480,13 +498,23 @@ def k2_phase(torch, np, nfa, nk, compile_patterns, dev, lines=1024,
     return res
 
 
+def host_top(cp, n: int) -> list:
+    """The ``n`` functions of a cProfile run with the most own time."""
+    import pstats
+
+    st = pstats.Stats(cp)
+    top = sorted(((f"{os.path.basename(fn)}:{name}", v[2] * 1e3)
+                  for (fn, _, name), v in st.stats.items()),
+                 key=lambda r: -r[1])[:n]
+    return [{"fn": k[:60], "own_ms": ms} for k, ms in top]
+
+
 def profile_batch(torch, eng, frame) -> dict:
     """One batch under torch.profiler (device side: wall time, summed
     kernel and copy time, the largest of them, and the device time of
     any ``klogs.*`` named range) and under cProfile (host side: the
     functions with the most own time)."""
     import cProfile
-    import pstats
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -516,24 +544,20 @@ def profile_batch(torch, eng, frame) -> dict:
     top = sorted(rows, key=lambda r: -r[1])[:6]
     kernels: dict = {}
     for k, ms in rows:  # the hand-written kernels, by template instance
-        m = re.search(r"\w*(?:nfa|gate_pairs)\w*(?:<[^>]*>)?", k)
+        m = re.search(r"\w*(?:nfa|gate_pairs|pack_rows)\w*(?:<[^>]*>)?", k)
         if m:
             kernels[m.group(0)] = kernels.get(m.group(0), 0.0) + ms
     cp = cProfile.Profile()
     cp.enable()
     eng.fetch_framed(eng.dispatch_framed(*frame))
     cp.disable()
-    st = pstats.Stats(cp)
-    host = sorted(((f"{os.path.basename(fn)}:{name}", v[2] * 1e3)
-                   for (fn, _, name), v in st.stats.items()),
-                  key=lambda r: -r[1])[:8]
     return dict(wall_ms=wall * 1e3, device_ms=device_ms,
                 device_busy=device_ms / (wall * 1e3),
                 device_top=[{"op": k[:60], "ms": ms} for k, ms in top],
                 nfa_kernels_ms=kernels, range_span_ms=spans, range_busy_ms=busy,
                 range_busy_share={k: v / device_ms if device_ms else 0.0
                                   for k, v in busy.items()},
-                host_top=[{"fn": k[:60], "own_ms": ms} for k, ms in host])
+                host_top=host_top(cp, 8))
 
 
 def engine_phase(torch, np, nk, GpuEngineFilter, frame_lines, synthetic_line,
@@ -587,10 +611,71 @@ def engine_phase(torch, np, nk, GpuEngineFilter, frame_lines, synthetic_line,
                grouped_launches_per_batch=launches[nk.GROUPED] / len(frames))
     emit({"phase": "engine", **res})
     if (bad or len(got) != len(exp) or launches[nk.GROUPED] == 0
-            or launches[nk.CHUNK] == 0):
+            or launches[nk.CHUNK] == 0 or launches[nk.PACK] == 0):
         raise AssertionError(f"engine phase failed: {res}")
     return dict(res, frames=frames, long_frame=long_frame,
                 verdicts=np.asarray(got))
+
+
+def pack_check(torch, pack, payload, starts, lens, width: int, rows: int,
+               skip: int, reps: int) -> dict:
+    """pack_rows against its plain version on one sub-batch, both timed,
+    with the bound: the bytes the rows hold read once, their starts and
+    lengths read once, rows x width written once."""
+    got = pack.pack_rows(payload, starts, lens, width, rows, skip)
+    exp = pack.pack_rows_plain(payload, starts, lens, width, rows, skip)
+    bad = int((got != exp).sum())
+    ms = cuda_ms(torch, lambda: pack.pack_rows(payload, starts, lens, width,
+                                               rows, skip), reps)
+    plain_ms = cuda_ms(torch, lambda: pack.pack_rows_plain(
+        payload, starts, lens, width, rows, skip), 1)
+    n_bytes = (int((lens - skip).clamp(0, width).sum()) + 16 * len(starts)
+               + rows * width)
+    b_ms, b_by = bound(n_bytes, 0)
+    return dict(rows=rows, width=width, skip=skip, mismatches=bad, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                n_bytes=n_bytes)
+
+
+def pack_phase(torch, nk, pack, GpuEngineFilter, base, dev) -> dict:
+    """The ragged pack against its plain version on what the engine phase
+    staged: every width bucket of its first frame, and every chunk of its
+    long frame, on the engine's own metadata and device payload. Any
+    mismatch fails. ``launches`` are the engine phase's."""
+    eng = GpuEngineFilter(PATTERNS, device=dev)
+    L = eng._chunk_bytes
+    buckets, chunks = [], []
+    for frame in (base["frames"][0], base["long_frame"]):
+        layout, meta = eng._layout(*frame)
+        meta_d, payload_d = eng._stage(frame[0], meta)
+        at = 0
+        for idx, width, rows, longest in layout:
+            starts, lens = meta_d[at:at + rows], meta_d[at + rows:at + 2 * rows]
+            at += 2 * rows
+            if width is not None:
+                buckets.append(dict(lines=len(idx), **pack_check(
+                    torch, pack, payload_d, starts, lens, width, rows, 0, 20)))
+                continue
+            for k in range(-(-longest // L)):
+                chunks.append(pack_check(torch, pack, payload_d, starts, lens,
+                                         L, rows, k * L, 5))
+    long_sum = {key + "_sum": sum(c[key] for c in chunks)
+                for key in ("mismatches", "ms", "plain_ms", "bound_ms")}
+    main = max(buckets, key=lambda b: b["rows"])
+    res = dict(name=nk.PACK, route="cuda",
+               source="klogs_tpu_torch/ops/csrc/pack_kernels.cu",
+               replaces=None, counterpart="klogs_tpu/native/_hostops.c:593",
+               launches=base["launches"][nk.PACK],
+               max_abs_err=float(max(b["mismatches"] for b in buckets + chunks)),
+               ms=main["ms"], plain_ms=main["plain_ms"],
+               bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+               library_ms=None, buckets=buckets,
+               long_chunks=dict(rows=chunks[0]["rows"], width=L,
+                                chunks=len(chunks), **long_sum))
+    emit({"phase": "pack", **res})
+    if res["max_abs_err"] or not chunks:
+        raise AssertionError(f"pack phase failed: {res}")
+    return res
 
 
 def engine_fused_phase(torch, np, nk, GpuEngineFilter, base, dev) -> dict:
@@ -641,6 +726,7 @@ def engine_fused_phase(torch, np, nk, GpuEngineFilter, base, dev) -> dict:
     main_shape = max(batches, key=lambda k: batches[k][0]) if batches else None
     if (bad or not eng._fused or launches[nk.FUSED] == 0
             or launches[nk.GROUPED] != 0 or launches[nk.CHUNK] == 0
+            or launches[nk.PACK] == 0
             or main_shape is None or main_shape[1] != 131):
         raise AssertionError(f"engine_fused phase failed: {res}")
     return dict(res, batch=batches[main_shape][1])
@@ -666,6 +752,28 @@ def tune_phase(torch, tune, batch) -> dict:
     if len(seen) != 2 or cached != best:
         raise AssertionError(f"tune phase failed: {res}")
     return res
+
+
+def cli_profile(app, cli, term, fc, argv: list, dev) -> dict:
+    """``app.run_async`` on ``argv`` (its ``-p`` replaced by a temporary
+    directory) under cProfile: seconds and the host's top functions."""
+    import cProfile
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        argv = list(argv)
+        argv[argv.index("-p") + 1] = out_dir
+        opts = cli.parse_args(argv)
+        term.set_ui_stream(io.StringIO())
+        cp = cProfile.Profile()
+        try:
+            t0 = time.perf_counter()
+            cp.enable()
+            asyncio.run(app.run_async(opts, backend=fc, device=dev))
+            cp.disable()
+            seconds = time.perf_counter() - t0
+        finally:
+            term.set_ui_stream(None)
+    return dict(seconds=seconds, host_top=host_top(cp, 12))
 
 
 def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
@@ -744,6 +852,9 @@ def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
             with open(os.path.join(out_dir, f"{name}__c0.log"), "rb") as f:
                 if f.read() != exp:
                     bad.append(name)
+    # What sets the run's pace on the host: the same run again under
+    # cProfile (the event loop's thread: framing, dispatch, writes).
+    profile = None if fused else cli_profile(app, cli, term, fc, argv, dev)
     # The kernel timed (and held against its plain version, K4 against
     # K1 too) on the main path's own batches, its two most frequent
     # shapes.
@@ -764,13 +875,13 @@ def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
                                     for (B, T), e in shapes.items()},
                   f"{key}_batches": batches},
                k2_shapes={f"{B}x{T}": e[0] for (B, T), e in chunks.items()},
-               k2_batches=k2)
+               k2_batches=k2, profile=profile)
     name = "cli_fused" if fused else "cli"
     emit({"phase": name, **res})
     ran, idle = (nk.FUSED, nk.GROUPED) if fused else (nk.GROUPED, nk.FUSED)
     if (rc != 0 or bad or len(files) != len(pods) or not batches or not k2
             or launches[ran] == 0 or launches[idle] != 0
-            or launches[nk.CHUNK] == 0
+            or launches[nk.CHUNK] == 0 or launches[nk.PACK] == 0
             or any(b["max_abs_err"] or b.get("k1_mismatches")
                    for b in batches + k2)):
         raise AssertionError(f"{name} phase failed: {res}")
@@ -1135,7 +1246,7 @@ def engine_k1024_phase(torch, np, nk, gpu, frame_lines, synthetic_line, eng,
                k1_only_device_ms=k1_prof["device_ms"])
     emit({"phase": "engine_k1024", **res})
     if (bad or vs_k1 or short_launches[nk.GATED] == 0
-            or short_launches[nk.PAIRS] == 0
+            or short_launches[nk.PAIRS] == 0 or short_launches[nk.PACK] == 0
             or short_launches[nk.GROUPED] != 0 or launches[nk.CHUNK] == 0
             or not got.any()):
         raise AssertionError(f"engine_k1024 phase failed: {res}")
@@ -1222,6 +1333,7 @@ def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
     emit({"phase": "cli_k1024", **res})
     if (rc != 0 or bad or files != len(pods) or not kept
             or launches[nk.GATED] == 0 or launches[nk.PAIRS] == 0
+            or launches[nk.PACK] == 0
             or launches[nk.GROUPED] != 0 or pf_line is None or not k3_batches
             or any(b["max_abs_err"] or b["pairs_mismatches"]
                    for b in k3_batches)):
@@ -1250,18 +1362,19 @@ def main() -> int:
     from klogs_tpu_torch.filters.base import FilterStats, frame_lines
     from klogs_tpu_torch.filters.compiler.glushkov import compile_patterns
     from klogs_tpu_torch.filters.gpu import GpuEngineFilter
-    from klogs_tpu_torch.ops import _build, bits, nfa, sweep, tune
+    from klogs_tpu_torch.ops import _build, bits, nfa, pack, sweep, tune
     from klogs_tpu_torch.ops import nfa_kernels as nk
     from klogs_tpu_torch.ui import term
 
     dev = torch.device("cuda", 0)
     try:
         card = card_phase(torch)
-        build_phase(nk, _build)
+        build_phase(nk, pack, _build)
         k1, k1_batches = k1_phase(torch, np, nfa, nk, synthetic_line, dev)
         k2 = k2_phase(torch, np, nfa, nk, compile_patterns, dev)
         eng = engine_phase(torch, np, nk, GpuEngineFilter, frame_lines,
                            synthetic_line, dev)
+        pack_phase(torch, nk, pack, GpuEngineFilter, eng, dev)
         run = cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev)
         # The fused-groups path: K4 for K1 on short lines.
         with env_set("KLOGS_TPU_FUSED_GROUPS", "1"):

@@ -8,7 +8,9 @@ lines reach the sink.
 A "framed batch" is ``(payload: bytes, offsets: int32[n+1])``: one
 contiguous buffer plus prefix sums instead of n ``bytes`` objects. The
 helpers here are numpy only (the JAX package's native packer is not
-part of the port).
+part of the port). ``pack_framed_rows`` is kept as the counterpart of
+the JAX package's; the engine cuts its rows on the device instead
+(``ops/pack.py``).
 """
 
 import abc

@@ -1,29 +1,36 @@
 """GpuEngineFilter: the ``--backend cuda`` LogFilter.
 
-Counterpart of ``klogs_tpu/filters/tpu.py`` (``NFAEngineFilter``). The
-host frames lines into width-bucketed ``[rows, width]`` uint8 batches
-(numpy), copies them to the device, classifies bytes into class ids
-there (``ops/nfa.py:classify_chunk``) and runs the grouped NFA kernel
-(``ops/nfa_kernels.py:match_cls_grouped``); the per-line verdicts gate
-the file writes.
+Counterpart of ``klogs_tpu/filters/tpu.py`` (``NFAEngineFilter``). A
+framed batch crosses to the device once: the host strips trailing
+newlines, sorts the lines into width buckets and writes the payload and
+every bucket's starts and lengths into one pinned buffer, copied with
+one non-blocking H2D. On the device the ragged pack
+(``ops/pack.py:pack_rows``) cuts each bucket's ``[rows, width]`` uint8
+rows out of the payload, ``ops/nfa.py:classify_chunk`` turns them into
+class ids and the grouped NFA kernel
+(``ops/nfa_kernels.py:match_cls_grouped``) gives the per-line verdicts
+that gate the file writes. (The JAX engine packs and classifies on the
+host instead, in ``klogs_tpu/native/_hostops.c``.)
 
 - Widths and batch sizes are padded to power-of-two buckets, exactly as
   the JAX engine buckets them (the width clamps to ``chunk_bytes``).
 - Lines longer than ``chunk_bytes`` run the carried-state chunk kernel
   (``_match_long``), chunk by chunk with the state carried on the
-  device. Lines over ``SEQ_SCAN_BYTES``, which the JAX engine sends to
-  its sequence-parallel scan, take the same chunk path here; the
-  verdicts are the same.
+  device, each chunk packed from the payload already there
+  (``pack_rows`` with ``skip = k * chunk_bytes``). Lines over
+  ``SEQ_SCAN_BYTES``, which the JAX engine sends to its
+  sequence-parallel scan, take the same chunk path here; the verdicts
+  are the same.
 - Trailing newlines are stripped before matching, so ``$`` sees the
   logical end of the line; a ``match_all`` pattern set skips the device.
 - The thousand-pattern path: when the gate policy (``filters/cpu.py``)
   picks the device literal sweep (auto: K >= ``KLOGS_INDEX_MIN_K`` on
   ``cuda``), or ``KLOGS_TPU_PREFILTER=1`` asks for the pair-CNF gate,
   short lines get per-(line, group) candidate bits on the device (the
-  sweep over the bytes already there, or the pair-CNF over the class
-  ids) and run the gated kernel K3 (``match_cls_grouped_gated``)
-  instead of K1. Long lines stay on K2, ungated, as in the JAX engine.
-  A failed table build or launch raises; nothing falls back to K1.
+  sweep over the packed rows, or the pair-CNF over the class ids) and
+  run the gated kernel K3 (``match_cls_grouped_gated``) instead of K1.
+  Long lines stay on K2, ungated, as in the JAX engine. A failed table
+  build or launch raises; nothing falls back to K1.
 - ``KLOGS_TPU_FUSED_GROUPS=1`` (``ops/tune.py`` ``chain_selection``)
   runs the fused-groups kernel K4 (``match_cls_grouped_fused``) on
   short lines instead of K1. K4 has no gated variant: an auto sweep
@@ -37,17 +44,20 @@ So short lines run K1 by default, K3 under a gate, K4 under
 thread's current stream, start the copies of the verdicts into pinned
 host memory and record a CUDA event; ``fetch``/``fetch_framed`` wait on
 that event only, so they may run on any thread (AsyncFilterService
-fetches from its executor threads, whose current stream differs). On a
-CPU device everything runs synchronously through the kernels' plain
-versions. With a ``FilterStats``, the gate's per-batch counts ride back
-with the verdicts (same pinned copy, same event) and are recorded at
-fetch.
+fetches from its executor threads, whose current stream differs). The
+pinned staging buffer comes from torch's caching host allocator, which
+records the copy's stream and reuses the buffer only once the copy has
+finished, however many batches are in flight. On a CPU device the same
+code runs synchronously, with the kernels' plain versions and an
+ordinary host buffer. With a ``FilterStats``, the gate's per-batch
+counts ride back with the verdicts (same pinned copy, same event) and
+are recorded at fetch.
 """
 
 import numpy as np
 import torch
 
-from klogs_tpu_torch.filters.base import LogFilter, frame_lines, pack_framed_rows
+from klogs_tpu_torch.filters.base import LogFilter, frame_lines
 from klogs_tpu_torch.filters.compiler.glushkov import compile_patterns
 from klogs_tpu_torch.filters.compiler.groups import analyze, plan_groups
 from klogs_tpu_torch.filters.compiler.index import FactorIndex
@@ -57,7 +67,7 @@ from klogs_tpu_torch.filters.cpu import (
     device_gate_choice,
     note_sweep_supersedes,
 )
-from klogs_tpu_torch.ops import nfa, nfa_kernels, prefilter, sweep, tune
+from klogs_tpu_torch.ops import nfa, nfa_kernels, pack, prefilter, sweep, tune
 from klogs_tpu_torch.ops.bits import pack_bits
 from klogs_tpu_torch.ui import term
 from klogs_tpu_torch.utils.env import read as env_read
@@ -212,42 +222,72 @@ class GpuEngineFilter(LogFilter):
             return (0, [], None)
         if self._match_all:
             return (n, None, None)
+        layout, meta = self._layout(payload, offsets)
+        meta_d, payload_d = self._stage(payload, meta)
+        parts, at = [], 0
+        for idx, width, rows, longest in layout:
+            starts_d = meta_d[at:at + rows]
+            lens_d = meta_d[at + rows:at + 2 * rows]
+            at += 2 * rows
+            if width is None:
+                parts.append((idx, self._match_long(payload_d, starts_d,
+                                                    lens_d, longest), None))
+            else:
+                batch = pack.pack_rows(payload_d, starts_d, lens_d, width,
+                                       rows)
+                parts.append((idx, *self._match_short(batch, lens_d)))
+        return self._start_fetch(n, parts)
+
+    def _layout(self, payload: bytes, offsets):
+        """The host's share of a framed batch, per-line work only: a list
+        of (line indices, width or None for the long lines, rows, longest
+        length) per sub-batch, and the int64 metadata the device reads,
+        each sub-batch's starts then lengths (trailing newlines
+        stripped), zero-padded to its rows."""
         starts, ends = strip_newlines(payload, offsets)
         lens = ends - starts
         short = lens <= self._chunk_bytes
-        parts = []
+        layout = []
         if bool(short.any()):
-            width_of = self._width_buckets(lens, short, n)
+            width_of = self._width_buckets(lens, short, len(lens))
             for w in np.unique(width_of[short]):
                 sel = np.nonzero(short & (width_of == w))[0]
-                rows = _bucket_batch(len(sel))
-                batch, sub_lens = pack_framed_rows(
-                    payload, offsets, int(w), rows=rows, sel=sel,
-                    lens=lens[sel])
-                lengths = np.zeros(rows, dtype=np.int32)
-                lengths[:len(sel)] = sub_lens
-                parts.append((sel, *self._match_short(batch, lengths)))
+                layout.append((sel, int(w), _bucket_batch(len(sel)),
+                               int(lens[sel].max())))
         if not bool(short.all()):
             rest = np.nonzero(~short)[0]
-            bodies = [payload[int(starts[i]):int(ends[i])] for i in rest]
-            parts.append((rest, self._match_long(bodies), None))
-        return self._start_fetch(n, parts)
+            layout.append((rest, None, _bucket_batch(len(rest)),
+                           int(lens[rest].max())))
+        meta = np.zeros(2 * sum(rows for _, _, rows, _ in layout),
+                        dtype=np.int64)
+        at = 0
+        for idx, _, rows, _ in layout:
+            meta[at:at + len(idx)] = starts[idx]
+            meta[at + rows:at + rows + len(idx)] = lens[idx]
+            at += 2 * rows
+        return layout, meta
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
+    def _stage(self, payload: bytes, meta: np.ndarray):
+        """(metadata [M] int64, payload [P] uint8) on the device, from one
+        host buffer (pinned for a card) holding both: one host memcpy of
+        the payload and one non-blocking H2D copy."""
+        head = meta.nbytes
+        host = torch.empty(head + len(payload), dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        buf = host.numpy()
+        buf[:head] = meta.view(np.uint8)
+        buf[head:] = np.frombuffer(payload, dtype=np.uint8)
         if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+            host = host.to(self.device, non_blocking=True)
+        return host[:head].view(torch.int64), host[head:]
 
-    def _match_short(self, batch: np.ndarray, lengths: np.ndarray):
-        """[rows, width] bytes + lengths -> ([rows] bool, gate stats [3]
-        or None), on the device: the main path (device classify, then
+    def _match_short(self, batch: torch.Tensor, lengths: torch.Tensor):
+        """[rows, width] bytes + lengths, on the device -> ([rows] bool,
+        gate stats [3] or None): the main path (device classify, then
         K1 or K4, or the gate and K3)."""
-        batch_d, lengths_d = self._to_device(batch), self._to_device(lengths)
         g = self._grouped
-        cls = nfa.classify_chunk(g, batch_d, lengths_d, first=True,
-                                 final=True)
-        gate = self._gate_bits(batch_d, lengths_d, cls)
+        cls = nfa.classify_chunk(g, batch, lengths, first=True, final=True)
+        gate = self._gate_bits(batch, lengths, cls)
         if gate is None:
             kernel = (nfa_kernels.match_cls_grouped_fused if self._fused
                       else nfa_kernels.match_cls_grouped)
@@ -270,26 +310,22 @@ class GpuEngineFilter(LogFilter):
         return pack_bits(prefilter.group_candidates(pm, self._onehot,
                                                     self._n_patterns))
 
-    def _match_long(self, bodies: list[bytes]) -> torch.Tensor:
-        """Carried-state chunked matching: every long line advances in
-        lockstep, the state carried across chunks on the device."""
+    def _match_long(self, payload: torch.Tensor, starts: torch.Tensor,
+                    lens: torch.Tensor, longest: int) -> torch.Tensor:
+        """Carried-state chunked matching of the lines at ``starts`` with
+        ``lens`` (zero-padded to a batch bucket) in ``payload``, on the
+        device: every line advances in lockstep, each chunk packed from
+        the payload, the state carried across chunks."""
         L = self._chunk_bytes
-        B = _bucket_batch(len(bodies))
-        total = np.zeros(B, dtype=np.int64)
-        total[:len(bodies)] = [len(b) for b in bodies]
-        pad = [b""] * (B - len(bodies))
-        n_chunks = int(-(-int(total.max()) // L))
+        B = starts.shape[0]
+        n_chunks = -(-longest // L)
         v = nfa_kernels.initial_state(self._aug, self._live, B)
         matched = None
         for k in range(n_chunks):
-            seg = b"".join(b[k * L:(k + 1) * L].ljust(L, b"\0")
-                           for b in list(bodies) + pad)
-            chunk = np.frombuffer(bytearray(seg), dtype=np.uint8).reshape(B, L)
-            rem = (total - k * L).astype(np.int32)
+            chunk = pack.pack_rows(payload, starts, lens, L, B, skip=k * L)
             final = k == n_chunks - 1
-            cls = nfa.classify_chunk(self._aug, self._to_device(chunk),
-                                     self._to_device(rem), first=k == 0,
-                                     final=final)
+            cls = nfa.classify_chunk(self._aug, chunk, lens - k * L,
+                                     first=k == 0, final=final)
             v, matched = nfa_kernels.match_chunk_cls(self._aug, self._acc,
                                                      cls, v, final=final)
         return matched

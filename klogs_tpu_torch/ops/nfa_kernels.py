@@ -30,7 +30,8 @@ ids laid out BEGIN, body, END, PAD latch:
 A tensor on the CPU runs the plain PyTorch version (a Python loop over
 the steps); a CUDA tensor launches the kernel from
 ``ops/csrc/nfa_kernels.cu`` or raises. ``LAUNCHES`` counts kernel
-launches by kernel name, so a run can show that it went through them.
+launches by kernel name (``ops/pack.py``'s too), so a run can show that
+it went through them.
 """
 
 import ctypes
@@ -49,8 +50,11 @@ FUSED = "grouped_nfa_fused_kernel"
 # K3's pair builder (gate_pairs_count, gate_pairs_scan and
 # gate_pairs_scatter, launched together: counted once per list built).
 PAIRS = "gate_pairs"
+# The ragged pack of ops/pack.py, which cuts the rows these kernels read
+# out of a batch's payload on the device.
+PACK = "pack_rows"
 
-LAUNCHES = {GROUPED: 0, GATED: 0, CHUNK: 0, FUSED: 0, PAIRS: 0}
+LAUNCHES = {GROUPED: 0, GATED: 0, CHUNK: 0, FUSED: 0, PAIRS: 0, PACK: 0}
 
 # Lines per tile of the gate's stats: the JAX engine counts candidate
 # lines clustered into tiles of its kernel's width, and the --stats

@@ -12,7 +12,7 @@ import torch
 
 from klogs_tpu_torch.filters.compiler.glushkov import compile_patterns
 from klogs_tpu_torch.filters.gpu import GpuEngineFilter
-from klogs_tpu_torch.ops import nfa, nfa_kernels
+from klogs_tpu_torch.ops import nfa, nfa_kernels, pack
 
 pytestmark = pytest.mark.cuda
 
@@ -267,6 +267,7 @@ def test_engine_on_card_equals_cpu(dev, env, monkeypatch):
     nfa_kernels.reset_launches()
     gpu = GpuEngineFilter(PATTERNS, device=dev).match_lines(lines)
     assert (nfa_kernels.LAUNCHES[nfa_kernels.GATED] > 0) == bool(env)
+    assert nfa_kernels.LAUNCHES[nfa_kernels.PACK] > 0
     cpu = GpuEngineFilter(PATTERNS, device="cpu").match_lines(lines)
     assert gpu == cpu
     assert sum(gpu) >= 5
@@ -432,3 +433,130 @@ def test_dispatch_does_not_wait_on_host(dev, env, monkeypatch):
     assert exp.sum() == 200
     gated = bool(env) and "KLOGS_TPU_FUSED_GROUPS" not in env
     assert stats.pf_lines == (2 * len(lines) if gated else 0)
+
+
+# ---- the ragged pack ---------------------------------------------------------
+
+PACK_CHUNK = 4096
+# The packer's edge cases: raw lines, newlines kept in the payload.
+PACK_CASES = {
+    "zero_length": [b"", b"", b"abc\n", b"", b"x"],
+    "only_newlines": [b"\n", b"\n\n\n", b"x\n", b"\n", b"\n\n"],
+    "trailing_runs": [b"panic: a\n\n\n", b"d\n", b"end\n\n",
+                      b"z" * 127 + b"\n\n", b"y" * 300 + b"\n\n\n\n"],
+    "exact_widths": [b"a" * w + b"\n" * (w % 3) for w in
+                     (127, 128, 129, 255, 256, 257, 4095, 4096)],
+    "exact_chunks": [b"b" * (k * PACK_CHUNK) + b"\n" * (k % 2)
+                     for k in (1, 2, 3)]
+    + [b"c" * (2 * PACK_CHUNK + 1), b"d" * (PACK_CHUNK + 1) + b"\n"],
+    "no_final_newline": [b"a\n", b"bb\n", b"code=503 " * 40 + b"\n", b"ccc"],
+    "random": [np.random.default_rng(i).integers(
+        0, 256, size=int(n), dtype=np.uint8).tobytes()
+        for i, n in enumerate(np.random.default_rng(7).integers(
+            0, 3 * PACK_CHUNK, size=300))],
+}
+
+
+@pytest.mark.parametrize("case", sorted(PACK_CASES))
+def test_pack_kernel_equals_plain(dev, case):
+    """pack_rows on the card equals its plain version byte for byte:
+    every line at widths 128, 256, 300 (not a multiple of 4) and 4096,
+    at its count of rows and at many more, an empty bucket, and chunk
+    k of every line at skip = k * 4096."""
+    from klogs_tpu_torch.filters.base import frame_lines
+    from klogs_tpu_torch.filters.gpu import strip_newlines
+
+    payload, offsets, _ = frame_lines(PACK_CASES[case], strip_nl=False)
+    s, e = strip_newlines(payload, offsets)
+    host = torch.from_numpy(np.frombuffer(payload + b"\0",
+                                          dtype=np.uint8).copy())[:-1]
+    starts, lens = torch.from_numpy(s), torch.from_numpy(e - s)
+    on = (host.to(dev), starts.to(dev), lens.to(dev))
+    n = len(starts)
+    nfa_kernels.reset_launches()
+    calls = 0
+    for width in (128, 256, 300, 4096):
+        for rows in (n, n + 37):
+            got = pack.pack_rows(*on, width, rows)
+            assert torch.equal(got.cpu(), pack.pack_rows_plain(
+                host, starts, lens, width, rows))
+            calls += 1
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    assert not pack.pack_rows(on[0], none, none, 128, 8).any()
+    for k in range(-(-int(lens.max()) // PACK_CHUNK) + 1):
+        got = pack.pack_rows(*on, PACK_CHUNK, n + 3, skip=k * PACK_CHUNK)
+        assert torch.equal(got.cpu(), pack.pack_rows_plain(
+            host, starts, lens, PACK_CHUNK, n + 3, skip=k * PACK_CHUNK))
+        calls += 1
+    assert nfa_kernels.LAUNCHES[nfa_kernels.PACK] == calls + 1
+
+
+def test_pack_kernel_large_offsets(dev):
+    """Starts past 2**31 - 4096 of a payload: the kernel's offsets are
+    64-bit through starts + skip."""
+    size = 2**31 + 2 * PACK_CHUNK
+    payload = torch.zeros(size, dtype=torch.uint8, device=dev)
+    tail = torch.arange(3 * PACK_CHUNK, device=dev) % 251
+    payload[-3 * PACK_CHUNK:] = tail.to(torch.uint8)
+    starts = torch.tensor([size - 3 * PACK_CHUNK, size - 5], device=dev)
+    lens = torch.tensor([3 * PACK_CHUNK, 5], device=dev)
+    for k in range(3):
+        got = pack.pack_rows(payload, starts, lens, PACK_CHUNK, 8,
+                             skip=k * PACK_CHUNK)
+        assert torch.equal(got[0], tail[k * PACK_CHUNK:(k + 1) * PACK_CHUNK]
+                           .to(torch.uint8))
+        short = torch.zeros(PACK_CHUNK, dtype=torch.uint8, device=dev)
+        if k == 0:
+            short[:5] = payload[-5:]
+        assert torch.equal(got[1], short)
+        assert not got[2:].any()
+
+
+def test_async_service_many_batches_in_flight(dev, monkeypatch):
+    """48 distinct framed batches through AsyncFilterService, each its own
+    dispatch (COALESCE_LINES at 1), up to 16 in flight, each with long
+    lines that keep the card busy while later batches are staged: the
+    verdicts equal the CPU engine's, so no pinned staging buffer was
+    rewritten under a copy still in flight."""
+    import asyncio
+
+    from klogs_tpu_torch.filters import async_service
+    from klogs_tpu_torch.filters.base import frame_lines
+
+    monkeypatch.setattr(async_service, "COALESCE_LINES", 1)
+    rng = np.random.default_rng(12)
+    needles = [b"panic: x", b"retry 3/5", b"code=503", b"FATAL a code=9",
+               b"disk is full", b"start", b"end"]
+    batches = []
+    for b in range(48):
+        lines = []
+        for i, n in enumerate(rng.integers(0, 700, size=200)):
+            body = bytearray(rng.integers(32, 127, size=int(n),
+                                          dtype=np.uint8))
+            if (i + b) % 5 == 0 and n > 20:
+                nd = needles[(i + b) % len(needles)]
+                p = int(rng.integers(0, n - len(nd)))
+                body[p:p + len(nd)] = nd
+            lines.append(bytes(body) + b"\n")
+        lines += [bytes(rng.integers(32, 127, size=int(n), dtype=np.uint8))
+                  + (b"code=504" if b % 2 else b"") + b"\n"
+                  for n in rng.integers(5000, 40000, size=4)]
+        batches.append(frame_lines(lines, strip_nl=False)[:2])
+    svc = async_service.AsyncFilterService(GpuEngineFilter(PATTERNS,
+                                                           device=dev))
+
+    async def go():
+        res = await asyncio.gather(*[svc.match_framed(p, o)
+                                     for p, o in batches])
+        await svc.aclose()
+        return res
+
+    nfa_kernels.reset_launches()
+    got = asyncio.run(go())
+    assert svc.batches_dispatched == len(batches)
+    assert nfa_kernels.LAUNCHES[nfa_kernels.PACK] >= 2 * len(batches)
+    cpu = GpuEngineFilter(PATTERNS, device="cpu")
+    for (p, o), g in zip(batches, got):
+        assert g.tolist() == cpu.fetch_framed(cpu.dispatch_framed(p, o)) \
+            .tolist()
+    assert sum(int(g.sum()) for g in got) > 48

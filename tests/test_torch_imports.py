@@ -40,8 +40,8 @@ def imported_modules(path: str) -> list[str]:
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = port_sources()
     assert len(files) > 20
-    for mod in ("ops/tune.py", "ops/nfa_kernels.py", "filters/gpu.py",
-                "filters/cpu.py"):
+    for mod in ("ops/tune.py", "ops/nfa_kernels.py", "ops/pack.py",
+                "filters/gpu.py", "filters/cpu.py"):
         assert os.path.join(PORT, mod) in files
     bad = []
     for path in files:
@@ -120,6 +120,14 @@ def test_cuda_entry_points_raise_without_card(tmp_path, monkeypatch):
                                        device="meta"))
     with pytest.raises(ValueError):
         make_pipeline(["x"], backend="tpu", device="cpu")
+    # The ragged pack follows its tensors' device: neither CPU nor card
+    # raises.
+    from klogs_tpu_torch.ops import pack
+
+    meta = torch.zeros(1, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        pack.pack_rows(torch.zeros(4, dtype=torch.uint8, device="meta"),
+                       meta, meta, 8, 1)
 
 
 def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
@@ -142,7 +150,8 @@ def test_kernel_build_command_targets_hopper():
     assert "-shared" in cmd and "-fPIC" in cmd
     path = _build.library_path("nfa_kernels")
     assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
-    assert os.path.isfile(os.path.join(_build.CSRC, "nfa_kernels.cu"))
+    for name in ("nfa_kernels", "pack_kernels"):
+        assert os.path.isfile(os.path.join(_build.CSRC, name + ".cu"))
 
 
 def _run_smoke(cwd: str) -> subprocess.CompletedProcess:

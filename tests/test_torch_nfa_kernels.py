@@ -16,7 +16,7 @@ from klogs_tpu.filters.tpu import classify_chunk_host
 from klogs_tpu.ops import nfa as jnfa
 from klogs_tpu.ops import pallas_nfa
 from klogs_tpu_torch.filters.compiler.glushkov import compile_patterns
-from klogs_tpu_torch.ops import nfa, nfa_kernels
+from klogs_tpu_torch.ops import nfa, nfa_kernels, pack
 
 NEEDLES = [b"panic:", b"code=503", b"retry 3/5", b"uid=1234567",
            b"FATAL x code=9", b"latency=495ms", b"broken pipe", b"EPIPE"]
@@ -200,11 +200,15 @@ def test_wrappers_count_only_kernel_launches():
     nfa_kernels.match_cls_grouped_fused(tp, live, acc, cls)
     nfa_kernels.match_cls_grouped_gated(
         tp, live, acc, cls, torch.ones((4, 1), dtype=torch.int64))
+    pack.pack_rows(torch.zeros(4, dtype=torch.uint8),
+                   torch.zeros(2, dtype=torch.int64),
+                   torch.full((2,), 4, dtype=torch.int64), 8, 4)
     assert nfa_kernels.LAUNCHES == {nfa_kernels.GROUPED: 0,
                                     nfa_kernels.GATED: 0,
                                     nfa_kernels.CHUNK: 0,
                                     nfa_kernels.FUSED: 0,
-                                    nfa_kernels.PAIRS: 0}
+                                    nfa_kernels.PAIRS: 0,
+                                    nfa_kernels.PACK: 0}
 
 
 def test_wrappers_reject_mismatched_programs():
