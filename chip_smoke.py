@@ -88,9 +88,31 @@ K axis: 156 groups of 128 states, 64 classes):
    its plain version and timed on the run's own most frequent batch
    (its pair list held against the plain one there too).
 
+Follow mode (BASELINE config 4), after them:
+
+15. follow: ``app.run_async`` with ``-a -f --match`` x32 ``--stats``
+   over 1000 fixed-clock FakeCluster streams offering a line every 10
+   ms each (100,000 lines/s in all; 8 backlogs hold a 5-180 KiB line),
+   stopped after 20 s through ``stop``: every file equal to the
+   oracle's selection of exactly the lines its stream sent (regenerated
+   from ``next_seq``); offered and sustained lines/s, the --stats
+   latencies, the deadline flushes, device batches and lines a batch,
+   the device busy share of one profiled second, and each matching
+   line's emission-to-file latency on 8 tailed streams. K1 is held
+   against its plain version on 8 of the run's batches, K2 and
+   ``pack_rows`` on one each (counts zeroed just before the run).
+16. kube_follow: the same entry point on the default ``--cluster kube``
+   (``-a -f --timestamps --kubeconfig``) against a fake apiserver in a
+   process of its own: 64 pods, 4000 backlog lines each in 4 KiB pieces,
+   then a line every 10 ms; 8 streams drop once after 1 s. Every file
+   equal to the oracle over the bytes the server sent on that pod's
+   connections; every reconnect asks for ``follow`` and ``sinceSeconds``
+   without ``tailLines``; every request carries the token.
+
 Then a ``kernels`` line (each kernel's time beside its bound and its
-plain version's time, with its launches on its main path), the card
-line, and last ``{"ok": true, "device": {...}}``. Any failed phase exits
+plain version's time, with its launches on its main path: the four NFA
+kernels and ``pack_rows``), the card line, and last ``{"ok": true,
+"device": {...}}``. Any failed phase exits
 non-zero without that line, as does a run with no CUDA device or
 outside a checkout.
 """
@@ -664,7 +686,7 @@ def pack_phase(torch, nk, pack, GpuEngineFilter, base, dev) -> dict:
     main = max(buckets, key=lambda b: b["rows"])
     res = dict(name=nk.PACK, route="cuda",
                source="klogs_tpu_torch/ops/csrc/pack_kernels.cu",
-               replaces=None, counterpart="klogs_tpu/native/_hostops.c:593",
+               replaces="klogs_tpu/native/_hostops.c:593",
                launches=base["launches"][nk.PACK],
                max_abs_err=float(max(b["mismatches"] for b in buckets + chunks)),
                ms=main["ms"], plain_ms=main["plain_ms"],
@@ -1341,6 +1363,551 @@ def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
     return res
 
 
+# ---- follow mode ---------------------------------------------------------
+
+
+@contextlib.contextmanager
+def recording_wrappers(nk, pack, names: list):
+    """For the block, each wrapper named (``nfa_kernels`` ones, and
+    ``pack_rows``) records its calls: yields ``{name: {shapes: [count,
+    [(args, kwargs), ...]]}}``, keeping the first 8 calls of each shape
+    of its tensor arguments. The wrappers are restored after."""
+    calls: dict = {n: {} for n in names}
+    saved = {}
+    for n in names:
+        mod = pack if n == "pack_rows" else nk
+        real = getattr(mod, n)
+        saved[n] = (mod, real)
+
+        def hook(*a, _real=real, _n=n, **kw):
+            key = tuple(tuple(x.shape) for x in a if hasattr(x, "shape"))
+            entry = calls[_n].setdefault(key, [0, []])
+            entry[0] += 1
+            if len(entry[1]) < 8:
+                entry[1].append((a, kw))
+            return _real(*a, **kw)
+
+        setattr(mod, n, hook)
+    try:
+        yield calls
+    finally:
+        for n, (mod, real) in saved.items():
+            setattr(mod, n, real)
+
+
+@contextlib.contextmanager
+def captured_pipeline():
+    """Yields a list that gets each FilterPipeline the app builds (its
+    stats and service), make_pipeline restored after."""
+    from klogs_tpu_torch.filters import sink as sink_mod
+
+    made: list = []
+    real = sink_mod.make_pipeline
+
+    def hook(*a, **kw):
+        made.append(real(*a, **kw))
+        return made[-1]
+
+    sink_mod.make_pipeline = hook
+    try:
+        yield made
+    finally:
+        sink_mod.make_pipeline = real
+
+
+def pipeline_numbers(pipe) -> dict:
+    """The --stats numbers of a run, from its FilterStats and service."""
+    st, svc = pipe.stats, pipe.service
+    return dict(
+        lines_in=st.lines_in, lines_matched=st.lines_matched,
+        sink_batches=st.batches, deadline_flushes=st.deadline_flushes,
+        batch_p50_ms=st.percentile_latency_s(50) * 1e3,
+        batch_p99_ms=st.percentile_latency_s(99) * 1e3,
+        queue_p50_ms=st.percentile_queue_s(50) * 1e3,
+        queue_p99_ms=st.percentile_queue_s(99) * 1e3,
+        device_p50_ms=st.percentile_device_s(50) * 1e3,
+        device_p99_ms=st.percentile_device_s(99) * 1e3,
+        device_batches=svc.batches_dispatched,
+        lines_per_device_batch=(st.lines_in / svc.batches_dispatched
+                                if svc.batches_dispatched else 0.0))
+
+
+def held_batches(torch, nk, pack, calls: dict, n_k1: int) -> dict:
+    """Each kernel against its plain version on what the run gave it,
+    timed: K1 on ``n_k1`` class batches (from its most frequent shapes
+    down), K2 on a batch of its most frequent chunk shape, ``pack_rows``
+    on a cut of its most frequent shape. ``launches`` is the run's count
+    of the batch's shape."""
+    def top(name: str, n: int) -> list:
+        out = []
+        for count, seen in sorted(calls.get(name, {}).values(),
+                                  key=lambda e: -e[0]):
+            out += [(count, a, kw) for a, kw in seen]
+        return out[:n]
+
+    out = dict(k1_batches=[dict(launches=c, **k1_check(torch, nk, *a, 10))
+                           for c, a, _ in top("match_cls_grouped", n_k1)])
+    out["k2_batches"] = [
+        dict(launches=c, **k2_check(torch, nk, *a[:4],
+                                    kw.get("final", a[4] if len(a) > 4
+                                           else True), 5))
+        for c, a, kw in top("match_chunk_cls", 1)]
+    out["pack_batches"] = [
+        dict(launches=c, **pack_check(
+            torch, pack, *a[:5], a[5] if len(a) > 5 else kw.get("skip", 0),
+            10))
+        for c, a, kw in top("pack_rows", 1)]
+    return out
+
+
+def profiled_second(torch) -> "tuple":
+    """(start, stop) of a torch.profiler window, and a reader of its
+    device busy share: the CUDA time it recorded over its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    box: dict = {}
+
+    def start():
+        prof.start()
+        box["t0"] = time.perf_counter()
+
+    def stop():
+        torch.cuda.synchronize()
+        box["wall"] = time.perf_counter() - box["t0"]
+        prof.stop()
+        cuda = torch.autograd.DeviceType.CUDA
+        ms = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+                 if e.device_type == cuda)
+        box.update(device_ms=ms, busy=ms / (box["wall"] * 1e3))
+
+    return start, stop, box
+
+
+def follow_profile(app, cli, term, FakeCluster, argv, dev, n_pods: int,
+                   lines_per_pod: int, interval: float,
+                   seconds: float = 6.0) -> dict:
+    """The follow run again, ``seconds`` long on a fresh cluster, under
+    cProfile: what holds the event loop (the host's top functions)."""
+    import cProfile
+
+    fc = FakeCluster.synthetic(n_pods=n_pods, n_containers=1,
+                               lines_per_container=lines_per_pod,
+                               clock=lambda: CLOCK, follow_interval_s=interval)
+
+    async def drive(out_dir: str) -> int:
+        stop = asyncio.Event()
+        asyncio.get_running_loop().call_later(seconds, stop.set)
+        return await app.run_async(cli.parse_args(argv(out_dir)), backend=fc,
+                                   stop=stop, device=dev)
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        term.set_ui_stream(io.StringIO())
+        cp = cProfile.Profile()
+        try:
+            cp.enable()
+            asyncio.run(drive(out_dir))
+            cp.disable()
+        finally:
+            term.set_ui_stream(None)
+    lines = sum(c.next_seq for p in fc.namespaces["default"].values()
+                for c in p.containers.values()) - n_pods * lines_per_pod
+    return dict(seconds=seconds, live_lines=lines, host_top=host_top(cp, 14))
+
+
+def follow_phase(torch, np, nk, pack, app, cli, term, FakeCluster,
+                 synthetic_line, dev, card: str = "", n_pods=1000, lines_per_pod=50,
+                 interval=0.01, seconds=20.0, n_long=8, n_tailed=8) -> dict:
+    """BASELINE config 4 through ``app.run_async``: ``-a -f --match`` x32
+    ``--stats`` over 1000 fixed-clock FakeCluster streams, each offering
+    a line every 10 ms, stopped after ``seconds``. Every file must equal
+    the oracle's selection of exactly the lines its stream sent
+    (regenerated from ``next_seq``). A task tails ``n_tailed`` streams'
+    files for each matching line's emission-to-file latency; one second
+    is profiled for the device's busy share."""
+    rng = np.random.default_rng(SEED + 8)
+    fc = FakeCluster.synthetic(n_pods=n_pods, n_containers=1,
+                               lines_per_container=lines_per_pod,
+                               clock=lambda: CLOCK, follow_interval_s=interval)
+    pods = fc.namespaces["default"]
+    for j, name in enumerate(sorted(pods)[:n_long]):  # K2's lines
+        n = int(rng.integers(5 * 1024, 180 * 1024))
+        body = bytearray(rng.integers(32, 127, size=n, dtype=np.uint8))
+        if j % 2:
+            body[n // 2:n // 2 + 8] = b"code=504"
+        pods[name].containers["c0"].lines.insert(
+            10 + j, (CLOCK - 3000, bytes(body) + b"\n"))
+    ora = oracle_fn()
+    tailed = sorted(pods)[n_long:n_long + n_tailed]
+    latencies: list = []
+    prof_start, prof_stop, prof = profiled_second(torch)
+
+    async def tail(name: str, out_dir: str, t_end: float) -> None:
+        """Each matching line's time from its emission (next_seq passing
+        it) to its appearance in the file, polled every 2 ms."""
+        c = pods[name].containers["c0"]
+        path = os.path.join(out_dir, f"{name}__c0.log")
+        seq, waiting, buf = c.next_seq, {}, b""
+        with open(path, "rb") as f:
+            while time.perf_counter() < t_end or waiting:
+                now = time.perf_counter()
+                while c.next_seq > seq and now < t_end:
+                    ln = synthetic_line(name, "c0", seq, CLOCK)
+                    if ora(ln.rstrip(b"\n")):
+                        waiting[ln] = now
+                    seq += 1
+                buf += f.read()
+                *done, buf = buf.split(b"\n")
+                for ln in done:
+                    t_emit = waiting.pop(ln + b"\n", None)
+                    if t_emit is not None:
+                        latencies.append(now - t_emit)
+                if time.perf_counter() > t_end + 5:
+                    break
+                await asyncio.sleep(0.002)
+
+    async def drive(out_dir: str) -> int:
+        opts = cli.parse_args(argv(out_dir))
+        stop = asyncio.Event()
+
+        async def conductor():
+            t0 = time.perf_counter()
+            while not all(os.path.exists(os.path.join(
+                    out_dir, f"{n}__c0.log")) for n in tailed):
+                await asyncio.sleep(0.01)
+            tails = [asyncio.create_task(tail(n, out_dir, t0 + seconds - 5))
+                     for n in tailed]
+            await asyncio.sleep(max(0.0, t0 + seconds - 3 - time.perf_counter()))
+            prof_start()
+            await asyncio.sleep(1.0)
+            prof_stop()
+            await asyncio.gather(*tails)
+            await asyncio.sleep(max(0.0, t0 + seconds - time.perf_counter()))
+            stop.set()
+
+        task = asyncio.create_task(conductor())
+        try:
+            return await app.run_async(opts, backend=fc, stop=stop, device=dev)
+        finally:
+            await task
+
+    def argv(out_dir):
+        a = ["-n", "default", "-a", "-f", "--stats", "-p", out_dir]
+        for p in PATTERNS:
+            a += ["--match", p]
+        return a
+
+    hist = {n: len(pods[n].containers["c0"].lines) for n in pods}
+    first_seq = {n: pods[n].containers["c0"].next_seq for n in pods}
+    with tempfile.TemporaryDirectory() as out_dir, \
+            captured_pipeline() as made, \
+            recording_wrappers(nk, pack, ["match_cls_grouped",
+                                          "match_chunk_cls",
+                                          "pack_rows"]) as calls:
+        term.set_ui_stream(io.StringIO())
+        try:
+            torch.cuda.synchronize()
+            nk.reset_launches()
+            t0 = time.perf_counter()
+            rc = asyncio.run(drive(out_dir))
+            wall = time.perf_counter() - t0
+            launches = dict(nk.LAUNCHES)
+        finally:
+            term.set_ui_stream(None)
+        sent = {n: [ln for _, ln in pods[n].containers["c0"].lines]
+                + [synthetic_line(n, "c0", s, CLOCK) for s in
+                   range(first_seq[n], pods[n].containers["c0"].next_seq)]
+                for n in sorted(pods)}
+        flat = [ln.rstrip(b"\n") for n in sorted(pods) for ln in sent[n]]
+        verdicts = oracle_verdicts(PATTERNS, flat)
+        bad, lost, doubled, at, kept = [], 0, 0, 0, 0
+        for n in sorted(pods):
+            want = [ln for ln, v in zip(sent[n], verdicts[at:at + len(sent[n])])
+                    if v]
+            at += len(sent[n])
+            kept += len(want)
+            with open(os.path.join(out_dir, f"{n}__c0.log"), "rb") as f:
+                got = f.read().splitlines(keepends=True)
+            if got != want:
+                bad.append(n)
+                lost += max(0, len(want) - len(got))
+                doubled += max(0, len(got) - len(want))
+        files = len(os.listdir(out_dir))
+    n_sent = sum(len(v) for v in sent.values())
+    offered = n_pods / interval
+    lat = np.asarray(latencies) * 1e3
+    res = dict(rc=rc, card=card, pods=n_pods, files=files, seconds=wall,
+               lines_sent=n_sent, kept_lines=kept,
+               offered_lines_per_s=offered,
+               sustained_lines_per_s=(n_sent - sum(hist.values())) / seconds,
+               mismatched_files=len(bad), first_mismatches=bad[:4],
+               lost_lines=lost, doubled_lines=doubled,
+               match_to_file_p50_ms=float(np.percentile(lat, 50)) if len(lat)
+               else None,
+               match_to_file_p99_ms=float(np.percentile(lat, 99)) if len(lat)
+               else None,
+               match_to_file_samples=len(lat), match_to_file_poll_ms=2.0,
+               device_busy=prof.get("busy"), profiled_wall_s=prof.get("wall"),
+               profiled_device_ms=prof.get("device_ms"),
+               launches=launches, **pipeline_numbers(made[0]))
+    res.update(held_batches(torch, nk, pack, calls, 8))
+    res["profile"] = follow_profile(app, cli, term, FakeCluster, argv, dev,
+                                    n_pods, lines_per_pod, interval)
+    emit({"phase": "follow", **res})
+    held = res["k1_batches"] + res["k2_batches"] + res["pack_batches"]
+    if (rc != 0 or bad or files != n_pods or not kept or not len(lat)
+            or launches[nk.GROUPED] == 0 or launches[nk.CHUNK] == 0
+            or launches[nk.PACK] == 0 or len(res["k1_batches"]) < 8
+            or not res["k2_batches"] or not res["pack_batches"]
+            or any(b.get("max_abs_err", 0) or b.get("mismatches", 0)
+                   for b in held)):
+        raise AssertionError(f"follow phase failed: {res}")
+    return res
+
+
+# ---- the kube backend in follow mode ------------------------------------
+
+KUBE_TOKEN = "chip-smoke-token"
+
+
+def apiserver_main(port_q, record_dir: str, n_pods: int, backlog: int,
+                   interval: float, live_for: float, drop: list,
+                   drop_after: float, done) -> None:
+    """A fake Kubernetes apiserver on aiohttp (run in a process of its
+    own): namespace ``default`` with ``n_pods`` Ready pods of one
+    container ``c0``. A log request sends ``backlog`` lines (or, with
+    ``sinceSeconds``, the live lines of that window) in 4 KiB pieces,
+    then with ``follow=true`` a new line every ``interval`` until
+    ``live_for`` s after it starts serving, and nothing after; the pods
+    in ``drop``
+    close their first connection ``drop_after`` s into its live lines.
+    Every request (path, query, Authorization) and every byte sent on
+    each pod's connections is written under ``record_dir`` once
+    ``done`` is set."""
+    from aiohttp import web
+
+    from klogs_tpu_torch.cluster.fake import synthetic_line
+
+    names = [f"pod-{i:04d}" for i in range(n_pods)]
+    requests: list = []
+    sent = {n: bytearray() for n in names}
+    live: dict = {n: [] for n in names}
+    dropped: set = set()
+    t_start = time.time()
+    live_until = t_start + 3600.0  # set when the server is up
+
+    def stamp(t: float, ln: bytes) -> bytes:
+        frac = int((t % 1) * 1e9)
+        return (time.strftime("%Y-%m-%dT%H:%M:%S", time.gmtime(t))
+                + f".{frac:09d}Z ").encode() + ln
+
+    @web.middleware
+    async def record(request, handler):
+        requests.append([request.path, dict(request.query),
+                         request.headers.get("Authorization")])
+        if request.headers.get("Authorization") != f"Bearer {KUBE_TOKEN}":
+            return web.Response(status=401, text="unauthorized")
+        return await handler(request)
+
+    async def namespace(request):
+        if request.match_info["ns"] != "default":
+            return web.Response(status=404)
+        return web.json_response({"metadata": {"name": "default"}})
+
+    async def namespaces(request):
+        return web.json_response({"items": [{"metadata": {"name": "default"}}]})
+
+    async def pods(request):
+        return web.json_response({"items": [{
+            "metadata": {"name": n, "labels": {"app": "smoke"}},
+            "spec": {"containers": [{"name": "c0"}]},
+            "status": {"conditions": [{"type": "Ready", "status": "True"}]},
+        } for n in names]})
+
+    async def log(request):
+        pod, q = request.match_info["pod"], request.query
+        ts = q.get("timestamps") == "true"
+        if "sinceSeconds" in q:
+            cut = time.time() - int(q["sinceSeconds"])
+            lines = [(t, ln) for t, ln in live[pod] if t >= cut]
+        else:
+            lines = [(t_start - (backlog - i) * 0.01,
+                      synthetic_line(pod, "c0", i, t_start - backlog + i))
+                     for i in range(backlog)]
+        data = b"".join(stamp(t, ln) if ts else ln for t, ln in lines)
+        resp = web.StreamResponse()
+        await resp.prepare(request)
+        for i in range(0, len(data), 4096):
+            await resp.write(data[i:i + 4096])
+            sent[pod] += data[i:i + 4096]
+        if q.get("follow") != "true":
+            await resp.write_eof()
+            return resp
+        opened = time.time()
+        while time.time() < live_until:
+            await asyncio.sleep(interval)
+            t = time.time()
+            ln = synthetic_line(pod, "c0", backlog + len(live[pod]), t)
+            live[pod].append((t, ln))
+            piece = stamp(t, ln) if ts else ln
+            await resp.write(piece)
+            sent[pod] += piece
+            if pod in drop and pod not in dropped and t - opened >= drop_after:
+                dropped.add(pod)
+                request.transport.close()  # flushes what was written
+                return resp
+        while request.transport is not None \
+                and not request.transport.is_closing():
+            await asyncio.sleep(0.05)
+        return resp
+
+    async def serve():
+        app = web.Application(middlewares=[record])
+        app.router.add_get("/api/v1/namespaces", namespaces)
+        app.router.add_get("/api/v1/namespaces/{ns}", namespace)
+        app.router.add_get("/api/v1/namespaces/{ns}/pods", pods)
+        app.router.add_get("/api/v1/namespaces/{ns}/pods/{pod}/log", log)
+        runner = web.AppRunner(app)
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        nonlocal live_until
+        live_until = time.time() + live_for
+        port_q.put(site._server.sockets[0].getsockname()[1])
+        await asyncio.get_running_loop().run_in_executor(None, done.wait)
+        await runner.cleanup()
+
+    asyncio.run(serve())
+    for n in names:
+        with open(os.path.join(record_dir, n), "wb") as f:
+            f.write(bytes(sent[n]))
+    with open(os.path.join(record_dir, "requests.json"), "w") as f:
+        json.dump(requests, f)
+
+
+def kube_follow_phase(torch, np, nk, pack, app, cli, term, dev,
+                      card: str = "", n_pods=64,
+                      backlog=4000, interval=0.01, seconds=10.0, n_drop=8,
+                      drop_after=1.0) -> dict:
+    """``app.run_async`` on the default ``--cluster kube`` with ``-a -f
+    --timestamps --kubeconfig`` and ``--match`` x32 against the fake
+    apiserver (a process of its own), stopped after ``seconds``; the
+    server stops sending 1.5 s before, so every byte it sent is read.
+    Each file must equal the oracle over the bytes the server sent on
+    that pod's connections, in order; each dropped stream's reconnect
+    must ask for ``follow`` and ``sinceSeconds`` and no ``tailLines``;
+    every request must carry the token."""
+    import yaml
+
+    ctx = multiprocessing.get_context("spawn")
+    port_q, done = ctx.Queue(), ctx.Event()
+    drop = [f"pod-{i:04d}" for i in range(0, n_pods, n_pods // n_drop)]
+    with tempfile.TemporaryDirectory() as tmp:
+        rec, out_dir = os.path.join(tmp, "sent"), os.path.join(tmp, "out")
+        os.makedirs(rec)
+        server = ctx.Process(target=apiserver_main, args=(
+            port_q, rec, n_pods, backlog, interval, seconds - 1.5, drop,
+            drop_after, done))
+        server.start()
+        try:
+            port = port_q.get(timeout=60)
+            t_start = time.time()
+            kubeconfig = os.path.join(tmp, "kubeconfig")
+            with open(kubeconfig, "w") as f:
+                yaml.safe_dump({
+                    "current-context": "smoke",
+                    "contexts": [{"name": "smoke", "context": {
+                        "cluster": "fake", "user": "u",
+                        "namespace": "default"}}],
+                    "clusters": [{"name": "fake", "cluster": {
+                        "server": f"http://127.0.0.1:{port}"}}],
+                    "users": [{"name": "u", "user": {"token": KUBE_TOKEN}}],
+                }, f)
+            argv = ["-a", "-f", "--timestamps", "--kubeconfig", kubeconfig,
+                    "-p", out_dir]
+            for p in PATTERNS:
+                argv += ["--match", p]
+
+            async def drive() -> int:
+                stop = asyncio.Event()
+                asyncio.get_running_loop().call_later(
+                    max(0.0, t_start + seconds - time.time()), stop.set)
+                return await app.run_async(cli.parse_args(argv), stop=stop,
+                                           device=dev)
+
+            with captured_pipeline() as made, recording_wrappers(
+                    nk, pack, ["match_cls_grouped", "pack_rows"]) as calls:
+                term.set_ui_stream(io.StringIO())
+                try:
+                    torch.cuda.synchronize()
+                    nk.reset_launches()
+                    t0 = time.perf_counter()
+                    rc = asyncio.run(drive())
+                    wall = time.perf_counter() - t0
+                    launches = dict(nk.LAUNCHES)
+                finally:
+                    term.set_ui_stream(None)
+        finally:
+            done.set()
+            server.join(timeout=60)
+            if server.is_alive():
+                server.kill()
+                server.join()
+        with open(os.path.join(rec, "requests.json")) as f:
+            requests = json.load(f)
+        names = sorted(n for n in os.listdir(rec) if n.startswith("pod-"))
+        sent = {}
+        for n in names:
+            with open(os.path.join(rec, n), "rb") as f:
+                sent[n] = f.read().splitlines(keepends=True)
+        flat = [ln.rstrip(b"\n") for n in names for ln in sent[n]]
+        verdicts = oracle_verdicts(PATTERNS, flat)
+        bad, at, kept = [], 0, 0
+        for n in names:
+            want = b"".join(ln for ln, v in zip(sent[n],
+                                                verdicts[at:at + len(sent[n])])
+                            if v)
+            at += len(sent[n])
+            kept += want.count(b"\n")
+            with open(os.path.join(out_dir, f"{n}__c0.log"), "rb") as f:
+                if f.read() != want:
+                    bad.append(n)
+        files = len(os.listdir(out_dir))
+    logs = [(p.split("/")[-2], q) for p, q, _ in requests
+            if p.endswith("/log")]
+    per_pod: dict = {}
+    for pod, q in logs:
+        per_pod.setdefault(pod, []).append(q)
+    reconnects = [qs[1:] for pod, qs in per_pod.items()]
+    bad_reconnects = [q for qs in reconnects for q in qs
+                      if q.get("follow") != "true" or "sinceSeconds" not in q
+                      or "tailLines" in q or q.get("timestamps") != "true"]
+    untokened = sum(auth != f"Bearer {KUBE_TOKEN}" for _, _, auth in requests)
+    n_lines = sum(len(v) for v in sent.values())
+    res = dict(rc=rc, card=card, pods=n_pods, files=files, seconds=wall,
+               lines_sent=n_lines, kept_lines=kept,
+               lines_per_s=n_lines / wall, mismatched_files=len(bad),
+               first_mismatches=bad[:4], requests=len(requests),
+               log_requests=len(logs),
+               reconnected_pods=sorted(p for p, qs in per_pod.items()
+                                       if len(qs) > 1),
+               bad_reconnect_queries=bad_reconnects[:4],
+               requests_without_token=untokened, launches=launches,
+               **pipeline_numbers(made[0]))
+    res.update(held_batches(torch, nk, pack, calls, 2))
+    emit({"phase": "kube_follow", **res})
+    held = res["k1_batches"] + res["pack_batches"]
+    if (rc != 0 or bad or files != n_pods or not kept or untokened
+            or bad_reconnects or res["reconnected_pods"] != drop
+            or len(logs) != n_pods + n_drop
+            or launches[nk.GROUPED] == 0 or launches[nk.PACK] == 0
+            or len(res["k1_batches"]) < 2 or not res["pack_batches"]
+            or any(b.get("max_abs_err", 0) or b.get("mismatches", 0)
+                   for b in held)):
+        raise AssertionError(f"kube_follow phase failed: {res}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1354,7 +1921,14 @@ def main() -> int:
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, root)
+    import resource
+
     import numpy as np
+
+    # The follow phase holds a thousand log files open at once.
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < 4096:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (min(hard, 4096), hard))
 
     from klogs_tpu_torch import app, cli
     from klogs_tpu_torch.cluster.fake import FakeCluster, synthetic_line
@@ -1374,7 +1948,7 @@ def main() -> int:
         k2 = k2_phase(torch, np, nfa, nk, compile_patterns, dev)
         eng = engine_phase(torch, np, nk, GpuEngineFilter, frame_lines,
                            synthetic_line, dev)
-        pack_phase(torch, nk, pack, GpuEngineFilter, eng, dev)
+        pk = pack_phase(torch, nk, pack, GpuEngineFilter, eng, dev)
         run = cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev)
         # The fused-groups path: K4 for K1 on short lines.
         with env_set("KLOGS_TPU_FUSED_GROUPS", "1"):
@@ -1397,6 +1971,10 @@ def main() -> int:
         k4_b256_check(torch, nk, k4, ek.pop("b256"))
         run3 = cli_k1024_phase(torch, np, nk, bits, app, cli, term,
                                FakeCluster, dev)
+        # Follow mode: many small deadline-driven batches.
+        follow_phase(torch, np, nk, pack, app, cli, term, FakeCluster,
+                     synthetic_line, dev, card)
+        kube_follow_phase(torch, np, nk, pack, app, cli, term, dev, card)
     except Exception:
         traceback.print_exc()
         emit({"phase": "failed"})
@@ -1439,6 +2017,11 @@ def main() -> int:
                                   run4["k4_batches"] + list(k4.values()))),
          "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
          "bound_by": f["bound_by"], "library_ms": None, "k1_ms": f["k1_ms"]},
+        {"name": nk.PACK, "route": "cuda", "source": pk["source"],
+         "replaces": pk["replaces"], "launches": run["launches"][nk.PACK],
+         "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
+         "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
+         "bound_by": pk["bound_by"], "library_ms": None},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -37,6 +37,10 @@ class ClusterBackend(abc.ABC):
         """(context_name, default_namespace)."""
 
     @abc.abstractmethod
+    async def list_namespaces(self) -> list[str]:
+        """Every namespace name (the namespace picker's options)."""
+
+    @abc.abstractmethod
     async def namespace_exists(self, namespace: str) -> bool: ...
 
     @abc.abstractmethod
@@ -48,8 +52,8 @@ class ClusterBackend(abc.ABC):
     @abc.abstractmethod
     async def open_log_stream(self, namespace: str, pod: str,
                               opts: LogOptions) -> LogStream:
-        """``opts.container`` must be set; since/tail apply server-side.
-        Raises StreamError on failure."""
+        """``opts.container`` must be set; since/tail/follow/previous/
+        timestamps apply server-side. Raises StreamError on failure."""
 
     async def close(self) -> None:
         """Release any transport resources."""

@@ -1,8 +1,9 @@
 """Cluster data model (counterpart of ``klogs_tpu/cluster/types.py``).
 
 Minimal projections of the Kubernetes objects klogs touches: pods with
-their ready state and containers, and the server-side log options the
-non-follow path uses.
+their ready state and containers, and the server-side log options
+(``v1.PodLogOptions``: since, tail, follow, previous, timestamps and
+since-time).
 """
 
 from dataclasses import dataclass, field
@@ -30,7 +31,13 @@ class LogOptions:
 
     since_seconds: int | None = None
     tail_lines: int | None = None
+    follow: bool = False
     container: str = ""
+    # Logs of the previous terminated instance, an RFC3339 stamp before
+    # each line, and an absolute RFC3339 lower bound.
+    previous: bool = False
+    timestamps: bool = False
+    since_time: str | None = None
 
 
 def match_label_selector(labels: dict[str, str], selector: str) -> bool:

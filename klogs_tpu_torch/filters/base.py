@@ -44,6 +44,7 @@ class FilterStats:
         self.lines_in = 0
         self.lines_matched = 0
         self.batches = 0
+        self.deadline_flushes = 0
         self._batch_s: list[float] = []
         self._queue_s: list[float] = []
         self._device_s: list[float] = []
@@ -77,6 +78,12 @@ class FilterStats:
             self.lines_matched += n_matched
             self.batches += 1
             self._batch_s.append(latency_s)
+
+    def record_deadline_flush(self) -> None:
+        """A flush forced by the follow-mode deadline (not batch size):
+        the sign that sinks run latency-bound."""
+        with self._lock:
+            self.deadline_flushes += 1
 
     def record_prefilter(self, n_lines: int, n_candidates: int,
                          n_tiles: int, n_tiles_live: int) -> None:

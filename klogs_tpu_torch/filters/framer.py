@@ -6,10 +6,31 @@ to one contiguous buffer and a numpy newline sweep records each complete
 line's end, so the pending batch goes to the framed filter path as
 ``(payload, offsets, n)`` with no per-line Python object;
 ``join_kept_framed`` gathers the kept lines back out of the same
-buffer.
+buffer. ``LineFramer`` is the list form the console sinks render from.
 """
 
 import numpy as np
+
+
+class LineFramer:
+    def __init__(self) -> None:
+        self._rest = b""
+
+    def feed(self, chunk: bytes) -> list[bytes]:
+        """Returns the complete lines made available by this chunk, each
+        including its trailing newline."""
+        data = self._rest + chunk if self._rest else chunk
+        if b"\n" not in data:
+            self._rest = data
+            return []
+        body, _, rest = data.rpartition(b"\n")
+        self._rest = rest
+        return [ln + b"\n" for ln in body.split(b"\n")]
+
+    def flush(self) -> bytes | None:
+        """The final unterminated line, if any (stream ended mid-line)."""
+        rest, self._rest = self._rest, b""
+        return rest if rest else None
 
 
 class FramedBatcher:

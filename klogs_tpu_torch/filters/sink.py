@@ -2,8 +2,10 @@
 
 Counterpart of ``klogs_tpu/filters/sink.py``. A FilteredSink sits where
 a container's log bytes would be written: it frames chunks into lines,
-asks the filter for a keep-mask once ``BATCH_LINES`` lines are pending
-(and at close), and writes only kept lines, in the original order.
+asks the filter for a keep-mask once ``BATCH_LINES`` lines are pending,
+when the oldest pending line has waited ``deadline_s`` (checked at the
+next write and by the pipeline's follow-mode deadline flusher), and at
+close, and writes only kept lines, in the original order.
 ``make_pipeline`` builds the shared engine, its AsyncFilterService and
 the per-container sink factory.
 """
@@ -11,6 +13,8 @@ the per-container sink factory.
 import asyncio
 import time
 from dataclasses import dataclass
+from dataclasses import field as dataclasses_field
+from typing import Callable
 
 import numpy as np
 
@@ -24,23 +28,38 @@ from klogs_tpu_torch.ui import term
 # Lines a sink gathers before it asks for their verdicts; the service
 # coalesces the batches of many sinks into one device batch.
 BATCH_LINES = 8192
+# How long a pending line may wait for its verdict in follow mode.
+DEADLINE_S = 0.05
 
 
 class FilteredSink(Sink):
     def __init__(self, inner: Sink, service: AsyncFilterService,
-                 stats: FilterStats):
+                 stats: FilterStats, deadline_s: float = DEADLINE_S,
+                 on_close: "Callable[[FilteredSink], None] | None" = None):
         self._inner = inner
         self._service = service
         self._stats = stats
+        self._deadline_s = deadline_s
+        self._on_close = on_close
         self._closed = False
         self._batcher = FramedBatcher()
-        # Held across match + write so two flushes of this file cannot
-        # reorder its lines while a batch is in flight. Created at first
-        # flush, inside the running loop.
+        # When the oldest pending line arrived (None: nothing pending).
+        self._pending_since: float | None = None
+        # Held across match + write so two flushes of this file (a write
+        # and the deadline flusher) cannot reorder its lines while a
+        # batch is in flight. Created at first flush, inside the running
+        # loop.
         self._flush_lock: "asyncio.Lock | None" = None
 
     async def write(self, chunk: bytes) -> None:
-        if self._batcher.feed(chunk) >= BATCH_LINES:
+        had = self._batcher.pending_lines
+        n = self._batcher.feed(chunk)
+        if n and not had:
+            self._pending_since = time.perf_counter()
+        if n >= BATCH_LINES or (
+                n and self._pending_since is not None
+                and time.perf_counter() - self._pending_since
+                >= self._deadline_s):
             await self._flush_pending()
 
     async def _flush_pending(self, final: bool = False) -> None:
@@ -48,6 +67,7 @@ class FilteredSink(Sink):
             self._flush_lock = asyncio.Lock()
         async with self._flush_lock:
             payload, offsets, n = self._batcher.take(final=final)
+            self._pending_since = None
             if n == 0:
                 return
             t0 = time.perf_counter()
@@ -60,10 +80,25 @@ class FilteredSink(Sink):
                 n_lines=n, n_matched=int(np.count_nonzero(mask)),
                 latency_s=latency)
 
+    async def flush_if_stale(self) -> None:
+        """Flush the pending lines once the oldest has waited
+        ``deadline_s`` (the follow-mode flusher calls this)."""
+        if (self._batcher.pending_lines
+                and self._pending_since is not None
+                and time.perf_counter() - self._pending_since
+                >= self._deadline_s):
+            self._stats.record_deadline_flush()
+            await self._flush_pending()
+            # Live tailing: matched lines must reach the file, not sit in
+            # the inner sink's write buffer.
+            await self._inner.flush()
+
     async def close(self) -> None:
         if self._closed:
             return
         self._closed = True
+        if self._on_close is not None:
+            self._on_close(self)
         try:
             await self._flush_pending(final=True)
         finally:
@@ -83,9 +118,42 @@ class FilterPipeline:
     log_filter: LogFilter
     stats: FilterStats
     service: AsyncFilterService
+    deadline_s: float = DEADLINE_S
+    # Where kept lines land; None = a FileSink on job.path. ``-o
+    # stdout|both`` injects console and tee factories.
+    inner_factory: "Callable[[StreamJob], Sink] | None" = None
+    _live_sinks: "set[FilteredSink]" = dataclasses_field(default_factory=set)
 
     def sink_factory(self, job: StreamJob) -> Sink:
-        return FilteredSink(FileSink(job.path), self.service, self.stats)
+        inner = (self.inner_factory(job) if self.inner_factory is not None
+                 else FileSink(job.path))
+        sink = FilteredSink(inner, self.service, self.stats,
+                            deadline_s=self.deadline_s,
+                            on_close=self._live_sinks.discard)
+        self._live_sinks.add(sink)
+        return sink
+
+    async def run_deadline_flusher(self,
+                                   stop: "asyncio.Event | None" = None
+                                   ) -> None:
+        """Follow mode's latency bound: every ``deadline_s / 2`` force
+        the stale pending lines of every live sink through the filter,
+        so a matching line of a quiet container reaches its file within
+        about ``deadline_s`` with no further input. A background task;
+        cancel it to stop. The sweep runs the sinks concurrently (they
+        merge into a few device batches in the service), and one sink's
+        failure is reported and does not stop the others: its own
+        worker meets the fault at its next write. ``stop`` is the run's
+        stop event, taken for the JAX signature; nothing here sets it
+        (the JAX flusher sets it only under ``--on-filter-error``)."""
+        while True:
+            await asyncio.sleep(self.deadline_s / 2)
+            results = await asyncio.gather(
+                *[s.flush_if_stale() for s in list(self._live_sinks)],
+                return_exceptions=True)
+            for r in results:
+                if isinstance(r, Exception):
+                    term.warning("deadline flush failed: %s", r)
 
     async def aclose(self) -> None:
         """Drain in-flight batches, then release the service and engine."""

@@ -23,6 +23,9 @@ class Sink(abc.ABC):
     async def close(self) -> None:
         """Flush and release; idempotent."""
 
+    async def flush(self) -> None:
+        """Push buffered bytes through (for live tailing); default no-op."""
+
     @property
     @abc.abstractmethod
     def bytes_written(self) -> int: ...
@@ -38,20 +41,33 @@ class FileSink(Sink):
         self._closed = False
         self._failed: "str | None" = None
 
+    def _fail(self, what: str, e: BaseException) -> SinkError:
+        """Mark the sink failed with one clear error, release the fd, and
+        return the SinkError to raise."""
+        self._failed = f"{what} {self._path} failed: {e}"
+        self._closed = True
+        try:
+            self._f.close()
+        except OSError:
+            pass  # the same dead disk; the fd is released regardless
+        return SinkError(self._failed)
+
     async def write(self, chunk: bytes) -> None:
         if self._failed is not None:
             raise SinkError(self._failed)
         try:
             self._f.write(chunk)
         except OSError as e:
-            self._failed = f"write to {self._path} failed: {e}"
-            self._closed = True
-            try:
-                self._f.close()
-            except OSError:
-                pass  # the same dead disk; the fd is released regardless
-            raise SinkError(self._failed) from e
+            raise self._fail("write to", e) from e
         self._bytes += len(chunk)
+
+    async def flush(self) -> None:
+        if self._closed or self._failed is not None:
+            return
+        try:
+            self._f.flush()
+        except OSError as e:
+            raise self._fail("flush of", e) from e
 
     async def close(self) -> None:
         if self._closed:

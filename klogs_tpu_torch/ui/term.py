@@ -38,7 +38,8 @@ _UI_STREAM = None
 
 def set_ui_stream(stream) -> None:
     """Route all UI output (severity printers, widgets) to ``stream``;
-    None restores sys.stdout."""
+    None restores sys.stdout. ``-o stdout|both`` points this at stderr
+    so log lines own stdout."""
     global _UI_STREAM
     _UI_STREAM = stream
 
@@ -85,6 +86,7 @@ class Printer:
 
 
 info = Printer("INFO", "30;46")
+warning = Printer("WARNING", "30;43")
 error = Printer("ERROR", "30;41")
 
 

@@ -4,7 +4,11 @@ Reference parity:
 - splash: pterm BigText "KLogs", K blue + "Logs" white (cmd/root.go:56-66)
 - tree: per-pod container tree (cmd/root.go:231-273)
 - table: boxed, header row, Pod/Container/Size (cmd/root.go:279-309)
+- spinner: the follow-mode "press q" line (cmd/root.go:399-421)
 """
+
+import asyncio
+import itertools
 
 from klogs_tpu_torch.ui import term
 
@@ -27,6 +31,47 @@ def splash_screen(out=None) -> None:
             piece = glyph[r] + "  "
             rows[r] += term.blue(piece) if i == 0 else piece
     print("\n".join(rows) + "\n", file=out)
+
+
+class Spinner:
+    """Async spinner; removed from the line when stopped. Without a tty
+    it prints its text once."""
+
+    FRAMES = [".  ", ".. ", ".|.", " ..", "  ."]
+
+    def __init__(self, text: str, out=None):
+        self.text = text
+        self.out = out or term.ui_stream()
+        self._task: asyncio.Task | None = None
+
+    async def _spin(self) -> None:
+        try:
+            is_tty = self.out.isatty()
+        except Exception:
+            is_tty = False
+        if not is_tty:
+            print(self.text, file=self.out)
+            return
+        for frame in itertools.cycle(self.FRAMES):
+            print(f"\r{frame} {self.text}", end="", flush=True, file=self.out)
+            await asyncio.sleep(0.15)
+
+    async def __aenter__(self) -> "Spinner":
+        self._task = asyncio.create_task(self._spin())
+        return self
+
+    async def __aexit__(self, *exc) -> None:
+        if self._task:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+        try:
+            if self.out.isatty():
+                print("\r\x1b[2K", end="", flush=True, file=self.out)
+        except Exception:
+            pass
 
 
 def render_tree(root: str, children: list[str], out=None) -> None:

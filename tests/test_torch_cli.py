@@ -4,6 +4,7 @@ FakeCluster; the port runs on device "cpu" (the kernels' plain
 versions)."""
 
 import asyncio
+import io
 import os
 
 import pytest
@@ -108,12 +109,24 @@ def test_stats_summary_printed(tmp_path, capsys):
 
 
 def test_cli_main_errors_are_one_line(tmp_path, capsys):
-    assert cli.main(["-a", "-c", "(", "-p", str(tmp_path)]) == 1
-    assert cli.main(["-a", "--cluster", "kube", "-p", str(tmp_path)],
-                    device="cpu") == 1
-    err = capsys.readouterr().out
-    assert "invalid -c/--container pattern" in err
-    assert "kube backend is not ported yet" in err
+    """A bad -c pattern and a missing kubeconfig under the default
+    ``--cluster kube``: exit 1 and the JAX CLI's one line each."""
+    from klogs_tpu.cli import main as jax_main
+
+    missing = str(tmp_path / "no-such-kubeconfig")
+    for argv in (["-a", "-c", "(", "-p", str(tmp_path)],
+                 ["-a", "--cluster", "kube", "--kubeconfig", missing, "-p",
+                  str(tmp_path)]):
+        capsys.readouterr()
+        assert cli.main(argv, device="cpu") == 1
+        got = capsys.readouterr().out
+        assert jax_main(argv) == 1
+        exp = capsys.readouterr().out
+        lines = [ln for ln in got.splitlines() if "ERROR" in ln or "FATAL" in ln]
+        assert lines == [ln for ln in exp.splitlines()
+                         if "ERROR" in ln or "FATAL" in ln]
+        assert len(lines) == 1 and "Traceback" not in got
+    assert f"no kubeconfig found at {missing}" in lines[0]
 
 
 def test_cli_main_fake_cluster_end_to_end(tmp_path, monkeypatch):
@@ -130,13 +143,38 @@ def test_cli_main_fake_cluster_end_to_end(tmp_path, monkeypatch):
         assert len(lines) == 3 and all(b" ERROR " in ln for ln in lines)
 
 
-def test_missing_namespace_and_picker_are_fatal(tmp_path):
-    fc = FakeCluster.synthetic(n_pods=1, lines_per_container=1,
-                               clock=lambda: CLOCK)
+def test_missing_namespace_and_picker_are_fatal(tmp_path, capsys,
+                                                monkeypatch):
+    """A missing namespace warns and falls into the namespace picker,
+    and no -a/-l falls into the pod picker; with no terminal each picker
+    fails as JAX's does (``NotInteractive``, one line from cli.main)."""
+    from klogs_tpu.ui.interactive import NotInteractive as JaxNotInteractive
+    from klogs_tpu_torch.ui.interactive import NotInteractive
+
+    monkeypatch.setattr("sys.stdin", io.StringIO())
     for argv in (["-n", "nope", "-a"], ["-n", "default"]):
-        opts = cli.parse_args(argv + ["-p", str(tmp_path), "--match", "x"])
-        with pytest.raises(term.FatalError):
-            asyncio.run(app.run_async(opts, backend=fc, device="cpu"))
+        msgs = []
+        for side, exc in (("jax", JaxNotInteractive),
+                          ("torch", NotInteractive)):
+            argv_s = argv + ["-p", str(tmp_path / side), "--match", "x"]
+            if side == "jax":
+                fc = JaxFakeCluster.synthetic(n_pods=1, lines_per_container=1,
+                                              clock=lambda: CLOCK)
+                run = jax_app.run_async(jax_parse_args(argv_s), backend=fc)
+            else:
+                fc = FakeCluster.synthetic(n_pods=1, lines_per_container=1,
+                                           clock=lambda: CLOCK)
+                run = app.run_async(cli.parse_args(argv_s), backend=fc,
+                                    device="cpu")
+            capsys.readouterr()
+            with pytest.raises(exc) as ei:
+                asyncio.run(run)
+            warned = [ln for ln in capsys.readouterr().out.splitlines()
+                      if "WARNING" in ln]
+            msgs.append((str(ei.value), warned))
+        assert msgs[0] == msgs[1]
+        assert "requires a terminal" in msgs[1][0]
+        assert bool(msgs[1][1]) == (argv[1] == "nope")
 
 
 @pytest.mark.parametrize("env,expect", [
@@ -179,3 +217,111 @@ def test_stats_says_why_prefilter_is_off(tmp_path, capsys, monkeypatch):
     assert asyncio.run(app.run_async(opts, backend=fc, device="cpu")) == 0
     assert "  prefilter disabled: no mandatory byte pairs" in \
         capsys.readouterr().out
+
+
+# ---- the follow-mode flags and the pickers ------------------------------
+
+NEW_FLAGS = [
+    ["-f"], ["--follow"], ["-v"], ["--version"], ["-o", "stdout"],
+    ["--output", "both"], ["-o", "files", "--format", "json"],
+    ["--previous"], ["--since-time", "2026-07-31T06:00:00Z"],
+    ["--timestamps"], ["--kubeconfig", "/k/config"], ["--watch-new", "-f",
+                                                      "-a"],
+    ["-f", "-t", "10", "-s", "5m", "--timestamps", "-o", "stdout",
+     "--format", "json", "--kubeconfig", "kc"],
+]
+
+
+@pytest.mark.parametrize("argv", NEW_FLAGS, ids=lambda a: " ".join(a))
+def test_new_flags_parse_as_jax(argv):
+    got = vars(cli.parse_args(argv + ["-p", "x"]))
+    exp = vars(jax_parse_args(argv + ["-p", "x"]))
+    assert {k: v for k, v in got.items() if k != "backend"} == {
+        k: exp[k] for k in got if k != "backend"}
+
+
+@pytest.mark.parametrize("argv", [
+    ["-o", "nope"], ["--format", "xml"], ["--previous", "-f"],
+    ["-s", "5m", "--since-time", "2026-07-31T06:00:00Z"],
+    ["--since-time", "2026-07-31"], ["--since-time", "2026-07-31T06:00:00"],
+    ["--since-time", "yesterday"],
+], ids=["bad_output", "bad_format", "previous_follow", "since_both",
+        "date_only", "naive", "garbage"])
+def test_flag_errors_equal_jax(argv, capsys):
+    from klogs_tpu.cli import main as jax_main
+
+    codes = []
+    for main in (cli.main, jax_main):
+        capsys.readouterr()
+        try:
+            codes.append(main(argv + ["-a", "-p", "x"]))
+        except SystemExit as e:  # argparse rejects a bad choice
+            codes.append(("exit", e.code))
+        cap = capsys.readouterr()
+        codes.append([ln.replace("klogs-torch", "klogs")
+                      for ln in (cap.out + cap.err).splitlines()
+                      if "ERROR" in ln or "error:" in ln])
+    assert codes[0:2] == codes[2:4]
+    assert codes[0] in (1, ("exit", 2)) and len(codes[1]) == 1
+
+
+def test_version_prints_and_exits(capsys, monkeypatch):
+    assert cli.main(["-v"]) == 0
+    assert "Version: development" in capsys.readouterr().out
+
+
+PICKS = [
+    ([], 0), (["down"], 1), (["down", "down", "down", "up"], 2),
+    (["down", "enter", "down"], 1), (["up", "up"], 0),
+    (["down"] * 40 + ["enter"], 29),
+]
+
+
+@pytest.mark.parametrize("keys,chosen", PICKS,
+                         ids=["none", "down", "up", "enter", "top", "scroll"])
+def test_pickers_choose_as_jax(keys, chosen):
+    from klogs_tpu.ui import interactive as jax_interactive
+    from klogs_tpu_torch.ui import interactive
+
+    names = [f"ns-{i:02d}" for i in range(30)]
+    outs = []
+    for mod in (interactive, jax_interactive):
+        buf = io.StringIO()
+        one = mod.interactive_select(names, "Select a Namespace", keys=keys,
+                                     out=buf)
+        many = mod.interactive_multiselect(
+            names, "Select Pods", keys=[k if k != "up" else "space"
+                                        for k in keys] + ["space"], out=buf)
+        outs.append((one, many, buf.getvalue()))
+    assert outs[0] == outs[1]
+    assert outs[0][0] == names[chosen]
+
+
+def test_pickers_drive_the_app_as_jax(tmp_path):
+    """A missing namespace and no -a: the injected keys pick the
+    namespace and the pods, as in the JAX app."""
+    files = []
+    for side in ("jax", "torch"):
+        out = tmp_path / side
+        argv = ["-n", "nope", "-p", str(out), "--match", "ERROR"]
+        # One iterator: the pod picker goes on where the namespace picker
+        # stopped.
+        keys = iter(["down", "enter", "down", "space", "down", "down",
+                     "space", "enter"])
+        if side == "jax":
+            fc = JaxFakeCluster.synthetic(n_pods=4, lines_per_container=20,
+                                          clock=lambda: CLOCK)
+            fc.add_namespace("a-first")
+            rc = asyncio.run(jax_app.run_async(
+                jax_parse_args(argv + ["--backend", "cpu"]), backend=fc,
+                select_keys=keys))
+        else:
+            fc = FakeCluster.synthetic(n_pods=4, lines_per_container=20,
+                                       clock=lambda: CLOCK)
+            fc.add_namespace("a-first")
+            rc = asyncio.run(app.run_async(cli.parse_args(argv), backend=fc,
+                                           select_keys=keys, device="cpu"))
+        assert rc == 0
+        files.append(read_all(out))
+    assert files[0] == files[1]
+    assert sorted(files[1]) == ["pod-0001__c0.log", "pod-0003__c0.log"]

@@ -6,6 +6,8 @@ imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -560,3 +562,162 @@ def test_async_service_many_batches_in_flight(dev, monkeypatch):
         assert g.tolist() == cpu.fetch_framed(cpu.dispatch_framed(p, o)) \
             .tolist()
     assert sum(int(g.sum()) for g in got) > 48
+
+
+# ---- follow mode on the card -------------------------------------------
+
+FOLLOW_CLOCK = 1_753_800_000.0
+
+
+def _emitted(fc, pod: str, n_hist: int) -> bytes:
+    """Every line pod's c0 stream sent: its history, then the lines it
+    generated (the fixed clock makes them regenerable from next_seq)."""
+    from klogs_tpu_torch.cluster.fake import synthetic_line
+
+    c = fc.namespaces["default"][pod].containers["c0"]
+    return b"".join([ln for _, ln in c.lines] + [
+        synthetic_line(pod, "c0", s, FOLLOW_CLOCK)
+        for s in range(n_hist, c.next_seq)])
+
+
+def _follow_on(dev, out_dir, n_pods: int, interval: float, stop_after,
+               match: list, watch=None):
+    """``app.run_async`` in follow mode over a fixed-clock FakeCluster,
+    stopped by ``stop`` after ``stop_after`` s (``watch(fc)`` runs beside
+    it); returns (rc, fc, stats)."""
+    import asyncio
+
+    from klogs_tpu_torch import app, cli
+    from klogs_tpu_torch.cluster.fake import FakeCluster
+    from klogs_tpu_torch.filters import sink as sink_mod
+    from klogs_tpu_torch.ui import term
+
+    fc = FakeCluster.synthetic(n_pods=n_pods, lines_per_container=40,
+                               clock=lambda: FOLLOW_CLOCK,
+                               follow_interval_s=interval)
+    argv = ["-n", "default", "-a", "-f", "-p", str(out_dir)]
+    for m in match:
+        argv += ["--match", m]
+    made = []
+    real = sink_mod.make_pipeline
+
+    def recording(*a, **kw):
+        made.append(real(*a, **kw))
+        return made[-1]
+
+    async def go():
+        stop = asyncio.Event()
+
+        async def stopper():
+            if watch is not None:
+                await watch(fc)
+            await asyncio.sleep(stop_after)
+            stop.set()
+
+        t = asyncio.create_task(stopper())
+        try:
+            return await app.run_async(cli.parse_args(argv), backend=fc,
+                                       stop=stop, device=dev)
+        finally:
+            t.cancel()
+
+    term.set_ui_stream(open(os.devnull, "w"))
+    sink_mod.make_pipeline = recording
+    try:
+        rc = asyncio.run(go())
+    finally:
+        sink_mod.make_pipeline = real
+        term.set_ui_stream(None)
+    return rc, fc, made[0].stats
+
+
+def test_follow_deadline_flusher_on_card(dev, tmp_path):
+    """A follow run on the card: the needle a quiet stream sends (its
+    next line comes 1 s later) lands in its file within 4 x deadline_s
+    of its emission through the deadline flusher, and every file equals
+    the CPU engine's filter over exactly the lines its stream sent."""
+    import asyncio
+    import re
+    import time
+
+    from klogs_tpu_torch.filters.base import frame_lines
+    from klogs_tpu_torch.filters.sink import DEADLINE_S
+
+    latencies = []
+
+    async def watch(fc):
+        c = fc.namespaces["default"]["pod-0000"].containers["c0"]
+        path = os.path.join(str(tmp_path / "card"), "pod-0000__c0.log")
+        for seq in (41, 42, 43):
+            while c.next_seq <= seq:
+                await asyncio.sleep(0.001)
+            t0 = time.perf_counter()
+            needle = f" seq={seq} ".encode()
+            while True:
+                with open(path, "rb") as f:
+                    if needle in f.read():
+                        break
+                await asyncio.sleep(0.001)
+            latencies.append(time.perf_counter() - t0)
+
+    match = [r"ERROR", r"seq=4[1-3] "]
+    rc, fc, stats = _follow_on(dev, tmp_path / "card", 8, 1.0, 0.2, match,
+                               watch=watch)
+    assert rc == 0
+    assert len(latencies) == 3 and max(latencies) < 4 * DEADLINE_S, latencies
+    assert stats.deadline_flushes > 0
+    cpu = GpuEngineFilter(match, device="cpu")
+    rx = re.compile("|".join(match).encode())
+    for pod in sorted(fc.namespaces["default"]):
+        sent = _emitted(fc, pod, 40).splitlines(keepends=True)
+        v = cpu.fetch_framed(cpu.dispatch_framed(
+            *frame_lines(sent, strip_nl=False)[:2]))
+        exp = b"".join(ln for ln, k in zip(sent, v) if k)
+        assert exp == b"".join(ln for ln in sent if rx.search(ln))
+        with open(tmp_path / "card" / f"{pod}__c0.log", "rb") as f:
+            assert f.read() == exp, pod
+
+
+def test_follow_stop_with_batches_in_flight(dev, tmp_path):
+    """Fast streams, stop fired while device batches are in flight: each
+    file holds exactly the matching lines its stream sent, none lost or
+    written twice."""
+    import re
+
+    match = ["ERROR.*code=[45]00", "seq=[0-9]*7 ", "latency=49"]
+    nfa_kernels.reset_launches()
+    rc, fc, stats = _follow_on(dev, tmp_path, 64, 0.001, 1.5, match)
+    assert rc == 0
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED] > 0
+    rx = re.compile("|".join(match).encode())
+    total = 0
+    for pod in sorted(fc.namespaces["default"]):
+        sent = _emitted(fc, pod, 40)
+        total += sent.count(b"\n")
+        exp = b"".join(ln for ln in sent.splitlines(keepends=True)
+                       if rx.search(ln))
+        with open(tmp_path / f"{pod}__c0.log", "rb") as f:
+            assert f.read() == exp, pod
+    assert stats.lines_in == total > 64 * 100
+
+
+def test_engine_small_batches_launch_kernels(dev):
+    """Follow mode's batches of 1 to 8 lines (one batch bucket of 8 rows)
+    run the kernels, not their plain versions: each launches K1 and
+    pack_rows once, and a long line K2, with the CPU engine's verdicts."""
+    from klogs_tpu_torch.filters.base import frame_lines
+
+    card = GpuEngineFilter(PATTERNS, device=dev)
+    cpu = GpuEngineFilter(PATTERNS, device="cpu")
+    lines = [b"panic: now\n", b"quiet\n", b"retry 3/5 end\n", b"start x\n",
+             b"x" * 6000 + b" code=503\n", b"disk is full\n", b"a\n", b"\n"]
+    for n in range(1, 9):
+        frame = frame_lines(lines[:n], strip_nl=False)[:2]
+        nfa_kernels.reset_launches()
+        got = card.fetch_framed(card.dispatch_framed(*frame))
+        long_ = n >= 5
+        assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED] == 1
+        assert nfa_kernels.LAUNCHES[nfa_kernels.PACK] == 1 + 2 * long_
+        assert nfa_kernels.LAUNCHES[nfa_kernels.CHUNK] == 2 * long_
+        assert got.tolist() == cpu.fetch_framed(
+            cpu.dispatch_framed(*frame)).tolist()

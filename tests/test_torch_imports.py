@@ -41,7 +41,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = port_sources()
     assert len(files) > 20
     for mod in ("ops/tune.py", "ops/nfa_kernels.py", "ops/pack.py",
-                "filters/gpu.py", "filters/cpu.py"):
+                "filters/gpu.py", "filters/cpu.py", "filters/sink.py",
+                "runtime/fanout.py", "runtime/stdout.py", "cluster/fake.py",
+                "cluster/kube.py", "cluster/kubeconfig.py",
+                "resilience/policy.py", "ui/interactive.py", "app.py",
+                "cli.py", "version.py"):
         assert os.path.join(PORT, mod) in files
     bad = []
     for path in files:
@@ -128,6 +132,22 @@ def test_cuda_entry_points_raise_without_card(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="device"):
         pack.pack_rows(torch.zeros(4, dtype=torch.uint8, device="meta"),
                        meta, meta, 8, 1)
+    # A follow run through the user's entry point, device=None: the
+    # pipeline is built before any stream opens, and it raises.
+    monkeypatch.delenv("KLOGS_TPU_FUSED_GROUPS")
+    import asyncio
+
+    from klogs_tpu_torch import app, cli
+    from klogs_tpu_torch.cluster.fake import FakeCluster
+
+    fc = FakeCluster.synthetic(n_pods=1, lines_per_container=3)
+    opts = cli.parse_args(["-n", "default", "-a", "-f", "--match", "x",
+                           "-p", str(tmp_path)])
+    stop = asyncio.Event()
+    stop.set()
+    with pytest.raises(RuntimeError, match="cuda"):
+        asyncio.run(app.run_async(opts, backend=fc, stop=stop))
+    assert os.listdir(tmp_path) == []
 
 
 def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
