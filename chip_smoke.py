@@ -109,9 +109,34 @@ Follow mode (BASELINE config 4), after them:
    connections; every reconnect asks for ``follow`` and ``sinceSeconds``
    without ``tailLines``; every request carries the token.
 
+The log sources, after them (a corpus in a temporary directory,
+removed at the end):
+
+17. backfill: ``tools/bench_backfill.py``'s deployment, 8 rotated sets
+   (``app-NN.log.2.gz``, ``.1.gz`` at gzip level 1, a plain live
+   ``app-NN.log``) of 4,000,000 FakeCluster lines (~126 B, from a
+   seeded pool of 16,384 distinct bodies, 1% with a needle) and two
+   lines of 4-64 and 128-192 KiB each, through ``app.run_async
+   --backfill DIR --match … --stats -p``: (a) the 32 patterns over the
+   gzip sets, (b) over the same sets uncompressed, (c) the 1024
+   patterns over the gzip sets (the gated path). Each run: every file
+   equal to the ``re`` oracle's selection in rotated order, lines/s,
+   device batches, K1 (or K3), K2 and ``pack_rows`` held against their
+   plain versions on the run's own batches (counts zeroed just before
+   the run), then a backfill of each set's oldest generation under
+   cProfile with a 1 s torch.profiler window (the device's busy share).
+   Beside them the source alone: the sets drained through
+   ``ArchiveStream``.
+18. sources: ``--source replay:`` over each set's stream as one file
+   (its files equal to run (b)'s), ``-f --source socket:127.0.0.1:0``
+   with 8 peer processes of 50,000 lines each (no line lost or
+   doubled), and ``-f --source replay:`` with a rename rotation
+   mid-run.
+
 Then a ``kernels`` line (each kernel's time beside its bound and its
-plain version's time, with its launches on its main path: the four NFA
-kernels and ``pack_rows``), the card line, and last ``{"ok": true,
+plain version's time, with its launches on its main path and on the
+backfill: the four NFA kernels and ``pack_rows``), the card line, and
+last ``{"ok": true,
 "device": {...}}``. Any failed phase exits
 non-zero without that line, as does a run with no CUDA device or
 outside a checkout.
@@ -126,6 +151,7 @@ import json
 import multiprocessing
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -271,12 +297,12 @@ def _oracle_chunk(patterns: tuple, bodies: list) -> list:
     return [union.search(b) is not None for b in bodies]
 
 
-def oracle_verdicts(patterns: list, bodies: list) -> list:
+def oracle_verdicts(patterns: list, bodies: list, step: int = 2048) -> list:
     """``re`` verdicts of one alternation of ``patterns`` over
-    ``bodies``, split over worker processes (a 1024-way alternation
-    costs about 1 ms a line); the pool is shut down before returning."""
+    ``bodies``, ``step`` bodies a task over worker processes (a 1024-way
+    alternation costs about 1 ms a line); the pool is shut down before
+    returning."""
     pats = tuple(patterns)
-    step = 2048
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(
             max_workers=min(8, os.cpu_count() or 1), mp_context=ctx) as ex:
@@ -1396,9 +1422,10 @@ def recording_wrappers(nk, pack, names: list):
 
 
 @contextlib.contextmanager
-def captured_pipeline():
+def captured_pipeline(built_at: "list | None" = None):
     """Yields a list that gets each FilterPipeline the app builds (its
-    stats and service), make_pipeline restored after."""
+    stats and service), make_pipeline restored after; ``built_at`` gets
+    the perf_counter time each was built."""
     from klogs_tpu_torch.filters import sink as sink_mod
 
     made: list = []
@@ -1406,6 +1433,8 @@ def captured_pipeline():
 
     def hook(*a, **kw):
         made.append(real(*a, **kw))
+        if built_at is not None:
+            built_at.append(time.perf_counter())
         return made[-1]
 
     sink_mod.make_pipeline = hook
@@ -1908,6 +1937,570 @@ def kube_follow_phase(torch, np, nk, pack, app, cli, term, dev,
     return res
 
 
+# ---- the log sources: --backfill, --source replay: and socket: ----------
+
+
+def backfill_pool(synthetic_line, rng, n: int) -> list:
+    """``n`` distinct ~126-byte log lines (FakeCluster's), 1% with a
+    needle: half of the 32 patterns' (``NEEDLES``), half a minted
+    family's (the 1024 set's, or a near miss past it)."""
+    pool = []
+    for j in range(n):
+        ln = synthetic_line(f"pod-{j % 509:04d}", f"c{j % 3}",
+                            j * 7919 % 1000003, CLOCK - j % 86400)
+        if j % 200 == 3:
+            ln = ln[:40] + NEEDLES[j // 200 % len(NEEDLES)] + b" " + ln[40:]
+        elif j % 200 == 103:
+            ln = ln[:40] + minted_needle(int(rng.integers(0, 1200))) + b" " \
+                + ln[40:]
+        pool.append(ln)
+    return pool
+
+
+def backfill_corpus(np, synthetic_line, root: str, n_lines: int,
+                    n_sets: int = 8, pool_n: int = 16384,
+                    long_kib=((4, 64), (128, 192))) -> dict:
+    """``tools/bench_backfill.py``'s deployment: ``n_sets`` rotated sets,
+    each ``app-NN.log.2.gz``, ``.1.gz`` (gzip level 1) and a plain live
+    ``app-NN.log``, under ``root/gz``; the same sets uncompressed under
+    ``root/plain``; each set's whole stream as one file under
+    ``root/replay``. Lines come from a seeded pool of ``pool_n`` distinct
+    bodies (larger than gzip's 32 KiB window), and each set holds two
+    lines of 4-64 and 128-192 KiB (K2, and the path over 128 KiB).
+    Returns the pool, the long lines and each set's lines in order."""
+    import gzip
+
+    rng = np.random.default_rng(SEED + 20)
+    pool = backfill_pool(synthetic_line, rng, pool_n)
+    idx = rng.integers(0, pool_n, size=n_lines)
+    per = n_lines // n_sets
+    sets, longs = [], []
+    for s in range(n_sets):
+        lines = [pool[i] for i in idx[s * per:(s + 1) * per].tolist()]
+        for j, (lo, hi) in enumerate(long_kib):
+            n = int(rng.integers(lo << 10, hi << 10))
+            body = bytearray(rng.integers(32, 127, size=n, dtype=np.uint8))
+            nd = (NEEDLES[s % len(NEEDLES)] if j == 0
+                  else minted_needle(int(rng.integers(0, 992))))
+            if (s + j) % 2:
+                body[n // 2:n // 2 + len(nd)] = nd
+            at = len(lines) // 2 if j == 0 else 5 * len(lines) // 6
+            lines.insert(at, bytes(body) + b"\n")
+            longs.append(lines[at])
+        sets.append(lines)
+    for sub in ("gz", "plain", "replay"):
+        os.makedirs(os.path.join(root, sub))
+
+    def write(s: int) -> None:
+        lines = sets[s]
+        third = len(lines) // 3
+        gens = [b"".join(lines[:third]), b"".join(lines[third:2 * third]),
+                b"".join(lines[2 * third:])]
+        name = f"app-{s:02d}.log"
+        for gen, data in zip((2, 1), gens[:2]):
+            with open(os.path.join(root, "gz", f"{name}.{gen}.gz"), "wb") as f:
+                f.write(gzip.compress(data, 1))
+            with open(os.path.join(root, "plain", f"{name}.{gen}"), "wb") as f:
+                f.write(data)
+        for sub in ("gz", "plain"):
+            with open(os.path.join(root, sub, name), "wb") as f:
+                f.write(gens[2])
+        with open(os.path.join(root, "replay", name), "wb") as f:
+            f.writelines(gens)
+
+    with concurrent.futures.ThreadPoolExecutor(n_sets) as ex:
+        list(ex.map(write, range(n_sets)))
+    return dict(pool=pool, longs=longs, sets=sets)
+
+
+def expected_files(corpus: dict, verdict: dict, names: list) -> dict:
+    """Each set's output file: its lines that ``verdict`` keeps, in
+    order (oldest generation first)."""
+    return {name: b"".join(ln for ln in lines if verdict[ln])
+            for name, lines in zip(names, corpus["sets"])}
+
+
+def corpus_verdicts(corpus: dict, patterns: list) -> dict:
+    """The ``re`` oracle's verdict of every distinct line, computed once
+    a pool body (and once a long line, a line a task)."""
+    pool, longs = corpus["pool"], corpus["longs"]
+    v = oracle_verdicts(patterns, [b.rstrip(b"\n") for b in pool])
+    vl = oracle_verdicts(patterns, [b.rstrip(b"\n") for b in longs], step=1)
+    return dict(zip(pool + longs, v + vl))
+
+
+def source_capacity(paths: list) -> dict:
+    """The archive source alone: every set drained through its
+    ArchiveStream at once (the lines counted, nothing else done)."""
+    from klogs_tpu_torch.cluster.types import LogOptions
+    from klogs_tpu_torch.sources.archive import ArchiveSource
+
+    async def drain() -> tuple:
+        src = ArchiveSource(paths)
+        refs = await src.discover()
+
+        async def one(ref) -> int:
+            n = 0
+            async for slab in await src.open_stream(ref, LogOptions()):
+                n += slab.count(b"\n")
+            return n
+
+        t0 = time.perf_counter()
+        counts = await asyncio.gather(*(one(r) for r in refs))
+        seconds = time.perf_counter() - t0
+        await src.close()
+        return sum(counts), seconds
+
+    lines, seconds = asyncio.run(drain())
+    return dict(lines=lines, seconds=seconds, lines_per_s=lines / seconds)
+
+
+def held_gated(torch, bits, nk, calls: dict) -> list:
+    """K3 against its plain version on the run's most frequent gated
+    batch shape."""
+    out = []
+    for count, seen in sorted(calls.get("match_cls_grouped_gated", {})
+                              .values(), key=lambda e: -e[0])[:1]:
+        a, kw = seen[0]
+        out.append(dict(launches=count,
+                        **k3_check(torch, bits, nk, *a[:5], 10)))
+    return out
+
+
+def backfill_run(torch, nk, pack, bits, app, cli, term, dev, label: str,
+                 paths: list, patterns: list, want: dict,
+                 n_lines: int, profile_paths: list) -> dict:
+    """``app.run_async`` with ``--backfill PATHS --match … --stats -p``
+    on the card: the counts zeroed just before and read just after,
+    every output file held against ``want``, the kernels held on the
+    run's own batches; then a backfill of ``profile_paths`` under
+    cProfile with a torch.profiler window of 1 s after the engine is
+    built (the device's busy share)."""
+    argv = ["--backfill", *paths, "--stats", "-p", ""]
+    for p in patterns:
+        argv += ["--match", p]
+    names = ["match_cls_grouped", "match_chunk_cls", "pack_rows",
+             "match_cls_grouped_gated"]
+    built_at: list = []
+    with tempfile.TemporaryDirectory() as out_dir, \
+            captured_pipeline(built_at) as made, \
+            recording_wrappers(nk, pack, names) as calls:
+        argv[len(paths) + 3] = out_dir
+        ui = io.StringIO()
+        term.set_ui_stream(ui)
+        try:
+            torch.cuda.synchronize()
+            nk.reset_launches()
+            t0 = time.perf_counter()
+            rc = asyncio.run(app.run_async(cli.parse_args(argv), device=dev))
+            t1 = time.perf_counter()
+            launches = dict(nk.LAUNCHES)
+        finally:
+            term.set_ui_stream(None)
+        got = {f: open(os.path.join(out_dir, f), "rb").read()
+               for f in os.listdir(out_dir)}
+    bad = sorted(f for f in want if got.get(f) != want[f])
+    kept = sum(b.count(b"\n") for b in want.values())
+    summary = [ln.strip() for ln in ui.getvalue().splitlines()
+               if "Backfill complete" in ln]
+    nums = pipeline_numbers(made[0])
+    res = dict(label=label, rc=rc, files=len(got), mismatched_files=bad,
+               kept_lines=kept, wall_s=t1 - t0, engine_build_s=built_at[0] - t0,
+               lines_per_s=nums["lines_in"] / (t1 - built_at[0]),
+               lines_per_s_wall=nums["lines_in"] / (t1 - t0),
+               summary=summary[0] if summary else None,
+               launches=launches, **nums)
+    res.update(held_batches(torch, nk, pack, calls, 4))
+    res["k3_batches"] = held_gated(torch, bits, nk, calls)
+    del calls
+    argv = ["--backfill", *profile_paths] + argv[len(paths) + 1:]
+    res["profile"] = backfill_profile(torch, app, cli, term, dev, argv,
+                                      len(profile_paths) + 3)
+    res["counts_ok"] = (nums["lines_in"] == n_lines
+                        and nums["lines_matched"] == kept)
+    return res
+
+
+def backfill_profile(torch, app, cli, term, dev, argv: list,
+                     out_at: int) -> dict:
+    """A backfill under cProfile (the top functions; since Python 3.12
+    cProfile sees every thread, the fetch pool's and the producers'
+    waits too), with a torch.profiler window of 1 s starting 0.3 s
+    after the engine is built: the device's busy share there."""
+    import cProfile
+
+    built_at: list = []
+    prof_start, prof_stop, prof = profiled_second(torch)
+
+    async def drive(opts) -> int:
+        async def window():
+            while not built_at:
+                await asyncio.sleep(0.005)
+            await asyncio.sleep(0.3)
+            prof_start()
+            await asyncio.sleep(1.0)
+            prof_stop()
+
+        task = asyncio.create_task(window())
+        try:
+            return await app.run_async(opts, device=dev)
+        finally:
+            await task
+
+    with tempfile.TemporaryDirectory() as out_dir, \
+            captured_pipeline(built_at):
+        argv = list(argv)
+        argv[out_at] = out_dir
+        term.set_ui_stream(io.StringIO())
+        cp = cProfile.Profile()
+        try:
+            t0 = time.perf_counter()
+            cp.enable()
+            rc = asyncio.run(drive(cli.parse_args(argv)))
+            cp.disable()
+            wall = time.perf_counter() - t0
+        finally:
+            term.set_ui_stream(None)
+    return dict(rc=rc, wall_s=wall, run_after_window_s=wall - (
+        built_at[0] - t0) - 1.3, device_busy=prof.get("busy"),
+        profiled_wall_s=prof.get("wall"),
+        profiled_device_ms=prof.get("device_ms"), host_top=host_top(cp, 12))
+
+
+def backfill_phase(torch, np, nk, pack, bits, app, cli, term,
+                   synthetic_line, dev, root: str, card: str = "",
+                   n_lines=4_000_000) -> dict:
+    """The archive backfill (``tools/bench_backfill.py``'s deployment:
+    8 rotated sets, gzip level 1, 1 MiB slabs) through ``app.run_async
+    --backfill DIR --match … --stats -p``: (a) K = 32 over the gzip
+    sets, (b) K = 32 over the same sets uncompressed, (c) K = 1024 over
+    the gzip sets (the gated path). Every file must equal the ``re``
+    oracle's selection in rotated order; K1, K2, pack_rows and at K =
+    1024 K3 are held against their plain versions on each run's own
+    batches. Beside each, the source alone: the sets drained through
+    ArchiveStream."""
+    from klogs_tpu_torch.sources.base import safe_group_name
+    from klogs_tpu_torch.utils.naming import log_file_name
+
+    t0 = time.perf_counter()
+    corpus = backfill_corpus(np, synthetic_line, root, n_lines)
+    corpus_s = time.perf_counter() - t0
+    k1024 = make_patterns(1024)
+    t0 = time.perf_counter()
+    v32 = corpus_verdicts(corpus, PATTERNS)
+    v1024 = corpus_verdicts(corpus, k1024)
+    oracle_s = time.perf_counter() - t0
+    n_sets = len(corpus["sets"])
+
+    def names(sub: str) -> list:
+        return [log_file_name(safe_group_name(os.path.join(
+            root, sub, f"app-{s:02d}.log")), "archive")
+            for s in range(n_sets)]
+
+    gz, plain = os.path.join(root, "gz"), os.path.join(root, "plain")
+    total = sum(len(lines) for lines in corpus["sets"])
+    # The profiled reruns read each set's oldest generation (a third of
+    # the lines, no long line): at K = 1024 the 16 long lines alone take
+    # about a minute of K2 (PERF.md).
+    oldest_gz = [os.path.join(gz, "app-*.log.2.gz")]
+    runs = dict(
+        a=backfill_run(torch, nk, pack, bits, app, cli, term, dev,
+                       "k32_gzip", [gz], PATTERNS,
+                       expected_files(corpus, v32, names("gz")), total,
+                       oldest_gz),
+        b=backfill_run(torch, nk, pack, bits, app, cli, term, dev,
+                       "k32_plain", [plain], PATTERNS,
+                       expected_files(corpus, v32, names("plain")), total,
+                       [os.path.join(plain, "app-*.log.2")]),
+        c=backfill_run(torch, nk, pack, bits, app, cli, term, dev,
+                       "k1024_gzip", [gz], k1024,
+                       expected_files(corpus, v1024, names("gz")), total,
+                       oldest_gz))
+    capacity = dict(gzip=source_capacity([gz]),
+                    plain=source_capacity([plain]))
+    res = dict(card=card, lines=total, sets=n_sets,
+               corpus_bytes=sum(len(b) for lines in corpus["sets"]
+                                for b in lines),
+               gz_bytes=sum(os.path.getsize(os.path.join(gz, f))
+                            for f in os.listdir(gz)),
+               corpus_s=corpus_s, oracle_s=oracle_s,
+               switch_interval_s=sys.getswitchinterval(),
+               source_capacity=capacity, runs=runs)
+    emit({"phase": "backfill", **res})
+    for key, r in runs.items():
+        need = ([nk.GATED, nk.PAIRS] if key == "c" else [nk.GROUPED])
+        held = r["k1_batches"] + r["k2_batches"] + r["pack_batches"] \
+            + r["k3_batches"]
+        if (r["rc"] != 0 or r["mismatched_files"] or r["files"] != n_sets
+                or not r["kept_lines"] or not r["counts_ok"]
+                or r["summary"] is None or r["profile"]["rc"] != 0
+                or any(r["launches"][k] == 0
+                       for k in need + [nk.CHUNK, nk.PACK])
+                or (key != "c" and not r["k1_batches"])
+                or (key == "c" and not r["k3_batches"])
+                or not r["k2_batches"] or not r["pack_batches"]
+                or any(b.get("max_abs_err", 0) or b.get("mismatches", 0)
+                       or b.get("pairs_mismatches", 0) for b in held)):
+            raise AssertionError(f"backfill phase failed: run {key}: {r}")
+    res["corpus"] = corpus
+    res["want_plain_names"] = names("plain")
+    res["v32"] = v32
+    return res
+
+
+def socket_peer_main(port: int, payload: bytes) -> None:
+    """A peer of the socket phase, in a process of its own: connect,
+    send ``payload``, hang up."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+        s.sendall(payload)
+
+
+@contextlib.contextmanager
+def captured_source():
+    """Yields a list that gets each Source the app builds, make_source
+    restored after."""
+    from klogs_tpu_torch import sources
+
+    made: list = []
+    real = sources.make_source
+
+    def hook(opts):
+        made.append(real(opts))
+        return made[-1]
+
+    sources.make_source = hook
+    try:
+        yield made
+    finally:
+        sources.make_source = real
+
+
+async def wait_files(out_dir: str, want: dict, limit: float) -> bool:
+    """Whether every file in ``want`` holds its bytes within ``limit``
+    seconds (polled every 50 ms)."""
+    end = time.perf_counter() + limit
+    while time.perf_counter() < end:
+        got = {}
+        for f in os.listdir(out_dir):
+            with open(os.path.join(out_dir, f), "rb") as fh:
+                got[f] = fh.read()
+        if sorted(got.values()) == sorted(want.values()):
+            return True
+        await asyncio.sleep(0.05)
+    return False
+
+
+def sources_phase(torch, np, nk, app, cli, term, dev, root: str, bf: dict,
+                  card: str = "", n_peers=8, peer_lines=50_000,
+                  rot_lines=200_000) -> dict:
+    """``--source replay:`` over the backfill's sets, each set's stream
+    as one file, without ``-f``: its files must equal backfill run (b)'s.
+    Then ``-f --source socket:127.0.0.1:0`` with ``n_peers`` peer
+    processes each sending ``peer_lines`` lines, stopped through
+    ``stop`` once every peer's file holds its selection: no line lost or
+    doubled. Then ``-f --source replay:FILE`` with one rename rotation
+    mid-run (a straggler written first)."""
+    from klogs_tpu_torch.sources.base import safe_group_name
+    from klogs_tpu_torch.utils.naming import log_file_name
+
+    corpus, v32 = bf["corpus"], bf["v32"]
+    n_sets = len(corpus["sets"])
+    matches = [a for p in PATTERNS for a in ("--match", p)]
+    res: dict = dict(card=card)
+
+    # (1) replay without -f: the sets' streams as files, = backfill (b).
+    rdir = os.path.join(root, "replay")
+    want = {log_file_name(safe_group_name(os.path.join(
+        rdir, f"app-{s:02d}.log")), "log"): body
+        for s, body in enumerate(expected_files(
+            corpus, v32, bf["want_plain_names"]).values())}
+    with tempfile.TemporaryDirectory() as out_dir, \
+            captured_pipeline() as made:
+        argv = ["--source", f"replay:{rdir}", "--stats", "-p", out_dir,
+                *matches]
+        term.set_ui_stream(io.StringIO())
+        try:
+            nk.reset_launches()
+            t0 = time.perf_counter()
+            rc = asyncio.run(app.run_async(cli.parse_args(argv), device=dev))
+            seconds = time.perf_counter() - t0
+            launches = dict(nk.LAUNCHES)
+        finally:
+            term.set_ui_stream(None)
+        got = {f: open(os.path.join(out_dir, f), "rb").read()
+               for f in os.listdir(out_dir)}
+    res["replay"] = dict(rc=rc, files=len(got), seconds=seconds,
+                         mismatched_files=sorted(f for f in want
+                                                 if got.get(f) != want[f]),
+                         lines_per_s=made[0].stats.lines_in / seconds,
+                         launches=launches, **pipeline_numbers(made[0]))
+
+    # (2) -f --source socket:127.0.0.1:0, n_peers peer processes.
+    rng = np.random.default_rng(SEED + 21)
+    pool = corpus["pool"]
+    peers = [[b"peer=%d n=%06d " % (k, i) + pool[j] for i, j in enumerate(
+        rng.integers(0, len(pool), size=peer_lines).tolist())]
+        for k in range(n_peers)]
+    flat = [ln.rstrip(b"\n") for lines in peers for ln in lines]
+    verdicts = oracle_verdicts(PATTERNS, flat)
+    want_peers = {}
+    for k, lines in enumerate(peers):
+        v = verdicts[k * peer_lines:(k + 1) * peer_lines]
+        want_peers[k] = b"".join(ln for ln, keep in zip(lines, v) if keep)
+    ctx = multiprocessing.get_context("spawn")
+    procs: list = []
+    box: dict = {}
+
+    async def drive_socket(out_dir: str, made_src: list) -> int:
+        stop = asyncio.Event()
+
+        async def conductor():
+            try:
+                while not made_src or made_src[0]._server is None:
+                    await asyncio.sleep(0.01)
+                port = made_src[0].bound_port()
+                box["t0"] = time.perf_counter()
+                for k in range(n_peers):
+                    procs.append(ctx.Process(
+                        target=socket_peer_main,
+                        args=(port, b"".join(peers[k]))))
+                    procs[-1].start()
+                await asyncio.to_thread(
+                    lambda: [p.join(120) for p in procs])
+                box["complete"] = await wait_files(
+                    out_dir, {f"p{k}": b for k, b in want_peers.items()}, 60)
+                box["seconds"] = time.perf_counter() - box["t0"]
+            finally:
+                stop.set()
+
+        task = asyncio.create_task(conductor())
+        try:
+            return await app.run_async(
+                cli.parse_args(["-f", "--source", "socket:127.0.0.1:0",
+                                "--stats", "-p", out_dir, *matches]),
+                stop=stop, device=dev)
+        finally:
+            await task
+
+    with tempfile.TemporaryDirectory() as out_dir, \
+            captured_pipeline() as made, captured_source() as made_src, \
+            env_set("KLOGS_WATCH_INTERVAL_S", "0.2"):
+        term.set_ui_stream(io.StringIO())
+        try:
+            nk.reset_launches()
+            rc = asyncio.run(drive_socket(out_dir, made_src))
+            launches = dict(nk.LAUNCHES)
+        finally:
+            term.set_ui_stream(None)
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                p.join(5)
+        got = [open(os.path.join(out_dir, f), "rb").read()
+               for f in sorted(os.listdir(out_dir))]
+    by_peer = {}
+    for body in got:
+        m = re.match(rb"peer=(\d+) ", body)
+        if m:
+            by_peer[int(m.group(1))] = body
+    lost = doubled = 0
+    for k, body in want_peers.items():
+        have = by_peer.get(k, b"").count(b"\n")
+        lost += max(0, body.count(b"\n") - have)
+        doubled += max(0, have - body.count(b"\n"))
+    res["socket"] = dict(
+        rc=rc, peers=n_peers, files=len(got), complete=box.get("complete"),
+        lines_sent=n_peers * peer_lines,
+        kept_lines=sum(b.count(b"\n") for b in want_peers.values()),
+        mismatched_peers=sorted(k for k in want_peers
+                                if by_peer.get(k) != want_peers[k]),
+        lost_lines=lost, doubled_lines=doubled,
+        seconds=box.get("seconds"),
+        lines_per_s=(n_peers * peer_lines / box["seconds"]
+                     if box.get("seconds") else None),
+        peer_exit_codes=[p.exitcode for p in procs],
+        launches=launches, **pipeline_numbers(made[0]))
+
+    # (3) -f --source replay:FILE with one rename rotation mid-run.
+    idx = rng.integers(0, len(pool), size=2 * rot_lines).tolist()
+    old = [b"rot=a n=%06d " % i + pool[j] for i, j in enumerate(
+        idx[:rot_lines])]
+    new = [b"rot=b n=%06d " % i + pool[j] for i, j in enumerate(
+        idx[rot_lines:])]
+    straggler = [b"rot=a straggler after the last read panic: x\n"]
+    lines = old + straggler + new
+    v = oracle_verdicts(PATTERNS, [ln.rstrip(b"\n") for ln in lines])
+    keep = dict(zip(lines, v))
+    want_a = b"".join(ln for ln in old if keep[ln])
+    want_all = b"".join(ln for ln in lines if keep[ln])
+    rot_dir = os.path.join(root, "rotate")
+    os.makedirs(rot_dir)
+    path = os.path.join(rot_dir, "app.log")
+    with open(path, "wb") as f:
+        f.writelines(old)
+    name = log_file_name(safe_group_name(path), "log")
+    rot: dict = {}
+
+    async def drive_rotation(out_dir: str) -> int:
+        stop = asyncio.Event()
+
+        async def conductor():
+            try:
+                t0 = time.perf_counter()
+                rot["first_part"] = await wait_files(out_dir, {name: want_a},
+                                                     60)
+                with open(path, "ab") as f:
+                    f.writelines(straggler)
+                os.rename(path, path + ".1")
+                with open(path, "wb") as f:
+                    f.writelines(new)
+                rot["complete"] = await wait_files(out_dir,
+                                                   {name: want_all}, 60)
+                rot["seconds"] = time.perf_counter() - t0
+            finally:
+                stop.set()
+
+        task = asyncio.create_task(conductor())
+        try:
+            return await app.run_async(
+                cli.parse_args(["-f", "--source", f"replay:{path}",
+                                "--stats", "-p", out_dir, *matches]),
+                stop=stop, device=dev)
+        finally:
+            await task
+
+    with tempfile.TemporaryDirectory() as out_dir, \
+            env_set("KLOGS_WATCH_INTERVAL_S", "0.2"):
+        term.set_ui_stream(io.StringIO())
+        try:
+            nk.reset_launches()
+            rc = asyncio.run(drive_rotation(out_dir))
+            launches = dict(nk.LAUNCHES)
+        finally:
+            term.set_ui_stream(None)
+        got = open(os.path.join(out_dir, name), "rb").read()
+    res["rotation"] = dict(rc=rc, lines=len(lines),
+                           kept_lines=want_all.count(b"\n"), equal=got == want_all,
+                           lost_lines=max(0, want_all.count(b"\n")
+                                          - got.count(b"\n")),
+                           doubled_lines=max(0, got.count(b"\n")
+                                             - want_all.count(b"\n")),
+                           launches=launches, **rot)
+    emit({"phase": "sources", **res})
+    r, s, t = res["replay"], res["socket"], res["rotation"]
+    if (r["rc"] != 0 or r["mismatched_files"] or r["files"] != n_sets
+            or r["launches"][nk.GROUPED] == 0 or r["launches"][nk.PACK] == 0
+            or s["rc"] != 0 or not s["complete"] or s["mismatched_peers"]
+            or s["files"] != n_peers or s["lost_lines"] or s["doubled_lines"]
+            or any(c != 0 for c in s["peer_exit_codes"])
+            or s["launches"][nk.GROUPED] == 0
+            or t["rc"] != 0 or not t["equal"] or not t.get("complete")):
+        raise AssertionError(f"sources phase failed: {res}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1975,6 +2568,15 @@ def main() -> int:
         follow_phase(torch, np, nk, pack, app, cli, term, FakeCluster,
                      synthetic_line, dev, card)
         kube_follow_phase(torch, np, nk, pack, app, cli, term, dev, card)
+        # The log sources: archive backfill, replay and the socket.
+        root = tempfile.mkdtemp(prefix="klogs-sources-")
+        try:
+            bf = backfill_phase(torch, np, nk, pack, bits, app, cli, term,
+                                synthetic_line, dev, root, card)
+            sources_phase(torch, np, nk, app, cli, term, dev, root, bf, card)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        bfr = bf["runs"]
     except Exception:
         traceback.print_exc()
         emit({"phase": "failed"})
@@ -1985,12 +2587,14 @@ def main() -> int:
         {"name": nk.GROUPED, "route": "cuda", "source": SOURCE,
          "replaces": "klogs_tpu/ops/pallas_nfa.py:200",
          "launches": run["launches"][nk.GROUPED],
+         "backfill_launches": bfr["a"]["launches"][nk.GROUPED],
          "max_abs_err": float(w["max_abs_err"]), "ms": w["ms"],
          "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
          "bound_by": w["bound_by"], "library_ms": None},
         {"name": nk.CHUNK, "route": "cuda", "source": SOURCE,
          "replaces": "klogs_tpu/ops/pallas_nfa.py:50",
          "launches": run["launches"][nk.CHUNK],
+         "backfill_launches": bfr["a"]["launches"][nk.CHUNK],
          "max_abs_err": float(max(r["max_abs_err"] for r in
                                   list(k2.values()) + run["k2_batches"]
                                   + run4["k2_batches"])),
@@ -2000,6 +2604,7 @@ def main() -> int:
         {"name": nk.GATED, "route": "cuda", "source": SOURCE,
          "replaces": "klogs_tpu/ops/pallas_nfa.py:377",
          "launches": run3["launches"][nk.GATED],
+         "backfill_launches": bfr["c"]["launches"][nk.GATED],
          "max_abs_err": float(max(b["max_abs_err"] for b in
                                   [g, k3["sweep_gate"], k3["random_gate"],
                                    k3["sparse_gate"], k3["full"]])),
@@ -2019,6 +2624,7 @@ def main() -> int:
          "bound_by": f["bound_by"], "library_ms": None, "k1_ms": f["k1_ms"]},
         {"name": nk.PACK, "route": "cuda", "source": pk["source"],
          "replaces": pk["replaces"], "launches": run["launches"][nk.PACK],
+         "backfill_launches": bfr["a"]["launches"][nk.PACK],
          "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
          "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
          "bound_by": pk["bound_by"], "library_ms": None},

@@ -5,10 +5,13 @@ the interactive picker on a miss), pod selection (label union, every
 Ready pod, or the interactive multiselect), the per-container fan-out
 through the --match/--exclude filter pipeline, follow mode (the
 deadline flusher, q-to-quit on /dev/tty, Ctrl-C as a graceful stop,
-``--watch-new``) and the final size table. ``run_async`` takes an
-injected ClusterBackend (tests pass a FakeCluster), a ``stop`` event
-for library callers of follow mode, and the filter's ``device`` (None
-means ``"cuda"``).
+``--watch-new``) and the final size table. With ``--source`` or
+``--backfill`` a Source (``sources/``) replaces the cluster: no
+namespace, no pod selection, no kube client; in follow mode the source
+is always re-discovered, and a backfill ends with its match/shed
+account. ``run_async`` takes an injected ClusterBackend (tests pass a
+FakeCluster), a ``stop`` event for library callers of follow mode, and
+the filter's ``device`` (None means ``"cuda"``).
 """
 
 import asyncio
@@ -23,7 +26,12 @@ from typing import Iterable
 from klogs_tpu_torch.cli import Options
 from klogs_tpu_torch.cluster.backend import ClusterBackend
 from klogs_tpu_torch.cluster.types import LogOptions, PodInfo
-from klogs_tpu_torch.runtime.fanout import FanoutRunner, StreamJob, plan_jobs
+from klogs_tpu_torch.runtime.fanout import (
+    FanoutRunner,
+    StreamJob,
+    plan_jobs,
+    plan_source_jobs,
+)
 from klogs_tpu_torch.ui import interactive, term, widgets
 from klogs_tpu_torch.utils import convert_bytes, parse_duration, split_log_file_name
 from klogs_tpu_torch.utils.duration import DurationError
@@ -169,6 +177,20 @@ def print_log_size(log_files: list[str], log_path: str) -> None:
     widgets.render_table(table)
 
 
+def _print_backfill_summary(pipeline) -> None:
+    """``--backfill``'s closing account of matched and shed lines,
+    printed with or without ``--stats``. The port has no degrade path,
+    so nothing is shed."""
+    if pipeline is None:
+        term.info("Backfill complete (no --match/--exclude: every line "
+                  "written)")
+        return
+    s = pipeline.stats
+    term.info(
+        "Backfill complete: %s lines in, %s matched (%.2f%%), %s shed",
+        f"{s.lines_in:,}", f"{s.lines_matched:,}", s.matched_pct(), "0")
+
+
 async def _watch_for_quit(stop: asyncio.Event, message: str,
                           done: "threading.Event",
                           spinner: bool = True) -> None:
@@ -279,44 +301,81 @@ async def run_async(opts: Options, backend: ClusterBackend | None = None,
             term.set_ui_stream(None)
 
 
+async def _plan_cluster(backend: ClusterBackend, opts: Options,
+                        select_keys: Iterable[str] | None):
+    """The cluster path's plan: the namespace, the pods and their jobs
+    (printed as the plan tree), and the -c/-E patterns that
+    ``--watch-new`` re-applies."""
+    namespace = await resolve_namespace(backend, opts, select_keys)
+    pods = await select_pods(backend, namespace, opts, select_keys)
+    # Backstops for library callers; cli.main rejects these earlier.
+    container_re = exclude_container_re = None
+    if opts.container:
+        try:
+            container_re = re.compile(opts.container)
+        except re.error as e:
+            term.fatal("invalid -c/--container pattern %r: %s",
+                       opts.container, e)
+    if opts.exclude_container:
+        try:
+            exclude_container_re = re.compile(opts.exclude_container)
+        except re.error as e:
+            term.fatal("invalid -E/--exclude-container pattern %r: %s",
+                       opts.exclude_container, e)
+    jobs = plan_jobs(pods, opts.log_path, opts.init_containers,
+                     container_re=container_re,
+                     exclude_container_re=exclude_container_re)
+    filtered = container_re is not None or exclude_container_re is not None
+    if filtered and pods and not jobs:
+        term.error("No containers left after -c/-E filtering in %d "
+                   "selected pod(s)", len(pods))
+    if jobs:
+        if filtered:
+            streaming = {j.pod for j in jobs}
+            print_plan([p for p in pods if p.name in streaming], jobs)
+        else:
+            print_plan(pods, jobs)
+    return namespace, jobs, container_re, exclude_container_re
+
+
+async def _plan_source(source, opts: Options) -> list[StreamJob]:
+    """The source path's plan: one job per discovered stream, listed."""
+    await source.start()
+    jobs = plan_source_jobs(await source.discover(), opts.log_path)
+    mode = "backfilling" if opts.backfill else "streaming"
+    term.info("Found %s %s stream(s), %s",
+              term.green(str(len(jobs))), source.kind, mode)
+    for j in jobs[:12]:
+        term.info("  %s", j.pod)
+    if len(jobs) > 12:
+        term.info("  … and %d more", len(jobs) - 12)
+    return jobs
+
+
 async def _run_async_inner(opts: Options, backend: ClusterBackend | None,
                            stop: asyncio.Event | None,
                            select_keys: Iterable[str] | None,
                            device) -> int:
     widgets.splash_screen()
-    backend = backend or make_backend(opts)
+    from klogs_tpu_torch.sources import SourceError, make_source
+
+    # --source/--backfill: a Source replaces the cluster (no namespace,
+    # no pod selection, no kube client).
+    try:
+        source = make_source(opts)
+    except SourceError as e:
+        term.fatal("%s", e)
+    if source is None:
+        backend = backend or make_backend(opts)
     try:
         log_opts = build_log_options(opts)
-        namespace = await resolve_namespace(backend, opts, select_keys)
-        pods = await select_pods(backend, namespace, opts, select_keys)
-        # Backstops for library callers; cli.main rejects these earlier.
-        container_re = exclude_container_re = None
-        if opts.container:
-            try:
-                container_re = re.compile(opts.container)
-            except re.error as e:
-                term.fatal("invalid -c/--container pattern %r: %s",
-                           opts.container, e)
-        if opts.exclude_container:
-            try:
-                exclude_container_re = re.compile(opts.exclude_container)
-            except re.error as e:
-                term.fatal("invalid -E/--exclude-container pattern %r: %s",
-                           opts.exclude_container, e)
-        jobs = plan_jobs(pods, opts.log_path, opts.init_containers,
-                         container_re=container_re,
-                         exclude_container_re=exclude_container_re)
+        if source is not None:
+            namespace = "local"
+            jobs = await _plan_source(source, opts)
+        else:
+            namespace, jobs, container_re, exclude_container_re = \
+                await _plan_cluster(backend, opts, select_keys)
         log_files = [j.path for j in jobs]
-        filtered = container_re is not None or exclude_container_re is not None
-        if filtered and pods and not jobs:
-            term.error("No containers left after -c/-E filtering in %d "
-                       "selected pod(s)", len(pods))
-        if jobs:
-            if filtered:
-                streaming = {j.pod for j in jobs}
-                print_plan([p for p in pods if p.name in streaming], jobs)
-            else:
-                print_plan(pods, jobs)
         if opts.timestamps and (opts.match or opts.exclude):
             term.info("note: --timestamps prefixes are part of the line "
                       "--match/--exclude see (anchor accordingly)")
@@ -330,10 +389,20 @@ async def _run_async_inner(opts: Options, backend: ClusterBackend | None,
                 backend, namespace, log_opts,
                 sink_factory=(pipeline.sink_factory if pipeline
                               else inner_factory),
-                create_files=opts.output != "stdout")
-            # --watch-new re-runs a NON-interactive selection only.
+                create_files=opts.output != "stdout", source=source)
             plan_new = None
-            if opts.watch_new and opts.follow:
+            if source is not None:
+                if opts.follow:
+                    # New files and connections join by discovery: in
+                    # follow mode a source is always watched.
+                    async def plan_new() -> list[StreamJob]:
+                        return plan_source_jobs(await source.discover(),
+                                                opts.log_path)
+                elif opts.watch_new:
+                    term.warning("--watch-new only applies with -f; "
+                                 "ignoring")
+            elif opts.watch_new and opts.follow:
+                # --watch-new re-runs a NON-interactive selection only.
                 if opts.all_pods or opts.labels:
                     async def plan_new() -> list[StreamJob]:
                         found = await select_noninteractive(
@@ -419,6 +488,10 @@ async def _run_async_inner(opts: Options, backend: ClusterBackend | None,
                             pass
             else:
                 await runner.run(jobs)
+                if opts.backfill:
+                    # A run to completion owes its account, --stats or
+                    # not.
+                    _print_backfill_summary(pipeline)
             if opts.output != "stdout":
                 print_log_size(log_files, opts.log_path)
             if pipeline is not None and opts.stats:
@@ -429,7 +502,10 @@ async def _run_async_inner(opts: Options, backend: ClusterBackend | None,
             if pipeline is not None:
                 await pipeline.aclose()
     finally:
-        await backend.close()
+        if backend is not None:
+            await backend.close()
+        if source is not None:
+            await source.close()
 
 
 def run(opts: Options, device=None) -> int:

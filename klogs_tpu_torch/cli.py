@@ -28,9 +28,19 @@ shorthands, defaults, choices and checks:
   --backend         filter engine: cuda (batch NFA on the GPU)
   --stats           print lines/sec, matched %, batch-latency summary
   --cluster         cluster backend: kube | fake (hermetic demo)
+  --source          non-kube log source: replay:PATH[,PATH...] streams
+                    local files/dirs/globs with rotation handling;
+                    socket:HOST:PORT or socket:unix:/path.sock listens
+                    for newline-delimited ingest (requires -f)
+  --backfill        archive backfill: read rotated/gzip/zstd logs under
+                    the given paths through the filter to completion,
+                    then exit with match/shed accounting (incompatible
+                    with -f and --source)
+  --replay-rate     pace replay at N lines/s (default: as fast as the
+                    disk goes; KLOGS_REPLAY_RATE sets a default)
 
-The sources, the remote filter service and the observability flags of
-the JAX CLI are not ported yet.
+The remote filter service and the observability flags of the JAX CLI
+are not ported yet.
 """
 
 import argparse
@@ -70,6 +80,9 @@ class Options:
     timestamps: bool = False
     format: str = "text"
     since_time: str = ""
+    source: str = ""
+    backfill: list[str] = field(default_factory=list)
+    replay_rate: float | None = None
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -141,6 +154,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cluster", choices=["kube", "fake"], default="kube",
                    help="Cluster backend: real Kubernetes API or hermetic "
                    "fake (demo/test)")
+    p.add_argument("--source", default="", metavar="SPEC",
+                   help="Non-kube log source: replay:PATH[,PATH...] (local "
+                   "files/dirs/globs with rotation handling) or "
+                   "socket:HOST:PORT / socket:unix:/path.sock "
+                   "(newline-delimited listener, needs -f)")
+    p.add_argument("--backfill", nargs="+", default=[], metavar="PATH",
+                   help="Read rotated/gzip/zstd archives under PATH(s) "
+                   "through the full pipeline to completion, then exit "
+                   "with match/shed accounting (incompatible with -f and "
+                   "--source)")
+    p.add_argument("--replay-rate", type=float, default=None,
+                   dest="replay_rate", metavar="LPS",
+                   help="Pace a replay source at LPS lines/s (default: "
+                   "unpaced; KLOGS_REPLAY_RATE sets a default)")
     return p
 
 
@@ -171,12 +198,17 @@ def parse_args(argv: list[str] | None = None) -> Options:
         timestamps=ns.timestamps,
         format=ns.format,
         since_time=ns.since_time,
+        source=ns.source,
+        backfill=list(ns.backfill),
+        replay_rate=ns.replay_rate,
     )
 
 
 def check_options(opts: Options) -> "str | None":
     """The message of the first statically invalid flag combination, or
-    None; rejected before any cluster work, as the JAX CLI does."""
+    None; rejected before any cluster work, as the JAX CLI does. A flag
+    that does not apply (``--replay-rate`` without a replay source)
+    warns and is ignored."""
     if opts.previous and opts.follow:
         return ("--previous is incompatible with -f/--follow "
                 "(a terminated instance cannot stream)")
@@ -193,6 +225,26 @@ def check_options(opts: Options) -> "str | None":
         if dt is None or dt.tzinfo is None:
             return (f"invalid --since-time {opts.since_time!r} (want RFC3339 "
                     "with a timezone, e.g. 2026-07-31T06:00:00Z)")
+    if opts.source and opts.backfill:
+        return ("--source and --backfill are mutually exclusive "
+                "(backfill IS a source)")
+    if opts.backfill and opts.follow:
+        return ("--backfill is a run-to-completion mode and cannot "
+                "be combined with -f/--follow")
+    if opts.source:
+        if not opts.source.startswith(("replay:", "socket:")):
+            return (f"invalid --source {opts.source!r}: expected "
+                    "replay:PATH[,PATH...], socket:HOST:PORT, or "
+                    "socket:unix:/path.sock")
+        if opts.source.startswith("socket:") and not opts.follow:
+            return ("--source socket: is a live listener and "
+                    "requires -f/--follow")
+    if opts.replay_rate is not None:
+        if opts.replay_rate <= 0:
+            return "--replay-rate must be a positive lines/s value"
+        if not opts.source.startswith("replay:"):
+            term.warning("--replay-rate only applies to a replay "
+                         "source; ignoring")
     for flag, pat in (("-c/--container", opts.container),
                       ("-E/--exclude-container", opts.exclude_container)):
         if pat:
@@ -216,15 +268,17 @@ def main(argv: list[str] | None = None, device=None) -> int:
 
     from klogs_tpu_torch.app import run
     from klogs_tpu_torch.cluster.backend import ClusterError
+    from klogs_tpu_torch.sources import SourceError
     from klogs_tpu_torch.ui.interactive import NotInteractive
 
     try:
         return run(opts, device=device)
     except term.FatalError:
         return 1
-    except (ClusterError, NotInteractive) as e:
+    except (ClusterError, SourceError, NotInteractive) as e:
         # One line for control-plane failures (401/403, an unreachable
-        # apiserver) and a picker without a terminal.
+        # apiserver), a source that cannot be read (a damaged archive,
+        # a busy listen address) and a picker without a terminal.
         term.error("%s", e)
         return 1
     except KeyboardInterrupt:

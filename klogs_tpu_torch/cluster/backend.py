@@ -3,32 +3,30 @@
 Counterpart of ``klogs_tpu/cluster/backend.py``. Everything above it
 (pod selection, fan-out, filtering, sinks) talks to this interface, so
 the hermetic FakeCluster serves every test and demo run. All methods are
-async: the fan-out runs on one asyncio event loop.
+async: the fan-out runs on one asyncio event loop. A backend's streams
+follow the source contract (``sources/base.py``): ``LogStream`` is a
+``SourceStream`` and ``StreamError`` a ``SourceError``, so the fan-out
+handles kube, file and socket streams alike.
 """
 
 import abc
-from typing import AsyncIterator
 
 from klogs_tpu_torch.cluster.types import LogOptions, PodInfo
+from klogs_tpu_torch.sources.base import SourceError, SourceStream
 
 
 class ClusterError(Exception):
     """A cluster-access failure (apiserver error analog)."""
 
 
-class StreamError(ClusterError):
+class StreamError(ClusterError, SourceError):
     """Opening or reading a log stream failed."""
 
 
-class LogStream(abc.ABC):
+class LogStream(SourceStream):
     """One container's log stream: an async iterator of byte chunks whose
-    boundaries need not align with lines."""
-
-    @abc.abstractmethod
-    def __aiter__(self) -> AsyncIterator[bytes]: ...
-
-    @abc.abstractmethod
-    async def close(self) -> None: ...
+    boundaries need not align with lines (the iterator and ``close``
+    contract of ``SourceStream``)."""
 
 
 class ClusterBackend(abc.ABC):

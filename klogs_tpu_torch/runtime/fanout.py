@@ -11,6 +11,13 @@ the shared ``RetryPolicy`` with a server-side ``since`` covering the
 gap; ``run(..., stop=)`` tears down by closing every stream, after
 which the workers flush and close their sinks; ``plan_new`` re-polls
 the selection (``--watch-new``) and spawns workers for new containers.
+
+Workers open streams through the source contract (``sources/base.py``):
+a cluster backend is adapted by ``ClusterSource``, and file, archive
+and socket sources get the same sinks, reconnects and error isolation.
+A job planned from a source carries its ``SourceRef`` (group and unit
+stand for pod and container); an ``ephemeral`` ref (a socket peer) ends
+at its EOF, with no reconnect and no "premature end" warning.
 """
 
 import asyncio
@@ -21,10 +28,12 @@ from dataclasses import dataclass
 from datetime import datetime, timedelta, timezone
 from typing import Callable
 
-from klogs_tpu_torch.cluster.backend import ClusterBackend, StreamError
+from klogs_tpu_torch.cluster.backend import ClusterBackend
 from klogs_tpu_torch.cluster.types import LogOptions, PodInfo
 from klogs_tpu_torch.resilience.policy import RetryPolicy
 from klogs_tpu_torch.runtime.sink import FileSink, Sink, SinkError
+from klogs_tpu_torch.sources.base import Source, SourceError, SourceRef
+from klogs_tpu_torch.sources.cluster import ClusterSource
 from klogs_tpu_torch.ui import term
 from klogs_tpu_torch.utils.naming import log_file_name
 
@@ -47,6 +56,8 @@ class StreamJob:
     container: str
     init: bool
     path: str
+    # The ref a source's job was planned from; None = a pod's identity.
+    ref: "SourceRef | None" = None
 
 
 @dataclass
@@ -91,15 +102,38 @@ def plan_jobs(
     return jobs
 
 
+def plan_source_jobs(refs: "list[SourceRef]",
+                     log_path: str) -> list[StreamJob]:
+    """plan_jobs for a source: one job per (group, unit), in the refs'
+    order, group and unit naming the output file as pod and container
+    do."""
+    jobs = []
+    seen: set[tuple[str, str]] = set()
+    for ref in refs:
+        key = (ref.group, ref.unit)
+        if key in seen:
+            continue
+        seen.add(key)
+        jobs.append(StreamJob(
+            ref.group, ref.unit, False,
+            os.path.join(log_path, log_file_name(ref.group, ref.unit)),
+            ref=ref))
+    return jobs
+
+
 class FanoutRunner:
-    def __init__(self, backend: ClusterBackend, namespace: str,
+    def __init__(self, backend: "ClusterBackend | None", namespace: str,
                  log_opts: LogOptions,
                  sink_factory: SinkFactory | None = None,
                  open_burst: int = DEFAULT_OPEN_BURST,
                  max_reconnects: int = DEFAULT_MAX_RECONNECTS,
-                 create_files: bool = True):
-        self.backend = backend
-        self.namespace = namespace
+                 create_files: bool = True,
+                 source: "Source | None" = None):
+        if source is None:
+            if backend is None:
+                raise ValueError("FanoutRunner needs a backend or a source")
+            source = ClusterSource(backend, namespace)
+        self.source = source
         self.log_opts = log_opts
         self.sink_factory = sink_factory or (lambda job: FileSink(job.path))
         self.max_reconnects = max_reconnects
@@ -160,13 +194,14 @@ class FanoutRunner:
         # When data last arrived, kept ACROSS reconnects: an unproductive
         # reconnect must not advance it, or the gap would be skipped.
         last_data: float | None = None
+        ref = job.ref or SourceRef(kind="pod", group=job.pod,
+                                   unit=job.container, target=job.pod)
         try:
             while True:
                 try:
                     async with self._open_gate():
-                        stream = await self.backend.open_log_stream(
-                            self.namespace, job.pod, opts)
-                except StreamError as e:
+                        stream = await self.source.open_stream(ref, opts)
+                except SourceError as e:
                     if await self._should_reconnect(job, attempt, e):
                         attempt += 1
                         continue
@@ -184,14 +219,14 @@ class FanoutRunner:
                 if last_data is None:
                     last_data = opened_at
                 got_data = False
-                stream_err: StreamError | None = None
+                stream_err: SourceError | None = None
                 sink_err: SinkError | None = None
                 try:
                     async for chunk in stream:
                         got_data = True
                         last_data = time.monotonic()
                         await sink.write(chunk)
-                except StreamError as e:
+                except SourceError as e:
                     stream_err = e
                 except SinkError as e:
                     sink_err = e
@@ -208,6 +243,15 @@ class FanoutRunner:
                     term.error("Sink failed for container %s\n%s",
                                job.container, sink_err)
                     result.error = str(sink_err)
+                    return result
+
+                if ref.ephemeral:
+                    # A socket peer: its EOF is the end of its stream,
+                    # and there is nothing to reconnect to.
+                    if stream_err is not None and not self._stopping:
+                        term.error("Error reading logs for container %s\n%s",
+                                   job.container, stream_err)
+                        result.error = str(stream_err)
                     return result
 
                 if not self.log_opts.follow or self._stopping:
@@ -249,7 +293,7 @@ class FanoutRunner:
                            jitter=0.0)
 
     async def _should_reconnect(self, job: StreamJob, attempt: int,
-                                err: "StreamError | None") -> bool:
+                                err: "SourceError | None") -> bool:
         """Follow mode's reconnect decision; sleeps the policy's backoff
         (stop-aware) when it says yes. ``attempt`` counts the reconnects
         already spent."""

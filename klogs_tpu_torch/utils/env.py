@@ -3,13 +3,48 @@
 The port reads only names the JAX package already documents
 (``KLOGS_FAKE_PODS``/``_CONTAINERS``/``_LINES`` for ``--cluster fake``,
 ``KLOGS_MAX_PATTERN_POSITIONS`` in the compiler, ``KLOGS_WATCH_INTERVAL_S``
-for ``--watch-new`` and ``KLOGS_BUILD_VERSION`` for ``-v``) and adds
-none.
+for ``--watch-new`` and follow-mode source discovery,
+``KLOGS_BUILD_VERSION`` for ``-v``, and for the sources
+``KLOGS_SOURCE_READAHEAD_MB``, ``KLOGS_REPLAY_RATE`` and
+``KLOGS_SOCKET_MAX_CONNS``) and adds none.
 """
 
+import math
 import os
+import sys
 
 
 def read(name: str, default: "str | None" = None) -> "str | None":
     """The raw environment read; every KLOGS_* name flows through here."""
     return os.environ.get(name, default)
+
+
+def nonneg_float(name: str, default: float) -> float:
+    """A finite float >= 0; a malformed value raises ValueError."""
+    raw = read(name)
+    if raw is None:
+        return default
+    try:
+        v = float(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r}: expected a number") from None
+    if not math.isfinite(v) or v < 0:
+        raise ValueError(f"{name}={raw!r}: expected a finite value >= 0")
+    return v
+
+
+def warn_positive_int(name: str, default: int) -> int:
+    """A positive int; a malformed value warns on stderr and the default
+    is used."""
+    raw = read(name)
+    if raw is None:
+        return default
+    try:
+        val = int(raw)
+    except ValueError:
+        val = 0
+    if val < 1:
+        print(f"klogs: ignoring invalid {name}={raw!r} (want a positive "
+              f"integer); using {default}", file=sys.stderr)
+        return default
+    return val

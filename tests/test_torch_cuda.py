@@ -721,3 +721,78 @@ def test_engine_small_batches_launch_kernels(dev):
         assert nfa_kernels.LAUNCHES[nfa_kernels.CHUNK] == 2 * long_
         assert got.tolist() == cpu.fetch_framed(
             cpu.dispatch_framed(*frame)).tolist()
+
+
+def test_backfill_on_card_equals_cpu(dev, tmp_path, monkeypatch):
+    """``--backfill`` of two rotated sets (gzip and plain, short lines
+    and lines over 4 KiB) through ``app.run_async`` on the card writes
+    the files the same run writes on device "cpu"; every dispatch after
+    the first runs under ``set_sync_debug_mode("error")``, and K1, K2
+    and pack_rows launch."""
+    import asyncio
+    import gzip
+    import re
+
+    from klogs_tpu_torch import app, cli
+    from klogs_tpu_torch.ui import term
+
+    rng = np.random.default_rng(11)
+    arch = tmp_path / "arch"
+    arch.mkdir()
+    words = [b"panic: x", b"retry 3/5", b"code=503", b"fine", b"calm line"]
+    for k, gz in ((0, True), (1, False)):
+        lines = [b"set%d seq=%06d " % (k, i) + words[i % 5] + b" "
+                 + b"p" * int(rng.integers(0, 60)) + b"\n"
+                 for i in range(40000)]
+        for j in (100, 20000, 39000):
+            lines[j] = bytes(rng.integers(97, 123, size=4000 + 3000 * (j % 7),
+                                          dtype=np.uint8)) + b" code=504\n"
+        third = len(lines) // 3
+        gens = [b"".join(lines[:third]), b"".join(lines[third:2 * third]),
+                b"".join(lines[2 * third:])]
+        for g, ext in ((0, ".2"), (1, ".1")):
+            if gz:
+                (arch / f"app{k}.log{ext}.gz").write_bytes(
+                    gzip.compress(gens[g], 1))
+            else:
+                (arch / f"app{k}.log{ext}").write_bytes(gens[g])
+        (arch / f"app{k}.log").write_bytes(gens[2])
+
+    dispatches = [0]
+    real = GpuEngineFilter.dispatch_framed
+
+    def strict(self, *a, **kw):
+        dispatches[0] += 1
+        if dispatches[0] == 1 or self.device.type != "cuda":
+            return real(self, *a, **kw)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(self, *a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(GpuEngineFilter, "dispatch_framed", strict)
+    match = PATTERNS[:3]
+    outs = {}
+    term.set_ui_stream(open(os.devnull, "w"))
+    try:
+        for name, device in (("card", dev), ("cpu", "cpu")):
+            argv = ["--backfill", str(arch), "-p", str(tmp_path / name)]
+            for p in match:
+                argv += ["--match", p]
+            nfa_kernels.reset_launches()
+            assert asyncio.run(app.run_async(cli.parse_args(argv),
+                                             device=device)) == 0
+            if name == "card":
+                launches = dict(nfa_kernels.LAUNCHES)
+            outs[name] = {f: (tmp_path / name / f).read_bytes()
+                          for f in sorted(os.listdir(tmp_path / name))}
+    finally:
+        term.set_ui_stream(None)
+    assert outs["card"] == outs["cpu"] and len(outs["card"]) == 2
+    rx = re.compile("|".join(match).encode())
+    for body in outs["card"].values():
+        assert body and all(rx.search(ln) for ln in body.splitlines())
+    assert dispatches[0] > 2
+    for k in (nfa_kernels.GROUPED, nfa_kernels.CHUNK, nfa_kernels.PACK):
+        assert launches[k] > 0, launches

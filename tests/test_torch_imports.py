@@ -45,7 +45,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "runtime/fanout.py", "runtime/stdout.py", "cluster/fake.py",
                 "cluster/kube.py", "cluster/kubeconfig.py",
                 "resilience/policy.py", "ui/interactive.py", "app.py",
-                "cli.py", "version.py"):
+                "cli.py", "version.py", "sources/__init__.py",
+                "sources/base.py", "sources/cluster.py", "sources/replay.py",
+                "sources/archive.py", "sources/socket.py", "utils/env.py"):
         assert os.path.join(PORT, mod) in files
     bad = []
     for path in files:
@@ -75,6 +77,25 @@ def test_port_package_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "ok"
+
+
+def test_sources_import_first_in_a_fresh_interpreter():
+    """``klogs_tpu_torch.sources`` (and each source module) imports
+    before anything else of the port, with no import cycle through
+    ``cluster/``."""
+    for mod in ("klogs_tpu_torch.sources", "klogs_tpu_torch.sources.base",
+                "klogs_tpu_torch.sources.archive",
+                "klogs_tpu_torch.sources.socket",
+                "klogs_tpu_torch.sources.cluster"):
+        code = (f"import {mod}, sys\n"
+                "from klogs_tpu_torch.sources import make_source, SourceError\n"
+                "from klogs_tpu_torch.cluster.backend import StreamError\n"
+                "assert issubclass(StreamError, SourceError)\n"
+                "print('ok')\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert out.stdout.strip() == "ok"
 
 
 def test_cuda_entry_points_raise_without_card(tmp_path, monkeypatch):
@@ -147,6 +168,18 @@ def test_cuda_entry_points_raise_without_card(tmp_path, monkeypatch):
     stop.set()
     with pytest.raises(RuntimeError, match="cuda"):
         asyncio.run(app.run_async(opts, backend=fc, stop=stop))
+    assert os.listdir(tmp_path) == []
+    # A backfill through the same entry point: the archive is found,
+    # then the pipeline raises before any output file exists.
+    import gzip
+
+    arch = tmp_path.parent / (tmp_path.name + "-arch")
+    arch.mkdir()
+    (arch / "app.log.1.gz").write_bytes(gzip.compress(b"x y\n" * 10))
+    opts = cli.parse_args(["--backfill", str(arch), "--match", "x", "-p",
+                           str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        asyncio.run(app.run_async(opts))
     assert os.listdir(tmp_path) == []
 
 
