@@ -88,9 +88,33 @@ K axis: 156 groups of 128 states, 64 classes):
    its plain version and timed on the run's own most frequent batch
    (its pair list held against the plain one there too).
 
+The observability and fault layers, after them:
+
+15. obs: the cli cell (256 pods x 4000 lines, 16 long lines, --match
+   x32) run four times, with ``--stats-json``, ``--trace-json``,
+   ``--profile-json`` and ``--metrics-port`` off, on, on, off: every
+   file equal to the oracle's in every run, lines/s of each run and the
+   overhead % of "on" beside the layer's design budget (2%, not a
+   gate); then once on without ``--trace-json`` (what the JSON-lines
+   file costs). In each "on" run the dump's ``lines_in`` and
+   ``lines_matched`` equal the oracle's counts, the lines and bytes
+   written under ``sink.write`` spans equal the kept ones, the last
+   profile line holds the pipeline's stages (and a tick or the scrape
+   the fan-out's probe), and one /metrics (all 95 families) and one
+   /profile scrape taken mid-run parse. Then the cli_k1024 cell once
+   "on" (files exact, every short-line ``device.kernel`` span
+   ``swept``); ``dispatch_framed`` on the engine phase's first frame
+   under ``torch.cuda.set_sync_debug_mode`` untraced and traced (traced
+   may not synchronise more); the cli cell in follow mode under
+   ``KLOGS_FAULTS=kube.log_stream:error*8`` (files exact after the
+   reconnects, 8 faults fired and 8 retries counted); a short run with
+   ``--profile DIR`` whose torch.profiler trace names
+   ``grouped_shift_kernel``, ``chunk_nfa_kernel`` and
+   ``pack_rows_kernel``.
+
 Follow mode (BASELINE config 4), after them:
 
-15. follow: ``app.run_async`` with ``-a -f --match`` x32 ``--stats``
+16. follow: ``app.run_async`` with ``-a -f --match`` x32 ``--stats``
    over 1000 fixed-clock FakeCluster streams offering a line every 10
    ms each (100,000 lines/s in all; 8 backlogs hold a 5-180 KiB line),
    stopped after 20 s through ``stop``: every file equal to the
@@ -101,7 +125,7 @@ Follow mode (BASELINE config 4), after them:
    line's emission-to-file latency on 8 tailed streams. K1 is held
    against its plain version on 8 of the run's batches, K2 and
    ``pack_rows`` on one each (counts zeroed just before the run).
-16. kube_follow: the same entry point on the default ``--cluster kube``
+17. kube_follow: the same entry point on the default ``--cluster kube``
    (``-a -f --timestamps --kubeconfig``) against a fake apiserver in a
    process of its own: 64 pods, 4000 backlog lines each in 4 KiB pieces,
    then a line every 10 ms; 8 streams drop once after 1 s. Every file
@@ -112,7 +136,7 @@ Follow mode (BASELINE config 4), after them:
 The log sources, after them (a corpus in a temporary directory,
 removed at the end):
 
-17. backfill: ``tools/bench_backfill.py``'s deployment, 8 rotated sets
+18. backfill: ``tools/bench_backfill.py``'s deployment, 8 rotated sets
    (``app-NN.log.2.gz``, ``.1.gz`` at gzip level 1, a plain live
    ``app-NN.log``) of 4,000,000 FakeCluster lines (~126 B, from a
    seeded pool of 16,384 distinct bodies, 1% with a needle) and two
@@ -127,7 +151,7 @@ removed at the end):
    cProfile with a 1 s torch.profiler window (the device's busy share).
    Beside them the source alone: the sets drained through
    ``ArchiveStream``.
-18. sources: ``--source replay:`` over each set's stream as one file
+19. sources: ``--source replay:`` over each set's stream as one file
    (its files equal to run (b)'s), ``-f --source socket:127.0.0.1:0``
    with 8 peer processes of 50,000 lines each (no line lost or
    doubled), and ``-f --source replay:`` with a rename rotation
@@ -824,19 +848,17 @@ def cli_profile(app, cli, term, fc, argv: list, dev) -> dict:
     return dict(seconds=seconds, host_top=host_top(cp, 12))
 
 
-def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
-              lines_per_pod=4000, fused=False) -> dict:
-    """The K = 32 main path through ``app.run_async``; with ``fused``
-    (KLOGS_TPU_FUSED_GROUPS=1, set by the caller) its short lines must
-    run K4 and never K1, and K4 is held against its plain version and K1
-    on the run's own batches."""
+def cli_cluster(np, FakeCluster, n_pods=256, lines_per_pod=4000,
+                n_long=16, **kw):
+    """The cli cell's fixed-clock FakeCluster (one container a pod, a
+    long line of 5-180 KiB in each of the first ``n_long`` pods, half
+    with a needle) and its line count."""
     rng = np.random.default_rng(SEED + 3)
-    ora = oracle_fn()
     fc = FakeCluster.synthetic(n_pods=n_pods, n_containers=1,
                                lines_per_container=lines_per_pod,
-                               clock=lambda: CLOCK)
+                               clock=lambda: CLOCK, **kw)
     pods = fc.namespaces["default"]
-    for j, name in enumerate(sorted(pods)[:16]):  # long lines in 16 pods
+    for j, name in enumerate(sorted(pods)[:n_long]):
         n = int(rng.integers(5000, 180 * 1024))
         body = bytearray(rng.integers(32, 127, size=n, dtype=np.uint8))
         if j % 2:
@@ -845,6 +867,25 @@ def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
             100 + j, (CLOCK - 3000, bytes(body) + b"\n"))
     n_lines = sum(len(c.lines) for p in pods.values()
                   for c in p.containers.values())
+    return fc, n_lines
+
+
+def oracle_files(pods: dict) -> dict:
+    """Each pod's file as the ``re`` oracle selects it."""
+    ora = oracle_fn()
+    return {f"{name}__c0.log": b"".join(
+        ln for _, ln in pods[name].containers["c0"].lines
+        if ora(ln.rstrip(b"\n"))) for name in sorted(pods)}
+
+
+def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
+              lines_per_pod=4000, fused=False) -> dict:
+    """The K = 32 main path through ``app.run_async``; with ``fused``
+    (KLOGS_TPU_FUSED_GROUPS=1, set by the caller) its short lines must
+    run K4 and never K1, and K4 is held against its plain version and K1
+    on the run's own batches."""
+    fc, n_lines = cli_cluster(np, FakeCluster, n_pods, lines_per_pod)
+    pods = fc.namespaces["default"]
     argv = ["-n", "default", "-a", "-p", ""]
     for p in PATTERNS:
         argv += ["--match", p]
@@ -893,11 +934,9 @@ def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
         files = sorted(os.listdir(out_dir))
         bad = []
         kept = 0
-        for name in sorted(pods):
-            exp = b"".join(ln for _, ln in pods[name].containers["c0"].lines
-                           if ora(ln.rstrip(b"\n")))
+        for name, exp in oracle_files(pods).items():
             kept += exp.count(b"\n")
-            with open(os.path.join(out_dir, f"{name}__c0.log"), "rb") as f:
+            with open(os.path.join(out_dir, name), "rb") as f:
                 if f.read() != exp:
                     bad.append(name)
     # What sets the run's pace on the host: the same run again under
@@ -933,6 +972,450 @@ def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
             or any(b["max_abs_err"] or b.get("k1_mismatches")
                    for b in batches + k2)):
         raise AssertionError(f"{name} phase failed: {res}")
+    return res
+
+
+# ---- the observability and fault layers ----------------------------------
+
+# The design budget of the whole observability layer
+# (klogs_tpu/obs/profiler.py): under 2% of a run's throughput. Printed
+# beside the measured overhead; not a gate.
+OBS_BUDGET_PCT = 2.0
+OBS_STAGES = ("fanout.read", "coalescer.dispatch", "device.kernel",
+              "device.fetch", "sink.write")
+
+
+def obs_reset() -> None:
+    """The process-wide tracer, profiler and fault script back to off:
+    the tracer keeps the rate ``--trace-json`` gave it after a run."""
+    from klogs_tpu_torch.obs import trace
+    from klogs_tpu_torch.obs.profiler import PROFILER
+    from klogs_tpu_torch.resilience import FAULTS
+
+    PROFILER.reset()
+    trace.reset(None)
+    FAULTS.clear()
+    FAULTS.bind_registry(None)
+
+
+def parse_metrics(text: str) -> dict:
+    """Prometheus text format 0.0.4 -> families, samples and the sink's
+    line count; raises on a line that does not parse."""
+    fams, samples, lines_in = {}, 0, None
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            _, _, name, typ = ln.split(" ", 3)
+            fams[name] = typ
+        elif ln and not ln.startswith("#"):
+            m = re.fullmatch(r"([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)", ln)
+            if m is None:
+                raise ValueError(f"bad /metrics line {ln!r}")
+            value = float(m.group(3))
+            samples += 1
+            if m.group(1) == "klogs_sink_lines_total":
+                lines_in = value
+    return dict(families=len(fams), samples=samples, lines_in=lines_in)
+
+
+async def http_get(port: int, path: str) -> tuple:
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: x\r\n\r\n".encode())
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    await writer.wait_closed()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), body
+
+
+def span_docs(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def files_equal(out_dir: str, want: dict) -> list:
+    """The names of the files in ``out_dir`` that differ from ``want``."""
+    bad = sorted(set(os.listdir(out_dir)) ^ set(want))
+    for name, exp in want.items():
+        path = os.path.join(out_dir, name)
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                if f.read() != exp:
+                    bad.append(name)
+    return bad
+
+
+def obs_run(torch, app, cli, term, obs, fc, argv: list, dev, on: bool,
+            root: str, label: str, trace_file: bool = True) -> dict:
+    """One run of a cell through ``app.run_async``. ``on``: with
+    ``--stats-json``, ``--trace-json`` (unless not ``trace_file``),
+    ``--profile-json`` and ``--metrics-port`` on a free port, and one
+    /metrics and one /profile scrape taken while the run's sink is
+    counting lines."""
+    out = os.path.join(root, label)
+    os.makedirs(out)
+    argv = argv + ["-p", os.path.join(out, "logs")]
+    if on:
+        argv += ["--stats-json", os.path.join(out, "s.json"),
+                 "--profile-json", os.path.join(out, "p.jsonl"),
+                 "--metrics-port", "0"]
+        if trace_file:
+            argv += ["--trace-json", os.path.join(out, "t.jsonl")]
+    opts = cli.parse_args(argv)
+    ports, scrapes = [], {}
+    orig_start = obs.MetricsHTTPServer.start
+
+    async def start_and_record(self):
+        ports.append(await orig_start(self))
+        return ports[-1]
+
+    async def scrape(done) -> None:
+        while not done.is_set():
+            if ports:
+                try:
+                    status, body = await http_get(ports[0], "/metrics")
+                    parsed = parse_metrics(body.decode())
+                    if status == 200 and parsed["lines_in"]:
+                        status_p, body_p = await http_get(ports[0],
+                                                          "/profile")
+                        scrapes.update(metrics=parsed,
+                                       profile_status=status_p,
+                                       profile=json.loads(body_p),
+                                       mid_run=not done.is_set())
+                        return
+                except ConnectionError:
+                    return  # the run ended first: no mid-run scrape
+            # Every 50 ms: each scrape's render takes the loop's time,
+            # which the run's lines/s include.
+            await asyncio.sleep(0.05)
+
+    async def main() -> int:
+        done = asyncio.Event()
+        task = asyncio.create_task(scrape(done)) if on else None
+        try:
+            return await app.run_async(opts, backend=fc, device=dev)
+        finally:
+            done.set()
+            if task is not None:
+                await task
+
+    obs_reset()
+    obs.MetricsHTTPServer.start = start_and_record
+    term.set_ui_stream(io.StringIO())
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = asyncio.run(main())
+        seconds = time.perf_counter() - t0
+    finally:
+        obs.MetricsHTTPServer.start = orig_start
+        term.set_ui_stream(None)
+        obs_reset()
+    return dict(rc=rc, seconds=seconds, out=out, scrapes=scrapes)
+
+
+def obs_files(run: dict, n_lines: int, kept: int, kept_bytes: int) -> dict:
+    """What an "on" run's files hold: --stats-json's counts, the spans by
+    name with the lines and bytes written under sink.write, and the last
+    --profile-json line's stages and probes."""
+    out = run["out"]
+    with open(os.path.join(out, "s.json")) as f:
+        stats = json.load(f)
+    spans = span_docs(os.path.join(out, "t.jsonl"))
+    names: dict = {}
+    for d in spans:
+        names[d["name"]] = names.get(d["name"], 0) + 1
+    writes = [d["attrs"] for d in spans if d["name"] == "sink.write"]
+    with open(os.path.join(out, "p.jsonl")) as f:
+        profile = [json.loads(ln) for ln in f]
+    last = profile[-1]
+    wall = last["wall_s"]
+    summary = stats["summary"]
+    res = dict(
+        lines_in=summary["lines_in"], lines_matched=summary["lines_matched"],
+        span_counts=names,
+        sink_write_lines=sum(a.get("lines", 0) for a in writes),
+        sink_write_bytes=sum(a.get("bytes", 0) for a in writes),
+        profile_lines=len(profile), wall_s=wall,
+        stages={k: dict(v, busy_share=v["busy_s"] / wall if wall else None)
+                for k, v in last["stages"].items()},
+        probes=last["samples"], bottleneck=last["bottleneck"],
+        families=len(stats["metrics"]))
+    # The fan-out's probe goes with its run, before the last tick: an
+    # earlier tick or the mid-run /profile scrape shows it.
+    probes_seen = set(run["scrapes"].get("profile", {}).get("samples", {}))
+    for doc in profile:
+        probes_seen |= set(doc["samples"])
+    res["files_ok"] = (
+        res["lines_in"] == n_lines and res["lines_matched"] == kept
+        and res["sink_write_lines"] == kept
+        and res["sink_write_bytes"] == kept_bytes
+        and set(OBS_STAGES) <= set(last["stages"])
+        and {"coalescer.queue_depth", "device.in_flight_used"}
+        <= set(res["probes"]) and "fanout.active_streams" in probes_seen)
+    return res
+
+
+def sync_check(torch, GpuEngineFilter, FilterStats, obs, frame, dev) -> dict:
+    """``dispatch_framed`` on the engine phase's first frame with tracing
+    and the profiler off, then on: host synchronisations counted under
+    ``set_sync_debug_mode("warn")``, then each call once under
+    ``"error"`` (does it raise?). "On" may not do more than "off"."""
+    import warnings
+
+    from klogs_tpu_torch.obs import trace
+    from klogs_tpu_torch.obs.profiler import PROFILER
+
+    eng = GpuEngineFilter(PATTERNS, device=dev,
+                          stats=FilterStats(registry=obs.Registry()))
+    exp = eng.fetch_framed(eng.dispatch_framed(*frame))  # warm-up
+    res = {}
+    for mode in ("off", "on"):
+        obs_reset()
+        if mode == "on":
+            trace.reset(1.0)
+            PROFILER.enable(1.0)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with trace.TRACER.span("coalescer.dispatch"):
+                    handle = eng.dispatch_framed(*frame)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        got = eng.fetch_framed(handle)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        raised = None
+        try:
+            with trace.TRACER.span("coalescer.dispatch"):
+                handle = eng.dispatch_framed(*frame)
+        except RuntimeError as e:
+            raised = str(e)[:200]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if raised is None:
+            eng.fetch_framed(handle)
+        spans = sorted({d["name"] for d in trace.TRACER.finished_spans()})
+        res[mode] = dict(syncs=syncs, raised=raised, spans=spans,
+                         equal=got.tolist() == exp.tolist())
+    obs_reset()
+    res["ok"] = (res["on"]["syncs"] <= res["off"]["syncs"]
+                 and (res["on"]["raised"] is None
+                      or res["off"]["raised"] is not None)
+                 and res["off"]["equal"] and res["on"]["equal"]
+                 and "device.kernel" in res["on"]["spans"])
+    return res
+
+
+def fault_run(torch, app, cli, term, FakeCluster, np, dev, root: str,
+              n_faults: int = 8, limit_s: float = 120.0) -> dict:
+    """The cli cell's fake in follow mode (no line made after the
+    backlog) with ``KLOGS_FAULTS=kube.log_stream:error*N``: the first N
+    stream opens fail, the fan-out reconnects them, and the run is
+    stopped once every file equals the oracle's. The counters of
+    ``--stats-json`` must show N faults fired and N retries."""
+    fc, n_lines = cli_cluster(np, FakeCluster, follow_interval_s=3600.0)
+    want = oracle_files(fc.namespaces["default"])
+    out = os.path.join(root, "faults")
+    logs = os.path.join(out, "logs")
+    argv = ["-n", "default", "-a", "-f", "-p", logs, "--stats-json",
+            os.path.join(out, "s.json")]
+    for p in PATTERNS:
+        argv += ["--match", p]
+    opts = cli.parse_args(argv)
+
+    async def main() -> tuple:
+        stop = asyncio.Event()
+        task = asyncio.create_task(app.run_async(opts, backend=fc, stop=stop,
+                                                 device=dev))
+        t0 = time.perf_counter()
+        done_at = None
+        while time.perf_counter() - t0 < limit_s and not task.done():
+            await asyncio.sleep(0.25)
+            if os.path.isdir(logs) and sum(
+                    os.path.getsize(os.path.join(logs, n))
+                    for n in os.listdir(logs)) == sum(map(len, want.values())):
+                done_at = time.perf_counter() - t0
+                break
+        stop.set()
+        return await task, done_at
+
+    obs_reset()
+    term.set_ui_stream(io.StringIO())
+    try:
+        with env_set("KLOGS_FAULTS", f"kube.log_stream:error*{n_faults}"):
+            rc, done_at = asyncio.run(main())
+    finally:
+        term.set_ui_stream(None)
+        obs_reset()
+    with open(os.path.join(out, "s.json")) as f:
+        metrics = json.load(f)["metrics"]
+
+    def value(name: str, **labels) -> float:
+        return sum(s["value"] for s in metrics[name]["samples"]
+                   if s.get("labels", {}) == labels)
+
+    res = dict(rc=rc, lines=n_lines, faults=n_faults, complete_s=done_at,
+               mismatched_files=files_equal(logs, want),
+               faults_injected=value("klogs_faults_injected_total",
+                                     point="kube.log_stream"),
+               retry_attempts=value("klogs_retry_attempts_total",
+                                    site="fanout"),
+               reconnects=sum(s["value"] for s in metrics[
+                   "klogs_fanout_reconnects_total"]["samples"]))
+    res["ok"] = (rc == 0 and not res["mismatched_files"]
+                 and res["faults_injected"] == n_faults
+                 and res["retry_attempts"] == n_faults)
+    return res
+
+
+def profile_run(torch, app, cli, term, FakeCluster, np, dev,
+                root: str) -> dict:
+    """A short cli run with ``--profile DIR``: the torch.profiler trace
+    must exist and its kernel events name the hand-written kernels."""
+    fc, n_lines = cli_cluster(np, FakeCluster, n_pods=32, lines_per_pod=1000,
+                              n_long=4)
+    want = oracle_files(fc.namespaces["default"])
+    out = os.path.join(root, "profile")
+    argv = ["-n", "default", "-a", "-p", os.path.join(out, "logs"),
+            "--profile", os.path.join(out, "trace")]
+    for p in PATTERNS:
+        argv += ["--match", p]
+    obs_reset()
+    term.set_ui_stream(io.StringIO())
+    try:
+        rc = asyncio.run(app.run_async(cli.parse_args(argv), backend=fc,
+                                       device=dev))
+    finally:
+        term.set_ui_stream(None)
+    traces = sorted(os.listdir(os.path.join(out, "trace")))
+    kernels: dict = {}
+    for name in traces:
+        with open(os.path.join(out, "trace", name)) as f:
+            doc = json.load(f)
+        for ev in doc.get("traceEvents", []):
+            if ev.get("cat") == "kernel":
+                kernels[ev["name"]] = kernels.get(ev["name"], 0) + 1
+    named = {k: sum(n for name, n in kernels.items() if k in name)
+             for k in ("grouped_shift_kernel", "chunk_nfa_kernel",
+                       "pack_rows_kernel")}
+    res = dict(rc=rc, lines=n_lines, trace_files=traces,
+               kernel_events=sum(kernels.values()), named=named,
+               mismatched_files=files_equal(os.path.join(out, "logs"), want))
+    res["ok"] = (rc == 0 and bool(traces) and all(named.values())
+                 and not res["mismatched_files"])
+    return res
+
+
+def obs_phase(torch, np, nk, app, cli, term, FakeCluster, GpuEngineFilter,
+              FilterStats, frame, dev, card: str, want_k: dict) -> dict:
+    """The observability and fault layers on the card: the cli cell run
+    with the flags off, on, on, off (lines/s and the overhead); what the
+    files of an "on" run hold, and a mid-run scrape; the K = 1024 cell
+    once "on" (its device.kernel spans swept; ``want_k``: its files as
+    the oracle selects them, from the cli_k1024 phase); dispatch under
+    the sync debug mode untraced and traced; a fault-recovery run; a
+    --profile run."""
+    from klogs_tpu_torch import obs
+
+    fc, n_lines = cli_cluster(np, FakeCluster)
+    want = oracle_files(fc.namespaces["default"])
+    kept = sum(v.count(b"\n") for v in want.values())
+    kept_bytes = sum(map(len, want.values()))
+    argv = ["-n", "default", "-a"]
+    for p in PATTERNS:
+        argv += ["--match", p]
+    root = tempfile.mkdtemp(prefix="klogs-obs-")
+    try:
+        runs = []
+        for i, on in enumerate((False, True, True, False)):
+            r = obs_run(torch, app, cli, term, obs, fc, argv, dev, on, root,
+                        f"run{i}")
+            r["lines_per_s"] = n_lines / r["seconds"]
+            r["mismatched_files"] = files_equal(
+                os.path.join(r["out"], "logs"), want)
+            if on:
+                r["files"] = obs_files(r, n_lines, kept, kept_bytes)
+            runs.append(r)
+        off = [r["lines_per_s"] for r in runs if "files" not in r]
+        on_ = [r["lines_per_s"] for r in runs if "files" in r]
+        overhead = 100.0 * (1.0 - (sum(on_) / 2) / (sum(off) / 2))
+        # Where the cost sits: the flags on but --trace-json (the spans
+        # are still made, sampled and folded by the profiler, but not
+        # appended to a file).
+        nf = obs_run(torch, app, cli, term, obs, fc, argv, dev, True, root,
+                     "no_trace_file", trace_file=False)
+        no_file = dict(rc=nf["rc"], seconds=nf["seconds"],
+                       lines_per_s=n_lines / nf["seconds"],
+                       mismatched_files=files_equal(
+                           os.path.join(nf["out"], "logs"), want))
+        no_file["overhead_pct"] = 100.0 * (
+            1.0 - no_file["lines_per_s"] / (sum(off) / 2))
+        # The K = 1024 cell once with the flags on.
+        pats = make_patterns(1024)
+        kept_k = sum(v.count(b"\n") for v in want_k.values())
+        with env_set("KLOGS_MAX_PATTERN_POSITIONS", "65536"):
+            fck, _ = k1024_cluster(np, FakeCluster)
+            argv_k = ["-n", "default", "-a"]
+            for p in pats:
+                argv_k += ["--match", p]
+            rk = obs_run(torch, app, cli, term, obs, fck, argv_k, dev, True,
+                         root, "k1024")
+        spans_k = span_docs(os.path.join(rk["out"], "t.jsonl"))
+        kernels_k = [d["attrs"] for d in spans_k
+                     if d["name"] == "device.kernel"
+                     and "chunks" not in d["attrs"]]
+        k1024 = dict(rc=rk["rc"], seconds=rk["seconds"],
+                     mismatched_files=files_equal(
+                         os.path.join(rk["out"], "logs"), want_k),
+                     kept_lines=kept_k,
+                     short_kernel_spans=len(kernels_k),
+                     swept_spans=sum(bool(a.get("swept")) for a in kernels_k))
+        sync = sync_check(torch, GpuEngineFilter, FilterStats, obs, frame,
+                          dev)
+        faults = fault_run(torch, app, cli, term, FakeCluster, np, dev, root)
+        prof = profile_run(torch, app, cli, term, FakeCluster, np, dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for r in runs:
+        r.pop("out")
+    on_run = runs[1]["files"]
+    res = dict(card=card, lines=n_lines, kept_lines=kept,
+               runs=[dict(on="files" in r, rc=r["rc"], seconds=r["seconds"],
+                          lines_per_s=r["lines_per_s"],
+                          mismatched_files=r["mismatched_files"])
+                     for r in runs],
+               overhead_pct=overhead, budget_pct=OBS_BUDGET_PCT,
+               on_without_trace_file=no_file,
+               on_files=[r["files"] for r in runs if "files" in r],
+               scrapes=[dict(metrics=r["scrapes"].get("metrics"),
+                             profile_status=r["scrapes"].get(
+                                 "profile_status"),
+                             profile_stages=sorted(r["scrapes"].get(
+                                 "profile", {}).get("stages", {})),
+                             profile_samples=r["scrapes"].get(
+                                 "profile", {}).get("samples"),
+                             mid_run=r["scrapes"].get("mid_run"))
+                        for r in runs if "files" in r],
+               stage_utilization={k: v["busy_share"] for k, v in
+                                  on_run["stages"].items()},
+               k1024=k1024, sync=sync, faults=faults, profile=prof)
+    emit({"phase": "obs", **res})
+    scrapes_ok = all(
+        s["mid_run"] and s["metrics"]["families"] == 95
+        and s["profile_status"] == 200 and s["profile_samples"]
+        for s in res["scrapes"])
+    if (any(r["rc"] != 0 or r["mismatched_files"]
+            for r in res["runs"] + [no_file])
+            or not all(f["files_ok"] for f in res["on_files"])
+            or not scrapes_ok or k1024["rc"] != 0
+            or k1024["mismatched_files"] or not k1024["short_kernel_spans"]
+            or k1024["swept_spans"] != k1024["short_kernel_spans"]
+            or not sync["ok"] or not faults["ok"] or not prof["ok"]):
+        raise AssertionError(f"obs phase failed: {res}")
     return res
 
 
@@ -1301,10 +1784,12 @@ def engine_k1024_phase(torch, np, nk, gpu, frame_lines, synthetic_line, eng,
     return dict(res, b256=b256[0] if b256 else None)
 
 
-def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
-                    n_pods=256, lines_per_pod=250, n_long=8) -> dict:
+def k1024_cluster(np, FakeCluster, n_pods=256, lines_per_pod=250,
+                  n_long=8):
+    """The cli_k1024 cell's FakeCluster (~1% minted needles, a long line
+    of 5-60 KiB in each of the first ``n_long`` pods) and its lines by
+    pod."""
     rng = np.random.default_rng(SEED + 6)
-    pats = make_patterns(1024)
     fc = FakeCluster.synthetic(n_pods=n_pods, n_containers=1,
                                lines_per_container=lines_per_pod,
                                clock=lambda: CLOCK)
@@ -1324,6 +1809,28 @@ def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
             lines.insert(50 + j, (CLOCK - 3000, bytes(body) + b"\n"))
     all_lines = {name: [ln for _, ln in pods[name].containers["c0"].lines]
                  for name in sorted(pods)}
+    return fc, all_lines
+
+
+def k1024_expected(pats: list, all_lines: dict) -> tuple:
+    """(each pod's file as the ``re`` oracle selects it, kept lines)."""
+    flat = [ln for name in sorted(all_lines) for ln in all_lines[name]]
+    exp = oracle_verdicts(pats, [ln.rstrip(b"\n") for ln in flat])
+    want, at = {}, 0
+    for name in sorted(all_lines):
+        n = len(all_lines[name])
+        want[f"{name}__c0.log"] = b"".join(
+            ln for ln, v in zip(all_lines[name], exp[at:at + n]) if v)
+        at += n
+    return want, int(sum(exp))
+
+
+def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
+                    n_pods=256, lines_per_pod=250, n_long=8) -> dict:
+    pats = make_patterns(1024)
+    fc, all_lines = k1024_cluster(np, FakeCluster, n_pods, lines_per_pod,
+                                  n_long)
+    pods = fc.namespaces["default"]
     flat = [ln for name in sorted(pods) for ln in all_lines[name]]
     argv = ["-n", "default", "-a", "--stats", "-p", ""]
     for p in pats:
@@ -1353,16 +1860,11 @@ def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
         finally:
             nk.match_cls_grouped_gated = gated
             term.set_ui_stream(None)
-        exp = oracle_verdicts(pats, [ln.rstrip(b"\n") for ln in flat])
-        bad, kept, at = [], 0, 0
-        for name in sorted(pods):
-            n = len(all_lines[name])
-            want = b"".join(ln for ln, v in zip(all_lines[name],
-                                                exp[at:at + n]) if v)
-            at += n
-            kept += sum(exp[at - n:at])
-            with open(os.path.join(out_dir, f"{name}__c0.log"), "rb") as f:
-                if f.read() != want:
+        want, kept = k1024_expected(pats, all_lines)
+        bad = []
+        for name, exp in want.items():
+            with open(os.path.join(out_dir, name), "rb") as f:
+                if f.read() != exp:
                     bad.append(name)
         files = len(os.listdir(out_dir))
     text = ui.getvalue()
@@ -1379,6 +1881,7 @@ def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
                k3_shapes={f"{B}x{T}": e[0] for (B, T), e in shapes.items()},
                k3_batches=k3_batches)
     emit({"phase": "cli_k1024", **res})
+    res["want"] = want
     if (rc != 0 or bad or files != len(pods) or not kept
             or launches[nk.GATED] == 0 or launches[nk.PAIRS] == 0
             or launches[nk.PACK] == 0
@@ -2543,6 +3046,7 @@ def main() -> int:
                            synthetic_line, dev)
         pk = pack_phase(torch, nk, pack, GpuEngineFilter, eng, dev)
         run = cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev)
+        frame0 = eng["frames"][0]
         # The fused-groups path: K4 for K1 on short lines.
         with env_set("KLOGS_TPU_FUSED_GROUPS", "1"):
             engf = engine_fused_phase(torch, np, nk, GpuEngineFilter, eng,
@@ -2564,6 +3068,12 @@ def main() -> int:
         k4_b256_check(torch, nk, k4, ek.pop("b256"))
         run3 = cli_k1024_phase(torch, np, nk, bits, app, cli, term,
                                FakeCluster, dev)
+        # The observability and fault layers on the K = 32 path, and
+        # once on the K = 1024 one.
+        obs_phase(torch, np, nk, app, cli, term, FakeCluster,
+                  GpuEngineFilter, FilterStats, frame0, dev, card,
+                  run3.pop("want"))
+        del frame0
         # Follow mode: many small deadline-driven batches.
         follow_phase(torch, np, nk, pack, app, cli, term, FakeCluster,
                      synthetic_line, dev, card)

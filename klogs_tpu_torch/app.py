@@ -12,6 +12,19 @@ is always re-discovered, and a backfill ends with its match/shed
 account. ``run_async`` takes an injected ClusterBackend (tests pass a
 FakeCluster), a ``stop`` event for library callers of follow mode, and
 the filter's ``device`` (None means ``"cuda"``).
+
+Observability, as in the JAX app: ``--metrics-port`` and
+``--stats-json`` build a registry for the run (a fresh one each run, so
+a second run in one process starts at zero) that backs the filter's
+stats, the fan-out, the sources, the kube retries and the fault
+counters; ``--metrics-port`` serves it (with /healthz, /readyz, /traces
+and /profile) while the run lasts, and ``--stats-json`` dumps it at the
+end. ``--trace-json`` samples every trace (unless
+``KLOGS_TRACE_SAMPLE`` pins a rate) and appends each finished span to
+the file; ``--profile-json`` (or ``KLOGS_PROFILE_SAMPLE``) runs the
+pipeline profiler's ticker. ``KLOGS_FAULTS`` arms the fault points for
+the run. ``--profile DIR`` writes a torch.profiler trace where the JAX
+CLI writes an xprof one.
 """
 
 import asyncio
@@ -259,8 +272,9 @@ def make_inner_sink_factory(opts: Options):
     return lambda job: TeeSink(FileSink(job.path), console(job))
 
 
-def make_pipeline_for(opts: Options, device=None):
-    """The --match/--exclude filter pipeline (None = unfiltered)."""
+def make_pipeline_for(opts: Options, device=None, registry=None):
+    """The --match/--exclude filter pipeline (None = unfiltered);
+    ``registry`` backs its stats when the run has one."""
     if not opts.match and not opts.exclude:
         return None
     from klogs_tpu_torch.filters.compiler.parser import RegexSyntaxError
@@ -269,11 +283,69 @@ def make_pipeline_for(opts: Options, device=None):
     try:
         return make_pipeline(opts.match, opts.backend,
                              ignore_case=opts.ignore_case,
-                             exclude=opts.exclude, device=device)
+                             exclude=opts.exclude, device=device,
+                             registry=registry)
     except re.error as e:
         term.fatal("invalid --match/--exclude pattern %r: %s", e.pattern, e)
     except RegexSyntaxError as e:
         term.fatal("unsupported --match/--exclude pattern: %s", e)
+
+
+def _write_stats_json(path: str, registry, pipeline) -> None:
+    """--stats-json: the run's registry snapshot and the --stats summary
+    numbers (read from the same metric objects), written at exit."""
+    import json
+
+    from klogs_tpu_torch.obs import snapshot
+    from klogs_tpu_torch.obs.profiler import refresh_process_metrics
+
+    refresh_process_metrics(registry)
+    doc: dict = {"metrics": snapshot(registry)}
+    if pipeline is not None:
+        s = pipeline.stats
+        doc["summary"] = {
+            "lines_in": s.lines_in,
+            "lines_matched": s.lines_matched,
+            "matched_pct": s.matched_pct(),
+            "lines_per_sec": s.lines_per_sec(),
+            "batches": s.batches,
+            "batch_latency_p50_s": s.percentile_latency_s(50),
+            "batch_latency_p90_s": s.percentile_latency_s(90),
+            "batch_latency_p99_s": s.percentile_latency_s(99),
+        }
+        if s.has_service_latencies:
+            doc["summary"].update({
+                "queue_p50_s": s.percentile_queue_s(50),
+                "queue_p90_s": s.percentile_queue_s(90),
+                "queue_p99_s": s.percentile_queue_s(99),
+                "device_p50_s": s.percentile_device_s(50),
+                "device_p90_s": s.percentile_device_s(90),
+                "device_p99_s": s.percentile_device_s(99),
+            })
+    try:
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=1)
+        term.info("Metrics dump written to %s", term.green(path))
+    except OSError as e:
+        term.error("cannot write --stats-json %s: %s", path, e)
+
+
+def _start_torch_profiler(opts: Options, device):
+    """--profile DIR: a torch.profiler recording of the run, written to
+    DIR at its end. It records the card's CUDA activity, and the CPU's
+    only when the caller asked for the CPU."""
+    import torch
+
+    dev = torch.device(device) if device is not None else torch.device("cuda")
+    activity = (torch.profiler.ProfilerActivity.CPU if dev.type == "cpu"
+                else torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(
+        activities=[activity],
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(
+            opts.profile))
+    prof.start()
+    term.info("Profiling to %s", term.green(opts.profile))
+    return prof
 
 
 def _watch_interval() -> float:
@@ -299,6 +371,65 @@ async def run_async(opts: Options, backend: ClusterBackend | None = None,
     finally:
         if opts.output != "files":
             term.set_ui_stream(None)
+
+
+def _start_obs(opts: Options, backend, source):
+    """The run's registry (None without --metrics-port/--stats-json),
+    the tracer's and profiler's settings, and the fault counters; returns
+    (registry, whether the profiler's ticker should run)."""
+    obs_registry = None
+    if opts.metrics_port is not None or opts.stats_json is not None:
+        from klogs_tpu_torch import obs
+        from klogs_tpu_torch.version import BUILD_VERSION
+
+        obs_registry = obs.Registry()
+        obs.register_all(obs_registry)
+        obs_registry.family("klogs_build_info").labels(
+            version=BUILD_VERSION).set(1)
+    from klogs_tpu_torch.obs import trace as _trace
+    from klogs_tpu_torch.obs.profiler import PROFILER
+    from klogs_tpu_torch.resilience import FAULTS
+
+    if opts.trace_json is not None:
+        _trace.TRACER.enable_default()
+        _trace.TRACER.set_json_path(opts.trace_json)
+    if obs_registry is not None:
+        _trace.TRACER.bind_registry(obs_registry)
+        _trace.RECORDER.bind_registry(obs_registry)
+    # KLOGS_PROFILE_SAMPLE alone enables the profiler too; =0 keeps it
+    # off even against --profile-json.
+    PROFILER.maybe_enable()
+    if opts.profile_json is not None and PROFILER.enable():
+        PROFILER.set_json_path(opts.profile_json)
+    if PROFILER.enabled and obs_registry is not None:
+        PROFILER.bind_registry(obs_registry)
+    FAULTS.bind_registry(obs_registry)
+    if obs_registry is not None:
+        bind = getattr(backend, "bind_registry", None)
+        if bind is not None:
+            bind(obs_registry)
+        if source is not None:
+            source.bind_registry(obs_registry)
+    return obs_registry, PROFILER.enabled
+
+
+async def _start_sidecar(opts: Options, registry, runner):
+    """--metrics-port: the run's /metrics, /healthz, /readyz, /traces and
+    /profile. The collector is ready once streaming is set up."""
+    from klogs_tpu_torch import obs
+
+    health = obs.Health()
+    health.set_ready()
+    health.add_live_check("runner", lambda: not runner._stopping)
+    srv = obs.MetricsHTTPServer(registry, health=health,
+                                port=opts.metrics_port)
+    try:
+        port = await srv.start()
+    except OSError as e:
+        term.fatal("cannot bind --metrics-port %s: %s", opts.metrics_port, e)
+    term.info("Metrics on %s",
+              term.green(f"http://127.0.0.1:{port}/metrics"))
+    return srv
 
 
 async def _plan_cluster(backend: ClusterBackend, opts: Options,
@@ -357,6 +488,16 @@ async def _run_async_inner(opts: Options, backend: ClusterBackend | None,
                            select_keys: Iterable[str] | None,
                            device) -> int:
     widgets.splash_screen()
+    # KLOGS_FAULTS scripts the fault points for this run, loudly.
+    from klogs_tpu_torch.resilience import FAULTS, FaultSpecError
+
+    fault_spec = env_read("KLOGS_FAULTS")
+    if fault_spec:
+        try:
+            FAULTS.load_spec(fault_spec)
+        except FaultSpecError as e:
+            term.fatal("invalid KLOGS_FAULTS: %s", e)
+        term.warning("Fault injection ACTIVE (KLOGS_FAULTS=%s)", fault_spec)
     from klogs_tpu_torch.sources import SourceError, make_source
 
     # --source/--backfill: a Source replaces the cluster (no namespace,
@@ -367,6 +508,8 @@ async def _run_async_inner(opts: Options, backend: ClusterBackend | None,
         term.fatal("%s", e)
     if source is None:
         backend = backend or make_backend(opts)
+    profiler = (_start_torch_profiler(opts, device)
+                if opts.profile else None)
     try:
         log_opts = build_log_options(opts)
         if source is not None:
@@ -380,16 +523,41 @@ async def _run_async_inner(opts: Options, backend: ClusterBackend | None,
             term.info("note: --timestamps prefixes are part of the line "
                       "--match/--exclude see (anchor accordingly)")
 
-        pipeline = make_pipeline_for(opts, device=device)
-        inner_factory = make_inner_sink_factory(opts)
+        from klogs_tpu_torch.obs import trace as _trace
+        from klogs_tpu_torch.obs.profiler import PROFILER
+
+        obs_registry, prof_on = _start_obs(opts, backend, source)
+        pipeline = None
+        prof_stop: asyncio.Event | None = None
+        prof_task: asyncio.Task | None = None
+        metrics_srv = None
         try:
+            # Inside this try, so the finally reaps the ticker and undoes
+            # the run's trace and profile files even when the engine
+            # cannot be built.
+            pipeline = make_pipeline_for(opts, device=device,
+                                         registry=obs_registry)
+            inner_factory = make_inner_sink_factory(opts)
+            if prof_on:
+                prof_stop = asyncio.Event()
+                prof_task = asyncio.create_task(
+                    PROFILER.run_ticker(prof_stop))
             if pipeline is not None:
                 pipeline.inner_factory = inner_factory
+                from klogs_tpu_torch.ops.tune import tune_mode
+
+                try:
+                    tune_mode()
+                except ValueError as e:
+                    term.fatal("%s", e)
             runner = FanoutRunner(
                 backend, namespace, log_opts,
                 sink_factory=(pipeline.sink_factory if pipeline
                               else inner_factory),
-                create_files=opts.output != "stdout", source=source)
+                create_files=opts.output != "stdout",
+                registry=obs_registry, source=source)
+            if opts.metrics_port is not None:
+                metrics_srv = await _start_sidecar(opts, obs_registry, runner)
             plan_new = None
             if source is not None:
                 if opts.follow:
@@ -496,12 +664,37 @@ async def _run_async_inner(opts: Options, backend: ClusterBackend | None,
                 print_log_size(log_files, opts.log_path)
             if pipeline is not None and opts.stats:
                 pipeline.print_summary()
+            if opts.stats_json is not None:
+                _write_stats_json(opts.stats_json, obs_registry, pipeline)
             return 130 if interrupted else 0
         finally:
+            if prof_task is not None:
+                # The ticker's last tick ends the --profile-json file.
+                prof_stop.set()
+                try:
+                    await prof_task
+                except (asyncio.CancelledError, Exception):  # noqa: BLE001
+                    pass
+            if opts.profile_json is not None:
+                PROFILER.set_json_path(None)
+            if metrics_srv is not None:
+                await metrics_srv.stop()
             # Drains the in-flight device batches, inside the loop.
             if pipeline is not None:
                 await pipeline.aclose()
+            # A degrade trigger armed near the end may have no root span
+            # left to ride: write it now; stop appending spans.
+            _trace.RECORDER.flush()
+            if opts.trace_json is not None:
+                _trace.TRACER.set_json_path(None)
     finally:
+        if profiler is not None:
+            try:
+                profiler.stop()
+            except Exception as e:  # noqa: BLE001
+                # A trace that cannot be written must not skip the
+                # cleanup below or mask an error in flight.
+                term.warning("Failed to write profiler trace: %s", e)
         if backend is not None:
             await backend.close()
         if source is not None:

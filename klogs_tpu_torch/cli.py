@@ -27,6 +27,16 @@ shorthands, defaults, choices and checks:
   --timestamps      server-side RFC3339 timestamp before each line
   --backend         filter engine: cuda (batch NFA on the GPU)
   --stats           print lines/sec, matched %, batch-latency summary
+  --metrics-port    serve Prometheus /metrics + /healthz (and /readyz,
+                    /traces, /profile) for this run
+  --stats-json      one-shot JSON metrics dump at exit
+  --trace-json      per-batch trace spans as JSON lines (tracing +
+                    flight recorder)
+  --profile-json    continuous pipeline utilization profiler: one JSON
+                    snapshot per tick (per-stage busy-seconds and
+                    utilization, queue/in-flight samples); same doc as
+                    /profile on --metrics-port
+  --profile         write a torch.profiler trace of the run to DIR
   --cluster         cluster backend: kube | fake (hermetic demo)
   --source          non-kube log source: replay:PATH[,PATH...] streams
                     local files/dirs/globs with rotation handling;
@@ -39,8 +49,9 @@ shorthands, defaults, choices and checks:
   --replay-rate     pace replay at N lines/s (default: as fast as the
                     disk goes; KLOGS_REPLAY_RATE sets a default)
 
-The remote filter service and the observability flags of the JAX CLI
-are not ported yet.
+The remote filter service of the JAX CLI (``--remote``,
+``--shard-mode``, ``--resolver``, ``--on-filter-error``) is not ported
+yet.
 """
 
 import argparse
@@ -83,6 +94,11 @@ class Options:
     source: str = ""
     backfill: list[str] = field(default_factory=list)
     replay_rate: float | None = None
+    metrics_port: int | None = None
+    stats_json: str | None = None
+    trace_json: str | None = None
+    profile_json: str | None = None
+    profile: str | None = None
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -119,6 +135,36 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Line-filter engine: batch NFA on the GPU")
     p.add_argument("--stats", action="store_true",
                    help="Print lines/sec, matched %%, and batch-latency summary")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   metavar="PORT",
+                   help="Serve Prometheus /metrics and /healthz for this run "
+                   "on an HTTP sidecar port (0 = ephemeral; binds "
+                   "127.0.0.1)")
+    p.add_argument("--stats-json", default=None, dest="stats_json",
+                   metavar="PATH",
+                   help="Write a one-shot JSON dump of all pipeline metrics "
+                   "to PATH at exit (the scrapeless option for batch runs)")
+    p.add_argument("--trace-json", default=None, dest="trace_json",
+                   metavar="PATH",
+                   help="Write every finished trace span as one JSON line "
+                   "to PATH (batch tracing across fanout/coalescer/device/"
+                   "sink; implies KLOGS_TRACE_SAMPLE=1 unless that variable "
+                   "is set). The same spans serve /traces on --metrics-port "
+                   "and feed the degrade flight recorder")
+    p.add_argument("--profile-json", default=None, dest="profile_json",
+                   metavar="PATH",
+                   help="Continuous pipeline utilization profiling: append "
+                   "one JSON snapshot per tick (per-stage busy-seconds and "
+                   "rolling utilization folded from trace spans, plus "
+                   "queue-depth/in-flight/executor samples) to PATH. The "
+                   "same snapshot serves /profile on the --metrics-port "
+                   "sidecar; KLOGS_PROFILE_SAMPLE pins the span-sampling "
+                   "rate (0 disables)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="Write a torch.profiler trace of the run to DIR "
+                   "(the card's CUDA activity; CPU activity too when the "
+                   "filter runs on the CPU); open it in Perfetto or "
+                   "chrome://tracing")
     p.add_argument("-o", "--output", choices=["files", "stdout", "both"],
                    default="files",
                    help="Where log lines go: per-container files (reference "
@@ -201,6 +247,11 @@ def parse_args(argv: list[str] | None = None) -> Options:
         source=ns.source,
         backfill=list(ns.backfill),
         replay_rate=ns.replay_rate,
+        metrics_port=ns.metrics_port,
+        stats_json=ns.stats_json,
+        trace_json=ns.trace_json,
+        profile_json=ns.profile_json,
+        profile=ns.profile,
     )
 
 

@@ -7,7 +7,11 @@ semantics mirroring the kubelet's, chunked streams whose chunk
 boundaries do not align with lines (like HTTP chunked transfer), and
 per-container fault injection (open failure, mid-stream cut or error,
 slow chunks). In follow mode a stream generates a new line every
-``follow_interval_s`` until it is closed.
+``follow_interval_s`` until it is closed. The fault points
+``kube.list_pods`` and ``kube.log_stream`` fire here as in the kube
+backend, so a ``KLOGS_FAULTS`` script behaves the same against both;
+the fake has no retry of its own, so a fired fault surfaces as the
+ClusterError or StreamError its callers handle.
 """
 
 import asyncio
@@ -15,13 +19,19 @@ import time
 from dataclasses import dataclass, field
 from typing import AsyncIterator, Callable
 
-from klogs_tpu_torch.cluster.backend import ClusterBackend, LogStream, StreamError
+from klogs_tpu_torch.cluster.backend import (
+    ClusterBackend,
+    ClusterError,
+    LogStream,
+    StreamError,
+)
 from klogs_tpu_torch.cluster.types import (
     ContainerInfo,
     LogOptions,
     PodInfo,
     match_label_selector,
 )
+from klogs_tpu_torch.resilience.faults import FAULTS, InjectedFault
 
 LEVELS = ("INFO", "DEBUG", "WARN", "ERROR")
 
@@ -262,6 +272,11 @@ class FakeCluster(ClusterBackend):
 
     async def list_pods(self, namespace: str,
                         label_selector: str | None = None) -> list[PodInfo]:
+        if FAULTS.active:
+            try:
+                await FAULTS.fire("kube.list_pods")
+            except InjectedFault as e:
+                raise ClusterError(f"list pods in {namespace!r}: {e}") from e
         pods = self.namespaces.get(namespace, {})
         return [p.info for p in pods.values()
                 if not label_selector
@@ -269,6 +284,12 @@ class FakeCluster(ClusterBackend):
 
     async def open_log_stream(self, namespace: str, pod: str,
                               opts: LogOptions) -> LogStream:
+        if FAULTS.active:
+            try:
+                await FAULTS.fire("kube.log_stream")
+            except InjectedFault as e:
+                raise StreamError(
+                    f"open log stream {pod}/{opts.container}: {e}") from e
         try:
             fc = self.namespaces[namespace][pod].containers[opts.container]
         except KeyError as e:

@@ -1,16 +1,20 @@
 """Real Kubernetes backend over the apiserver REST API (aiohttp).
 
-Counterpart of ``klogs_tpu/cluster/kube.py``, without its fault points
-and retry metrics. The data path mirrors the Go reference's client-go
-use: namespace Get/List, pod List with a label selector, and the pod
-log GET, streamed in chunks, with the follow/since/tail/previous/
-timestamps/sinceTime queries. The aiohttp connector limit plays the
-role of the reference's rest config Burst = 100.
+Counterpart of ``klogs_tpu/cluster/kube.py``. The data path mirrors
+the Go reference's client-go use: namespace Get/List, pod List with a
+label selector, and the pod log GET, streamed in chunks, with the
+follow/since/tail/previous/timestamps/sinceTime queries. The aiohttp
+connector limit plays the role of the reference's rest config Burst =
+100.
 
 Control-plane GETs retry transient failures (5xx, dropped connections,
-timeouts) under ``DEFAULT_RETRY`` and end in a one-line ClusterError; a
-401 with an exec-plugin token refreshes the token once, on a GET and on
-a log request alike.
+timeouts, injected faults) under ``DEFAULT_RETRY`` and end in a one-line
+ClusterError; a 401 with an exec-plugin token refreshes the token once,
+on a GET and on a log request alike. The fault points ``kube.list_pods``
+(inside the GET's retry loop) and ``kube.log_stream`` (a log request,
+which the fan-out's reconnect policy retries) fire here; with a
+registry bound (``bind_registry``) the GET's retries count into
+``klogs_retry_attempts_total{site="kube"}``.
 """
 
 import asyncio
@@ -30,6 +34,7 @@ from klogs_tpu_torch.cluster.kubeconfig import (
     load_creds,
 )
 from klogs_tpu_torch.cluster.types import ContainerInfo, LogOptions, PodInfo
+from klogs_tpu_torch.resilience.faults import FAULTS, InjectedFault
 from klogs_tpu_torch.resilience.policy import RetryPolicy
 from klogs_tpu_torch.ui import term
 
@@ -72,9 +77,11 @@ class KubeLogStream(LogStream):
 
 class KubeBackend(ClusterBackend):
     def __init__(self, creds: ClusterCreds,
-                 retry: "RetryPolicy | None" = None):
+                 retry: "RetryPolicy | None" = None, registry=None):
         self._creds = creds
         self._retry = retry if retry is not None else DEFAULT_RETRY
+        self._retries_metric = None
+        self.bind_registry(registry)
         # Auth is resolved per request, not baked into the session:
         # exec-plugin tokens rotate, and a follow run may outlive one.
         self._session = aiohttp.ClientSession(
@@ -105,7 +112,15 @@ class KubeBackend(ClusterBackend):
     def current_context(self) -> tuple[str, str]:
         return self._creds.context_name, self._creds.namespace
 
-    async def _get_json(self, path: str, params: dict | None = None):
+    def bind_registry(self, registry) -> None:
+        """Point the GET retry counter at a run's registry (the backend
+        exists before the run's registry does)."""
+        if registry is not None:
+            self._retries_metric = registry.family(
+                "klogs_retry_attempts_total").labels(site="kube")
+
+    async def _get_json(self, path: str, params: dict | None = None,
+                        fault_point: "str | None" = None):
         """Control-plane GET: None on 404, the JSON body on success.
         Transient failures retry under the policy and end in a
         ClusterError with one human line; the one-shot 401 token refresh
@@ -115,6 +130,8 @@ class KubeBackend(ClusterBackend):
         force = False      # force the provider on the next header fetch
         while True:
             try:
+                if fault_point is not None and FAULTS.active:
+                    await FAULTS.fire(fault_point)
                 async with self._session.get(
                     path, params=params or {},
                     headers=await self._auth_headers(force_refresh=force),
@@ -147,7 +164,7 @@ class KubeBackend(ClusterBackend):
                             f"{body}")
                     return await resp.json()
             except (aiohttp.ClientError, asyncio.TimeoutError,
-                    _TransientHTTPError) as e:
+                    InjectedFault, _TransientHTTPError) as e:
                 if not self._retry.retries_left(attempt):
                     if isinstance(e, _TransientHTTPError):
                         raise ClusterError(
@@ -156,6 +173,8 @@ class KubeBackend(ClusterBackend):
                         f"cannot reach apiserver {self._creds.server}: "
                         f"{str(e) or 'request timed out'} "
                         f"(after {attempt + 1} attempts)") from e
+                if self._retries_metric is not None:
+                    self._retries_metric.inc()
                 await self._retry.sleep(attempt)
                 attempt += 1
 
@@ -171,7 +190,7 @@ class KubeBackend(ClusterBackend):
                         label_selector: str | None = None) -> list[PodInfo]:
         params = {"labelSelector": label_selector} if label_selector else None
         data = await self._get_json(f"/api/v1/namespaces/{namespace}/pods",
-                                    params)
+                                    params, fault_point="kube.list_pods")
         if data is None:
             return []
         return [_pod_info(item, namespace) for item in data.get("items", [])]
@@ -192,6 +211,8 @@ class KubeBackend(ClusterBackend):
         if opts.since_time is not None:
             params["sinceTime"] = opts.since_time
         try:
+            if FAULTS.active:
+                await FAULTS.fire("kube.log_stream")
             resp = None
             for attempt in (0, 1):
                 resp = await self._session.get(
@@ -214,7 +235,8 @@ class KubeBackend(ClusterBackend):
                 raise StreamError(
                     f"GET log for {pod}/{opts.container}: "
                     f"HTTP {resp.status}: {body}")
-        except (aiohttp.ClientError, asyncio.TimeoutError) as e:
+        except (aiohttp.ClientError, asyncio.TimeoutError,
+                InjectedFault) as e:
             raise StreamError(
                 f"open log stream {pod}/{opts.container}: "
                 f"{str(e) or 'connect timed out'}") from e

@@ -12,6 +12,15 @@ slice of the verdicts. In-flight batches are bounded (backpressure).
 
 Per-sink write ordering is the sink's concern (FilteredSink holds its
 flush lock across the await).
+
+With a ``FilterStats`` the coalescer reports into its registry
+(``klogs_coalescer_*``) and registers the profiler's probes
+(``coalescer.queue_depth``, ``coalescer.pending_lines``,
+``device.in_flight_used``, ``device.fetch_queue``), dropped at close.
+Each group is a ``coalescer.dispatch`` span, parented under its first
+traced caller; ``device.fetch`` wraps the await of the verdicts (the
+executor thread does not inherit the trace context), so it holds the
+card's time for the group.
 """
 
 import asyncio
@@ -21,6 +30,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from klogs_tpu_torch.filters.base import FilterStats, LogFilter, frame_lines
+from klogs_tpu_torch.obs import trace
 
 MAX_IN_FLIGHT = 16
 FETCH_WORKERS = 8
@@ -37,11 +47,41 @@ class AsyncFilterService:
                  stats: FilterStats | None = None):
         self._filter = log_filter
         self._stats = stats
+        self._m = None
+        if stats is not None:
+            r = stats.registry
+            self._m = {
+                "depth": r.family("klogs_coalescer_queue_depth"),
+                "pending": r.family("klogs_coalescer_pending_lines"),
+                "groups": r.family("klogs_coalescer_groups_total"),
+                "members": r.family("klogs_coalescer_group_members"),
+                "lines": r.family("klogs_coalescer_group_lines"),
+                "splits": r.family("klogs_coalescer_group_splits_total"),
+                "bp_wait": r.family(
+                    "klogs_coalescer_backpressure_wait_seconds"),
+                "dispatch": r.family("klogs_coalescer_dispatch_seconds"),
+            }
         # Created at first dispatch, inside the running loop.
         self._sem: "asyncio.Semaphore | None" = None
         self._pool = ThreadPoolExecutor(max_workers=FETCH_WORKERS,
                                         thread_name_prefix="klogs-fetch")
-        # (payload, offsets, n_lines, future, enqueue_time) per caller.
+        # The profiler's probes, read at its ticks (host counters only).
+        self._probes: "dict[str, object]" = {}
+        if stats is not None:
+            from klogs_tpu_torch.obs.profiler import PROFILER
+
+            self._probes = {
+                "coalescer.queue_depth":
+                    lambda: float(len(self._pending)),
+                "coalescer.pending_lines":
+                    lambda: float(self._pending_lines),
+                "device.in_flight_used": self._in_flight_used,
+                "device.fetch_queue": self._fetch_queue_depth,
+            }
+            for name, fn in self._probes.items():
+                PROFILER.add_probe(name, fn)
+        # (payload, offsets, n_lines, future, enqueue_time, trace
+        # context) per caller.
         self._pending: list[tuple] = []
         self._pending_lines = 0
         self._kick_handle: asyncio.TimerHandle | None = None
@@ -49,6 +89,26 @@ class AsyncFilterService:
         # Strong references: the loop holds tasks weakly.
         self._tasks: set[asyncio.Task] = set()
         self.batches_dispatched = 0
+
+    def _in_flight_used(self) -> float:
+        """Occupied in-flight slots (0 before the first dispatch)."""
+        sem = self._sem
+        if sem is None:
+            return 0.0
+        return float(max(0, MAX_IN_FLIGHT - sem._value))
+
+    def _fetch_queue_depth(self) -> float:
+        """Fetches waiting for a free executor thread."""
+        q = getattr(self._pool, "_work_queue", None)
+        return float(q.qsize()) if q is not None else 0.0
+
+    def _drop_probes(self) -> None:
+        if self._probes:
+            from klogs_tpu_torch.obs.profiler import PROFILER
+
+            for name, fn in self._probes.items():
+                PROFILER.remove_probe(name, fn)
+            self._probes = {}
 
     async def match(self, lines: list[bytes]) -> list[bool]:
         """One verdict per line; concurrent calls share device batches."""
@@ -72,8 +132,18 @@ class AsyncFilterService:
             raise RuntimeError("AsyncFilterService is closed")
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
-        self._pending.append((payload, offsets, n, fut, time.perf_counter()))
+        # The caller's trace context rides its entry: the group's
+        # dispatch span parents under the first traced member.
+        ctx = trace.TRACER.current_context()
+        if ctx is not None:
+            trace.TRACER.event("coalescer.enqueue", lines=n,
+                               queue_depth=len(self._pending))
+        self._pending.append((payload, offsets, n, fut, time.perf_counter(),
+                              ctx))
         self._pending_lines += n
+        if self._m is not None:
+            self._m["depth"].set(len(self._pending))
+            self._m["pending"].set(self._pending_lines)
         if self._pending_lines >= COALESCE_LINES:
             self._kick(loop)
         elif self._kick_handle is None:
@@ -89,6 +159,9 @@ class AsyncFilterService:
             return
         group, self._pending = self._pending, []
         self._pending_lines = 0
+        if self._m is not None:
+            self._m["depth"].set(0)
+            self._m["pending"].set(0)
         task = loop.create_task(self._run_group(group))
         self._tasks.add(task)
         task.add_done_callback(self._tasks.discard)
@@ -104,6 +177,8 @@ class AsyncFilterService:
                 sub.append(e)
                 size += len(e[0])
             subs.append(sub)
+            if self._m is not None:
+                self._m["splits"].inc(len(subs) - 1)
             for sub in subs:
                 await self._run_group(sub)
             return
@@ -118,29 +193,61 @@ class AsyncFilterService:
             parts.append(np.asarray([base], dtype=np.int64))
             offsets = np.concatenate(parts).astype(np.int32)
         loop = asyncio.get_running_loop()
-        try:
-            if self._sem is None:
-                self._sem = asyncio.Semaphore(MAX_IN_FLIGHT)
-            async with self._sem:
-                t_dispatch = time.perf_counter()
-                if self._stats is not None:
-                    self._stats.mark_batch_started(t_dispatch)
-                    for e in group:
-                        self._stats.record_queue_wait(t_dispatch - e[4])
-                handle = self._filter.dispatch_framed(payload, offsets)
-                self.batches_dispatched += 1
-                verdicts = await loop.run_in_executor(
-                    self._pool, self._filter.fetch_framed, handle)
-                if self._stats is not None:
-                    self._stats.record_device_batch(
-                        time.perf_counter() - t_dispatch)
-        except Exception as e:
-            for _, _, _, fut, _ in group:
-                if not fut.done():
-                    fut.set_exception(e)
-            return
+        # One trace carries the group's story: the first member with a
+        # sampled context parents the span, the others are linked as
+        # events.
+        parent = next(
+            (e[5] for e in group if e[5] is not None and e[5].sampled),
+            next((e[5] for e in group if e[5] is not None), None))
+        with trace.TRACER.span("coalescer.dispatch", parent=parent,
+                               members=len(group),
+                               lines=len(offsets) - 1) as sp:
+            for e in group:
+                ctx = e[5]
+                if (ctx is not None and ctx is not parent
+                        and getattr(ctx, "sampled", False)):
+                    sp.add_event("coalescer.link",
+                                 trace_id=f"{ctx.trace_id:032x}",
+                                 span_id=f"{ctx.span_id:016x}")
+            try:
+                t_sem = time.perf_counter()
+                if self._sem is None:
+                    self._sem = asyncio.Semaphore(MAX_IN_FLIGHT)
+                async with self._sem:
+                    t_dispatch = time.perf_counter()
+                    if self._stats is not None:
+                        self._stats.mark_batch_started(t_dispatch)
+                        for e in group:
+                            self._stats.record_queue_wait(t_dispatch - e[4])
+                    if self._m is not None:
+                        self._m["bp_wait"].observe(t_dispatch - t_sem)
+                        self._m["groups"].inc()
+                        self._m["members"].observe(len(group))
+                        self._m["lines"].observe(len(offsets) - 1)
+                    sp.add_event("coalescer.dispatching",
+                                 backpressure_wait_s=t_dispatch - t_sem)
+                    handle = self._filter.dispatch_framed(payload, offsets)
+                    self.batches_dispatched += 1
+                    if self._m is not None:
+                        self._m["dispatch"].observe(
+                            time.perf_counter() - t_dispatch)
+                    with trace.TRACER.span("device.fetch"):
+                        verdicts = await loop.run_in_executor(
+                            self._pool, self._filter.fetch_framed, handle)
+                    if self._stats is not None:
+                        self._stats.record_device_batch(
+                            time.perf_counter() - t_dispatch)
+            except Exception as e:
+                # The error goes to every member's future (and from there
+                # to its sink); the span says it failed.
+                sp.set_status("error")
+                sp.set_attr("error", f"{type(e).__name__}: {e}")
+                for _, _, _, fut, *_ in group:
+                    if not fut.done():
+                        fut.set_exception(e)
+                return
         off = 0
-        for _, _, n, fut, _ in group:
+        for _, _, n, fut, *_ in group:
             if not fut.done():
                 fut.set_result(verdicts[off:off + n])
             off += n
@@ -149,6 +256,7 @@ class AsyncFilterService:
         """Dispatch any coalescing lines, drain in-flight batches, then
         release the pool and the engine."""
         self._closed = True
+        self._drop_probes()
         if self._pending:
             self._kick(asyncio.get_running_loop())
         elif self._kick_handle is not None:

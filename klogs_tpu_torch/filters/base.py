@@ -25,9 +25,15 @@ _INT32_MAX = 2**31 - 1
 
 
 class FilterStats:
-    """The pipeline numbers behind ``--stats``: lines in and matched,
-    and three latency series kept apart so saturation can be told
-    from engine time:
+    """The pipeline numbers behind ``--stats``, as a view over a
+    Registry: every number lives in a metric family (the objects a
+    /metrics scrape and the ``--stats-json`` dump read), so the summary
+    and the scrape cannot disagree. By default each FilterStats owns a
+    private Registry; ``app.run_async`` passes the run's own when
+    ``--metrics-port`` or ``--stats-json`` asks for one.
+
+    Three latency series are kept apart so saturation can be told from
+    engine time:
 
     - batch (end to end): the sink's await, enqueue -> verdicts;
     - queue: enqueue -> device dispatch (recorded by AsyncFilterService);
@@ -39,91 +45,199 @@ class FilterStats:
     ``pf_disabled_reason`` says why a requested pair-CNF gate is off.
     """
 
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.lines_in = 0
-        self.lines_matched = 0
-        self.batches = 0
-        self.deadline_flushes = 0
-        self._batch_s: list[float] = []
-        self._queue_s: list[float] = []
-        self._device_s: list[float] = []
+    def __init__(self, registry=None):
+        from klogs_tpu_torch.obs.metrics import Registry
+
+        self.registry = registry if registry is not None else Registry()
+        r = self.registry
+        self._lines_in = r.family("klogs_sink_lines_total")
+        self._lines_matched = r.family("klogs_sink_lines_matched_total")
+        self._bytes_in = r.family("klogs_sink_bytes_in_total")
+        self._bytes_out = r.family("klogs_sink_bytes_out_total")
+        self._batches = r.family("klogs_sink_batches_total")
+        self._deadline_flushes = r.family("klogs_sink_deadline_flush_total")
+        self._batch = r.family("klogs_sink_batch_latency_seconds")
+        self._queue = r.family("klogs_coalescer_queue_wait_seconds")
+        self._device = r.family("klogs_engine_device_batch_seconds")
+        self._pf_lines = r.family("klogs_engine_prefilter_lines_total")
+        self._pf_candidates = r.family(
+            "klogs_engine_prefilter_candidates_total")
+        self._pf_tiles = r.family("klogs_engine_prefilter_tiles_total")
+        self._pf_tiles_live = r.family(
+            "klogs_engine_prefilter_tiles_live_total")
+        self._compiles = r.family("klogs_engine_compile_total")
+        self._bucket_width = r.family("klogs_engine_bucket_width_bytes")
+        self._pad_bytes = r.family("klogs_engine_pad_bytes_total")
+        self._payload_bytes = r.family("klogs_engine_payload_bytes_total")
+        self._sweep_batches = r.family("klogs_sweep_batches_total")
+        self._sweep_lines = r.family("klogs_sweep_lines_total")
+        self._sweep_cand = r.family("klogs_sweep_candidate_lines_total")
+        self._degraded_batches = r.family(
+            "klogs_filter_degraded_batches_total")
+        self._degraded_lines = r.family(
+            "klogs_filter_degraded_lines_total")
+        self.pf_disabled_reason: str | None = None
         self.started_at = time.perf_counter()
         # lines_per_sec counts from the first batch's dispatch, not from
         # construction, so engine warm-up does not deflate short runs.
+        # The first write races between the dispatch loop and
+        # synchronous record_batch callers, hence the lock.
+        self._t_lock = threading.Lock()
         self.first_batch_started_at: float | None = None
-        self.pf_lines = 0
-        self.pf_candidates = 0
-        self.pf_tiles_total = 0
-        self.pf_tiles_live = 0
-        self.pf_disabled_reason: str | None = None
-        self.sweep_batches = 0
-        self.sweep_lines = 0
-        self.sweep_candidates = 0
+
+    # -- counter views -------------------------------------------------
+
+    @property
+    def lines_in(self) -> int:
+        return int(self._lines_in.value)
+
+    @property
+    def lines_matched(self) -> int:
+        return int(self._lines_matched.value)
+
+    @property
+    def bytes_in(self) -> int:
+        return int(self._bytes_in.value)
+
+    @property
+    def bytes_out(self) -> int:
+        return int(self._bytes_out.value)
+
+    @property
+    def batches(self) -> int:
+        return int(self._batches.value)
+
+    @property
+    def deadline_flushes(self) -> int:
+        return int(self._deadline_flushes.value)
+
+    @property
+    def degraded_lines(self) -> int:
+        """Lines that took any degrade action, summed over actions."""
+        return int(sum(child.value
+                       for _lv, child in self._degraded_lines.children()))
+
+    @property
+    def pf_lines(self) -> int:
+        return int(self._pf_lines.value)
+
+    @property
+    def pf_candidates(self) -> int:
+        return int(self._pf_candidates.value)
+
+    @property
+    def pf_tiles_total(self) -> int:
+        return int(self._pf_tiles.value)
+
+    @property
+    def pf_tiles_live(self) -> int:
+        return int(self._pf_tiles_live.value)
+
+    @staticmethod
+    def _sum(family) -> int:
+        return int(sum(child.value for _lv, child in family.children()))
+
+    @property
+    def sweep_batches(self) -> int:
+        return self._sum(self._sweep_batches)
+
+    @property
+    def sweep_lines(self) -> int:
+        return self._sum(self._sweep_lines)
+
+    @property
+    def sweep_candidates(self) -> int:
+        return self._sum(self._sweep_cand)
+
+    # -- recording -----------------------------------------------------
 
     def mark_batch_started(self, t: float | None = None) -> None:
-        with self._lock:
+        """The first filtered batch's dispatch time (AsyncFilterService
+        calls this at dispatch)."""
+        with self._t_lock:
             if self.first_batch_started_at is None:
                 self.first_batch_started_at = (
                     t if t is not None else time.perf_counter())
 
-    def record_batch(self, n_lines: int, n_matched: int,
-                     latency_s: float) -> None:
-        with self._lock:
+    def record_batch(self, n_lines: int, n_matched: int, n_bytes_in: int,
+                     n_bytes_out: int, latency_s: float) -> None:
+        with self._t_lock:
             if self.first_batch_started_at is None:
                 # Synchronous paths never mark a dispatch.
                 self.first_batch_started_at = (
                     time.perf_counter() - latency_s)
-            self.lines_in += n_lines
-            self.lines_matched += n_matched
-            self.batches += 1
-            self._batch_s.append(latency_s)
+        self._lines_in.inc(n_lines)
+        self._lines_matched.inc(n_matched)
+        self._bytes_in.inc(n_bytes_in)
+        self._bytes_out.inc(n_bytes_out)
+        self._batches.inc()
+        # The exemplar links the latency sample to the batch's trace,
+        # when one records it.
+        from klogs_tpu_torch.obs.trace import TRACER
+
+        self._batch.observe(latency_s, exemplar=TRACER.exemplar())
 
     def record_deadline_flush(self) -> None:
         """A flush forced by the follow-mode deadline (not batch size):
         the sign that sinks run latency-bound."""
-        with self._lock:
-            self.deadline_flushes += 1
+        self._deadline_flushes.inc()
 
     def record_prefilter(self, n_lines: int, n_candidates: int,
                          n_tiles: int, n_tiles_live: int) -> None:
-        with self._lock:
-            self.pf_lines += n_lines
-            self.pf_candidates += n_candidates
-            self.pf_tiles_total += n_tiles
-            self.pf_tiles_live += n_tiles_live
+        self._pf_lines.inc(n_lines)
+        self._pf_candidates.inc(n_candidates)
+        self._pf_tiles.inc(n_tiles)
+        self._pf_tiles_live.inc(n_tiles_live)
 
-    def record_sweep(self, n_lines: int, n_candidates: int) -> None:
-        """One batch narrowed by the device literal sweep."""
-        with self._lock:
-            self.sweep_batches += 1
-            self.sweep_lines += n_lines
-            self.sweep_candidates += n_candidates
+    def record_sweep(self, path: str, n_lines: int,
+                     n_candidates: int) -> None:
+        """One batch narrowed by the literal sweep; ``path`` is the stage
+        that ran it (the port's sweep is the ``device`` one)."""
+        self._sweep_batches.labels(path=path).inc()
+        self._sweep_lines.labels(path=path).inc(n_lines)
+        self._sweep_cand.labels(path=path).inc(n_candidates)
 
     def record_queue_wait(self, wait_s: float) -> None:
-        with self._lock:
-            self._queue_s.append(wait_s)
+        self._queue.observe(wait_s)
 
     def record_device_batch(self, latency_s: float) -> None:
-        with self._lock:
-            self._device_s.append(latency_s)
+        from klogs_tpu_torch.obs.trace import TRACER
 
-    @staticmethod
-    def _pct(samples: list[float], q: float) -> float:
-        return float(np.percentile(samples, q)) if samples else 0.0
+        self._device.observe(latency_s, exemplar=TRACER.exemplar())
+
+    def record_degraded(self, action: str, n_lines: int) -> None:
+        """One sink flush handled by the degrade policy instead of the
+        filter: ``action`` is what happened to its lines."""
+        self._degraded_batches.labels(action=action).inc()
+        self._degraded_lines.labels(action=action).inc(n_lines)
+
+    def record_engine_batch(self, width: int, rows: int,
+                            payload_bytes: int) -> None:
+        """One width-bucketed sub-batch on the device: the bucket width
+        and the padding (bucketed rows x width less the payload)."""
+        self._bucket_width.observe(width)
+        self._payload_bytes.inc(payload_bytes)
+        self._pad_bytes.inc(max(0, width * rows - payload_bytes))
+
+    def record_compile(self, n: int = 1) -> None:
+        """Kernel libraries built or loaded (``ops/_build.py``) by the
+        engine's launches: the port's cold-start cost."""
+        self._compiles.inc(n)
+
+    # -- the summary ---------------------------------------------------
 
     def percentile_latency_s(self, q: float) -> float:
-        return self._pct(self._batch_s, q)
+        return self._batch.percentile(q)
 
     def percentile_queue_s(self, q: float) -> float:
-        return self._pct(self._queue_s, q)
+        return self._queue.percentile(q)
 
     def percentile_device_s(self, q: float) -> float:
-        return self._pct(self._device_s, q)
+        return self._device.percentile(q)
 
     @property
     def has_service_latencies(self) -> bool:
-        return bool(self._device_s)
+        return self._device.count > 0
 
     def lines_per_sec(self) -> float:
         start = (self.first_batch_started_at

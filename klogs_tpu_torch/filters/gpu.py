@@ -52,6 +52,15 @@ code runs synchronously, with the kernels' plain versions and an
 ordinary host buffer. With a ``FilterStats``, the gate's per-batch
 counts ride back with the verdicts (same pinned copy, same event) and
 are recorded at fetch.
+
+Trace spans (``obs/trace.py``), as the JAX engine's mean them: a
+``device.frame`` span is host framing (the batch's newline strip, width
+buckets and staging copy, with one child a width bucket for its slice of
+the metadata: ``width``, ``rows``, ``path``); a ``device.kernel`` span is
+one sub-batch's enqueue (``pack_rows``, classify, the gate, the kernel;
+``swept=True`` under the sweep gate), not its run on the card. The
+card's time shows in the coalescer's ``device.fetch``. No span, counter
+or probe here waits on the card.
 """
 
 import numpy as np
@@ -67,7 +76,16 @@ from klogs_tpu_torch.filters.cpu import (
     device_gate_choice,
     note_sweep_supersedes,
 )
-from klogs_tpu_torch.ops import nfa, nfa_kernels, pack, prefilter, sweep, tune
+from klogs_tpu_torch.obs import trace
+from klogs_tpu_torch.ops import (
+    _build,
+    nfa,
+    nfa_kernels,
+    pack,
+    prefilter,
+    sweep,
+    tune,
+)
 from klogs_tpu_torch.ops.bits import pack_bits
 from klogs_tpu_torch.ui import term
 from klogs_tpu_torch.utils.env import read as env_read
@@ -222,49 +240,78 @@ class GpuEngineFilter(LogFilter):
             return (0, [], None)
         if self._match_all:
             return (n, None, None)
-        layout, meta = self._layout(payload, offsets)
-        meta_d, payload_d = self._stage(payload, meta)
+        tr = trace.TRACER
+        path = self._path()
+        loaded = _build.loaded_count()
+        with tr.span("device.frame", rows=n, bytes=len(payload), path=path,
+                     staged=True):
+            layout, meta = self._layout(payload, offsets, path)
+            meta_d, payload_d = self._stage(payload, meta)
         parts, at = [], 0
         for idx, width, rows, longest in layout:
             starts_d = meta_d[at:at + rows]
             lens_d = meta_d[at + rows:at + 2 * rows]
+            n_bytes = int(meta[at + rows:at + 2 * rows].sum())
             at += 2 * rows
             if width is None:
-                parts.append((idx, self._match_long(payload_d, starts_d,
-                                                    lens_d, longest), None))
-            else:
+                chunks = -(-longest // self._chunk_bytes)
+                with tr.span("device.kernel", width=self._chunk_bytes,
+                             rows=rows, chunks=chunks):
+                    parts.append((idx, self._match_long(
+                        payload_d, starts_d, lens_d, longest), None))
+                continue
+            self._record_sub_batch(width, rows, n_bytes)
+            with tr.span("device.kernel", width=width, rows=rows,
+                         **({"swept": True} if path == "bytes" else {})):
                 batch = pack.pack_rows(payload_d, starts_d, lens_d, width,
                                        rows)
                 parts.append((idx, *self._match_short(batch, lens_d)))
+        if self._stats is not None and _build.loaded_count() > loaded:
+            self._stats.record_compile(_build.loaded_count() - loaded)
         return self._start_fetch(n, parts)
 
-    def _layout(self, payload: bytes, offsets):
+    def _path(self) -> str:
+        """The JAX engine's name for the short lines' path: ``bytes``
+        when the literal sweep reads the rows' bytes, else ``cls``."""
+        return "bytes" if self._sweep_tables is not None else "cls"
+
+    def _record_sub_batch(self, width: int, rows: int,
+                          payload_bytes: int) -> None:
+        """A width bucket's geometry and padding (no-op without
+        stats)."""
+        if self._stats is not None:
+            self._stats.record_engine_batch(width, rows, payload_bytes)
+
+    def _layout(self, payload: bytes, offsets, path: str = "cls"):
         """The host's share of a framed batch, per-line work only: a list
         of (line indices, width or None for the long lines, rows, longest
-        length) per sub-batch, and the int64 metadata the device reads,
-        each sub-batch's starts then lengths (trailing newlines
-        stripped), zero-padded to its rows."""
+        length) per sub-batch, the int64 metadata the device reads, each
+        sub-batch's starts then lengths (trailing newlines stripped),
+        zero-padded to its rows. Each sub-batch's slice is a
+        ``device.frame`` span (``path`` is its attribute; the long
+        lines' is ``long``)."""
         starts, ends = strip_newlines(payload, offsets)
         lens = ends - starts
         short = lens <= self._chunk_bytes
-        layout = []
+        buckets = []
         if bool(short.any()):
             width_of = self._width_buckets(lens, short, len(lens))
-            for w in np.unique(width_of[short]):
-                sel = np.nonzero(short & (width_of == w))[0]
-                layout.append((sel, int(w), _bucket_batch(len(sel)),
-                               int(lens[sel].max())))
+            buckets = [(short & (width_of == w), int(w), path)
+                       for w in np.unique(width_of[short])]
         if not bool(short.all()):
-            rest = np.nonzero(~short)[0]
-            layout.append((rest, None, _bucket_batch(len(rest)),
-                           int(lens[rest].max())))
-        meta = np.zeros(2 * sum(rows for _, _, rows, _ in layout),
-                        dtype=np.int64)
-        at = 0
-        for idx, _, rows, _ in layout:
-            meta[at:at + len(idx)] = starts[idx]
-            meta[at + rows:at + rows + len(idx)] = lens[idx]
-            at += 2 * rows
+            buckets.append((~short, None, "long"))
+        layout, parts = [], []
+        for mask, w, p in buckets:
+            sel = np.nonzero(mask)[0]
+            rows = _bucket_batch(len(sel))
+            with trace.TRACER.span("device.frame", width=w, rows=rows,
+                                   path=p):
+                part = np.zeros(2 * rows, dtype=np.int64)
+                part[:len(sel)] = starts[sel]
+                part[rows:rows + len(sel)] = lens[sel]
+            layout.append((sel, w, rows, int(lens[sel].max())))
+            parts.append(part)
+        meta = np.concatenate(parts) if parts else np.zeros(0, np.int64)
         return layout, meta
 
     def _stage(self, payload: bytes, meta: np.ndarray):
@@ -369,4 +416,4 @@ class GpuEngineFilter(LogFilter):
         n_cand = min(n_cand, n_lines)
         self._stats.record_prefilter(n_lines, n_cand, n_tiles, n_live)
         if self._sweep_tables is not None:
-            self._stats.record_sweep(n_lines, n_cand)
+            self._stats.record_sweep("device", n_lines, n_cand)

@@ -8,6 +8,15 @@ next write and by the pipeline's follow-mode deadline flusher), and at
 close, and writes only kept lines, in the original order.
 ``make_pipeline`` builds the shared engine, its AsyncFilterService and
 the per-container sink factory.
+
+Each flush is a ``sink.flush`` span (a child of the chunk's
+``fanout.read`` span, or a root under the deadline flusher and at
+close), and the write of its kept lines a ``sink.write`` span (``bytes``
+and, beyond the JAX span's attributes, ``lines``). The
+``sink.degrade`` event and its flight-recorder trigger mark a batch the
+filter service could not filter (``Unavailable``); the port's in-process
+service never raises that, and with no ``--on-filter-error`` yet the
+batch's error ends the run, as the JAX default ``abort`` does.
 """
 
 import asyncio
@@ -21,6 +30,8 @@ import numpy as np
 from klogs_tpu_torch.filters.async_service import AsyncFilterService
 from klogs_tpu_torch.filters.base import FilterStats, LogFilter, build_include_exclude
 from klogs_tpu_torch.filters.framer import FramedBatcher, join_kept_framed
+from klogs_tpu_torch.obs import trace
+from klogs_tpu_torch.resilience.policy import Unavailable
 from klogs_tpu_torch.runtime.fanout import StreamJob
 from klogs_tpu_torch.runtime.sink import FileSink, Sink
 from klogs_tpu_torch.ui import term
@@ -65,20 +76,41 @@ class FilteredSink(Sink):
     async def _flush_pending(self, final: bool = False) -> None:
         if self._flush_lock is None:
             self._flush_lock = asyncio.Lock()
-        async with self._flush_lock:
-            payload, offsets, n = self._batcher.take(final=final)
-            self._pending_since = None
-            if n == 0:
-                return
-            t0 = time.perf_counter()
+        with trace.TRACER.span("sink.flush",
+                               pending=self._batcher.pending_lines):
+            async with self._flush_lock:
+                await self._flush_locked(final)
+
+    async def _flush_locked(self, final: bool) -> None:
+        payload, offsets, n = self._batcher.take(final=final)
+        self._pending_since = None
+        if n == 0:
+            return
+        t0 = time.perf_counter()
+        try:
             mask = await self._service.match_framed(payload, offsets)
-            latency = time.perf_counter() - t0
-            out = join_kept_framed(payload, offsets, mask)
-            if out:
+        except Unavailable as e:
+            self._degrade(e)
+            raise
+        latency = time.perf_counter() - t0
+        n_kept = int(np.count_nonzero(mask))
+        out = join_kept_framed(payload, offsets, mask)
+        if out:
+            with trace.TRACER.span("sink.write", bytes=len(out),
+                                   lines=n_kept):
                 await self._inner.write(out)
-            self._stats.record_batch(
-                n_lines=n, n_matched=int(np.count_nonzero(mask)),
-                latency_s=latency)
+        self._stats.record_batch(
+            n_lines=n, n_matched=n_kept, n_bytes_in=len(payload),
+            n_bytes_out=len(out), latency_s=latency)
+
+    @staticmethod
+    def _degrade(e: Unavailable) -> None:
+        """A batch the filter service could not filter: annotate it and
+        arm a flight-recorder dump. The action is the JAX default,
+        ``abort``: the caller raises."""
+        trace.TRACER.event("sink.degrade", action="abort", error=str(e))
+        trace.flight_trigger("filter-degrade", action="abort",
+                             error=str(e))
 
     async def flush_if_stale(self) -> None:
         """Flush the pending lines once the oldest has waited
@@ -190,15 +222,16 @@ class FilterPipeline:
 def make_pipeline(patterns: list[str], backend: str = "cuda",
                   ignore_case: bool = False,
                   exclude: list[str] | None = None,
-                  device=None) -> FilterPipeline:
+                  device=None, registry=None) -> FilterPipeline:
     """The --match/--exclude pipeline on the GPU engine. ``device=None``
     means ``"cuda"`` (raising where there is no card); tests pass
-    ``"cpu"``."""
+    ``"cpu"``. ``registry`` (an obs Registry) backs the stats for a
+    /metrics sidecar or a --stats-json dump; None keeps them private."""
     if backend != "cuda":
         raise ValueError(f"unknown filter backend {backend!r}")
     from klogs_tpu_torch.filters.gpu import GpuEngineFilter
 
-    stats = FilterStats()
+    stats = FilterStats(registry=registry)
     log_filter = build_include_exclude(
         lambda pats: GpuEngineFilter(pats, ignore_case=ignore_case,
                                      device=device, stats=stats),

@@ -97,3 +97,9 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build(name))
             _loaded[name] = lib
         return lib
+
+
+def loaded_count() -> int:
+    """Kernel libraries loaded in this process so far (each built by
+    nvcc or found in the build directory at its first use)."""
+    return len(_loaded)

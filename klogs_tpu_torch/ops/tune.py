@@ -19,8 +19,12 @@ kernel than the one an operator asked to measure would corrupt the
 pick by measurement. No variant is defaulted on any device until a
 measurement on the card sets one.
 
-The JAX module's sweep telemetry and its ``AdaptiveController`` need
-the obs and resilience layers, which are not ported.
+Each ``tune_grouped`` sweep counts into ``klogs_engine_tune_runs_total``
+and sets ``klogs_engine_tune_best_lines_per_second`` (the caller's
+registry, else the process-wide one). The JAX module's
+``AdaptiveController`` (``KLOGS_TUNE=auto``) is not ported: its envelope
+is an operating-point sweep of the TPU, and the card has none yet, so
+``tune_mode`` refuses ``auto`` rather than run the fixed flags quietly.
 """
 
 import functools
@@ -110,14 +114,16 @@ def measure_grouped(prog: Any, live: int, acc: int, cls: torch.Tensor,
 def tune_grouped(prog: Any, live: int, acc: int, cls: torch.Tensor,
                  repeats: int = 3, n_flight: int = 6,
                  runner: "Callable[..., float] | None" = None,
-                 quiet: bool = False) -> dict:
+                 quiet: bool = False, registry: Any = None) -> dict:
     """Time every variant of ``CANDIDATE_VARIANTS`` on ``cls`` ([B, T]
     class ids) and return the winner, ``{**variant, "lines_per_s",
     "results"}`` (``results``: every variant that ran, as
     ``{**variant, "lines_per_s"}``), caching it. ``runner(**variant) ->
     lines/s`` is injectable for tests;
     the default is ``measure_grouped`` on the card, and a ``cls`` off the
-    card then raises. A variant whose runner raises is skipped."""
+    card then raises. A variant whose runner raises is skipped. The
+    sweep's telemetry goes to ``registry`` (an obs Registry), else to
+    the process-wide one."""
     if runner is None:
         if cls.device.type != "cuda":
             raise RuntimeError(
@@ -141,6 +147,11 @@ def tune_grouped(prog: Any, live: int, acc: int, cls: torch.Tensor,
     if not results:
         raise RuntimeError("kernel tuning failed for every candidate config")
     best = dict(max(results, key=lambda r: r["lines_per_s"]), results=results)
+    if registry is None:
+        from klogs_tpu_torch.obs import REGISTRY as registry
+    registry.family("klogs_engine_tune_runs_total").inc()
+    registry.family("klogs_engine_tune_best_lines_per_second").set(
+        best["lines_per_s"])
     _store(prog, cls.shape, device_kind(cls.device), best)
     return best
 
@@ -167,3 +178,19 @@ def chain_selection() -> dict:
     by ``filters/cpu.py`` ``check_fused_gates`` when the engine is
     built."""
     return env_overrides()
+
+
+def tune_mode() -> str:
+    """``KLOGS_TUNE``: ``off`` (the default: the fixed flags). ``auto``,
+    the JAX package's adaptive controller, raises ``ValueError``: it is
+    not ported yet. Anything else raises as in the JAX package."""
+    raw = env_read("KLOGS_TUNE")
+    mode = (raw or "off").strip().lower()
+    if mode == "auto":
+        raise ValueError(
+            "KLOGS_TUNE=auto: the adaptive operating-point controller is "
+            "not ported to the CUDA engine yet (it needs an operating-point "
+            "sweep of the card); unset KLOGS_TUNE or set it to off")
+    if mode != "off":
+        raise ValueError(f"KLOGS_TUNE must be 'off' or 'auto', got {raw!r}")
+    return mode

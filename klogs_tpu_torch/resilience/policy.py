@@ -1,11 +1,14 @@
 """Policy core: retry with backoff and jitter, per-attempt deadlines,
 and a three-state circuit breaker.
 
-Counterpart of ``klogs_tpu/resilience/policy.py``, without its metrics,
-trace events and fault points (the port has no obs registry or chaos
-layer yet). Everything here runs on the one asyncio event loop the
-pipeline shares, so no locks are needed. ``CircuitBreaker`` takes an
-injectable ``clock`` so state-machine tests never sleep.
+Counterpart of ``klogs_tpu/resilience/policy.py``. Everything here runs
+on the one asyncio event loop the pipeline shares, so no locks are
+needed. ``CircuitBreaker`` takes an injectable ``clock`` so
+state-machine tests never sleep. With a registry bound, the breaker's
+state is the ``klogs_breaker_state`` gauge and ``retry_call``'s retries
+count into ``klogs_retry_attempts_total``; a breaker that opens adds a
+``breaker.open`` event to the batch in flight and arms the flight
+recorder.
 """
 
 import asyncio
@@ -99,11 +102,14 @@ class CircuitBreaker:
     """``failure_threshold`` CONSECUTIVE failures open it; while open,
     ``allow()`` is False; after ``reset_timeout_s`` it half-opens and
     admits ``half_open_max`` probes: one probe success closes it, one
-    probe failure re-opens it for another full window."""
+    probe failure re-opens it for another full window. Its state is
+    ``klogs_breaker_state{breaker=name}`` (0 closed, 1 open, 2
+    half-open) when a registry is bound."""
 
     def __init__(self, name: str = "rpc", failure_threshold: int = 5,
                  reset_timeout_s: float = 10.0, half_open_max: int = 1,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 registry=None):
         self.name = name
         self.failure_threshold = failure_threshold
         self.reset_timeout_s = reset_timeout_s
@@ -113,6 +119,14 @@ class CircuitBreaker:
         self._failures = 0
         self._opened_at = 0.0
         self._probes_in_flight = 0
+        self._gauge = None
+        self.bind_registry(registry)
+
+    def bind_registry(self, registry) -> None:
+        if registry is not None:
+            self._gauge = registry.family("klogs_breaker_state").labels(
+                breaker=self.name)
+            self._gauge.set(self._state)
 
     @property
     def state(self) -> int:
@@ -123,10 +137,23 @@ class CircuitBreaker:
     def state_name(self) -> str:
         return _STATE_NAMES[self.state]
 
+    def _set_state(self, state: int) -> None:
+        prev, self._state = self._state, state
+        if self._gauge is not None:
+            self._gauge.set(state)
+        if state == BREAKER_OPEN and prev != BREAKER_OPEN:
+            # The batch whose failure opened the breaker: annotate it and
+            # arm a flight-recorder dump of its story (no-ops when
+            # tracing is off).
+            from klogs_tpu_torch.obs.trace import TRACER, flight_trigger
+
+            TRACER.event("breaker.open", breaker=self.name)
+            flight_trigger("breaker-open", breaker=self.name)
+
     def _maybe_half_open(self) -> None:
         if (self._state == BREAKER_OPEN
                 and self._clock() - self._opened_at >= self.reset_timeout_s):
-            self._state = BREAKER_HALF_OPEN
+            self._set_state(BREAKER_HALF_OPEN)
             self._probes_in_flight = 0
 
     def allow(self) -> bool:
@@ -150,19 +177,20 @@ class CircuitBreaker:
 
     def record_success(self) -> None:
         self._failures = 0
-        self._state = BREAKER_CLOSED
+        if self._state != BREAKER_CLOSED:
+            self._set_state(BREAKER_CLOSED)
         self._probes_in_flight = 0
 
     def record_failure(self) -> None:
         if self._state == BREAKER_HALF_OPEN:
-            self._state = BREAKER_OPEN
+            self._set_state(BREAKER_OPEN)
             self._opened_at = self._clock()
             self._probes_in_flight = 0
             return
         self._failures += 1
         if (self._state == BREAKER_CLOSED
                 and self._failures >= self.failure_threshold):
-            self._state = BREAKER_OPEN
+            self._set_state(BREAKER_OPEN)
             self._opened_at = self._clock()
 
 
@@ -176,14 +204,26 @@ async def retry_call(
     breaker: "CircuitBreaker | None" = None,
     deadline_s: "float | None" = None,
     stop: "asyncio.Event | None" = None,
+    fault_point: "str | None" = None,
+    fault_target: "str | None" = None,
+    registry=None,
 ) -> object:
     """``await fn(deadline)`` under the policy: the breaker gates each
-    attempt (open -> BreakerOpen at once), a ``retryable`` failure
-    records a breaker failure and backs off stop-aware, exhaustion
-    raises ``Unavailable`` chaining the last cause. Other exceptions
-    propagate untouched and do not trip the breaker. ``describe``
+    attempt (open -> BreakerOpen at once), an armed ``fault_point``
+    fires before it (``fault_target`` is the endpoint handed to
+    ``FAULTS.fire``), a ``retryable`` failure (an InjectedFault always
+    is) records a breaker failure and backs off stop-aware, and
+    exhaustion raises ``Unavailable`` chaining the last cause. Other
+    exceptions propagate untouched and do not trip the breaker.
+    ``site`` labels ``klogs_retry_attempts_total``; ``describe``
     (default ``site``) prefixes the Unavailable message."""
+    from klogs_tpu_torch.resilience.faults import FAULTS, InjectedFault
+
     describe = describe if describe is not None else site
+    retries = None
+    if registry is not None:
+        retries = registry.family("klogs_retry_attempts_total").labels(
+            site=site)
     attempt = 0
     while True:
         if breaker is not None and not breaker.allow():
@@ -191,10 +231,12 @@ async def retry_call(
                 f"{describe}: circuit breaker {breaker.name!r} is open "
                 f"(retry after ~{breaker.reset_timeout_s:.0f}s)")
         try:
+            if fault_point is not None and FAULTS.active:
+                await FAULTS.fire(fault_point, fault_target)
             result = await fn(
                 Deadline(deadline_s) if deadline_s is not None else None)
         except Exception as e:  # noqa: BLE001 - classified below
-            if not retryable(e):
+            if not (isinstance(e, InjectedFault) or retryable(e)):
                 if breaker is not None:
                     breaker.release_probe()
                 raise
@@ -204,6 +246,8 @@ async def retry_call(
                 raise Unavailable(
                     f"{describe}: {e} (after {attempt + 1} attempt"
                     f"{'s' if attempt else ''})") from e
+            if retries is not None:
+                retries.inc()
             if not await policy.sleep(attempt, stop):
                 raise Unavailable(f"{describe}: stopped during retry "
                                   f"backoff ({e})") from e

@@ -18,6 +18,12 @@ and socket sources get the same sinks, reconnects and error isolation.
 A job planned from a source carries its ``SourceRef`` (group and unit
 stand for pod and container); an ``ephemeral`` ref (a socket peer) ends
 at its EOF, with no reconnect and no "premature end" warning.
+
+With a registry (``--metrics-port``/``--stats-json``) the runner counts
+into the ``klogs_fanout_*`` families and ``klogs_retry_attempts_total``
+(site ``fanout``); each chunk's write is a ``fanout.read`` span (the
+root of the batch's trace), and ``run`` registers the profiler's
+``fanout.active_streams`` probe.
 """
 
 import asyncio
@@ -30,6 +36,7 @@ from typing import Callable
 
 from klogs_tpu_torch.cluster.backend import ClusterBackend
 from klogs_tpu_torch.cluster.types import LogOptions, PodInfo
+from klogs_tpu_torch.obs import trace
 from klogs_tpu_torch.resilience.policy import RetryPolicy
 from klogs_tpu_torch.runtime.sink import FileSink, Sink, SinkError
 from klogs_tpu_torch.sources.base import Source, SourceError, SourceRef
@@ -48,6 +55,10 @@ DEFAULT_MAX_RECONNECTS = 5
 RECONNECT_HEALTHY_S = 5.0
 _BACKOFF_BASE_S = 0.5
 _BACKOFF_MAX_S = 10.0
+
+# A sink write blocking this long counts as a backpressure stall (the
+# filter, file or console is the bottleneck, not the stream).
+STALL_THRESHOLD_S = 0.05
 
 
 @dataclass
@@ -128,6 +139,7 @@ class FanoutRunner:
                  open_burst: int = DEFAULT_OPEN_BURST,
                  max_reconnects: int = DEFAULT_MAX_RECONNECTS,
                  create_files: bool = True,
+                 registry=None,
                  source: "Source | None" = None):
         if source is None:
             if backend is None:
@@ -146,6 +158,20 @@ class FanoutRunner:
         self._stop_event: "asyncio.Event | None" = None
         self._streams: list = []
         self._stopping = False
+        self._m = None
+        if registry is not None:
+            self._m = {
+                "active": registry.family("klogs_fanout_active_streams"),
+                "bytes": registry.family("klogs_fanout_stream_bytes_total"),
+                "reconnects": registry.family(
+                    "klogs_fanout_reconnects_total"),
+                "errors": registry.family(
+                    "klogs_fanout_stream_errors_total"),
+                "stalls": registry.family(
+                    "klogs_fanout_backpressure_stalls_total"),
+                "retries": registry.family(
+                    "klogs_retry_attempts_total").labels(site="fanout"),
+            }
 
     def _stop_ev(self) -> asyncio.Event:
         if self._stop_event is None:
@@ -190,6 +216,10 @@ class FanoutRunner:
             timestamps=self.log_opts.timestamps,
             since_time=self.log_opts.since_time)
         sink = self.sink_factory(job)
+        # The labeled children, looked up once rather than per chunk.
+        m_bytes = (self._m["bytes"].labels(pod=job.pod,
+                                           container=job.container)
+                   if self._m is not None else None)
         attempt = 0
         # When data last arrived, kept ACROSS reconnects: an unproductive
         # reconnect must not advance it, or the gap would be skipped.
@@ -215,17 +245,30 @@ class FanoutRunner:
                     await stream.close()
                     return result
                 self._streams.append(stream)
+                if self._m is not None:
+                    self._m["active"].inc()
                 opened_at = time.monotonic()
                 if last_data is None:
                     last_data = opened_at
                 got_data = False
                 stream_err: SourceError | None = None
                 sink_err: SinkError | None = None
+                # Each chunk's write is the root of its batch's trace (a
+                # no-op singleton when sampling is off).
+                tr = trace.TRACER
                 try:
                     async for chunk in stream:
                         got_data = True
                         last_data = time.monotonic()
-                        await sink.write(chunk)
+                        if m_bytes is not None:
+                            m_bytes.inc(len(chunk))
+                        with tr.span("fanout.read", pod=job.pod,
+                                     container=job.container,
+                                     bytes=len(chunk)):
+                            await sink.write(chunk)
+                        if (m_bytes is not None and time.monotonic()
+                                - last_data >= STALL_THRESHOLD_S):
+                            self._m["stalls"].inc()
                 except SourceError as e:
                     stream_err = e
                 except SinkError as e:
@@ -234,6 +277,8 @@ class FanoutRunner:
                     await stream.close()
                     try:
                         self._streams.remove(stream)
+                        if self._m is not None:
+                            self._m["active"].dec()
                     except ValueError:
                         pass
 
@@ -284,6 +329,8 @@ class FanoutRunner:
                                job.container, e)
                     result.error = str(e)
             result.bytes_written = sink.bytes_written
+            if self._m is not None and result.error is not None:
+                self._m["errors"].inc()
 
     def _reconnect_policy(self) -> RetryPolicy:
         """max_reconnects retries (max_attempts counts the first open
@@ -310,6 +357,10 @@ class FanoutRunner:
             policy.max_attempts - 1)
         if not await policy.wait(delay, self._stop_ev()):
             return False  # stop fired during the backoff
+        if not self._stopping and self._m is not None:
+            self._m["reconnects"].labels(
+                pod=job.pod, container=job.container).inc()
+            self._m["retries"].inc()
         return not self._stopping
 
     def _create_file(self, job: StreamJob) -> None:
@@ -370,6 +421,13 @@ class FanoutRunner:
         ``discover_interval_s``; with it the run ends only on ``stop``."""
         # Off the loop: truncating hundreds of files is disk I/O.
         await asyncio.to_thread(self._create_all_files, jobs)
+        # The profiler's open-stream count, dropped with the run.
+        from klogs_tpu_torch.obs.profiler import PROFILER
+
+        def _streams_probe() -> float:
+            return float(len(self._streams))
+
+        PROFILER.add_probe("fanout.active_streams", _streams_probe)
         tasks: list[asyncio.Task] = [
             asyncio.create_task(self._worker(j)) for j in jobs]
         seen = {(j.pod, j.container, j.init) for j in jobs}
@@ -410,6 +468,8 @@ class FanoutRunner:
                             "pod discovery stopped unexpectedly: %s", e)
                 if stop_task is not None:
                     stop_task.cancel()
+                PROFILER.remove_probe("fanout.active_streams",
+                                      _streams_probe)
             return await asyncio.gather(*tasks)
         except BaseException:
             # A worker raised (or run() was cancelled): close every other

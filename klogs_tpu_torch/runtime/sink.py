@@ -4,10 +4,14 @@ Counterpart of ``klogs_tpu/runtime/sink.py``. FileSink is the
 reference's buffered whole-stream copy: chunks go to a buffered file
 untouched. A write or flush failure marks the sink failed with one
 ``SinkError`` naming the path and releases the file at once; every later
-write raises the same error.
+write raises the same error. ``sink.write`` is a fault point
+(``resilience/faults.py``): a fired fault fails the sink as a full disk
+would.
 """
 
 import abc
+
+from klogs_tpu_torch.resilience.faults import FAULTS, InjectedFault
 
 
 class SinkError(Exception):
@@ -56,8 +60,10 @@ class FileSink(Sink):
         if self._failed is not None:
             raise SinkError(self._failed)
         try:
+            if FAULTS.active:
+                await FAULTS.fire("sink.write")
             self._f.write(chunk)
-        except OSError as e:
+        except (OSError, InjectedFault) as e:
             raise self._fail("write to", e) from e
         self._bytes += len(chunk)
 

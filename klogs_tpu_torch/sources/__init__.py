@@ -13,6 +13,7 @@ from klogs_tpu_torch.sources.base import (
     Source,
     SourceConfigError,
     SourceError,
+    SourceMetrics,
     SourceRef,
     SourceStream,
     safe_group_name,
@@ -25,6 +26,7 @@ __all__ = [
     "Source",
     "SourceConfigError",
     "SourceError",
+    "SourceMetrics",
     "SourceRef",
     "SourceStream",
     "make_source",

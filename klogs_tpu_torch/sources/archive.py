@@ -19,6 +19,13 @@ Errors: a gzip or zstd member that ends mid-stream raises
 decoding stopped, and corrupt bytes raise the same with the codec's
 detail. zstd needs the ``zstandard`` package and is refused with
 ``SourceConfigError`` without it.
+
+Each slab's inflate and newline cut, in the producer thread, is a
+``source.read`` span (the wait in ``put``, where the engine's
+backpressure parks the thread, is outside it: waiting for the consumer
+is not the source's cost). ``source.readahead_slabs``, a profiler probe,
+is the slabs queued over every live set; ``source.open`` and
+``source.read`` are fault points.
 """
 
 from __future__ import annotations
@@ -31,12 +38,16 @@ import zlib
 from typing import Iterator, Union
 
 from klogs_tpu_torch.cluster.types import LogOptions
+from klogs_tpu_torch.obs import trace
+from klogs_tpu_torch.obs.profiler import PROFILER
 from klogs_tpu_torch.sources.base import (
     Source,
     SourceConfigError,
     SourceError,
+    SourceMetrics,
     SourceRef,
     SourceStream,
+    fire_fault,
     safe_group_name,
 )
 from klogs_tpu_torch.sources.replay import _expand_paths
@@ -82,10 +93,13 @@ class ArchiveStream(SourceStream):
     queue and the thread-safe wake-up."""
 
     def __init__(self, ref: SourceRef, members: "list[str]", *,
+                 metrics: "SourceMetrics | None" = None,
                  readahead_slabs: int = 8,
                  slab_bytes: int = DEFAULT_SLAB_BYTES) -> None:
         self._ref = ref
         self._members = list(members)
+        self._metrics = metrics if metrics is not None else SourceMetrics(
+            ref.kind)
         self._readahead = max(1, readahead_slabs)
         self._slab = slab_bytes
         self._q: "queue.Queue[_Item] | None" = None
@@ -126,35 +140,48 @@ class ArchiveStream(SourceStream):
             for path in self._members:
                 if self._closed:
                     return
-                for chunk in self._decompress(path):
+                it = self._decompress(path)
+                while True:
                     # Checked every slab: after close() drains the queue
                     # it never fills, and the thread must still stop.
                     if self._closed:
                         return
-                    # Each decompressed chunk becomes one slab, cut at
-                    # its last newline with the rest carried: one copy a
-                    # byte, since every copy here holds the GIL.
-                    cut = chunk.rfind(b"\n")
-                    if cut < 0:
-                        tail += chunk
-                        if len(tail) < 4 * self._slab:
-                            continue
-                        # No newline at all: emit the bytes as they are
-                        # rather than grow without bound.
-                        slab, tail = tail, b""
-                    else:
-                        mv = memoryview(chunk)
-                        slab = (b"".join((tail, mv[:cut + 1]))
-                                if tail else chunk[:cut + 1])
-                        tail = bytes(mv[cut + 1:])
-                    if not self._put(slab):
+                    slab = None
+                    # The span covers the source's own work, the inflate
+                    # and the cut; the put stays outside it.
+                    with trace.TRACER.span("source.read", kind="archive",
+                                           group=self._ref.group):
+                        chunk = next(it, None)
+                        if chunk is not None:
+                            # Each decompressed chunk becomes one slab,
+                            # cut at its last newline with the rest
+                            # carried: one copy a byte, since every copy
+                            # here holds the GIL.
+                            cut = chunk.rfind(b"\n")
+                            if cut < 0:
+                                tail += chunk
+                                if len(tail) >= 4 * self._slab:
+                                    # No newline at all: emit the bytes
+                                    # as they are rather than grow.
+                                    slab, tail = tail, b""
+                            else:
+                                mv = memoryview(chunk)
+                                slab = (b"".join((tail, mv[:cut + 1]))
+                                        if tail else chunk[:cut + 1])
+                                tail = bytes(mv[cut + 1:])
+                    if slab is not None and not self._put(slab):
                         return
+                    if chunk is None:
+                        break
+                self._metrics.member()
             if tail:
                 self._put(tail)
             self._put(None)
         except SourceError as exc:
+            self._metrics.error()
             self._put(exc)
         except Exception as exc:  # noqa: BLE001 — ends the stream as a SourceError
+            self._metrics.error()
             self._put(SourceError(f"archive read failed: {exc}"))
 
     def _decompress(self, path: str) -> Iterator[bytes]:
@@ -266,6 +293,10 @@ class ArchiveStream(SourceStream):
             name=f"klogs-archive-{self._ref.group}")
         self._thread.start()
 
+    def readahead_depth(self) -> int:
+        q = self._q
+        return q.qsize() if q is not None else 0
+
     def __aiter__(self) -> "ArchiveStream":
         return self
 
@@ -274,6 +305,10 @@ class ArchiveStream(SourceStream):
         assert self._q is not None and self._wake is not None
         if self._closed or self._done:
             raise StopAsyncIteration
+        await fire_fault("source.read", self._metrics, self._ref.group,
+                         self._members[0] if self._members else "")
+        # No span here: the producer's inflate carries source.read;
+        # waiting on the queue is the engine's backpressure or loop lag.
         while True:
             try:
                 item = self._q.get_nowait()
@@ -297,6 +332,7 @@ class ArchiveStream(SourceStream):
         if isinstance(item, SourceError):
             self._done = True
             raise item
+        self._metrics.add_bytes(len(item))
         return item
 
     async def close(self) -> None:
@@ -323,12 +359,23 @@ class ArchiveSource(Source):
 
     def __init__(self, paths: "list[str]", *, readahead_mb: int = 8,
                  slab_bytes: int = DEFAULT_SLAB_BYTES) -> None:
+        super().__init__()
         self.paths = list(paths)
         self.slab_bytes = slab_bytes
         self.readahead_slabs = max(
             1, (readahead_mb << 20) // max(1, slab_bytes))
         self._members: "dict[str, list[str]]" = {}
         self._live: "set[ArchiveStream]" = set()
+        self._probe_added = False
+
+    async def start(self) -> None:
+        if not self._probe_added:
+            PROFILER.add_probe("source.readahead_slabs",
+                               self._readahead_probe)
+            self._probe_added = True
+
+    def _readahead_probe(self) -> float:
+        return float(sum(s.readahead_depth() for s in self._live))
 
     async def discover(self) -> "list[SourceRef]":
         files = await asyncio.to_thread(_expand_paths, self.paths)
@@ -350,17 +397,23 @@ class ArchiveSource(Source):
 
     async def open_stream(self, ref: SourceRef,
                           opts: LogOptions) -> SourceStream:
+        await fire_fault("source.open", self.metrics, ref.group, ref.target)
         members = self._members.get(ref.group)
         if not members:
+            self.metrics.error()
             raise SourceError(f"unknown archive set: {ref.group}",
                               path=ref.target)
-        stream = ArchiveStream(ref, members,
+        stream = ArchiveStream(ref, members, metrics=self.metrics,
                                readahead_slabs=self.readahead_slabs,
                                slab_bytes=self.slab_bytes)
         self._live.add(stream)
         return stream
 
     async def close(self) -> None:
+        if self._probe_added:
+            PROFILER.remove_probe("source.readahead_slabs",
+                                  self._readahead_probe)
+            self._probe_added = False
         for stream in list(self._live):
             await stream.close()
         self._live.clear()

@@ -18,6 +18,10 @@ Chunks should be cut at a newline (``rfind(b"\\n")`` and a carried
 tail), which spares the framer a straddling line; the framer takes any
 split, so the cut is for speed, not correctness.
 
+``Source.metrics`` (``SourceMetrics``) counts into the
+``klogs_source_*`` families once ``bind_registry`` gives it a run's
+registry; until then it counts nothing.
+
 This module imports nothing of ``cluster/`` at run time (``LogOptions``
 only for type checking), so ``klogs_tpu_torch.sources`` imports first
 without a cycle: ``cluster/backend.py`` imports this module, never the
@@ -34,6 +38,7 @@ from typing import TYPE_CHECKING, AsyncIterator
 
 if TYPE_CHECKING:
     from klogs_tpu_torch.cluster.types import LogOptions
+    from klogs_tpu_torch.obs.metrics import Registry
 
 
 class SourceError(Exception):
@@ -89,6 +94,67 @@ class SourceRef:
     ephemeral: bool = False
 
 
+class SourceMetrics:
+    """A view over the ``klogs_source_*`` families; every method is a
+    no-op until a registry is bound."""
+
+    def __init__(self, kind: str) -> None:
+        self.kind = kind
+        self._bytes: object = None
+        self._rotations: object = None
+        self._members: object = None
+        self._errors: object = None
+        self._conns: object = None
+
+    def bind(self, registry: "Registry | None") -> None:
+        if registry is None:
+            return
+        self._bytes = registry.family(
+            "klogs_source_bytes_total").labels(kind=self.kind)
+        self._rotations = registry.family("klogs_source_rotations_total")
+        self._members = registry.family(
+            "klogs_source_archive_members_total")
+        self._errors = registry.family(
+            "klogs_source_errors_total").labels(kind=self.kind)
+        self._conns = registry.family("klogs_source_connections_total")
+
+    def add_bytes(self, n: int) -> None:
+        if self._bytes is not None:
+            self._bytes.inc(n)  # type: ignore[attr-defined]
+
+    def rotation(self) -> None:
+        if self._rotations is not None:
+            self._rotations.inc()  # type: ignore[attr-defined]
+
+    def member(self) -> None:
+        if self._members is not None:
+            self._members.inc()  # type: ignore[attr-defined]
+
+    def error(self) -> None:
+        if self._errors is not None:
+            self._errors.inc()  # type: ignore[attr-defined]
+
+    def connection(self) -> None:
+        if self._conns is not None:
+            self._conns.inc()  # type: ignore[attr-defined]
+
+
+async def fire_fault(point: str, metrics: SourceMetrics, target: str,
+                     path: str) -> None:
+    """Fire an armed ``source.open``/``source.read`` fault (``target``:
+    the stream's group) as the SourceError the fan-out handles."""
+    from klogs_tpu_torch.resilience.faults import FAULTS, InjectedFault
+
+    if not FAULTS.active:
+        return
+    try:
+        await FAULTS.fire(point, target=target)
+    except InjectedFault as exc:
+        metrics.error()
+        raise SourceError(f"injected {point} fault: {exc}",
+                          path=path) from exc
+
+
 class Source(abc.ABC):
     """A place log streams come from.
 
@@ -98,6 +164,9 @@ class Source(abc.ABC):
     ref, ``close()``. Constructors create no asyncio primitive."""
 
     kind: str = "source"
+
+    def __init__(self) -> None:
+        self.metrics = SourceMetrics(self.kind)
 
     async def start(self) -> None:
         """One-time async setup (default: none)."""
@@ -113,6 +182,10 @@ class Source(abc.ABC):
 
     async def close(self) -> None:
         """Release listeners and threads. Safe to call twice."""
+
+    def bind_registry(self, registry: "Registry | None") -> None:
+        """Count into a run's ``klogs_source_*`` families."""
+        self.metrics.bind(registry)
 
 
 _UNSAFE = re.compile(r"[^A-Za-z0-9._-]+")

@@ -18,6 +18,7 @@ class ClusterSource(Source):
     kind = "pod"
 
     def __init__(self, backend: ClusterBackend, namespace: str) -> None:
+        super().__init__()
         self.backend = backend
         self.namespace = namespace
 
@@ -29,7 +30,8 @@ class ClusterSource(Source):
 
     async def open_stream(self, ref: SourceRef,
                           opts: LogOptions) -> SourceStream:
-        # opts.container carries the unit, as the fan-out worker sets it.
+        # opts.container carries the unit, as the fan-out worker sets it;
+        # the backend fires the kube.* fault points, no source.* here.
         return await self.backend.open_log_stream(
             self.namespace, ref.group, opts)
 

@@ -17,7 +17,9 @@ follows logrotate's lifecycle:
   again, so in follow mode new files join the fan-out.
 
 Chunks are 256 KiB reads cut at the last newline with the tail carried.
-``--replay-rate`` / KLOGS_REPLAY_RATE paces a stream at N lines/s.
+``--replay-rate`` / KLOGS_REPLAY_RATE paces a stream at N lines/s. Each
+read is a ``source.read`` span; ``source.open`` and ``source.read`` are
+fault points, fired as SourceError.
 """
 
 from __future__ import annotations
@@ -30,11 +32,14 @@ import zlib
 from typing import BinaryIO
 
 from klogs_tpu_torch.cluster.types import LogOptions
+from klogs_tpu_torch.obs import trace
 from klogs_tpu_torch.sources.base import (
     Source,
     SourceError,
+    SourceMetrics,
     SourceRef,
     SourceStream,
+    fire_fault,
     safe_group_name,
 )
 
@@ -67,6 +72,7 @@ class ReplayStream(SourceStream):
 
     def __init__(self, ref: SourceRef, follow: bool, *,
                  offsets: "dict[str, tuple[int, int]]",
+                 metrics: "SourceMetrics | None" = None,
                  rate_lps: "float | None" = None,
                  poll_s: float = DEFAULT_POLL_S,
                  read_size: int = DEFAULT_READ_SIZE) -> None:
@@ -74,6 +80,8 @@ class ReplayStream(SourceStream):
         self._path = ref.target
         self._follow = follow
         self._offsets = offsets
+        self._metrics = metrics if metrics is not None else SourceMetrics(
+            ref.kind)
         self._rate = rate_lps
         self._poll_s = poll_s
         self._read_size = read_size
@@ -160,7 +168,11 @@ class ReplayStream(SourceStream):
         while True:
             if self._closed:
                 raise StopAsyncIteration
-            kind, data = await asyncio.to_thread(self._step)
+            await fire_fault("source.read", self._metrics, self._ref.group,
+                             self._path)
+            with trace.TRACER.span("source.read", kind="file",
+                                   group=self._ref.group):
+                kind, data = await asyncio.to_thread(self._step)
             if kind == "data":
                 buf = self._tail + data
                 cut = buf.rfind(b"\n")
@@ -172,16 +184,20 @@ class ReplayStream(SourceStream):
                 # went out line-aligned.
                 self._offsets[self._path] = (
                     self._inode, self._pos - len(self._tail))
+                self._metrics.add_bytes(len(out))
                 await self._pace(out)
                 return out
             if kind == "rotate":
+                self._metrics.rotation()
                 out, self._tail = self._tail + data, b""
                 if out:
+                    self._metrics.add_bytes(len(out))
                     return out
                 continue
             if kind == "eof":
                 out, self._tail = self._tail, b""
                 if out:
+                    self._metrics.add_bytes(len(out))
                     return out
                 raise StopAsyncIteration
             try:  # wait
@@ -214,6 +230,7 @@ class ReplaySource(Source):
                  rate_lps: "float | None" = None,
                  poll_interval_s: float = DEFAULT_POLL_S,
                  read_size: int = DEFAULT_READ_SIZE) -> None:
+        super().__init__()
         self.paths = list(paths)
         self.rate_lps = rate_lps
         self.poll_interval_s = poll_interval_s
@@ -238,11 +255,13 @@ class ReplaySource(Source):
 
     async def open_stream(self, ref: SourceRef,
                           opts: LogOptions) -> SourceStream:
+        await fire_fault("source.open", self.metrics, ref.group, ref.target)
         if not opts.follow \
                 and not await asyncio.to_thread(os.path.isfile, ref.target):
+            self.metrics.error()
             raise SourceError(f"no such file: {ref.target}",
                               path=ref.target)
         return ReplayStream(ref, opts.follow, offsets=self._offsets,
-                            rate_lps=self.rate_lps,
+                            metrics=self.metrics, rate_lps=self.rate_lps,
                             poll_s=self.poll_interval_s,
                             read_size=self.read_size)

@@ -13,6 +13,9 @@ without a reconnect or a "premature end" warning. New connections join
 through follow mode's discovery polling, so the mode needs ``-f``. The
 accept cap (KLOGS_SOCKET_MAX_CONNS) bounds the open connections.
 
+Each read is a ``source.read`` span; ``source.open`` and
+``source.read`` are fault points.
+
 ``close()`` closes the accepted connections before it waits for the
 server: since Python 3.12 ``Server.wait_closed()`` waits for every
 accepted connection, so waiting first would never return while a peer
@@ -26,11 +29,14 @@ import os
 import stat as stat_mod
 
 from klogs_tpu_torch.cluster.types import LogOptions
+from klogs_tpu_torch.obs import trace
 from klogs_tpu_torch.sources.base import (
     Source,
     SourceError,
+    SourceMetrics,
     SourceRef,
     SourceStream,
+    fire_fault,
 )
 
 READ_SIZE = 1 << 16
@@ -40,8 +46,11 @@ FLOW_LIMIT = 1 << 16  # the StreamReader's high-water mark: one read
 class SocketStream(SourceStream):
     def __init__(self, ref: SourceRef, reader: asyncio.StreamReader,
                  writer: asyncio.StreamWriter, *,
-                 source: "SocketSource") -> None:
+                 source: "SocketSource",
+                 metrics: "SourceMetrics | None" = None) -> None:
         self._ref = ref
+        self._metrics = metrics if metrics is not None else SourceMetrics(
+            ref.kind)
         self._reader = reader
         self._writer = writer
         self._source = source
@@ -53,15 +62,21 @@ class SocketStream(SourceStream):
     async def __anext__(self) -> bytes:
         if self._closed:
             raise StopAsyncIteration
-        try:
-            data = await self._reader.read(READ_SIZE)
-        except (ConnectionError, OSError) as exc:
-            await self.close()
-            raise SourceError(
-                f"socket peer {self._ref.group}: {exc}") from exc
+        await fire_fault("source.read", self._metrics, self._ref.group,
+                         self._ref.target)
+        with trace.TRACER.span("source.read", kind="socket",
+                               group=self._ref.group):
+            try:
+                data = await self._reader.read(READ_SIZE)
+            except (ConnectionError, OSError) as exc:
+                self._metrics.error()
+                await self.close()
+                raise SourceError(
+                    f"socket peer {self._ref.group}: {exc}") from exc
         if not data:
             await self.close()
             raise StopAsyncIteration
+        self._metrics.add_bytes(len(data))
         return data
 
     async def close(self) -> None:
@@ -84,6 +99,7 @@ class SocketSource(Source):
     kind = "socket"
 
     def __init__(self, target: str, *, max_conns: int = 64) -> None:
+        super().__init__()
         self.target = target
         self.max_conns = max_conns
         self._server: "asyncio.Server | None" = None
@@ -112,6 +128,7 @@ class SocketSource(Source):
                     self._on_conn, host=host, port=int(port),
                     limit=FLOW_LIMIT)
         except OSError as exc:
+            self.metrics.error()
             raise SourceError(
                 f"cannot listen on {self.target}: {exc}") from exc
 
@@ -137,6 +154,7 @@ class SocketSource(Source):
         name = f"conn-{self._next_id:04d}"
         self._next_id += 1
         self._conns[name] = (reader, writer)
+        self.metrics.connection()
 
     def _release(self, name: str) -> None:
         self._conns.pop(name, None)
@@ -151,10 +169,13 @@ class SocketSource(Source):
 
     async def open_stream(self, ref: SourceRef,
                           opts: LogOptions) -> SourceStream:
+        await fire_fault("source.open", self.metrics, ref.group, ref.target)
         pair = self._conns.get(ref.target)
         if pair is None:
+            self.metrics.error()
             raise SourceError(f"connection {ref.target} is gone")
-        return SocketStream(ref, pair[0], pair[1], source=self)
+        return SocketStream(ref, pair[0], pair[1], source=self,
+                            metrics=self.metrics)
 
     async def close(self) -> None:
         server, self._server = self._server, None

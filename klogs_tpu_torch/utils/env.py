@@ -6,7 +6,10 @@ The port reads only names the JAX package already documents
 for ``--watch-new`` and follow-mode source discovery,
 ``KLOGS_BUILD_VERSION`` for ``-v``, and for the sources
 ``KLOGS_SOURCE_READAHEAD_MB``, ``KLOGS_REPLAY_RATE`` and
-``KLOGS_SOCKET_MAX_CONNS``) and adds none.
+``KLOGS_SOCKET_MAX_CONNS``, for the observability and fault layers
+``KLOGS_TRACE_SAMPLE``, ``KLOGS_FLIGHT_DIR``, ``KLOGS_PROFILE_SAMPLE``,
+``KLOGS_PROFILE_INTERVAL_S`` and ``KLOGS_FAULTS``, and ``KLOGS_TUNE``,
+whose ``auto`` mode is refused) and adds none.
 """
 
 import math
@@ -17,6 +20,29 @@ import sys
 def read(name: str, default: "str | None" = None) -> "str | None":
     """The raw environment read; every KLOGS_* name flows through here."""
     return os.environ.get(name, default)
+
+
+def is_set(name: str) -> bool:
+    """Whether the variable is present at all (``KLOGS_TRACE_SAMPLE=0``
+    differs from an unset one)."""
+    return os.environ.get(name) is not None
+
+
+def positive_float(name: str, default: float,
+                   exc: type = ValueError) -> float:
+    """A positive finite float; zero, a negative, nan, inf or garbage
+    raises ``exc`` naming the variable."""
+    raw = read(name)
+    if raw is None:
+        return default
+    try:
+        value = float(raw)
+        if not math.isfinite(value) or value <= 0:
+            raise ValueError("must be positive and finite")
+    except ValueError as e:
+        raise exc(
+            f"{name} must be a positive number, got {raw!r}") from e
+    return value
 
 
 def nonneg_float(name: str, default: float) -> float:

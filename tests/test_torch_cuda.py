@@ -437,6 +437,64 @@ def test_dispatch_does_not_wait_on_host(dev, env, monkeypatch):
     assert stats.pf_lines == (2 * len(lines) if gated else 0)
 
 
+def _syncs(fn) -> int:
+    """Host synchronisations ``fn`` makes, counted by torch's sync debug
+    mode (each one warns)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+@pytest.mark.parametrize("env", [{}, {"KLOGS_TPU_SWEEP": "1"},
+                                 {"KLOGS_TPU_FUSED_GROUPS": "1"}],
+                         ids=["k1", "sweep", "fused"])
+def test_traced_dispatch_adds_no_sync(dev, env, monkeypatch):
+    """With every trace sampled and the profiler folding, the engine's
+    dispatch (its device.frame and device.kernel spans and sub-batch
+    records, a long line's chunk launches too) waits on the host no more
+    often than untraced, and its verdicts equal the untraced batch's."""
+    from klogs_tpu_torch import obs
+    from klogs_tpu_torch.filters.base import FilterStats, frame_lines
+    from klogs_tpu_torch.obs import profiler, trace
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    stats = FilterStats(registry=obs.Registry())
+    eng = GpuEngineFilter(PATTERNS, device=dev, stats=stats)
+    lines = ([b"panic: x", b"x code=503", b"nothing here", b"q" * 300] * 100
+             + [b"y" * 5000 + b" disk is full"])
+    payload, offsets, _ = frame_lines(lines, strip_nl=False)
+    off = eng.fetch_framed(eng.dispatch_framed(payload, offsets))  # warm-up
+    handles = {}
+    n_off = _syncs(lambda: handles.update(
+        off=eng.dispatch_framed(payload, offsets)))
+    trace.reset(1.0)
+    profiler.PROFILER.enable(1.0)
+    try:
+        with trace.TRACER.span("coalescer.dispatch"):
+            n_on = _syncs(lambda: handles.update(
+                on=eng.dispatch_framed(payload, offsets)))
+        spans = {d["name"] for d in trace.TRACER.finished_spans()}
+    finally:
+        profiler.PROFILER.reset()
+        trace.reset(None)
+    assert n_on <= n_off
+    assert {"device.frame", "device.kernel"} <= spans
+    on = eng.fetch_framed(handles["on"])
+    assert on.tolist() == eng.fetch_framed(handles["off"]).tolist() \
+        == off.tolist()
+    assert on.sum() == 201
+    assert stats.registry.family("klogs_engine_bucket_width_bytes").count > 0
+
+
 # ---- the ragged pack ---------------------------------------------------------
 
 PACK_CHUNK = 4096

@@ -47,7 +47,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "resilience/policy.py", "ui/interactive.py", "app.py",
                 "cli.py", "version.py", "sources/__init__.py",
                 "sources/base.py", "sources/cluster.py", "sources/replay.py",
-                "sources/archive.py", "sources/socket.py", "utils/env.py"):
+                "sources/archive.py", "sources/socket.py", "utils/env.py",
+                "obs/__init__.py", "obs/metrics.py", "obs/expo.py",
+                "obs/inventory.py", "obs/trace.py", "obs/profiler.py",
+                "obs/http.py", "resilience/__init__.py",
+                "resilience/faults.py"):
         assert os.path.join(PORT, mod) in files
     bad = []
     for path in files:
@@ -181,6 +185,23 @@ def test_cuda_entry_points_raise_without_card(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         asyncio.run(app.run_async(opts))
     assert os.listdir(tmp_path) == []
+    # The observability flags on the same entry point: the run still
+    # raises, and writes no output file and no metrics dump.
+    stats = tmp_path.parent / (tmp_path.name + "-s.json")
+    spans = tmp_path.parent / (tmp_path.name + "-t.jsonl")
+    opts = cli.parse_args(["-n", "default", "-a", "--match", "x", "-p",
+                           str(tmp_path), "--stats-json", str(stats),
+                           "--trace-json", str(spans)])
+    from klogs_tpu_torch.obs import trace
+
+    try:
+        with pytest.raises(RuntimeError, match="cuda"):
+            asyncio.run(app.run_async(
+                opts, backend=FakeCluster.synthetic(n_pods=1,
+                                                    lines_per_container=3)))
+    finally:
+        trace.reset(None)
+    assert os.listdir(tmp_path) == [] and not stats.exists()
 
 
 def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
