@@ -157,6 +157,29 @@ removed at the end):
    doubled), and ``-f --source replay:`` with a rename rotation
    mid-run.
 
+The remote filter service, last:
+
+20. filterd: ``python -m klogs_tpu_torch.service --backend cuda``
+   --match x32 deployed as its own process (ports read from its banner,
+   /readyz awaited). (a) the cli cell as its collector (``--remote``):
+   files equal to the oracle, lines/s beside the in-process cli
+   phase's, RPCs by method, lines a device batch and the fleet's
+   offered and admitted lines from its /metrics; (b) 262,144 FakeCluster
+   lines in framed RPCs of 8192 at concurrency 1, 4 and 16 on one
+   channel (``tools/bench_service.py``'s shape), 3 s each, every
+   verdict equal to the in-process engine's: lines/s and lines a device
+   batch; (c) an in-process filterd on the card with one collector (32
+   pods x 4000 lines + 4 long lines): K1, K2 and ``pack_rows`` held
+   against their plain versions on the batches it built, then at the
+   1024 patterns Hello's ``device_sweep``, a collector of 64 pods x 250
+   lines (files = oracle) and K3 with its pair list held on its most
+   frequent batch; (d) a collector under
+   ``KLOGS_FAULTS=rpc.match:error*2`` (exact files, 2 faults and 2
+   retries in its --stats-json), then a collector process whose
+   filterd is killed mid-run: ``--on-filter-error abort`` exits 1 with
+   one error line, ``pass`` writes the lines after the kill unfiltered
+   and counts them.
+
 Then a ``kernels`` line (each kernel's time beside its bound and its
 plain version's time, with its launches on its main path and on the
 backfill: the four NFA kernels and ``pack_rows``), the card line, and
@@ -179,6 +202,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -3004,6 +3028,477 @@ def sources_phase(torch, np, nk, app, cli, term, dev, root: str, bf: dict,
     return res
 
 
+# ---- filterd: the remote filter service on the card -----------------------
+
+FILTERD_CONCURRENCY = (1, 4, 16)
+
+
+def scrape(port: int) -> dict:
+    """filterd's /metrics as {sample name with its labels: value}."""
+    return asyncio.run(scrape_async(port))
+
+
+async def scrape_async(port: int) -> dict:
+    status, body = await http_get(port, "/metrics")
+    if status != 200:
+        raise AssertionError(f"/metrics answered {status}")
+    out = {}
+    for ln in body.decode().splitlines():
+        if ln and not ln.startswith("#"):
+            name, _, value = ln.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+def metric_delta(before: dict, after: dict, name: str) -> float:
+    return after.get(name, 0.0) - before.get(name, 0.0)
+
+
+def device_batches(before: dict, after: dict) -> dict:
+    """filterd's device batches (coalesced groups) between two scrapes,
+    and the lines a batch."""
+    groups = metric_delta(before, after, "klogs_coalescer_groups_total")
+    lines = metric_delta(before, after, "klogs_coalescer_group_lines_sum")
+    return dict(device_batches=groups,
+                lines_per_device_batch=lines / groups if groups else 0.0)
+
+
+def rpcs_by_method(before: dict, after: dict) -> dict:
+    return {m: metric_delta(before, after,
+                            f'klogs_rpc_requests_total{{method="{m}"}}')
+            for m in ("Hello", "Match", "MatchFramed")}
+
+
+def dump_value(doc: dict, name: str, **labels) -> float:
+    """A sample of a --stats-json dump (0 when absent)."""
+    for s in doc["metrics"].get(name, {}).get("samples", []):
+        if s.get("labels", {}) == labels:
+            return s["value"]
+    return 0.0
+
+
+@contextlib.contextmanager
+def filterd_process(root: str, patterns: list, limit: float = 240.0):
+    """``python -m klogs_tpu_torch.service --backend cuda --match ...
+    --port 0 --metrics-port 0`` in a process of its own, as it is
+    deployed: yields {proc, port, metrics_port, banner, stderr} once
+    the banner named both ports and /readyz answered 200 (the warmup
+    batch went through the card). The process is terminated after the
+    block; if it died first, or does not come up, this raises with its
+    stderr printed."""
+    argv = [sys.executable, "-m", "klogs_tpu_torch.service", "--backend",
+            "cuda", "--port", "0", "--metrics-port", "0"]
+    for p in patterns:
+        argv += ["--match", p]
+    err = tempfile.NamedTemporaryFile(prefix="filterd-", suffix=".err",
+                                      delete=False)
+    proc = subprocess.Popen(argv, cwd=root, stdout=subprocess.PIPE,
+                            stderr=err, text=True)
+    lines: list = []
+
+    def read_stdout() -> None:
+        for ln in iter(proc.stdout.readline, ""):
+            lines.append(ln)
+
+    reader = threading.Thread(target=read_stdout, daemon=True)
+    reader.start()
+    box: dict = dict(proc=proc, stderr=err.name)
+
+    def stderr_text() -> str:
+        with open(err.name, errors="replace") as f:
+            return f.read()[-8000:]
+
+    def died(what: str) -> AssertionError:
+        print(f"filterd ({what}); its stderr:\n{stderr_text()}",
+              file=sys.stderr, flush=True)
+        return AssertionError(f"filterd {what} (exit {proc.poll()})")
+
+    try:
+        t0 = time.perf_counter()
+        while True:
+            text = "".join(lines)
+            m = re.search(r"serving \d+ pattern\(s\) \[cuda\] on "
+                          r"127\.0\.0\.1:(\d+)", text)
+            mm = re.search(r"metrics on http://127\.0\.0\.1:(\d+)/metrics",
+                           text)
+            if m and mm:
+                box.update(port=int(m.group(1)), metrics_port=int(mm.group(1)),
+                           banner=[ln.strip() for ln in lines])
+                break
+            if proc.poll() is not None:
+                raise died("exited before its banner")
+            if time.perf_counter() - t0 > limit:
+                raise died("printed no banner in time")
+            time.sleep(0.05)
+        while True:
+            try:
+                status, _ = asyncio.run(http_get(box["metrics_port"],
+                                                 "/readyz"))
+            except OSError:
+                status = None
+            if status == 200:
+                break
+            if proc.poll() is not None:
+                raise died("exited before /readyz")
+            if time.perf_counter() - t0 > limit:
+                raise died("was not ready in time")
+            time.sleep(0.05)
+        box["ready_s"] = time.perf_counter() - t0
+        yield box
+        if proc.poll() is not None and not box.get("killed"):
+            raise died("died during the phase")
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(20)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(20)
+        reader.join(5)
+        err.close()
+        os.unlink(err.name)
+
+
+async def remote_run(app, cli, fc, argv: list, port: int):
+    """``app.run_async`` as a --remote collector (no device argument: a
+    collector of a remote filterd builds no engine)."""
+    opts = cli.parse_args(argv + ["--remote", f"127.0.0.1:{port}"])
+    return await app.run_async(opts, backend=fc)
+
+
+def filterd_cell(np, app, cli, term, FakeCluster, fd: dict) -> dict:
+    """(a) the cli cell (256 pods x 4000 lines + 16 long lines, --match
+    x32) as the collector of the deployed filterd: files against the
+    oracle, lines/s, RPCs by method, lines a device batch and the fleet
+    counters, from filterd's /metrics."""
+    fc, n_lines = cli_cluster(np, FakeCluster)
+    pods = fc.namespaces["default"]
+    matches = [a for p in PATTERNS for a in ("--match", p)]
+    before = scrape(fd["metrics_port"])
+    with tempfile.TemporaryDirectory() as out_dir:
+        term.set_ui_stream(io.StringIO())
+        try:
+            t0 = time.perf_counter()
+            rc = asyncio.run(remote_run(
+                app, cli, fc, ["-n", "default", "-a", "--stats", "-p",
+                               out_dir, *matches], fd["port"]))
+            seconds = time.perf_counter() - t0
+        finally:
+            term.set_ui_stream(None)
+        want = oracle_files(pods)
+        bad = files_equal(out_dir, want)
+    after = scrape(fd["metrics_port"])
+    return dict(rc=rc, lines=n_lines, seconds=seconds,
+                lines_per_s=n_lines / seconds, mismatched_files=bad,
+                kept_lines=sum(v.count(b"\n") for v in want.values()),
+                rpcs=rpcs_by_method(before, after),
+                fleet_offered_lines=after.get(
+                    "klogs_fleet_offered_lines_total"),
+                fleet_admitted_lines=after.get(
+                    "klogs_fleet_admitted_lines_total"),
+                **device_batches(before, after))
+
+
+def filterd_coalescing(np, GpuEngineFilter, frame_lines, synthetic_line,
+                       dev, fd: dict, n_lines=262_144, batch=8192,
+                       seconds=3.0) -> dict:
+    """(b) ``tools/bench_service.py``'s shape: n_lines FakeCluster lines
+    (1% needles) in framed RPCs of ``batch`` lines, at each concurrency
+    of FILTERD_CONCURRENCY on one channel, ``seconds`` each; every
+    verdict against the in-process engine's on the same frame."""
+    from klogs_tpu_torch.service.client import RemoteFilterClient
+
+    lines = [synthetic_line(f"pod-{i % 512:04d}", "c0", i, CLOCK + i)
+             for i in range(n_lines)]
+    for i in range(0, n_lines, 97):
+        nd = NEEDLES[i % len(NEEDLES)]
+        lines[i] = lines[i][:40] + nd + lines[i][40:]
+    frames = [frame_lines(lines[i:i + batch], strip_nl=False)[:2]
+              for i in range(0, n_lines, batch)]
+    eng = GpuEngineFilter(PATTERNS, device=dev)
+    want = [eng.fetch_framed(eng.dispatch_framed(*f)) for f in frames]
+    eng.close()
+
+    async def drive(conc: int) -> dict:
+        client = RemoteFilterClient(f"127.0.0.1:{fd['port']}")
+        try:
+            await client.verify_patterns(PATTERNS)
+            await client.match_framed(*frames[0])
+            before = await scrape_async(fd["metrics_port"])
+            done = mismatches = 0
+            stop_at = time.monotonic() + seconds
+
+            async def worker(w: int) -> None:
+                nonlocal done, mismatches
+                k = w
+                while time.monotonic() < stop_at:
+                    got = await client.match_framed(*frames[k % len(frames)])
+                    if not np.array_equal(got, want[k % len(frames)]):
+                        mismatches += 1
+                    done += batch
+                    k += conc
+
+            t0 = time.perf_counter()
+            await asyncio.gather(*[worker(w) for w in range(conc)])
+            lps = done / (time.perf_counter() - t0)
+            after = await scrape_async(fd["metrics_port"])
+            return dict(concurrency=conc, lines=done, lines_per_s=lps,
+                        mismatched_batches=mismatches,
+                        **device_batches(before, after))
+        finally:
+            await client.aclose()
+
+    runs = [asyncio.run(drive(conc)) for conc in FILTERD_CONCURRENCY]
+    return dict(lines=n_lines, batch_lines=batch, seconds_each=seconds,
+                matched=int(sum(int(w.sum()) for w in want)), runs=runs)
+
+
+async def inprocess_filterd(patterns: list, dev, fc, argv: list, app, cli,
+                            hello: bool = False):
+    """A FilterServer on the card in this process, and one collector of
+    it over loopback in the same loop: (rc, Hello or None)."""
+    from klogs_tpu_torch.service.client import RemoteFilterClient
+    from klogs_tpu_torch.service.server import FilterServer
+
+    server = FilterServer(patterns, port=0, device=dev)
+    port = await server.start()
+    try:
+        info = None
+        if hello:
+            c = RemoteFilterClient(f"127.0.0.1:{port}")
+            try:
+                info = await c.hello()
+            finally:
+                await c.aclose()
+        return await remote_run(app, cli, fc, argv, port), info
+    finally:
+        await server.stop()
+
+
+def filterd_kernels(torch, np, nk, pack, bits, app, cli, term, FakeCluster,
+                    dev) -> dict:
+    """(c) K1, K2 and pack_rows held against their plain versions on the
+    batches an in-process filterd built for one collector (32 pods x
+    4000 lines + 4 long lines); then the 1024 patterns: Hello says
+    device_sweep, a collector of 64 pods x 250 lines gets the oracle's
+    files, and K3 with its pair list is held on the server's most
+    frequent batch."""
+    out: dict = {}
+    fc, n_lines = cli_cluster(np, FakeCluster, n_pods=32, n_long=4)
+    pods = fc.namespaces["default"]
+    matches = [a for p in PATTERNS for a in ("--match", p)]
+    with tempfile.TemporaryDirectory() as out_dir, \
+            recording_wrappers(nk, pack, ["match_cls_grouped",
+                                          "match_chunk_cls",
+                                          "pack_rows"]) as calls:
+        term.set_ui_stream(io.StringIO())
+        try:
+            torch.cuda.synchronize()
+            nk.reset_launches()
+            rc, _ = asyncio.run(inprocess_filterd(
+                PATTERNS, dev, fc, ["-n", "default", "-a", "-p", out_dir,
+                                    *matches], app, cli))
+            launches = dict(nk.LAUNCHES)
+        finally:
+            term.set_ui_stream(None)
+        bad = files_equal(out_dir, oracle_files(pods))
+    out["k32"] = dict(rc=rc, lines=n_lines, mismatched_files=bad,
+                      launches=launches,
+                      **held_batches(torch, nk, pack, calls, 2))
+    pats = make_patterns(1024)
+    fc, all_lines = k1024_cluster(np, FakeCluster, n_pods=64, n_long=4)
+    matches = [a for p in pats for a in ("--match", p)]
+    shapes: dict = {}
+    gated = nk.match_cls_grouped_gated
+
+    def recording(prog, live, acc, cls, words, want_stats=False):
+        entry = shapes.setdefault(tuple(cls.shape),
+                                  [0, (prog, live, acc, cls, words)])
+        entry[0] += 1
+        return gated(prog, live, acc, cls, words, want_stats=want_stats)
+
+    with tempfile.TemporaryDirectory() as out_dir, \
+            env_set("KLOGS_MAX_PATTERN_POSITIONS", "65536"):
+        term.set_ui_stream(io.StringIO())
+        nk.match_cls_grouped_gated = recording
+        try:
+            torch.cuda.synchronize()
+            nk.reset_launches()
+            rc, info = asyncio.run(inprocess_filterd(
+                pats, dev, fc, ["-n", "default", "-a", "-p", out_dir,
+                                *matches], app, cli, hello=True))
+            launches = dict(nk.LAUNCHES)
+        finally:
+            nk.match_cls_grouped_gated = gated
+            term.set_ui_stream(None)
+        want, kept = k1024_expected(pats, all_lines)
+        bad = files_equal(out_dir, want)
+    k3 = [dict(launches=n, **k3_check(torch, bits, nk, *args, 10))
+          for n, args in sorted(shapes.values(), key=lambda e: -e[0])[:1]]
+    out["k1024"] = dict(rc=rc, lines=sum(map(len, all_lines.values())),
+                        kept_lines=kept, mismatched_files=bad,
+                        device_sweep=info["device_sweep"], launches=launches,
+                        k3_shapes={f"{B}x{T}": e[0]
+                                   for (B, T), e in shapes.items()},
+                        k3_batches=k3)
+    return out
+
+
+def filterd_faults(np, app, cli, term, FakeCluster, fd: dict) -> dict:
+    """(d), first: a collector under ``KLOGS_FAULTS=rpc.match:error*2``
+    against the deployed filterd: exact files, and its --stats-json
+    counts 2 injected faults and 2 retries at the endpoint's site."""
+    fc, n_lines = cli_cluster(np, FakeCluster, n_pods=32, lines_per_pod=1000,
+                              n_long=2)
+    pods = fc.namespaces["default"]
+    matches = [a for p in PATTERNS for a in ("--match", p)]
+    with tempfile.TemporaryDirectory() as out_dir, \
+            env_set("KLOGS_FAULTS", "rpc.match:error*2"):
+        dump = os.path.join(out_dir, "stats.json")
+        files = os.path.join(out_dir, "files")
+        term.set_ui_stream(io.StringIO())
+        try:
+            rc = asyncio.run(remote_run(
+                app, cli, fc, ["-n", "default", "-a", "-p", files,
+                               "--stats-json", dump, *matches], fd["port"]))
+        finally:
+            term.set_ui_stream(None)
+            obs_reset()
+        bad = files_equal(files, oracle_files(pods))
+        with open(dump) as f:
+            doc = json.load(f)
+    site = f"rpc@127.0.0.1:{fd['port']}"
+    return dict(rc=rc, lines=n_lines, mismatched_files=bad,
+                faults_injected=dump_value(doc, "klogs_faults_injected_total",
+                                           point="rpc.match"),
+                retries=dump_value(doc, "klogs_retry_attempts_total",
+                                   site=site))
+
+
+def filterd_killed(root: str, action: str, n_pods=64,
+                   lines_per_pod=20_000) -> dict:
+    """(d), then: a collector process (``python -m klogs_tpu_torch.cli
+    -a --cluster fake --remote ... --on-filter-error ACTION``, no card
+    used) whose filterd is killed once its first lines reached it.
+    ``abort``: exit 1 with one error line; ``pass``: exit 0, and every
+    line after the kill written unfiltered and counted in
+    ``klogs_filter_degraded_lines_total{action="pass"}``."""
+    with filterd_process(root, PATTERNS) as fd, \
+            tempfile.TemporaryDirectory() as out_dir:
+        dump = os.path.join(out_dir, "stats.json")
+        argv = [sys.executable, "-m", "klogs_tpu_torch.cli", "-a",
+                "--cluster", "fake", "--remote", f"127.0.0.1:{fd['port']}",
+                "--on-filter-error", action, "-p",
+                os.path.join(out_dir, "files"), "--stats-json", dump]
+        for p in PATTERNS:
+            argv += ["--match", p]
+        env = dict(os.environ, KLOGS_FAKE_PODS=str(n_pods),
+                   KLOGS_FAKE_CONTAINERS="1",
+                   KLOGS_FAKE_LINES=str(lines_per_pod), NO_COLOR="1")
+        t0 = time.perf_counter()
+        coll = subprocess.Popen(argv, cwd=root, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            offered = 0.0
+            while offered <= 0 and coll.poll() is None:
+                offered = scrape(fd["metrics_port"]).get(
+                    "klogs_fleet_offered_lines_total", 0.0)
+                time.sleep(0.02)
+            fd["killed"] = True
+            fd["proc"].kill()
+            fd["proc"].wait(20)
+            t_kill = time.perf_counter() - t0
+            out, _ = coll.communicate(timeout=300)
+        finally:
+            if coll.poll() is None:
+                coll.kill()
+                coll.wait(20)
+        res = dict(action=action, rc=coll.returncode,
+                   killed_after_s=t_kill, offered_at_kill=offered,
+                   seconds=time.perf_counter() - t0,
+                   error_lines=[ln for ln in out.splitlines()
+                                if "ERROR" in ln],
+                   lines=n_pods * lines_per_pod)
+        if action == "pass" and os.path.exists(dump):
+            with open(dump) as f:
+                doc = json.load(f)
+            fdir = os.path.join(out_dir, "files")
+            written = 0
+            for name in os.listdir(fdir):
+                with open(os.path.join(fdir, name), "rb") as f:
+                    written += f.read().count(b"\n")
+            res.update(
+                lines_in=doc["summary"]["lines_in"],
+                lines_matched=doc["summary"]["lines_matched"],
+                degraded_lines=dump_value(
+                    doc, "klogs_filter_degraded_lines_total", action="pass"),
+                degraded_batches=dump_value(
+                    doc, "klogs_filter_degraded_batches_total",
+                    action="pass"),
+                written_lines=written)
+        if res["rc"] not in (0, 1):
+            print(out[-8000:], file=sys.stderr, flush=True)
+    return res
+
+
+def filterd_phase(torch, np, nk, pack, bits, app, cli, term, FakeCluster,
+                  GpuEngineFilter, frame_lines, synthetic_line, dev,
+                  root: str, card: str, cli_lps: float) -> dict:
+    """filterd, the port's remote filter service, on the card: (a) the
+    cli cell against a deployed filterd, (b) coalescing across
+    concurrent RPCs, (c) the kernels on filterd's own batches, at 32 and
+    1024 patterns, (d) faults and a filterd killed mid-run."""
+    res: dict = dict(card=card)
+    with filterd_process(root, PATTERNS) as fd:
+        res["ready_s"] = fd["ready_s"]
+        res["banner"] = fd["banner"]
+        res["cell"] = filterd_cell(np, app, cli, term, FakeCluster, fd)
+        res["cell"]["inprocess_lines_per_s"] = cli_lps
+        res["cell"]["remote_over_inprocess"] = (
+            res["cell"]["lines_per_s"] / cli_lps)
+        res["coalescing"] = filterd_coalescing(
+            np, GpuEngineFilter, frame_lines, synthetic_line, dev, fd)
+        res["faults"] = filterd_faults(np, app, cli, term, FakeCluster, fd)
+    res["kernels"] = filterd_kernels(torch, np, nk, pack, bits, app, cli,
+                                     term, FakeCluster, dev)
+    res["killed"] = {a: filterd_killed(root, a) for a in ("abort", "pass")}
+    emit({"phase": "filterd", **res})
+    a, b, c, d = (res["cell"], res["coalescing"], res["kernels"],
+                  res["faults"])
+    k32, k1024 = c["k32"], c["k1024"]
+    held = k32["k1_batches"] + k32["k2_batches"] + k32["pack_batches"]
+    ab, ps = res["killed"]["abort"], res["killed"]["pass"]
+    if (a["rc"] != 0 or a["mismatched_files"]
+            or a["fleet_offered_lines"] != a["lines"]
+            or a["fleet_admitted_lines"] != a["lines"]
+            or a["rpcs"]["MatchFramed"] <= 0 or a["device_batches"] <= 0
+            or any(r["mismatched_batches"] or r["lines"] <= 0
+                   for r in b["runs"])
+            or k32["rc"] != 0 or k32["mismatched_files"]
+            or any(k32["launches"][k] == 0
+                   for k in (nk.GROUPED, nk.CHUNK, nk.PACK))
+            or len(k32["k1_batches"]) < 2 or not k32["k2_batches"]
+            or not k32["pack_batches"]
+            or any(h.get("max_abs_err", 0) or h.get("mismatches", 0)
+                   for h in held)
+            or k1024["rc"] != 0 or k1024["mismatched_files"]
+            or not k1024["device_sweep"] or not k1024["kept_lines"]
+            or k1024["launches"][nk.GATED] == 0
+            or k1024["launches"][nk.PAIRS] == 0 or not k1024["k3_batches"]
+            or any(h["max_abs_err"] or h["pairs_mismatches"]
+                   for h in k1024["k3_batches"])
+            or d["rc"] != 0 or d["mismatched_files"]
+            or d["faults_injected"] != 2 or d["retries"] != 2
+            or ab["rc"] != 1 or len(ab["error_lines"]) != 1
+            or ps["rc"] != 0 or not ps.get("degraded_lines")
+            or ps["written_lines"] != ps["lines_matched"] + ps["degraded_lines"]
+            or ps["lines_in"] + ps["degraded_lines"] != ps["lines"]):
+        raise AssertionError(f"filterd phase failed: {res}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3011,7 +3506,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs a CUDA device", file=sys.stderr)
         return 2
-    root = os.path.dirname(os.path.abspath(__file__))
+    repo = root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "klogs_tpu_torch")):
         print("chip_smoke: klogs_tpu_torch/ not found beside this script; "
               "run it from a checkout of the repository", file=sys.stderr)
@@ -3087,6 +3582,11 @@ def main() -> int:
         finally:
             shutil.rmtree(root, ignore_errors=True)
         bfr = bf["runs"]
+        # filterd: the remote filter service on the card, deployed as its
+        # own process, and in this one for the kernels' batches.
+        filterd_phase(torch, np, nk, pack, bits, app, cli, term,
+                      FakeCluster, GpuEngineFilter, frame_lines,
+                      synthetic_line, dev, repo, card, run["lines_per_s"])
     except Exception:
         traceback.print_exc()
         emit({"phase": "failed"})

@@ -11,7 +11,11 @@ namespace, no pod selection, no kube client; in follow mode the source
 is always re-discovered, and a backfill ends with its match/shed
 account. ``run_async`` takes an injected ClusterBackend (tests pass a
 FakeCluster), a ``stop`` event for library callers of follow mode, and
-the filter's ``device`` (None means ``"cuda"``).
+the filter's ``device`` (None means ``"cuda"``). With ``--remote`` the
+filter is a filterd elsewhere: its pattern set is checked against the
+run's before any stream opens, no engine is built and no card is
+needed, and ``--on-filter-error`` says what a batch gets while the
+service is unavailable.
 
 Observability, as in the JAX app: ``--metrics-port`` and
 ``--stats-json`` build a registry for the run (a fresh one each run, so
@@ -274,7 +278,9 @@ def make_inner_sink_factory(opts: Options):
 
 def make_pipeline_for(opts: Options, device=None, registry=None):
     """The --match/--exclude filter pipeline (None = unfiltered);
-    ``registry`` backs its stats when the run has one."""
+    ``registry`` backs its stats when the run has one. With --remote the
+    pipeline asks that filterd and builds no engine (``device`` is
+    unused)."""
     if not opts.match and not opts.exclude:
         return None
     from klogs_tpu_torch.filters.compiler.parser import RegexSyntaxError
@@ -284,7 +290,8 @@ def make_pipeline_for(opts: Options, device=None, registry=None):
         return make_pipeline(opts.match, opts.backend,
                              ignore_case=opts.ignore_case,
                              exclude=opts.exclude, device=device,
-                             registry=registry)
+                             registry=registry, remote=opts.remote,
+                             on_filter_error=opts.on_filter_error)
     except re.error as e:
         term.fatal("invalid --match/--exclude pattern %r: %s", e.pattern, e)
     except RegexSyntaxError as e:
@@ -543,6 +550,9 @@ async def _run_async_inner(opts: Options, backend: ClusterBackend | None,
                 prof_task = asyncio.create_task(
                     PROFILER.run_ticker(prof_stop))
             if pipeline is not None:
+                # --remote: the server's pattern set is checked against
+                # this run's before any stream opens.
+                await pipeline.start()
                 pipeline.inner_factory = inner_factory
                 from klogs_tpu_torch.ops.tune import tune_mode
 
@@ -679,7 +689,8 @@ async def _run_async_inner(opts: Options, backend: ClusterBackend | None,
                 PROFILER.set_json_path(None)
             if metrics_srv is not None:
                 await metrics_srv.stop()
-            # Drains the in-flight device batches, inside the loop.
+            # Drains the in-flight device batches, or closes a remote
+            # client's channel, inside the loop.
             if pipeline is not None:
                 await pipeline.aclose()
             # A degrade trigger armed near the end may have no root span

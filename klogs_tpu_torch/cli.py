@@ -26,6 +26,12 @@ shorthands, defaults, choices and checks:
   --since-time      only logs after an absolute RFC3339 time
   --timestamps      server-side RFC3339 timestamp before each line
   --backend         filter engine: cuda (batch NFA on the GPU)
+  --remote          filter through one remote filterd (HOST:PORT; the
+                    port's ``python -m klogs_tpu_torch.service`` or the
+                    JAX package's) instead of an in-process engine: the
+                    collector then builds no engine and needs no card
+  --on-filter-error with --remote: what a batch gets while the service
+                    stays unavailable: pass | drop | abort (default)
   --stats           print lines/sec, matched %, batch-latency summary
   --metrics-port    serve Prometheus /metrics + /healthz (and /readyz,
                     /traces, /profile) for this run
@@ -49,9 +55,9 @@ shorthands, defaults, choices and checks:
   --replay-rate     pace replay at N lines/s (default: as fast as the
                     disk goes; KLOGS_REPLAY_RATE sets a default)
 
-The remote filter service of the JAX CLI (``--remote``,
-``--shard-mode``, ``--resolver``, ``--on-filter-error``) is not ported
-yet.
+The JAX CLI's sharded filterd tier is not ported yet: ``--remote``
+takes one endpoint here (a list is a one-line error), and
+``--shard-mode`` and ``--resolver`` do not exist.
 """
 
 import argparse
@@ -83,6 +89,8 @@ class Options:
     exclude: list[str] = field(default_factory=list)
     ignore_case: bool = False
     backend: str = "cuda"
+    remote: str | None = None
+    on_filter_error: str = "abort"
     stats: bool = False
     cluster: str = "kube"
     watch_new: bool = False
@@ -133,6 +141,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Case-insensitive --match/--exclude patterns")
     p.add_argument("--backend", choices=["cuda"], default="cuda",
                    help="Line-filter engine: batch NFA on the GPU")
+    p.add_argument("--remote", default=None, metavar="HOST:PORT",
+                   help="Filter via a remote klogs-filterd service "
+                   "(python -m klogs_tpu_torch.service, or the JAX "
+                   "package's) instead of an in-process engine")
+    p.add_argument("--on-filter-error", choices=["pass", "drop", "abort"],
+                   default="abort", dest="on_filter_error",
+                   help="With --match/--exclude: how sinks degrade when the "
+                   "filter service stays unavailable (retries exhausted, "
+                   "circuit breaker open): write lines UNFILTERED (pass), "
+                   "discard them (drop), or end the run with one clear "
+                   "error (abort, default)")
     p.add_argument("--stats", action="store_true",
                    help="Print lines/sec, matched %%, and batch-latency summary")
     p.add_argument("--metrics-port", type=int, default=None,
@@ -236,6 +255,8 @@ def parse_args(argv: list[str] | None = None) -> Options:
         exclude=list(ns.exclude),
         ignore_case=ns.ignore_case,
         backend=ns.backend,
+        remote=ns.remote,
+        on_filter_error=ns.on_filter_error,
         stats=ns.stats,
         cluster=ns.cluster,
         watch_new=ns.watch_new,
@@ -296,6 +317,10 @@ def check_options(opts: Options) -> "str | None":
         if not opts.source.startswith("replay:"):
             term.warning("--replay-rate only applies to a replay "
                          "source; ignoring")
+    if opts.remote is not None and "," in opts.remote:
+        from klogs_tpu_torch.service.client import REMOTE_LIST_ERROR
+
+        return REMOTE_LIST_ERROR
     for flag, pat in (("-c/--container", opts.container),
                       ("-E/--exclude-container", opts.exclude_container)):
         if pat:
@@ -334,6 +359,27 @@ def main(argv: list[str] | None = None, device=None) -> int:
         return 1
     except KeyboardInterrupt:
         return 130
+    except Exception as e:
+        # --remote: a pattern handshake mismatch or a bad transport
+        # security setting, as one line.
+        if not _remote_config_error(e):
+            raise
+        term.error("%s", e)
+        return 1
+
+
+def _remote_config_error(e: Exception) -> bool:
+    """Whether ``e`` is the remote client's PatternMismatch or
+    ServiceConfigError (grpc is imported only here, so a missing grpc
+    does not hide ``e``)."""
+    try:
+        from klogs_tpu_torch.service.client import (
+            PatternMismatch,
+            ServiceConfigError,
+        )
+    except ImportError:
+        return False
+    return isinstance(e, (PatternMismatch, ServiceConfigError))
 
 
 if __name__ == "__main__":

@@ -26,14 +26,20 @@ for its verdicts, so the device's own time shows in ``device.fetch``
 (and in ``klogs_engine_device_batch_seconds``), not in
 ``device.kernel``.
 
-The JAX module's ``FleetCapacity`` (filterd's capacity advertisement)
-belongs to the service layer and is not here.
+``FleetCapacity`` is filterd's capacity accountant: offered against
+admitted lines, their rolling rates, and a headroom in [0, 1] that every
+Hello carries (``klogs_fleet_*`` with a registry). Its rate envelope is
+``KLOGS_FLEET_CAPACITY_LPS``, else the live profiler's peak stage
+utilization stands in, else there is none: the port has no operating
+point of its own on the card yet, and the JAX package's
+``OPERATING_POINT.json`` was measured on a TPU, so it is never read.
 """
 
 import json
 import os
 import threading
 import time
+from collections import deque
 from typing import TYPE_CHECKING, Any, Callable
 
 from klogs_tpu_torch.obs import trace as _trace
@@ -45,8 +51,9 @@ if TYPE_CHECKING:
 
 # The pipeline stage catalog: the span names the profiler folds, the
 # same as the JAX package's (a fixed enum bounding the `stage` label of
-# the klogs_profile_* families). The port emits no shard.*, rpc.*,
-# tenant.*, mesh.*, device.sweep or device.groupscan span yet.
+# the klogs_profile_* families). The port emits no shard.*, tenant.*,
+# mesh.*, device.sweep or device.groupscan span yet; filterd and its
+# client emit rpc.server and rpc.client.
 STAGES: "tuple[str, ...]" = (
     "source.read",
     "fanout.read",
@@ -67,6 +74,10 @@ STAGES: "tuple[str, ...]" = (
 _STAGE_SET = frozenset(STAGES)
 
 DEFAULT_INTERVAL_S = 1.0
+# The rolling window of the offered/admitted rates.
+_CAPACITY_WINDOW_S = 30.0
+# The least spacing of two samples of the capacity history.
+_CAPACITY_SAMPLE_S = 0.5
 # Fallback zero point for process uptime when /proc is unreadable.
 _T0 = time.monotonic()
 
@@ -158,6 +169,9 @@ class PipelineProfiler:
         self._child_busy: "dict[str, float]" = {}
         self._last_tick: "tuple[float, dict[str, float]] | None" = None
         self._last_doc: "dict[str, Any] | None" = None
+        # The last tick window's utilization by stage.
+        self._util: "dict[str, float]" = {}
+        self._capacity: "FleetCapacity | None" = None
         self._probes: "dict[str, Callable[[], float]]" = {}
         self._json_lock = threading.Lock()
         self._json_path: "str | None" = None
@@ -211,6 +225,11 @@ class PipelineProfiler:
             self._registry = registry
             self._synced = {}
 
+    def attach_capacity(self, capacity: "FleetCapacity | None") -> None:
+        """filterd's capacity accountant: /profile and the JSON lines
+        then carry its block (a later server in the process rebinds)."""
+        self._capacity = capacity
+
     def set_json_path(self, path: "str | None") -> None:
         """--profile-json PATH: append one JSON line per tick."""
         with self._json_lock:
@@ -243,9 +262,11 @@ class PipelineProfiler:
             self._child_busy = {}
             self._last_tick = None
             self._last_doc = None
+            self._util = {}
             self._probes = {}
             self._registry = None
             self._synced = {}
+        self._capacity = None
         with self._json_lock:
             self._json_path = None
 
@@ -281,6 +302,15 @@ class PipelineProfiler:
             acc[0] += max(0.0, float(dur) - child)
             acc[1] += 1
 
+    def max_utilization(self) -> "float | None":
+        """The peak stage utilization over the last tick window (what
+        ``FleetCapacity.headroom`` reads); None before the first window
+        or when disabled."""
+        with self._lock:
+            if not self._enabled or not self._util:
+                return None
+            return max(self._util.values())
+
     # -- ticking ------------------------------------------------------
 
     def tick(self, io: bool = True) -> "dict[str, Any] | None":
@@ -308,6 +338,8 @@ class PipelineProfiler:
             dt = now - last[0]
             for k, (busy, _) in stages.items():
                 util[k] = (busy - last[1].get(k, 0.0)) / dt / max(rate, 1e-9)
+        with self._lock:
+            self._util = util
         if registry is not None:
             self._sync_metrics(registry, stages, util)
             if io:
@@ -334,6 +366,9 @@ class PipelineProfiler:
             "samples": samples,
             "bottleneck": bottleneck,
         }
+        cap = self._capacity
+        if cap is not None:
+            doc["capacity"] = cap.doc()
         with self._lock:
             self._last_doc = doc
         if io:
@@ -399,6 +434,175 @@ class PipelineProfiler:
                 pass
             await asyncio.to_thread(self.tick)
         await asyncio.to_thread(self.tick)
+
+
+class FleetCapacity:
+    """Offered against admitted lines, and the headroom filterd
+    advertises in Hello (``klogs_fleet_*`` with a registry).
+
+    - *offered*: lines that entered a match RPC, the demand;
+    - *admitted*: lines that got their verdicts, the service; offered
+      less admitted over a window is the shed an autoscaler adds
+      capacity for;
+    - *headroom*, in [0, 1] by the trust of its signal (``headroom``):
+      1 - admitted rate / envelope where the operator set one
+      (``KLOGS_FLEET_CAPACITY_LPS``), else 1 - the live profiler's peak
+      stage utilization, else the operating point's envelope (none yet
+      on the card), else None: a guess would be worse than silence.
+    """
+
+    def __init__(self, registry: "Registry | None" = None,
+                 envelope_lps: "float | None" = None,
+                 profiler: "PipelineProfiler | None" = None) -> None:
+        self._lock = threading.Lock()
+        self._offered = 0
+        self._admitted = 0
+        # A first sample at construction: the first rate is measured
+        # from the start, not from its own read.
+        self._hist: "deque[tuple[float, int, int]]" = deque(
+            [(time.monotonic(), 0, 0)])
+        self._envelope = envelope_lps
+        self._envelope_resolved = envelope_lps is not None
+        self._envelope_from_ctor = envelope_lps is not None
+        self._profiler = profiler
+        self._m_offered: Any = None
+        self._m_admitted: Any = None
+        self._m_headroom: Any = None
+        if registry is not None:
+            self._m_offered = registry.family(
+                "klogs_fleet_offered_lines_total")
+            self._m_admitted = registry.family(
+                "klogs_fleet_admitted_lines_total")
+            self._m_headroom = registry.family("klogs_fleet_headroom")
+
+    # -- accounting ---------------------------------------------------
+
+    def note_offered(self, n: int) -> None:
+        if n <= 0:
+            return
+        with self._lock:
+            self._offered += n
+        if self._m_offered is not None:
+            self._m_offered.inc(n)
+
+    def note_admitted(self, n: int) -> None:
+        if n <= 0:
+            return
+        with self._lock:
+            self._admitted += n
+        if self._m_admitted is not None:
+            self._m_admitted.inc(n)
+
+    @property
+    def offered(self) -> int:
+        with self._lock:
+            return self._offered
+
+    @property
+    def admitted(self) -> int:
+        with self._lock:
+            return self._admitted
+
+    def _roll(self, now: float) -> None:
+        with self._lock:
+            if (not self._hist
+                    or now - self._hist[-1][0] >= _CAPACITY_SAMPLE_S):
+                self._hist.append((now, self._offered, self._admitted))
+            while (len(self._hist) > 1
+                   and now - self._hist[0][0] > _CAPACITY_WINDOW_S):
+                self._hist.popleft()
+
+    def rates(self) -> "tuple[float | None, float | None]":
+        """(offered, admitted) lines/s over the rolling window: the live
+        totals against the oldest sample kept, so a Hello between two
+        samples reads a current rate. (None, None) until the first
+        sample is half a spacing old."""
+        now = time.monotonic()
+        self._roll(now)
+        with self._lock:
+            if not self._hist:
+                return None, None
+            t0, off0, adm0 = self._hist[0]
+            off1, adm1 = self._offered, self._admitted
+        dt = now - t0
+        if dt < _CAPACITY_SAMPLE_S / 2:
+            return None, None
+        return (off1 - off0) / dt, (adm1 - adm0) / dt
+
+    # -- the signal ---------------------------------------------------
+
+    def envelope_lps(self) -> "float | None":
+        """The rate envelope: ``KLOGS_FLEET_CAPACITY_LPS`` when set (the
+        deployment's own calibration), else the operating point's
+        (``_operating_point_lps``: none on the card yet)."""
+        from klogs_tpu_torch.utils.env import is_set, positive_float
+
+        if is_set("KLOGS_FLEET_CAPACITY_LPS"):
+            return positive_float("KLOGS_FLEET_CAPACITY_LPS", 0.0)
+        if self._envelope_resolved:
+            return self._envelope
+        self._envelope_resolved = True
+        self._envelope = _operating_point_lps()
+        return self._envelope
+
+    def headroom(self) -> "float | None":
+        """1 - saturation, clamped to [0, 1], by the signal's trust:
+
+        1. an explicit envelope (``KLOGS_FLEET_CAPACITY_LPS`` or the
+           constructor's): 1 - admitted rate / envelope;
+        2. else the profiler's peak stage utilization, clamped at 1
+           (it counts concurrency: 16 RPCs in flight read > 1, which
+           means saturated);
+        3. else the operating point's envelope;
+        4. else None."""
+        from klogs_tpu_torch.utils.env import is_set
+
+        explicit = (is_set("KLOGS_FLEET_CAPACITY_LPS")
+                    or (self._envelope_resolved
+                        and self._envelope is not None
+                        and self._envelope_from_ctor))
+        if explicit:
+            cap = self.envelope_lps()
+            if cap:
+                # Before the window has aged the observed rate is ~0: a
+                # fresh server advertises full headroom.
+                _, admitted_lps = self.rates()
+                return max(0.0, min(1.0,
+                                    1.0 - (admitted_lps or 0.0) / cap))
+        prof = self._profiler if self._profiler is not None else PROFILER
+        util = prof.max_utilization()
+        if util is not None:
+            return max(0.0, 1.0 - min(1.0, util))
+        cap = self.envelope_lps()
+        if cap:
+            _, admitted_lps = self.rates()
+            return max(0.0, min(1.0, 1.0 - (admitted_lps or 0.0) / cap))
+        return None
+
+    def doc(self) -> "dict[str, Any]":
+        """The capacity block of Hello (and of /profile)."""
+        offered_lps, admitted_lps = self.rates()
+        head = self.headroom()
+        if self._m_headroom is not None and head is not None:
+            self._m_headroom.set(head)
+        with self._lock:
+            offered, admitted = self._offered, self._admitted
+        return {
+            "offered_lines": offered,
+            "admitted_lines": admitted,
+            "offered_lps": (round(offered_lps, 1)
+                            if offered_lps is not None else None),
+            "admitted_lps": (round(admitted_lps, 1)
+                             if admitted_lps is not None else None),
+            "headroom": head,
+        }
+
+
+def _operating_point_lps() -> "float | None":
+    """The best lines/s of the port's operating-point sweep on the card:
+    None, since no such sweep is committed yet. The JAX package's
+    ``OPERATING_POINT.json`` holds a TPU's rates and is not read."""
+    return None
 
 
 # The process-wide profiler: what --profile-json, /profile and the

@@ -12,10 +12,14 @@ test double. The port fires:
                        archive.py, socket.py)
 - ``source.read``      a non-kube source's chunk read (same sites; it
                        surfaces as SourceError)
+- ``rpc.hello``        a remote filter client's Hello (service/client.py)
+- ``rpc.match``        its Match and MatchFramed RPCs (both points fire
+                       inside ``retry_call``, with the client's endpoint
+                       as the target)
 
-``rpc.match``, ``rpc.hello``, ``resolver.watch`` and ``tune.step`` are
-known names (the spec grammar is the JAX package's) whose sites belong
-to layers the port has not ported yet; armed, they never fire.
+``resolver.watch`` and ``tune.step`` are known names (the spec grammar
+is the JAX package's) whose sites belong to layers the port has not
+ported yet; armed, they never fire.
 
 Tests arm a point with ``FAULTS.arm(point, times=..., exc=...,
 delay_s=...)``; operators use the ``KLOGS_FAULTS`` spec

@@ -8,8 +8,11 @@ for ``--watch-new`` and follow-mode source discovery,
 ``KLOGS_SOURCE_READAHEAD_MB``, ``KLOGS_REPLAY_RATE`` and
 ``KLOGS_SOCKET_MAX_CONNS``, for the observability and fault layers
 ``KLOGS_TRACE_SAMPLE``, ``KLOGS_FLIGHT_DIR``, ``KLOGS_PROFILE_SAMPLE``,
-``KLOGS_PROFILE_INTERVAL_S`` and ``KLOGS_FAULTS``, and ``KLOGS_TUNE``,
-whose ``auto`` mode is refused) and adds none.
+``KLOGS_PROFILE_INTERVAL_S`` and ``KLOGS_FAULTS``, ``KLOGS_TUNE``,
+whose ``auto`` mode is refused, and for the remote filter service
+``KLOGS_REMOTE_TIMEOUT_S``, ``KLOGS_REMOTE_TLS_CA``/``_CERT``/``_KEY``,
+``KLOGS_REMOTE_TOKEN_FILE``, ``KLOGS_TENANT_WEIGHT`` and
+``KLOGS_FLEET_CAPACITY_LPS``) and adds none.
 """
 
 import math

@@ -325,3 +325,52 @@ def test_pickers_drive_the_app_as_jax(tmp_path):
         files.append(read_all(out))
     assert files[0] == files[1]
     assert sorted(files[1]) == ["pod-0001__c0.log", "pod-0003__c0.log"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--remote", "filterd:50051"], ["--remote", "unix:/run/f.sock"],
+    ["--on-filter-error", "pass"], ["--on-filter-error", "drop"],
+    ["--on-filter-error", "abort", "--remote", "h:1", "--match", "x"],
+], ids=lambda a: " ".join(a))
+def test_remote_flags_parse_as_jax(argv):
+    got = vars(cli.parse_args(argv + ["-p", "x"]))
+    exp = vars(jax_parse_args(argv + ["-p", "x"]))
+    assert (got["remote"], got["on_filter_error"]) == (
+        exp["remote"], exp["on_filter_error"])
+    assert {k: v for k, v in got.items() if k != "backend"} == {
+        k: exp[k] for k in got if k != "backend"}
+
+
+def test_remote_flag_errors_equal_jax(capsys):
+    """A bad --on-filter-error choice is argparse's exit 2 on both; a
+    malformed --remote endpoint is one line and exit 1 on both."""
+    from klogs_tpu.cli import main as jax_main
+
+    for argv in (["--on-filter-error", "retry"],
+                 ["--remote", "127.0.0.1:notaport", "--match", "x",
+                  "--cluster", "fake"]):
+        codes = []
+        for main in (cli.main, jax_main):
+            capsys.readouterr()
+            try:
+                codes.append(main(argv + ["-a", "-p", "x"]))
+            except SystemExit as e:
+                codes.append(("exit", e.code))
+            cap = capsys.readouterr()
+            codes.append([ln.replace("klogs-torch", "klogs")
+                          for ln in (cap.out + cap.err).splitlines()
+                          if "ERROR" in ln or "error:" in ln])
+        assert codes[0:2] == codes[2:4]
+        assert codes[0] in (1, ("exit", 2)) and len(codes[1]) == 1
+
+
+def test_remote_list_is_one_line_error(capsys, tmp_path):
+    """A --remote list (the sharded tier, not ported yet) is rejected
+    before any cluster work, with one line and exit 1."""
+    rc = cli.main(["-a", "--cluster", "fake", "--match", "x", "-p",
+                   str(tmp_path / "o"), "--remote", "a:1,b:2"])
+    out = capsys.readouterr().out
+    errs = [ln for ln in out.splitlines() if "ERROR" in ln]
+    assert rc == 1 and len(errs) == 1
+    assert "a list of filterd endpoints" in errs[0]
+    assert not (tmp_path / "o").exists()

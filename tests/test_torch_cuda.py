@@ -854,3 +854,63 @@ def test_backfill_on_card_equals_cpu(dev, tmp_path, monkeypatch):
     assert dispatches[0] > 2
     for k in (nfa_kernels.GROUPED, nfa_kernels.CHUNK, nfa_kernels.PACK):
         assert launches[k] > 0, launches
+
+
+# ---- filterd on the card -----------------------------------------------
+
+def test_filterd_on_card_serves_two_clients_the_cpu_verdicts(dev):
+    """The port's filterd on the card (kernels built before it binds)
+    serving two concurrent clients framed batches of short and long
+    lines: each client's verdicts equal the CPU engine's on its frames,
+    and the server's engine launched K1, K2 and pack_rows."""
+    import asyncio
+
+    from klogs_tpu_torch.filters.base import frame_lines
+    from klogs_tpu_torch.service.client import RemoteFilterClient
+    from klogs_tpu_torch.service.server import FilterServer
+
+    rng = np.random.default_rng(21)
+    needles = [b"panic: x", b"retry 3/5", b"code=503", b"FATAL a code=9",
+               b"disk is full"]
+    frames = []
+    for c in range(2):
+        for b in range(6):
+            lines = []
+            for i, n in enumerate(rng.integers(0, 600, size=3000)):
+                body = bytearray(rng.integers(32, 127, size=int(n),
+                                              dtype=np.uint8))
+                if (i + b + c) % 7 == 0 and n > 20:
+                    nd = needles[(i + b) % len(needles)]
+                    p = int(rng.integers(0, n - len(nd)))
+                    body[p:p + len(nd)] = nd
+                lines.append(bytes(body) + b"\n")
+            lines += [bytes(rng.integers(32, 127, size=int(n),
+                                         dtype=np.uint8))
+                      + (b"code=504" if b % 2 else b"") + b"\n"
+                      for n in rng.integers(5000, 30000, size=3)]
+            frames.append((c, frame_lines(lines, strip_nl=False)[:2]))
+
+    async def go():
+        server = FilterServer(PATTERNS, port=0, device=dev)
+        port = await server.start()
+        clients = [RemoteFilterClient(f"127.0.0.1:{port}") for _ in range(2)]
+        try:
+            for cl in clients:
+                await cl.verify_patterns(PATTERNS)
+            nfa_kernels.reset_launches()
+            got = await asyncio.gather(*[clients[c].match_framed(p, o)
+                                         for c, (p, o) in frames])
+            return got, dict(nfa_kernels.LAUNCHES)
+        finally:
+            for cl in clients:
+                await cl.aclose()
+            await server.stop()
+
+    got, launches = asyncio.run(go())
+    cpu = GpuEngineFilter(PATTERNS, device="cpu")
+    for (_, (p, o)), g in zip(frames, got):
+        assert g.tolist() == cpu.fetch_framed(cpu.dispatch_framed(p, o)) \
+            .tolist()
+    assert sum(int(g.sum()) for g in got) > 100
+    for k in (nfa_kernels.GROUPED, nfa_kernels.CHUNK, nfa_kernels.PACK):
+        assert launches[k] > 0, launches

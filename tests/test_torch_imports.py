@@ -51,7 +51,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "obs/__init__.py", "obs/metrics.py", "obs/expo.py",
                 "obs/inventory.py", "obs/trace.py", "obs/profiler.py",
                 "obs/http.py", "resilience/__init__.py",
-                "resilience/faults.py"):
+                "resilience/faults.py", "service/__init__.py",
+                "service/__main__.py", "service/transport.py",
+                "service/client.py", "service/server.py"):
         assert os.path.join(PORT, mod) in files
     bad = []
     for path in files:
@@ -202,6 +204,48 @@ def test_cuda_entry_points_raise_without_card(tmp_path, monkeypatch):
     finally:
         trace.reset(None)
     assert os.listdir(tmp_path) == [] and not stats.exists()
+    # filterd: its server object and its process entry point raise.
+    from klogs_tpu_torch.service.server import FilterServer
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        FilterServer(["x"], port=0)
+    out = subprocess.run(
+        [sys.executable, "-m", "klogs_tpu_torch.service", "--match", "x",
+         "--port", "0"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode != 0 and "cuda" in out.stderr
+    assert "serving" not in out.stdout
+
+
+def test_remote_collector_runs_without_a_card(tmp_path):
+    """A --remote collector builds no engine: with device=None and no
+    card it runs against a filterd (here the port's on the CPU) and
+    writes the filtered files."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import asyncio
+
+    from klogs_tpu_torch import app, cli
+    from klogs_tpu_torch.cluster.fake import FakeCluster
+    from klogs_tpu_torch.service.server import FilterServer
+
+    async def go():
+        server = FilterServer(["INFO"], port=0, device="cpu")
+        port = await server.start()
+        try:
+            opts = cli.parse_args(["-n", "default", "-a", "-p",
+                                   str(tmp_path), "--match", "INFO",
+                                   "--remote", f"127.0.0.1:{port}"])
+            return await app.run_async(opts, backend=FakeCluster.synthetic(
+                n_pods=2, n_containers=1, lines_per_container=40))
+        finally:
+            await server.stop()
+
+    assert asyncio.run(go()) == 0
+    files = sorted(os.listdir(tmp_path))
+    assert len(files) == 2
+    lines = b"".join((tmp_path / f).read_bytes() for f in files).splitlines()
+    assert len(lines) == 20 and all(b"INFO" in ln for ln in lines)
 
 
 def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
