@@ -91,8 +91,8 @@ K axis: 156 groups of 128 states, 64 classes):
 The observability and fault layers, after them:
 
 15. obs: the cli cell (256 pods x 4000 lines, 16 long lines, --match
-   x32) run four times, with ``--stats-json``, ``--trace-json``,
-   ``--profile-json`` and ``--metrics-port`` off, on, on, off: every
+   x32) run three times, with ``--stats-json``, ``--trace-json``,
+   ``--profile-json`` and ``--metrics-port`` off, on, off: every
    file equal to the oracle's in every run, lines/s of each run and the
    overhead % of "on" beside the layer's design budget (2%, not a
    gate); then once on without ``--trace-json`` (what the JSON-lines
@@ -147,8 +147,9 @@ removed at the end):
    equal to the ``re`` oracle's selection in rotated order, lines/s,
    device batches, K1 (or K3), K2 and ``pack_rows`` held against their
    plain versions on the run's own batches (counts zeroed just before
-   the run), then a backfill of each set's oldest generation under
-   cProfile with a 1 s torch.profiler window (the device's busy share).
+   the run), then a backfill of each set's oldest generation (at 1024
+   patterns, of the first four sets') under cProfile with a 1 s
+   torch.profiler window (the device's busy share).
    Beside them the source alone: the sets drained through
    ``ArchiveStream``.
 19. sources: ``--source replay:`` over each set's stream as one file
@@ -166,7 +167,7 @@ The remote filter service, last:
    phase's, RPCs by method, lines a device batch and the fleet's
    offered and admitted lines from its /metrics; (b) 262,144 FakeCluster
    lines in framed RPCs of 8192 at concurrency 1, 4 and 16 on one
-   channel (``tools/bench_service.py``'s shape), 3 s each, every
+   channel (``tools/bench_service.py``'s shape), 1.5 s each, every
    verdict equal to the in-process engine's: lines/s and lines a device
    batch; (c) an in-process filterd on the card with one collector (32
    pods x 4000 lines + 4 long lines): K1, K2 and ``pack_rows`` held
@@ -176,13 +177,39 @@ The remote filter service, last:
    frequent batch; (d) a collector under
    ``KLOGS_FAULTS=rpc.match:error*2`` (exact files, 2 faults and 2
    retries in its --stats-json), then a collector process whose
-   filterd is killed mid-run: ``--on-filter-error abort`` exits 1 with
-   one error line, ``pass`` writes the lines after the kill unfiltered
-   and counts them.
+   filterd is killed mid-run (a filterd for each, both started at
+   once): ``--on-filter-error abort`` exits 1 with one error line,
+   ``pass`` writes the lines after the kill unfiltered and counts them.
+21. fleet: the sharded tier and the multi-set registry. Three filterd
+   processes of the 32 patterns (``KLOGS_FLEET_CAPACITY_LPS`` 2M, 40k
+   and 10k) and one ``--multi-set`` one with no ``--match``, started
+   at once. (a) the cli cell as one collector of ``--remote A,B,C``,
+   round-robin, round-robin again on the first pass's load, and then
+   ``--shard-mode hash``: files equal to the oracle, lines/s beside the
+   filterd phase's one endpoint, each endpoint's MatchFramed RPCs
+   adding up to the collector's ``klogs_shard_batches_total`` (all
+   three serve; on the second pass A more than B more than C, as
+   their headroom; under hash only the ring's owner); (b) ``--resolver
+   file:`` seeded with A and B, 64 slow pods: B killed once it served,
+   C written into the file, B started again on its ports, files exact
+   with no line degraded, the restarted B serving, and the membership
+   events, reroutes and hedges counted; (c) three
+   collectors of the multi-set filterd at once (the 32 patterns twice,
+   the 1024 on 64 pods x 250 lines): files exact, 2 engine builds,
+   Hello's ``multi_set``, and ``nvidia-smi``'s compute apps; then a
+   multi-set filterd in this process: K1, K2 and ``pack_rows`` held on
+   the 32-pattern set's batches, the sweep and K3 (with its pair list)
+   on the 1024 set's, and ``torch.cuda.memory_allocated`` back within
+   5% of its level before that set registered once it is evicted; (d)
+   a collector over ``KLOGS_TENANT_QUOTA_LINES`` with
+   ``--on-filter-error pass`` (its sheds counted and written as
+   degraded) beside a sibling set whose files stay exact.
 
-Then a ``kernels`` line (each kernel's time beside its bound and its
-plain version's time, with its launches on its main path and on the
-backfill: the four NFA kernels and ``pack_rows``), the card line, and
+Every phase line carries ``phase_s``, the seconds since the line
+before it. Then a ``kernels`` line (each kernel's time beside its bound
+and its plain version's time, with its launches on its main path, on
+the backfill and in the fleet's registry: the four NFA kernels and
+``pack_rows``), the card line, and
 last ``{"ok": true,
 "device": {...}}``. Any failed phase exits
 non-zero without that line, as does a run with no CUDA device or
@@ -193,6 +220,7 @@ import asyncio
 import concurrent.futures
 import contextlib
 import functools
+import gc
 import io
 import json
 import multiprocessing
@@ -262,7 +290,16 @@ INT8_OPS_S = 1.979e15
 SOURCE = "klogs_tpu_torch/ops/csrc/nfa_kernels.cu"
 
 
+# When the last phase line was printed: each phase line carries the
+# seconds since (``phase_s``), its phase's time, for the next budget.
+_LAST_EMIT = [time.perf_counter()]
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        now = time.perf_counter()
+        obj = {**obj, "phase_s": now - _LAST_EMIT[0]}
+        _LAST_EMIT[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -1337,8 +1374,8 @@ def profile_run(torch, app, cli, term, FakeCluster, np, dev,
 def obs_phase(torch, np, nk, app, cli, term, FakeCluster, GpuEngineFilter,
               FilterStats, frame, dev, card: str, want_k: dict) -> dict:
     """The observability and fault layers on the card: the cli cell run
-    with the flags off, on, on, off (lines/s and the overhead); what the
-    files of an "on" run hold, and a mid-run scrape; the K = 1024 cell
+    with the flags off, on, off (lines/s and the overhead); what the
+    files of the "on" run hold, and a mid-run scrape; the K = 1024 cell
     once "on" (its device.kernel spans swept; ``want_k``: its files as
     the oracle selects them, from the cli_k1024 phase); dispatch under
     the sync debug mode untraced and traced; a fault-recovery run; a
@@ -1355,7 +1392,7 @@ def obs_phase(torch, np, nk, app, cli, term, FakeCluster, GpuEngineFilter,
     root = tempfile.mkdtemp(prefix="klogs-obs-")
     try:
         runs = []
-        for i, on in enumerate((False, True, True, False)):
+        for i, on in enumerate((False, True, False)):
             r = obs_run(torch, app, cli, term, obs, fc, argv, dev, on, root,
                         f"run{i}")
             r["lines_per_s"] = n_lines / r["seconds"]
@@ -1366,7 +1403,8 @@ def obs_phase(torch, np, nk, app, cli, term, FakeCluster, GpuEngineFilter,
             runs.append(r)
         off = [r["lines_per_s"] for r in runs if "files" not in r]
         on_ = [r["lines_per_s"] for r in runs if "files" in r]
-        overhead = 100.0 * (1.0 - (sum(on_) / 2) / (sum(off) / 2))
+        off_lps = sum(off) / len(off)
+        overhead = 100.0 * (1.0 - (sum(on_) / len(on_)) / off_lps)
         # Where the cost sits: the flags on but --trace-json (the spans
         # are still made, sampled and folded by the profiler, but not
         # appended to a file).
@@ -1377,7 +1415,7 @@ def obs_phase(torch, np, nk, app, cli, term, FakeCluster, GpuEngineFilter,
                        mismatched_files=files_equal(
                            os.path.join(nf["out"], "logs"), want))
         no_file["overhead_pct"] = 100.0 * (
-            1.0 - no_file["lines_per_s"] / (sum(off) / 2))
+            1.0 - no_file["lines_per_s"] / off_lps)
         # The K = 1024 cell once with the flags on.
         pats = make_patterns(1024)
         kept_k = sum(v.count(b"\n") for v in want_k.values())
@@ -1920,15 +1958,16 @@ def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
 
 
 @contextlib.contextmanager
-def recording_wrappers(nk, pack, names: list):
-    """For the block, each wrapper named (``nfa_kernels`` ones, and
-    ``pack_rows``) records its calls: yields ``{name: {shapes: [count,
-    [(args, kwargs), ...]]}}``, keeping the first 8 calls of each shape
-    of its tensor arguments. The wrappers are restored after."""
+def recording_wrappers(nk, pack, names: list, sweep=None):
+    """For the block, each wrapper named (``nfa_kernels`` ones,
+    ``pack_rows``, and ``sweep``'s ``sweep_group_bits``) records its
+    calls: yields ``{name: {shapes: [count, [(args, kwargs), ...]]}}``,
+    keeping the first 8 calls of each shape of its tensor arguments.
+    The wrappers are restored after."""
     calls: dict = {n: {} for n in names}
     saved = {}
     for n in names:
-        mod = pack if n == "pack_rows" else nk
+        mod = {"pack_rows": pack, "sweep_group_bits": sweep}.get(n, nk)
         real = getattr(mod, n)
         saved[n] = (mod, real)
 
@@ -2728,7 +2767,8 @@ def backfill_phase(torch, np, nk, pack, bits, app, cli, term,
     total = sum(len(lines) for lines in corpus["sets"])
     # The profiled reruns read each set's oldest generation (a third of
     # the lines, no long line): at K = 1024 the 16 long lines alone take
-    # about a minute of K2 (PERF.md).
+    # about a minute of K2 (PERF.md). At K = 1024 (~60,000 lines/s) only
+    # the first half of the sets' oldest generations, for time.
     oldest_gz = [os.path.join(gz, "app-*.log.2.gz")]
     runs = dict(
         a=backfill_run(torch, nk, pack, bits, app, cli, term, dev,
@@ -2742,7 +2782,8 @@ def backfill_phase(torch, np, nk, pack, bits, app, cli, term,
         c=backfill_run(torch, nk, pack, bits, app, cli, term, dev,
                        "k1024_gzip", [gz], k1024,
                        expected_files(corpus, v1024, names("gz")), total,
-                       oldest_gz))
+                       [os.path.join(gz, f"app-{i:02d}.log.2.gz")
+                        for i in range(n_sets // 2)]))
     capacity = dict(gzip=source_capacity([gz]),
                     plain=source_capacity([plain]))
     res = dict(card=card, lines=total, sets=n_sets,
@@ -3070,30 +3111,31 @@ def rpcs_by_method(before: dict, after: dict) -> dict:
 
 
 def dump_value(doc: dict, name: str, **labels) -> float:
-    """A sample of a --stats-json dump (0 when absent)."""
-    for s in doc["metrics"].get(name, {}).get("samples", []):
-        if s.get("labels", {}) == labels:
-            return s["value"]
-    return 0.0
+    """The samples of a --stats-json dump whose labels include
+    ``labels``, summed (0 when there is none)."""
+    return sum(s["value"] for s in doc["metrics"].get(name, {}).get(
+        "samples", []) if labels.items() <= s.get("labels", {}).items())
 
 
-@contextlib.contextmanager
-def filterd_process(root: str, patterns: list, limit: float = 240.0):
-    """``python -m klogs_tpu_torch.service --backend cuda --match ...
-    --port 0 --metrics-port 0`` in a process of its own, as it is
-    deployed: yields {proc, port, metrics_port, banner, stderr} once
-    the banner named both ports and /readyz answered 200 (the warmup
-    batch went through the card). The process is terminated after the
-    block; if it died first, or does not come up, this raises with its
-    stderr printed."""
+def start_filterd(root: str, patterns: list, args: tuple = (),
+                  env: "dict | None" = None) -> dict:
+    """Start ``python -m klogs_tpu_torch.service --backend cuda --match
+    ... --metrics-port 0`` (``--port 0`` unless ``args`` names one; a
+    ``--metrics-port`` in ``args`` wins) in a process of its own, as it
+    is deployed, with ``env`` added to this process's environment:
+    {proc, lines, ...}; ``await_filterd`` waits for it, ``stop_filterd``
+    ends it."""
     argv = [sys.executable, "-m", "klogs_tpu_torch.service", "--backend",
-            "cuda", "--port", "0", "--metrics-port", "0"]
+            "cuda", "--metrics-port", "0", *args]
+    if "--port" not in args:
+        argv += ["--port", "0"]
     for p in patterns:
         argv += ["--match", p]
     err = tempfile.NamedTemporaryFile(prefix="filterd-", suffix=".err",
                                       delete=False)
     proc = subprocess.Popen(argv, cwd=root, stdout=subprocess.PIPE,
-                            stderr=err, text=True)
+                            stderr=err, text=True,
+                            env=dict(os.environ, **(env or {})))
     lines: list = []
 
     def read_stdout() -> None:
@@ -3102,62 +3144,83 @@ def filterd_process(root: str, patterns: list, limit: float = 240.0):
 
     reader = threading.Thread(target=read_stdout, daemon=True)
     reader.start()
-    box: dict = dict(proc=proc, stderr=err.name)
+    return dict(proc=proc, err=err, lines=lines, reader=reader,
+                t0=time.perf_counter())
 
-    def stderr_text() -> str:
-        with open(err.name, errors="replace") as f:
-            return f.read()[-8000:]
 
-    def died(what: str) -> AssertionError:
-        print(f"filterd ({what}); its stderr:\n{stderr_text()}",
-              file=sys.stderr, flush=True)
-        return AssertionError(f"filterd {what} (exit {proc.poll()})")
+def filterd_died(box: dict, what: str) -> AssertionError:
+    with open(box["err"].name, errors="replace") as f:
+        text = f.read()[-8000:]
+    print(f"filterd ({what}); its stderr:\n{text}", file=sys.stderr,
+          flush=True)
+    return AssertionError(f"filterd {what} (exit {box['proc'].poll()})")
 
+
+def await_filterd(box: dict, limit: float = 240.0) -> dict:
+    """Wait until the banner named both ports and /readyz answered 200
+    (the warmup batch went through the card, or a registry-only server
+    bound); sets port, metrics_port, banner and ready_s. Raises, with
+    the stderr printed, if the process died or is not up in ``limit``
+    seconds."""
+    proc, lines, t0 = box["proc"], box["lines"], box["t0"]
+    while True:
+        text = "".join(lines)
+        m = re.search(r"serving .*\[cuda\] on 127\.0\.0\.1:(\d+)", text)
+        mm = re.search(r"metrics on http://127\.0\.0\.1:(\d+)/metrics",
+                       text)
+        if m and mm:
+            box.update(port=int(m.group(1)), metrics_port=int(mm.group(1)),
+                       banner=[ln.strip() for ln in lines])
+            break
+        if proc.poll() is not None:
+            raise filterd_died(box, "exited before its banner")
+        if time.perf_counter() - t0 > limit:
+            raise filterd_died(box, "printed no banner in time")
+        time.sleep(0.05)
+    while True:
+        try:
+            status, _ = asyncio.run(http_get(box["metrics_port"], "/readyz"))
+        except OSError:
+            status = None
+        if status == 200:
+            break
+        if proc.poll() is not None:
+            raise filterd_died(box, "exited before /readyz")
+        if time.perf_counter() - t0 > limit:
+            raise filterd_died(box, "was not ready in time")
+        time.sleep(0.05)
+    box["ready_s"] = time.perf_counter() - t0
+    return box
+
+
+def stop_filterd(box: dict) -> None:
+    proc = box["proc"]
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(20)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(20)
+    box["reader"].join(5)
+    box["err"].close()
+    if os.path.exists(box["err"].name):
+        os.unlink(box["err"].name)
+
+
+@contextlib.contextmanager
+def filterd_process(root: str, patterns: list, limit: float = 240.0):
+    """One deployed filterd for the block (``start_filterd``,
+    ``await_filterd``), terminated after it; it fails the block if it
+    died during it (unless the block killed it: ``box["killed"]``)."""
+    box = start_filterd(root, patterns)
     try:
-        t0 = time.perf_counter()
-        while True:
-            text = "".join(lines)
-            m = re.search(r"serving \d+ pattern\(s\) \[cuda\] on "
-                          r"127\.0\.0\.1:(\d+)", text)
-            mm = re.search(r"metrics on http://127\.0\.0\.1:(\d+)/metrics",
-                           text)
-            if m and mm:
-                box.update(port=int(m.group(1)), metrics_port=int(mm.group(1)),
-                           banner=[ln.strip() for ln in lines])
-                break
-            if proc.poll() is not None:
-                raise died("exited before its banner")
-            if time.perf_counter() - t0 > limit:
-                raise died("printed no banner in time")
-            time.sleep(0.05)
-        while True:
-            try:
-                status, _ = asyncio.run(http_get(box["metrics_port"],
-                                                 "/readyz"))
-            except OSError:
-                status = None
-            if status == 200:
-                break
-            if proc.poll() is not None:
-                raise died("exited before /readyz")
-            if time.perf_counter() - t0 > limit:
-                raise died("was not ready in time")
-            time.sleep(0.05)
-        box["ready_s"] = time.perf_counter() - t0
+        await_filterd(box, limit)
         yield box
-        if proc.poll() is not None and not box.get("killed"):
-            raise died("died during the phase")
+        if box["proc"].poll() is not None and not box.get("killed"):
+            raise filterd_died(box, "died during the phase")
     finally:
-        if proc.poll() is None:
-            proc.terminate()
-            try:
-                proc.wait(20)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(20)
-        reader.join(5)
-        err.close()
-        os.unlink(err.name)
+        stop_filterd(box)
 
 
 async def remote_run(app, cli, fc, argv: list, port: int):
@@ -3202,7 +3265,7 @@ def filterd_cell(np, app, cli, term, FakeCluster, fd: dict) -> dict:
 
 def filterd_coalescing(np, GpuEngineFilter, frame_lines, synthetic_line,
                        dev, fd: dict, n_lines=262_144, batch=8192,
-                       seconds=3.0) -> dict:
+                       seconds=1.5) -> dict:
     """(b) ``tools/bench_service.py``'s shape: n_lines FakeCluster lines
     (1% needles) in framed RPCs of ``batch`` lines, at each concurrency
     of FILTERD_CONCURRENCY on one channel, ``seconds`` each; every
@@ -3376,16 +3439,16 @@ def filterd_faults(np, app, cli, term, FakeCluster, fd: dict) -> dict:
                                    site=site))
 
 
-def filterd_killed(root: str, action: str, n_pods=64,
+def filterd_killed(root: str, fd: dict, action: str, n_pods=64,
                    lines_per_pod=20_000) -> dict:
     """(d), then: a collector process (``python -m klogs_tpu_torch.cli
     -a --cluster fake --remote ... --on-filter-error ACTION``, no card
-    used) whose filterd is killed once its first lines reached it.
+    used) whose filterd ``fd`` (started, ready) is killed once its
+    first lines reached it.
     ``abort``: exit 1 with one error line; ``pass``: exit 0, and every
     line after the kill written unfiltered and counted in
     ``klogs_filter_degraded_lines_total{action="pass"}``."""
-    with filterd_process(root, PATTERNS) as fd, \
-            tempfile.TemporaryDirectory() as out_dir:
+    with tempfile.TemporaryDirectory() as out_dir:
         dump = os.path.join(out_dir, "stats.json")
         argv = [sys.executable, "-m", "klogs_tpu_torch.cli", "-a",
                 "--cluster", "fake", "--remote", f"127.0.0.1:{fd['port']}",
@@ -3463,7 +3526,14 @@ def filterd_phase(torch, np, nk, pack, bits, app, cli, term, FakeCluster,
         res["faults"] = filterd_faults(np, app, cli, term, FakeCluster, fd)
     res["kernels"] = filterd_kernels(torch, np, nk, pack, bits, app, cli,
                                      term, FakeCluster, dev)
-    res["killed"] = {a: filterd_killed(root, a) for a in ("abort", "pass")}
+    # One filterd to kill for each action, both started at once.
+    boxes = {a: start_filterd(root, PATTERNS) for a in ("abort", "pass")}
+    try:
+        res["killed"] = {a: filterd_killed(root, await_filterd(box), a)
+                         for a, box in boxes.items()}
+    finally:
+        for box in boxes.values():
+            stop_filterd(box)
     emit({"phase": "filterd", **res})
     a, b, c, d = (res["cell"], res["coalescing"], res["kernels"],
                   res["faults"])
@@ -3496,6 +3566,567 @@ def filterd_phase(torch, np, nk, pack, bits, app, cli, term, FakeCluster,
             or ps["written_lines"] != ps["lines_matched"] + ps["degraded_lines"]
             or ps["lines_in"] + ps["degraded_lines"] != ps["lines"]):
         raise AssertionError(f"filterd phase failed: {res}")
+    return res
+
+
+# ---- fleet: the sharded filterd tier and the multi-set registry ---------
+
+# (a): each endpoint's KLOGS_FLEET_CAPACITY_LPS, so Hello's headroom
+# weighs round-robin routing. Headroom is 1 - admitted lines/s over a
+# filterd's last 30 s / this envelope; after the first pass (~340,000
+# lines an endpoint, ~20 s after each filterd started) that leaves A
+# full headroom, B about half and C none (its weight at the 0.05 floor).
+FLEET_CAPACITY_LPS = (2_000_000, 40_000, 10_000)
+# (b): each stream's delay between its 4 KiB chunks, and its lines, so
+# the run outlasts a filterd's restart (~10 s), its breaker's reset
+# (10 s) and the channel's reconnect backoff: the restarted B serves.
+MEMBERSHIP_CHUNK_DELAY_S = 0.3
+MEMBERSHIP_LINES_PER_POD = 2600
+# (c): the quota of the deployed registry and of the one in this process,
+# above what the cells keep pending (the default 65536 sheds a 32-pod
+# collector when the card is slow to drain); (d): the small one that sheds.
+TENANT_QUOTA_LINES = (1 << 22, 8192)
+
+
+def served_framed(before: dict, after: dict) -> float:
+    return metric_delta(before, after,
+                        'klogs_rpc_requests_total{method="MatchFramed"}')
+
+
+def oracle_files_for(pods: dict, patterns: list) -> dict:
+    """Each pod's file as an alternation of ``patterns`` selects it."""
+    union = _alternation(tuple(patterns))
+    return {f"{name}__c0.log": b"".join(
+        ln for _, ln in pods[name].containers["c0"].lines
+        if union.search(ln.rstrip(b"\n"))) for name in sorted(pods)}
+
+
+def fleet_routing(app, cli, term, fc, want: dict, n_lines: int,
+                  fleet: list, one_lps: float) -> dict:
+    """(a) the cli cell as one collector of three filterds
+    (``--remote A,B,C``): round-robin on a fleet with no load behind it,
+    round-robin again ("weighted": each endpoint's Hello now carries the
+    headroom its first pass left it, against its FLEET_CAPACITY_LPS),
+    then ``--shard-mode hash``. Files against the oracle, lines/s beside
+    one filterd's, each endpoint's MatchFramed RPCs from its /metrics
+    against the collector's ``klogs_shard_batches_total``, and the
+    weights and headroom at the end of each run. KLOGS_HEDGE_S is 30 s
+    here, so no hedge doubles an RPC; capacity is refreshed every
+    0.25 s, so the weights follow the endpoints' headroom."""
+    from klogs_tpu_torch.service.shard import (
+        ShardedFilterClient,
+        pattern_fingerprint,
+    )
+
+    targets = [f"127.0.0.1:{b['port']}" for b in fleet]
+    owner = targets[ShardedFilterClient(
+        targets, shard_mode="hash", hedge_s=None,
+        fingerprint=pattern_fingerprint(PATTERNS, [], False),
+        client_factory=lambda t: None)._hash_order[0]]
+    matches = [a for p in PATTERNS for a in ("--match", p)]
+    out: dict = dict(targets=targets, capacity_lps=list(FLEET_CAPACITY_LPS),
+                     hash_owner=owner, one_endpoint_lines_per_s=one_lps)
+    for run, mode in (("round-robin", "round-robin"),
+                      ("weighted", "round-robin"), ("hash", "hash")):
+        before = [scrape(b["metrics_port"]) for b in fleet]
+        with tempfile.TemporaryDirectory() as d, \
+                env_set("KLOGS_HEDGE_S", "30"), \
+                env_set("KLOGS_FLEET_REFRESH_S", "0.25"):
+            out_dir, dump = os.path.join(d, "files"), os.path.join(d, "s.json")
+            argv = ["-n", "default", "-a", "-p", out_dir, *matches,
+                    "--remote", ",".join(targets), "--shard-mode", mode,
+                    "--stats-json", dump]
+            term.set_ui_stream(io.StringIO())
+            try:
+                t0 = time.perf_counter()
+                rc = asyncio.run(app.run_async(cli.parse_args(argv),
+                                               backend=fc))
+                seconds = time.perf_counter() - t0
+            finally:
+                term.set_ui_stream(None)
+                obs_reset()
+            bad = files_equal(out_dir, want)
+            with open(dump) as f:
+                doc = json.load(f)
+        after = [scrape(b["metrics_port"]) for b in fleet]
+        out[run] = dict(
+            rc=rc, seconds=seconds, lines_per_s=n_lines / seconds,
+            over_one_endpoint=n_lines / seconds / one_lps,
+            mismatched_files=bad,
+            served={t: served_framed(b0, b1)
+                    for t, b0, b1 in zip(targets, before, after)},
+            batches={t: dump_value(doc, "klogs_shard_batches_total",
+                                   endpoint=t) for t in targets},
+            hedges=dump_value(doc, "klogs_shard_hedges_total"),
+            reroutes=dump_value(doc, "klogs_shard_reroutes_total"),
+            weights={t: dump_value(doc, "klogs_shard_endpoint_weight",
+                                   endpoint=t) for t in targets},
+            headroom={t: dump_value(doc, "klogs_fleet_endpoint_headroom",
+                                    endpoint=t) for t in targets})
+    return out
+
+
+def fleet_membership(np, app, cli, term, FakeCluster, root: str,
+                     fleet: list) -> dict:
+    """(b) ``--resolver file:PATH`` seeded with A and B under load (64
+    pods x MEMBERSHIP_LINES_PER_POD lines, each stream pausing
+    MEMBERSHIP_CHUNK_DELAY_S between 4 KiB chunks): once B has served, B
+    is killed, C is written into the file and B is started again on its
+    gRPC and metrics ports, as a redeployed pod comes back. Files
+    against the oracle, what each endpoint served (the restarted B too),
+    and the collector's membership events, reroutes, hedges and degraded
+    lines from its --stats-json. Returns the restarted B as
+    ``restarted`` (the caller stops it)."""
+    a, b, c = fleet
+    fc, n_lines = cli_cluster(np, FakeCluster, n_pods=64,
+                              lines_per_pod=MEMBERSHIP_LINES_PER_POD,
+                              n_long=0)
+    pods = fc.namespaces["default"]
+    for pod in pods.values():
+        pod.containers["c0"].faults.chunk_delay_s = MEMBERSHIP_CHUNK_DELAY_S
+    want = oracle_files(pods)
+    matches = [a for p in PATTERNS for a in ("--match", p)]
+    t_of = {name: f"127.0.0.1:{box['port']}"
+            for name, box in (("a", a), ("b", b), ("c", c))}
+    ev: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        fleet_file = os.path.join(d, "fleet")
+        with open(fleet_file, "w") as f:
+            f.write(f"{t_of['a']}\n{t_of['b']}\n")
+        out_dir, dump = os.path.join(d, "files"), os.path.join(d, "s.json")
+        base = [scrape(x["metrics_port"]) for x in (a, b, c)]
+
+        async def scenario():
+            opts = cli.parse_args(["-n", "default", "-a", "-p", out_dir,
+                                   *matches, "--resolver",
+                                   f"file:{fleet_file}",
+                                   "--stats-json", dump])
+            t0 = time.perf_counter()
+            run = asyncio.ensure_future(app.run_async(opts, backend=fc))
+            while True:
+                now = await scrape_async(b["metrics_port"])
+                if served_framed(base[1], now) > 0:
+                    break
+                if run.done():
+                    raise AssertionError("the run ended before B served")
+                await asyncio.sleep(0.05)
+            b["killed"] = True
+            b["proc"].kill()
+            await asyncio.to_thread(b["proc"].wait, 20)
+            ev["b_killed_s"] = time.perf_counter() - t0
+            with open(fleet_file, "w") as f:
+                f.write(f"{t_of['a']}\n{t_of['b']}\n{t_of['c']}\n")
+            ev["c_written_s"] = time.perf_counter() - t0
+            b2 = start_filterd(root, PATTERNS,
+                               ("--port", str(b["port"]), "--metrics-port",
+                                str(b["metrics_port"])),
+                               {"KLOGS_FLEET_CAPACITY_LPS":
+                                str(FLEET_CAPACITY_LPS[1])})
+            try:
+                await asyncio.to_thread(await_filterd, b2)
+                ev["b_ready_again_s"] = time.perf_counter() - t0
+                rc = await run
+            except BaseException:
+                stop_filterd(b2)
+                raise
+            ev["seconds"] = time.perf_counter() - t0
+            return rc, b2
+
+        term.set_ui_stream(io.StringIO())
+        try:
+            with env_set("KLOGS_RESOLVER_INTERVAL_S", "0.25"), \
+                    env_set("KLOGS_READYZ_INTERVAL_S", "0.25"), \
+                    env_set("KLOGS_HEDGE_S", "0.25"):
+                rc, b2 = asyncio.run(scenario())
+        finally:
+            term.set_ui_stream(None)
+            obs_reset()
+        bad = files_equal(out_dir, want)
+        with open(dump) as f:
+            doc = json.load(f)
+    after = [scrape(x["metrics_port"]) for x in (a, b2, c)]
+    return dict(
+        rc=rc, lines=n_lines, lines_per_s=n_lines / ev["seconds"],
+        mismatched_files=bad, **ev,
+        served=dict(a=served_framed(base[0], after[0]),
+                    b_restarted=served_framed({}, after[1]),
+                    c=served_framed(base[2], after[2])),
+        membership_events={
+            act: dump_value(doc, "klogs_fleet_membership_events_total",
+                            action=act) for act in ("add", "remove", "error")},
+        membership_size=dump_value(doc, "klogs_fleet_membership_size"),
+        reroutes={r: dump_value(doc, "klogs_shard_reroutes_total", reason=r)
+                  for r in ("breaker", "unready", "error")},
+        hedges=dump_value(doc, "klogs_shard_hedges_total"),
+        batches=dump_value(doc, "klogs_shard_batches_total"),
+        degraded_lines=dump_value(doc, "klogs_filter_degraded_lines_total"),
+        restarted=b2)
+
+
+def fleet_tenants(app, cli, term, fc, want: dict, fc3, want3: dict,
+                  multi: dict) -> dict:
+    """(c) one deployed ``--multi-set`` filterd with no --match and three
+    collectors at once: the cli cell's 32 patterns twice (one engine)
+    and ``make_patterns(1024)`` on 64 pods x 250 lines. Every file
+    against its oracle, Hello's multi_set, and the engine builds and
+    live sets from its /metrics."""
+    from klogs_tpu_torch.service.client import RemoteFilterClient
+
+    pats3 = make_patterns(1024)
+    before = scrape(multi["metrics_port"])
+    port = multi["port"]
+    with tempfile.TemporaryDirectory() as d:
+        dirs = [os.path.join(d, str(i)) for i in range(3)]
+        argvs = [["-n", "default", "-a", "-p", dirs[i],
+                  *[a for p in pats for a in ("--match", p)]]
+                 for i, pats in enumerate((PATTERNS, PATTERNS, pats3))]
+
+        async def scenario():
+            runs = await asyncio.gather(
+                remote_run(app, cli, fc, argvs[0], port),
+                remote_run(app, cli, fc, argvs[1], port),
+                remote_run(app, cli, fc3, argvs[2], port))
+            c = RemoteFilterClient(f"127.0.0.1:{port}")
+            try:
+                return runs, await c.hello()
+            finally:
+                await c.aclose()
+
+        term.set_ui_stream(io.StringIO())
+        try:
+            t0 = time.perf_counter()
+            rcs, hello = asyncio.run(scenario())
+            seconds = time.perf_counter() - t0
+        finally:
+            term.set_ui_stream(None)
+        bad = [files_equal(dirs[0], want), files_equal(dirs[1], want),
+               files_equal(dirs[2], want3)]
+    after = scrape(multi["metrics_port"])
+    return dict(
+        rcs=rcs, seconds=seconds, mismatched_files=bad,
+        hello_multi_set=hello.get("multi_set"), hello_sets=hello.get("sets"),
+        banner=multi["banner"],
+        engine_builds=after.get("klogs_tenant_engine_builds_total"),
+        live_sets=after.get("klogs_tenant_sets"),
+        registrations={o: metric_delta(
+            before, after,
+            f'klogs_tenant_registrations_total{{outcome="{o}"}}')
+            for o in ("new", "shared")},
+        served=served_framed(before, after))
+
+
+def sweep_held(torch, np, bits, sweep, pats: list, pattern_group,
+               seen: list) -> dict:
+    """The card's sweep on the batches it was given, against the same
+    function on tables built for the CPU (as the ``sweep`` phase)."""
+    from klogs_tpu_torch.filters.compiler.groups import analyze, plan_groups
+    from klogs_tpu_torch.filters.compiler.index import FactorIndex
+
+    st = seen[0][0]
+    infos = analyze(pats)
+    host_tables = sweep.device_sweep_tables(
+        FactorIndex(infos, plan_groups(infos)).sweep_program(
+            group_of=np.asarray(pattern_group, dtype=np.int32),
+            n_groups=st.n_groups), device="cpu")
+    out = []
+    for tables, batch, lens in seen:
+        words = sweep.sweep_group_bits(tables, batch, lens)
+        gm = bits.unpack_bits(words, tables.n_groups).cpu()
+        host = sweep.sweep_group_candidates(host_tables, batch.cpu(),
+                                            lens.cpu())
+        out.append(dict(
+            shape=list(batch.shape), mismatched_cells=int((gm != host).sum()),
+            ms=cuda_ms(torch, lambda: sweep.sweep_group_bits(
+                tables, batch, lens), 5)))
+    return dict(batches=out)
+
+
+def fleet_registry(torch, np, nk, pack, bits, sweep, app, cli, term,
+                   FakeCluster, dev, fc3, want3: dict) -> dict:
+    """(c), then: a ``--multi-set`` FilterServer on the card in this
+    process. A collector of the 32 patterns (32 pods x 4000 lines + 4
+    long lines) under ``recording_wrappers``: K1, K2 and pack_rows held
+    against their plain versions on its batches. Then the 1024
+    patterns' collector (64 pods x 250 lines): the sweep and K3 with its
+    pair list held on the batches that set's engine built. The card's
+    allocated memory before that set registered, while it lives, and
+    after its eviction. ``launches`` adds the two collectors' runs, each
+    counted from 0 just before it and read just after it, before any
+    kernel is held against its plain version. The registry's quota is
+    the deployed one's, so no batch of these cells is shed."""
+    from klogs_tpu_torch.service.server import FilterServer
+    from klogs_tpu_torch.service.shard import pattern_fingerprint
+
+    fc, n_lines = cli_cluster(np, FakeCluster, n_pods=32, n_long=4)
+    want = oracle_files(fc.namespaces["default"])
+    pats3 = make_patterns(1024)
+    fp3 = pattern_fingerprint(pats3, [], False)
+    out: dict = {}
+
+    def memory() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated(dev)
+
+    async def collect(cluster, pats: list, name: str,
+                      port: int) -> "tuple[int, dict]":
+        """One collector's run into d/name: (rc, its launches)."""
+        torch.cuda.synchronize()
+        nk.reset_launches()
+        rc = await remote_run(app, cli, cluster, [
+            "-n", "default", "-a", "-p", os.path.join(d, name),
+            *[a for p in pats for a in ("--match", p)]], port)
+        torch.cuda.synchronize()
+        return rc, dict(nk.LAUNCHES)
+
+    async def scenario():
+        server = FilterServer([], port=0, device=dev, multi_set=True)
+        port = await server.start()
+        try:
+            with recording_wrappers(nk, pack, ["match_cls_grouped",
+                                               "match_chunk_cls",
+                                               "pack_rows"]) as calls:
+                out["rc32"], n32 = await collect(fc, PATTERNS, "32", port)
+            out.update(held_batches(torch, nk, pack, calls, 2))
+            calls.clear()
+            out["memory_before"] = memory()
+            with recording_wrappers(nk, pack, ["match_cls_grouped_gated",
+                                               "sweep_group_bits"],
+                                    sweep) as calls:
+                out["rc1024"], n1024 = await collect(fc3, pats3, "1024",
+                                                     port)
+            out["launches"] = {k: n32[k] + n1024[k] for k in n32}
+            eng = server.tenants.get(fp3).service._filter
+            out["sweep"] = sweep_held(
+                torch, np, bits, sweep, pats3, eng._grouped.pattern_group,
+                [a for _, seen in calls["sweep_group_bits"].values()
+                 for a, _ in seen][:4])
+            del eng
+            gated = sorted(calls["match_cls_grouped_gated"].values(),
+                           key=lambda e: -e[0])
+            out["k3_shapes"] = {
+                "x".join(map(str, seen[0][0][3].shape)): n
+                for n, seen in gated}
+            out["k3_batches"] = [
+                dict(launches=n, **k3_check(torch, bits, nk, *seen[0][0], 10))
+                for n, seen in gated[:1]]
+            calls.clear()
+            del gated
+            out["memory_registered"] = memory()
+            out["pending_lines"] = sum(e.lane.pending_lines
+                                       for e in server.tenants.entries())
+            out["sets_before_evict"] = server.tenants.count
+            out["evicted"] = await server.tenants.evict(fp3, "idle")
+            out["memory_after"] = memory()
+            out["sets_after_evict"] = server.tenants.count
+        finally:
+            await server.stop()
+
+    with tempfile.TemporaryDirectory() as d, \
+            env_set("KLOGS_TENANT_QUOTA_LINES", str(TENANT_QUOTA_LINES[0])):
+        term.set_ui_stream(io.StringIO())
+        try:
+            asyncio.run(scenario())
+        finally:
+            term.set_ui_stream(None)
+        out["mismatched_files"] = [files_equal(os.path.join(d, "32"), want),
+                                   files_equal(os.path.join(d, "1024"),
+                                               want3)]
+    out["lines"] = n_lines
+    out["memory_after_over_before"] = (out["memory_after"]
+                                       / max(out["memory_before"], 1))
+    return out
+
+
+def fleet_shedding(np, app, cli, term, FakeCluster, dev) -> dict:
+    """(d) a ``--multi-set`` FilterServer on the card in this process
+    with ``KLOGS_TENANT_QUOTA_LINES`` small, and two collectors at once:
+    one of the 32 patterns over 64 pods x 4000 lines with
+    ``--on-filter-error pass`` (over quota), and a sibling of another
+    set (the first 16 patterns) over 8 pods x 500 lines. The server's
+    ``klogs_tenant_shed_total`` by set, the first collector's degraded
+    batches and lines, and the sibling's files against the oracle."""
+    from klogs_tpu_torch.service.server import FilterServer
+    from klogs_tpu_torch.service.shard import pattern_fingerprint
+
+    fc, n_lines = cli_cluster(np, FakeCluster, n_pods=64, n_long=0)
+    sib = PATTERNS[:16]
+    fcs = FakeCluster.synthetic(n_pods=8, n_containers=1,
+                                lines_per_container=500, clock=lambda: CLOCK)
+    want_sib = oracle_files_for(fcs.namespaces["default"], sib)
+    fp_a = pattern_fingerprint(PATTERNS, [], False)
+    fp_s = pattern_fingerprint(sib, [], False)
+
+    async def scenario(d: str):
+        server = FilterServer([], port=0, device=dev, multi_set=True,
+                              metrics_port=0)
+        port = await server.start()
+        try:
+            rcs = await asyncio.gather(
+                remote_run(app, cli, fc, ["-n", "default", "-a", "-p",
+                                          os.path.join(d, "a"),
+                                          "--on-filter-error", "pass",
+                                          *[a for p in PATTERNS
+                                            for a in ("--match", p)]], port),
+                remote_run(app, cli, fcs, ["-n", "default", "-a", "-p",
+                                           os.path.join(d, "s"),
+                                           *[a for p in sib
+                                             for a in ("--match", p)]],
+                           port))
+            shed = server.registry.family("klogs_tenant_shed_total")
+            return rcs, {k[0]: c.value for k, c in shed.children()}
+        finally:
+            await server.stop()
+
+    with tempfile.TemporaryDirectory() as d, \
+            env_set("KLOGS_TENANT_QUOTA_LINES", str(TENANT_QUOTA_LINES[1])), \
+            captured_pipeline() as made:
+        term.set_ui_stream(io.StringIO())
+        try:
+            t0 = time.perf_counter()
+            rcs, shed = asyncio.run(scenario(d))
+            seconds = time.perf_counter() - t0
+        finally:
+            term.set_ui_stream(None)
+        bad_sib = files_equal(os.path.join(d, "s"), want_sib)
+        written = 0
+        for name in os.listdir(os.path.join(d, "a")):
+            with open(os.path.join(d, "a", name), "rb") as f:
+                written += f.read().count(b"\n")
+    st = next(p.stats for p in made if p.patterns == PATTERNS)
+    return dict(
+        rcs=rcs, seconds=seconds, quota_lines=TENANT_QUOTA_LINES[1],
+        lines=n_lines, shed_batches=shed.get(fp_a, 0.0),
+        sibling_shed_batches=shed.get(fp_s, 0.0),
+        degraded_batches=sum(c.value for _, c in
+                             st._degraded_batches.children()),
+        degraded_lines=st.degraded_lines, lines_in=st.lines_in,
+        lines_matched=st.lines_matched, written_lines=written,
+        sibling_mismatched_files=bad_sib)
+
+
+def compute_apps() -> list:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return [ln.strip() for ln in out.stdout.splitlines() if ln.strip()]
+
+
+def fleet_phase(torch, np, nk, pack, bits, sweep, app, cli, term,
+                FakeCluster, dev, root: str, card: str,
+                one_lps: float) -> dict:
+    """The sharded filterd tier and the multi-set registry on the card:
+    (a) routing, (b) membership under load, (c) tenants, deployed and
+    in this process (kernels, memory), (d) shedding. Four filterd
+    processes start at once: three of the 32 patterns (A, B, C) and one
+    registry-only ``--multi-set``. One line a part, then the checks."""
+    t0 = time.perf_counter()
+    boxes = [start_filterd(root, PATTERNS,
+                           env={"KLOGS_FLEET_CAPACITY_LPS": str(c)})
+             for c in FLEET_CAPACITY_LPS]
+    boxes.append(start_filterd(root, [], ("--multi-set",), {
+        "KLOGS_TENANT_QUOTA_LINES": str(TENANT_QUOTA_LINES[0])}))
+    res: dict = dict(card=card)
+    try:
+        # The cells and their oracles while the processes come up.
+        fc, n_lines = cli_cluster(np, FakeCluster)
+        want = oracle_files(fc.namespaces["default"])
+        fc3, lines3 = k1024_cluster(np, FakeCluster, n_pods=64, n_long=0)
+        want3, kept3 = k1024_expected(make_patterns(1024), lines3)
+        for box in boxes:
+            await_filterd(box)
+        res["ready_s"] = [box["ready_s"] for box in boxes]
+        res["setup_s"] = time.perf_counter() - t0
+        fleet = boxes[:3]
+        t = time.perf_counter()
+        res["a"] = fleet_routing(app, cli, term, fc, want, n_lines, fleet,
+                                 one_lps)
+        emit({"phase": "fleet", "part": "a", "seconds":
+              time.perf_counter() - t, **res["a"]})
+        t = time.perf_counter()
+        b = fleet_membership(np, app, cli, term, FakeCluster, root, fleet)
+        boxes.append(b.pop("restarted"))
+        res["b"] = b
+        emit({"phase": "fleet", "part": "b", "seconds":
+              time.perf_counter() - t, **b})
+        t = time.perf_counter()
+        res["c"] = fleet_tenants(app, cli, term, fc, want, fc3, want3,
+                                 boxes[3])
+        res["c"]["kept_1024"] = kept3
+        res["compute_apps"] = compute_apps()
+        emit({"phase": "fleet", "part": "c", "seconds":
+              time.perf_counter() - t, **res["c"],
+              "compute_apps": res["compute_apps"]})
+        res["died"] = [i for i, box in enumerate(boxes)
+                       if box["proc"].poll() is not None
+                       and not box.get("killed")]
+    finally:
+        for box in boxes:
+            stop_filterd(box)
+    del fc
+    t = time.perf_counter()
+    res["registry"] = fleet_registry(torch, np, nk, pack, bits, sweep, app,
+                                     cli, term, FakeCluster, dev, fc3, want3)
+    emit({"phase": "fleet", "part": "c_registry", "seconds":
+          time.perf_counter() - t, **res["registry"]})
+    t = time.perf_counter()
+    res["d"] = fleet_shedding(np, app, cli, term, FakeCluster, dev)
+    emit({"phase": "fleet", "part": "d", "seconds":
+          time.perf_counter() - t, **res["d"]})
+    res["seconds"] = time.perf_counter() - t0
+    a, b, c, r, d = (res["a"], res["b"], res["c"], res["registry"],
+                     res["d"])
+    rr, wr, hs = a["round-robin"], a["weighted"], a["hash"]
+    # A, B, C in the order of their capacities, high to low.
+    sa, sb, sc = (wr["served"][t] for t in a["targets"])
+    held = r["k1_batches"] + r["k2_batches"] + r["pack_batches"]
+    problems = [
+        ("filterd died", res["died"]),
+        ("(a) round-robin", rr["rc"] != 0 or rr["mismatched_files"]
+         or sum(rr["served"].values()) != sum(rr["batches"].values())
+         or min(rr["served"].values()) <= 0 or rr["hedges"] != 0),
+        ("(a) weighted", wr["rc"] != 0 or wr["mismatched_files"]
+         or sum(wr["served"].values()) != sum(wr["batches"].values())
+         or wr["hedges"] != 0 or not sa > sb > sc),
+        ("(a) hash", hs["rc"] != 0 or hs["mismatched_files"]
+         or hs["served"][a["hash_owner"]] != sum(hs["batches"].values())
+         or hs["batches"][a["hash_owner"]] != sum(hs["batches"].values())
+         or sum(hs["served"].values()) != hs["served"][a["hash_owner"]]
+         or hs["served"][a["hash_owner"]] <= 0),
+        ("(b)", b["rc"] != 0 or b["mismatched_files"]
+         or b["degraded_lines"] != 0
+         or sum(b["membership_events"].values()) <= 0
+         or b["membership_events"]["add"] < 1
+         or sum(b["reroutes"].values()) <= 0 or b["served"]["c"] <= 0
+         or b["served"]["b_restarted"] <= 0),
+        ("(c) deployed", c["rcs"] != [0, 0, 0] or any(c["mismatched_files"])
+         or c["hello_multi_set"] is not True or c["engine_builds"] != 2
+         or c["live_sets"] != 2 or not c["kept_1024"]),
+        ("(c) kernels", r["rc32"] != 0 or r["rc1024"] != 0
+         or any(r["mismatched_files"])
+         or any(r["launches"][k] == 0 for k in (
+             nk.GROUPED, nk.CHUNK, nk.PACK, nk.GATED, nk.PAIRS))
+         or len(r["k1_batches"]) < 2 or not r["k2_batches"]
+         or not r["pack_batches"]
+         or any(h.get("max_abs_err", 0) or h.get("mismatches", 0)
+                for h in held)
+         or not r["k3_batches"]
+         or any(h["max_abs_err"] or h["pairs_mismatches"]
+                for h in r["k3_batches"])
+         or not r["sweep"]["batches"]
+         or any(s["mismatched_cells"] for s in r["sweep"]["batches"])),
+        ("(c) memory", not r["evicted"] or r["sets_after_evict"] != 1
+         or r["pending_lines"] != 0
+         or r["memory_after"] > 1.05 * r["memory_before"]),
+        ("(d)", d["rcs"] != [0, 0] or d["sibling_mismatched_files"]
+         or d["shed_batches"] <= 0 or d["sibling_shed_batches"] != 0
+         or d["degraded_batches"] != d["shed_batches"]
+         or d["written_lines"] != d["lines_matched"] + d["degraded_lines"]
+         or d["lines_in"] + d["degraded_lines"] != d["lines"]),
+    ]
+    failed = [name for name, bad in problems if bad]
+    if failed:
+        raise AssertionError(f"fleet phase failed: {failed}")
     return res
 
 
@@ -3584,9 +4215,15 @@ def main() -> int:
         bfr = bf["runs"]
         # filterd: the remote filter service on the card, deployed as its
         # own process, and in this one for the kernels' batches.
-        filterd_phase(torch, np, nk, pack, bits, app, cli, term,
-                      FakeCluster, GpuEngineFilter, frame_lines,
-                      synthetic_line, dev, repo, card, run["lines_per_s"])
+        fd = filterd_phase(torch, np, nk, pack, bits, app, cli, term,
+                           FakeCluster, GpuEngineFilter, frame_lines,
+                           synthetic_line, dev, repo, card,
+                           run["lines_per_s"])
+        # The sharded tier and the multi-set registry: a fleet of
+        # filterd processes, and a registry in this process.
+        fl = fleet_phase(torch, np, nk, pack, bits, sweep, app, cli, term,
+                         FakeCluster, dev, repo, card,
+                         fd["cell"]["lines_per_s"])["registry"]["launches"]
     except Exception:
         traceback.print_exc()
         emit({"phase": "failed"})
@@ -3598,6 +4235,7 @@ def main() -> int:
          "replaces": "klogs_tpu/ops/pallas_nfa.py:200",
          "launches": run["launches"][nk.GROUPED],
          "backfill_launches": bfr["a"]["launches"][nk.GROUPED],
+         "fleet_launches": fl[nk.GROUPED],
          "max_abs_err": float(w["max_abs_err"]), "ms": w["ms"],
          "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
          "bound_by": w["bound_by"], "library_ms": None},
@@ -3605,6 +4243,7 @@ def main() -> int:
          "replaces": "klogs_tpu/ops/pallas_nfa.py:50",
          "launches": run["launches"][nk.CHUNK],
          "backfill_launches": bfr["a"]["launches"][nk.CHUNK],
+         "fleet_launches": fl[nk.CHUNK],
          "max_abs_err": float(max(r["max_abs_err"] for r in
                                   list(k2.values()) + run["k2_batches"]
                                   + run4["k2_batches"])),
@@ -3615,6 +4254,7 @@ def main() -> int:
          "replaces": "klogs_tpu/ops/pallas_nfa.py:377",
          "launches": run3["launches"][nk.GATED],
          "backfill_launches": bfr["c"]["launches"][nk.GATED],
+         "fleet_launches": fl[nk.GATED],
          "max_abs_err": float(max(b["max_abs_err"] for b in
                                   [g, k3["sweep_gate"], k3["random_gate"],
                                    k3["sparse_gate"], k3["full"]])),
@@ -3628,6 +4268,7 @@ def main() -> int:
         {"name": nk.FUSED, "route": "cuda", "source": SOURCE,
          "replaces": "klogs_tpu/ops/pallas_nfa.py:334",
          "launches": run4["launches"][nk.FUSED],
+         "fleet_launches": fl[nk.FUSED],
          "max_abs_err": float(max(b["max_abs_err"] for b in
                                   run4["k4_batches"] + list(k4.values()))),
          "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
@@ -3635,6 +4276,7 @@ def main() -> int:
         {"name": nk.PACK, "route": "cuda", "source": pk["source"],
          "replaces": pk["replaces"], "launches": run["launches"][nk.PACK],
          "backfill_launches": bfr["a"]["launches"][nk.PACK],
+         "fleet_launches": fl[nk.PACK],
          "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
          "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
          "bound_by": pk["bound_by"], "library_ms": None},

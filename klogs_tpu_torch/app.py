@@ -12,8 +12,9 @@ is always re-discovered, and a backfill ends with its match/shed
 account. ``run_async`` takes an injected ClusterBackend (tests pass a
 FakeCluster), a ``stop`` event for library callers of follow mode, and
 the filter's ``device`` (None means ``"cuda"``). With ``--remote`` the
-filter is a filterd elsewhere: its pattern set is checked against the
-run's before any stream opens, no engine is built and no card is
+filter is a filterd elsewhere, or a fleet of them (a list,
+``--shard-mode``, ``--resolver``): its pattern set is checked against
+the run's before any stream opens, no engine is built and no card is
 needed, and ``--on-filter-error`` says what a batch gets while the
 service is unavailable.
 
@@ -278,9 +279,9 @@ def make_inner_sink_factory(opts: Options):
 
 def make_pipeline_for(opts: Options, device=None, registry=None):
     """The --match/--exclude filter pipeline (None = unfiltered);
-    ``registry`` backs its stats when the run has one. With --remote the
-    pipeline asks that filterd and builds no engine (``device`` is
-    unused)."""
+    ``registry`` backs its stats when the run has one. With --remote or
+    --resolver the pipeline asks filterd and builds no engine
+    (``device`` is unused)."""
     if not opts.match and not opts.exclude:
         return None
     from klogs_tpu_torch.filters.compiler.parser import RegexSyntaxError
@@ -291,7 +292,10 @@ def make_pipeline_for(opts: Options, device=None, registry=None):
                              ignore_case=opts.ignore_case,
                              exclude=opts.exclude, device=device,
                              registry=registry, remote=opts.remote,
-                             on_filter_error=opts.on_filter_error)
+                             on_filter_error=opts.on_filter_error,
+                             shard_mode=opts.shard_mode,
+                             resolver=opts.resolver,
+                             kubeconfig=opts.kubeconfig or None)
     except re.error as e:
         term.fatal("invalid --match/--exclude pattern %r: %s", e.pattern, e)
     except RegexSyntaxError as e:
@@ -675,6 +679,13 @@ async def _run_async_inner(opts: Options, backend: ClusterBackend | None,
             if pipeline is not None and opts.stats:
                 pipeline.print_summary()
             if opts.stats_json is not None:
+                # A fleet's last capacity sweep, so the dump holds its
+                # offered and admitted lines (a short run ends before
+                # the prober's refresh).
+                refresh = getattr(getattr(pipeline, "service", None),
+                                  "refresh_capacity", None)
+                if refresh is not None:
+                    await refresh()
                 _write_stats_json(opts.stats_json, obs_registry, pipeline)
             return 130 if interrupted else 0
         finally:

@@ -26,10 +26,21 @@ shorthands, defaults, choices and checks:
   --since-time      only logs after an absolute RFC3339 time
   --timestamps      server-side RFC3339 timestamp before each line
   --backend         filter engine: cuda (batch NFA on the GPU)
-  --remote          filter through one remote filterd (HOST:PORT; the
-                    port's ``python -m klogs_tpu_torch.service`` or the
-                    JAX package's) instead of an in-process engine: the
-                    collector then builds no engine and needs no card
+  --remote          filter through remote filterd service(s) (HOST:PORT;
+                    the port's ``python -m klogs_tpu_torch.service`` or
+                    the JAX package's) instead of an in-process engine:
+                    the collector then builds no engine and needs no
+                    card. A comma-separated list shards batches across
+                    the fleet with per-endpoint breakers, hedged
+                    dispatch and /readyz-driven drain
+  --shard-mode      multi-endpoint --remote routing: round-robin
+                    (rotate per batch) | hash (pin by pattern-set
+                    fingerprint on a consistent-hash ring)
+  --resolver        live fleet membership for --remote: KIND:SPEC
+                    (static:HOST:PORT[,...] | file:/path | dns:HOST:PORT
+                    | kube:NAMESPACE/NAME[:PORT]); polled on
+                    KLOGS_RESOLVER_INTERVAL_S, joiners verified before
+                    their first batch
   --on-filter-error with --remote: what a batch gets while the service
                     stays unavailable: pass | drop | abort (default)
   --stats           print lines/sec, matched %, batch-latency summary
@@ -54,10 +65,6 @@ shorthands, defaults, choices and checks:
                     with -f and --source)
   --replay-rate     pace replay at N lines/s (default: as fast as the
                     disk goes; KLOGS_REPLAY_RATE sets a default)
-
-The JAX CLI's sharded filterd tier is not ported yet: ``--remote``
-takes one endpoint here (a list is a one-line error), and
-``--shard-mode`` and ``--resolver`` do not exist.
 """
 
 import argparse
@@ -90,6 +97,8 @@ class Options:
     ignore_case: bool = False
     backend: str = "cuda"
     remote: str | None = None
+    shard_mode: str = "round-robin"
+    resolver: str | None = None
     on_filter_error: str = "abort"
     stats: bool = False
     cluster: str = "kube"
@@ -141,10 +150,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Case-insensitive --match/--exclude patterns")
     p.add_argument("--backend", choices=["cuda"], default="cuda",
                    help="Line-filter engine: batch NFA on the GPU")
-    p.add_argument("--remote", default=None, metavar="HOST:PORT",
-                   help="Filter via a remote klogs-filterd service "
+    p.add_argument("--remote", default=None,
+                   metavar="HOST:PORT[,HOST:PORT...]",
+                   help="Filter via remote klogs-filterd service(s) "
                    "(python -m klogs_tpu_torch.service, or the JAX "
-                   "package's) instead of an in-process engine")
+                   "package's) instead of an in-process engine. A "
+                   "comma-separated list shards batches across the fleet "
+                   "(--shard-mode) with per-endpoint circuit breakers, "
+                   "hedged dispatch, and /readyz-driven drain: one dead "
+                   "or draining server is routed around, not an outage")
+    p.add_argument("--shard-mode", choices=["round-robin", "hash"],
+                   default="round-robin", dest="shard_mode",
+                   help="With a multi-endpoint --remote list: rotate "
+                   "batches across the fleet (round-robin) or pin this "
+                   "collector's pattern-set fingerprint to one owner on "
+                   "a consistent-hash ring (hash; keys move minimally "
+                   "when an endpoint dies)")
+    p.add_argument("--resolver", default=None, metavar="KIND:SPEC",
+                   help="Live fleet membership for the filterd tier: "
+                   "static:HOST:PORT[,...], file:/path (one endpoint per "
+                   "line, re-read each poll), dns:HOST:PORT (re-resolve "
+                   "every A/AAAA record), or kube:NAMESPACE/NAME[:PORT] "
+                   "(watch an Endpoints object). Joining endpoints pass "
+                   "the pattern-set handshake before their first batch; "
+                   "--remote (optional with this flag) is only the "
+                   "initial seed")
     p.add_argument("--on-filter-error", choices=["pass", "drop", "abort"],
                    default="abort", dest="on_filter_error",
                    help="With --match/--exclude: how sinks degrade when the "
@@ -256,6 +286,8 @@ def parse_args(argv: list[str] | None = None) -> Options:
         ignore_case=ns.ignore_case,
         backend=ns.backend,
         remote=ns.remote,
+        shard_mode=ns.shard_mode,
+        resolver=ns.resolver,
         on_filter_error=ns.on_filter_error,
         stats=ns.stats,
         cluster=ns.cluster,
@@ -317,10 +349,21 @@ def check_options(opts: Options) -> "str | None":
         if not opts.source.startswith("replay:"):
             term.warning("--replay-rate only applies to a replay "
                          "source; ignoring")
-    if opts.remote is not None and "," in opts.remote:
-        from klogs_tpu_torch.service.client import REMOTE_LIST_ERROR
+    if opts.resolver is not None:
+        from klogs_tpu_torch.service.resolver import split_spec
 
-        return REMOTE_LIST_ERROR
+        try:
+            split_spec(opts.resolver)
+        except ValueError as e:
+            return str(e)
+        if not opts.match and not opts.exclude:
+            term.warning("--resolver without --match/--exclude builds "
+                         "no filter pipeline; ignoring")
+    if opts.shard_mode != "round-robin" and opts.resolver is None and (
+            opts.remote is None or "," not in opts.remote):
+        # One endpoint is the plain client, below the routing layer.
+        term.warning("--shard-mode only applies with a multi-endpoint "
+                     "--remote list; ignoring")
     for flag, pat in (("-c/--container", opts.container),
                       ("-E/--exclude-container", opts.exclude_container)):
         if pat:

@@ -3,7 +3,8 @@
 Counterpart of ``klogs_tpu/cluster/kube.py``. The data path mirrors
 the Go reference's client-go use: namespace Get/List, pod List with a
 label selector, and the pod log GET, streamed in chunks, with the
-follow/since/tail/previous/timestamps/sinceTime queries. The aiohttp
+follow/since/tail/previous/timestamps/sinceTime queries; and the
+Endpoints GET of the filterd fleet's kube resolver. The aiohttp
 connector limit plays the role of the reference's rest config Burst =
 100.
 
@@ -194,6 +195,31 @@ class KubeBackend(ClusterBackend):
         if data is None:
             return []
         return [_pod_info(item, namespace) for item in data.get("items", [])]
+
+    async def endpoint_addresses(
+            self, namespace: str,
+            name: str) -> "list[tuple[str, int | None]]":
+        """The (ip, port) pairs of the named Endpoints object: the kube
+        resolver's data (service/resolver.py, whose poll fires
+        ``resolver.watch``). A missing object is an empty list (the
+        Service may not exist yet in a rollout; the client keeps its
+        fleet on an empty one). A subset with one port gives it to its
+        addresses; with several the port is None and the ``--resolver``
+        spec must pin one."""
+        data = await self._get_json(
+            f"/api/v1/namespaces/{namespace}/endpoints/{name}")
+        if data is None:
+            return []
+        out: "list[tuple[str, int | None]]" = []
+        for subset in data.get("subsets") or []:
+            ports = [p.get("port") for p in subset.get("ports") or []
+                     if isinstance(p.get("port"), int)]
+            port = ports[0] if len(ports) == 1 else None
+            for addr in subset.get("addresses") or []:
+                ip = addr.get("ip")
+                if ip:
+                    out.append((str(ip), port))
+        return out
 
     async def open_log_stream(self, namespace: str, pod: str,
                               opts: LogOptions) -> LogStream:

@@ -43,8 +43,16 @@ GROUP_PAYLOAD_LIMIT = 2**31 - 1
 
 
 class AsyncFilterService:
+    """``executor`` and ``in_flight`` (a ThreadPoolExecutor and an
+    asyncio.Semaphore) share one fetch pool and one in-flight budget
+    among services: the multi-set registry runs every set's service over
+    the same two, as the process owns one card. Without them the service
+    makes its own; it shuts down only a pool it made."""
+
     def __init__(self, log_filter: LogFilter,
-                 stats: FilterStats | None = None):
+                 stats: FilterStats | None = None,
+                 executor: "ThreadPoolExecutor | None" = None,
+                 in_flight: "asyncio.Semaphore | None" = None):
         self._filter = log_filter
         self._stats = stats
         self._m = None
@@ -61,11 +69,14 @@ class AsyncFilterService:
                     "klogs_coalescer_backpressure_wait_seconds"),
                 "dispatch": r.family("klogs_coalescer_dispatch_seconds"),
             }
-        # Created at first dispatch, inside the running loop.
-        self._sem: "asyncio.Semaphore | None" = None
-        self._pool = ThreadPoolExecutor(max_workers=FETCH_WORKERS,
-                                        thread_name_prefix="klogs-fetch")
-        # The profiler's probes, read at its ticks (host counters only).
+        # An own semaphore is made at first dispatch, inside the loop.
+        self._sem: "asyncio.Semaphore | None" = in_flight
+        self._own_pool = executor is None
+        self._pool = executor if executor is not None else ThreadPoolExecutor(
+            max_workers=FETCH_WORKERS, thread_name_prefix="klogs-fetch")
+        # The profiler's probes, read at its ticks (host counters only);
+        # services over a shared pool overwrite each other's, which read
+        # the same budget.
         self._probes: "dict[str, object]" = {}
         if stats is not None:
             from klogs_tpu_torch.obs.profiler import PROFILER
@@ -254,7 +265,7 @@ class AsyncFilterService:
 
     async def aclose(self) -> None:
         """Dispatch any coalescing lines, drain in-flight batches, then
-        release the pool and the engine."""
+        release the pool (if this service made it) and the engine."""
         self._closed = True
         self._drop_probes()
         if self._pending:
@@ -264,5 +275,6 @@ class AsyncFilterService:
             self._kick_handle = None
         if self._tasks:
             await asyncio.gather(*list(self._tasks), return_exceptions=True)
-        await asyncio.to_thread(self._pool.shutdown)
+        if self._own_pool:
+            await asyncio.to_thread(self._pool.shutdown)
         self._filter.close()

@@ -210,6 +210,15 @@ class GpuEngineFilter(LogFilter):
             n_groups=int(g.follow.shape[0]))
         return sweep.device_sweep_tables(prog, device=self.device)
 
+    def close(self) -> None:
+        """Drop the device tables (the programs with their cached bit
+        layouts, the gate's tables), so their memory goes back to the
+        card even while something still holds the engine; it takes no
+        batch after. A multi-set filterd closes an evicted set's engine
+        so."""
+        self._grouped = self._aug = None
+        self._pf_tables = self._sweep_tables = self._onehot = None
+
     def match_lines(self, lines: list[bytes]) -> list[bool]:
         return self.fetch(self.dispatch(lines))
 

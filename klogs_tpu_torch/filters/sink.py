@@ -7,16 +7,19 @@ when the oldest pending line has waited ``deadline_s`` (checked at the
 next write and by the pipeline's follow-mode deadline flusher), and at
 close, and writes only kept lines, in the original order.
 ``make_pipeline`` builds the shared engine, its AsyncFilterService and
-the per-container sink factory; with ``remote`` it builds no engine and
-the sinks ask a filterd for their verdicts through a
-RemoteFilterClient (``service/client.py``), which needs no card.
+the per-container sink factory; with ``remote`` or ``resolver`` it
+builds no engine and the sinks ask filterd for their verdicts, through
+a RemoteFilterClient (``service/client.py``) for one endpoint or a
+ShardedFilterClient (``service/shard.py``) for a fleet; neither needs
+a card.
 
 Each flush is a ``sink.flush`` span (a child of the chunk's
 ``fanout.read`` span, or a root under the deadline flusher and at
 close), and the write of its kept lines a ``sink.write`` span (``bytes``
 and, beyond the JAX span's attributes, ``lines``). A batch
 the filter service could not filter (``Unavailable``: a remote
-filterd's retries exhausted or its breaker open) takes
+filterd's retries exhausted or its breaker open, every endpoint of a
+fleet down, or a quota shed) takes
 ``--on-filter-error``: ``pass`` writes it unfiltered, ``drop`` discards
 it, ``abort`` (the default) ends the run with one line; each is counted
 in ``klogs_filter_degraded_*{action}``, marked by a ``sink.degrade``
@@ -288,18 +291,24 @@ def make_pipeline(patterns: list[str], backend: str = "cuda",
                   exclude: list[str] | None = None,
                   device=None, registry=None,
                   remote: str | None = None,
-                  on_filter_error: str = "abort") -> FilterPipeline:
+                  on_filter_error: str = "abort",
+                  shard_mode: str = "round-robin",
+                  resolver: str | None = None,
+                  kubeconfig: str | None = None) -> FilterPipeline:
     """The --match/--exclude pipeline on the GPU engine. ``device=None``
     means ``"cuda"`` (raising where there is no card); tests pass
     ``"cpu"``. ``registry`` (an obs Registry) backs the stats for a
     /metrics sidecar or a --stats-json dump; None keeps them private.
-    ``remote`` (one HOST:PORT) asks a filterd instead of building an
-    engine; ``on_filter_error`` is every sink's degrade action."""
+    ``remote`` (HOST:PORT, or a comma-separated fleet) or ``resolver``
+    (a ``--resolver`` spec) asks filterd instead of building an engine;
+    ``on_filter_error`` is every sink's degrade action."""
     stats = FilterStats(registry=registry)
-    if remote is not None:
+    if remote is not None or resolver is not None:
         return FilterPipeline(
             log_filter=None, stats=stats,
-            service=_remote_client(remote, registry),
+            service=_remote_service(patterns, ignore_case, exclude or [],
+                                    remote, shard_mode, resolver,
+                                    kubeconfig, registry),
             patterns=list(patterns), ignore_case=ignore_case,
             exclude=list(exclude or []), on_filter_error=on_filter_error)
     if backend != "cuda":
@@ -318,44 +327,73 @@ def make_pipeline(patterns: list[str], backend: str = "cuda",
     )
 
 
-def _remote_client(remote: str, registry):
-    """The client of one filterd endpoint, configured from the
-    environment (a --remote deployment is set up by its manifest):
+def _remote_service(patterns: list[str], ignore_case: bool,
+                    exclude: list[str], remote: "str | None",
+                    shard_mode: str, resolver: "str | None",
+                    kubeconfig: "str | None", registry):
+    """The client of the filterd tier, configured from the environment
+    (a --remote deployment is set up by its manifest):
     ``KLOGS_REMOTE_TIMEOUT_S`` bounds each attempt, ``KLOGS_REMOTE_TLS_CA``
     turns on TLS, ``_TLS_CERT``/``_TLS_KEY`` add mTLS and
     ``KLOGS_REMOTE_TOKEN_FILE`` bearer auth (a path, read again for each
-    RPC). A bad value raises ServiceConfigError, one line from the CLI.
-    A list of endpoints (the sharded tier) is not ported yet."""
+    RPC). One endpoint and no resolver is the plain RemoteFilterClient;
+    a list, or a resolver (whose snapshots replace the ``--remote``
+    seed from the first poll), is the sharded tier, with
+    ``KLOGS_HEDGE_S``, ``KLOGS_READYZ_INTERVAL_S`` and, in the client,
+    ``KLOGS_RESOLVER_INTERVAL_S`` and ``KLOGS_WEIGHT_DECAY_S``. A bad
+    value raises ServiceConfigError, one line from the CLI."""
     from klogs_tpu_torch.resilience import FAULTS
     from klogs_tpu_torch.service.client import (
-        REMOTE_LIST_ERROR,
         RemoteFilterClient,
         ServiceConfigError,
-        validate_target,
+    )
+    from klogs_tpu_torch.service.shard import (
+        DEFAULT_HEDGE_S,
+        DEFAULT_PROBE_INTERVAL_S,
+        ShardedFilterClient,
+        parse_endpoints,
+        pattern_fingerprint,
     )
     from klogs_tpu_torch.utils.env import positive_float
     from klogs_tpu_torch.utils.env import read as env_read
 
-    target = remote.strip()
-    if "," in target:
-        raise ServiceConfigError(REMOTE_LIST_ERROR)
-    validate_target(target)
-    rpc_timeout_s = positive_float("KLOGS_REMOTE_TIMEOUT_S", 30.0,
-                                   exc=ServiceConfigError)
-    stray = FAULTS.armed_targets() - {target}
-    if stray:
-        # A clause aimed at another endpoint never fires: say so, or a
-        # chaos run passes without the fault it was meant to drive.
+    def knob(name: str, default: float) -> float:
+        return positive_float(name, default, exc=ServiceConfigError)
+
+    rpc_timeout_s = knob("KLOGS_REMOTE_TIMEOUT_S", 30.0)
+    live_resolver = None
+    if resolver is not None:
+        from klogs_tpu_torch.service.resolver import make_resolver
+
+        try:
+            live_resolver = make_resolver(resolver, kubeconfig=kubeconfig)
+        except ValueError as e:
+            raise ServiceConfigError(str(e)) from None
+    targets = parse_endpoints(remote) if remote is not None else []
+    stray = FAULTS.armed_targets() - set(targets)
+    if stray and live_resolver is None:
+        # A clause aimed at an endpoint outside the fleet never fires:
+        # say so, or a chaos run passes without the fault it was meant
+        # to drive. (With a resolver the fleet is open-ended.)
         term.warning(
             "KLOGS_FAULTS targets %s not in the --remote list %s — "
             "those clauses will never fire",
-            ", ".join(sorted(stray)), target)
-    return RemoteFilterClient(
-        target,
+            ", ".join(sorted(stray)), ",".join(targets))
+    common = dict(
         tls_ca=env_read("KLOGS_REMOTE_TLS_CA"),
         tls_cert=env_read("KLOGS_REMOTE_TLS_CERT"),
         tls_key=env_read("KLOGS_REMOTE_TLS_KEY"),
         auth_token_file=env_read("KLOGS_REMOTE_TOKEN_FILE"),
         rpc_timeout_s=rpc_timeout_s,
         registry=registry)
-
+    if len(targets) == 1 and live_resolver is None:
+        return RemoteFilterClient(targets[0], **common)
+    # A batch raises Unavailable, and so degrades per --on-filter-error,
+    # only when every endpoint is down.
+    return ShardedFilterClient(
+        targets, shard_mode=shard_mode,
+        fingerprint=pattern_fingerprint(patterns, exclude, ignore_case),
+        hedge_s=knob("KLOGS_HEDGE_S", DEFAULT_HEDGE_S),
+        probe_interval_s=knob("KLOGS_READYZ_INTERVAL_S",
+                              DEFAULT_PROBE_INTERVAL_S),
+        resolver=live_resolver, **common)

@@ -198,6 +198,18 @@ class Family:
                 child = self._children[key] = self._make_child()
             return child
 
+    def remove(self, **labelvalues: object) -> bool:
+        """Drop one labeled child and its series: for labels whose live
+        count is bounded but whose values churn (a retired fleet
+        endpoint, an evicted tenant set). False when it never existed."""
+        if set(labelvalues) != set(self.labelnames):
+            raise ValueError(
+                f"{self.name} takes labels {self.labelnames}, "
+                f"got {tuple(labelvalues)}")
+        key = tuple(str(labelvalues[n]) for n in self.labelnames)
+        with self._lock:
+            return self._children.pop(key, None) is not None
+
     def children(self) -> list:
         """(labelvalues, child) pairs, sorted: a stable exposition
         order whatever the order of observation."""

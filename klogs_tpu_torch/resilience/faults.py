@@ -16,10 +16,12 @@ test double. The port fires:
 - ``rpc.match``        its Match and MatchFramed RPCs (both points fire
                        inside ``retry_call``, with the client's endpoint
                        as the target)
+- ``resolver.watch``   every membership poll of the sharded tier's
+                       resolver (service/resolver.py)
 
-``resolver.watch`` and ``tune.step`` are known names (the spec grammar
-is the JAX package's) whose sites belong to layers the port has not
-ported yet; armed, they never fire.
+``tune.step`` is a known name (the spec grammar is the JAX package's)
+whose site belongs to a layer the port has not ported yet; armed, it
+never fires.
 
 Tests arm a point with ``FAULTS.arm(point, times=..., exc=...,
 delay_s=...)``; operators use the ``KLOGS_FAULTS`` spec

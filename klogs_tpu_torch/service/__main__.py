@@ -1,9 +1,10 @@
 """``python -m klogs_tpu_torch.service``: run filterd on the card.
 
-Counterpart of ``python -m klogs_tpu.service``, with its flags but
-``--multi-set`` (the registry is not ported yet); ``--backend`` takes
-``cuda`` only. Without a card it raises, as every entry point of the
-port does.
+Counterpart of ``python -m klogs_tpu.service``, with its flags;
+``--backend`` takes ``cuda`` only. ``--multi-set`` serves the
+pattern-set registry (collectors register their own sets; ``--match``
+and ``--exclude`` become the optional set of collectors that do not).
+Without a card it raises, as every entry point of the port does.
 """
 
 import argparse
@@ -26,6 +27,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="regex pattern to DROP even when kept "
                     "(repeatable; alone = keep all non-matching)")
     ap.add_argument("--backend", choices=["cuda"], default="cuda")
+    ap.add_argument("--multi-set", action="store_true", dest="multi_set",
+                    help="multi-tenant registry mode: collectors "
+                    "register their own pattern sets (content-addressed "
+                    "— identical sets share one engine) and are "
+                    "admitted weighted-fair with per-set quotas; "
+                    "--match/--exclude become the optional default set "
+                    "for collectors that do not register "
+                    "(KLOGS_TENANT_* env knobs)")
     ap.add_argument("-I", "--ignore-case", action="store_true",
                     dest="ignore_case",
                     help="case-insensitive patterns (collectors must "
@@ -88,6 +97,7 @@ def main(argv: "list[str] | None" = None, device=None) -> None:
     try:
         asyncio.run(serve(ns.match, ns.backend, ns.host, ns.port,
                           ignore_case=ns.ignore_case,
+                          multi_set=ns.multi_set,
                           tls_cert=ns.tls_cert, tls_key=ns.tls_key,
                           tls_client_ca=ns.tls_client_ca,
                           auth_token_file=ns.auth_token_file,

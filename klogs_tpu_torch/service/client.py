@@ -14,9 +14,10 @@ breaker a client. Exhausted retries or an open breaker raise
 ``Unavailable``, which the sink routes per ``--on-filter-error``. The
 ``rpc.hello`` and ``rpc.match`` fault points fire inside that retry
 loop, for this client's endpoint (``point@host:port`` targets it).
-Against a multi-set filterd (the JAX package's ``--multi-set``) the
+Against a multi-set filterd (``--multi-set``, of either package) the
 client registers its pattern set and tags every match RPC with the set
-id it got back.
+id it got back. A fleet of endpoints is ``shard.ShardedFilterClient``,
+one of these clients an endpoint.
 """
 
 import asyncio
@@ -46,10 +47,6 @@ DEFAULT_BREAKER_THRESHOLD = 5
 DEFAULT_BREAKER_RESET_S = 10.0
 # gRPC's 4 MB default message cap is below a jumbo batch of long lines.
 MAX_MESSAGE_BYTES = 256 * 1024 * 1024
-# The one line for a --remote list until the sharded tier is ported.
-REMOTE_LIST_ERROR = ("--remote takes one HOST:PORT in klogs_tpu_torch: "
-                     "a list of filterd endpoints (the sharded tier) is "
-                     "not ported yet")
 
 
 def _retryable(e: BaseException) -> bool:
@@ -84,25 +81,6 @@ def _read(path: str, what: str) -> bytes:
             return f.read()
     except OSError as e:
         raise ServiceConfigError(f"cannot read {what} {path}: {e}") from e
-
-
-def validate_target(target: str) -> None:
-    """A ``--remote`` endpoint must be HOST:PORT or unix:/path.sock;
-    a malformed one fails naming itself, not as a gRPC error later."""
-    if target.startswith("unix:"):
-        if len(target) == len("unix:"):
-            raise ServiceConfigError(
-                f"malformed --remote endpoint {target!r}: empty unix "
-                "socket path")
-        return
-    host, sep, port = target.rpartition(":")
-    if not sep or not host:
-        raise ServiceConfigError(
-            f"malformed --remote endpoint {target!r} (want HOST:PORT "
-            "or unix:/path.sock)")
-    if not port.isdigit() or not 0 < int(port) < 65536:
-        raise ServiceConfigError(
-            f"malformed --remote endpoint {target!r}: bad port {port!r}")
 
 
 def tenant_weight() -> float:

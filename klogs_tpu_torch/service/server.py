@@ -1,11 +1,22 @@
 """filterd: the process that owns the card and serves Match RPCs.
 
-Counterpart of ``klogs_tpu/service/server.py``, single-set: one pattern
-set (``--match``/``--exclude``/``-I``) on one GpuEngineFilter. Run it
-with ``python -m klogs_tpu_torch.service --backend cuda --match ERROR
---port 50051``. Every client's batches go through one
-AsyncFilterService, so concurrent collectors coalesce into shared
-device batches however small each one's flushes are.
+Counterpart of ``klogs_tpu/service/server.py``. Single-set, one pattern
+set (``--match``/``--exclude``/``-I``) on one GpuEngineFilter: ``python
+-m klogs_tpu_torch.service --backend cuda --match ERROR --port 50051``.
+Every client's batches go through one AsyncFilterService, so concurrent
+collectors coalesce into shared device batches however small each
+one's flushes are.
+
+With ``--multi-set`` (``multi_set=True``) the server holds a registry of
+pattern sets (``tenancy.py``): a collector registers its set with the
+Register RPC and tags its match RPCs with the set id it got back; each
+set has its own GpuEngineFilter on the same card, built in a worker
+thread at its first registration, and all sets share one fetch pool
+and one in-flight budget. The startup set, if any, is a pinned set for
+collectors that do not register. A set over its quota is shed
+(RESOURCE_EXHAUSTED), an unknown or evicted one fails
+FAILED_PRECONDITION, and an engine that does not build fails its
+Register RPC: there is no CPU engine behind a card's server.
 
 The CUDA libraries are built (nvcc, at first use) and loaded in a
 worker thread before the port binds: the engine dispatches on the
@@ -24,10 +35,7 @@ Transport security for a hop across nodes:
   plaintext the token travels in the clear; the banner says so.
 
 Both are off by default. Partial TLS configuration is a constructor
-error, never a plaintext fallback. The multi-set registry
-(``--multi-set``, the Register RPC) is not ported yet: a Register RPC
-answers UNIMPLEMENTED, which no client sends to a server whose Hello
-lacks ``multi_set``.
+error, never a plaintext fallback.
 """
 
 import asyncio
@@ -38,6 +46,7 @@ import grpc
 
 from klogs_tpu_torch.filters.async_service import AsyncFilterService
 from klogs_tpu_torch.filters.base import IncludeExcludeFilter
+from klogs_tpu_torch.obs import trace
 from klogs_tpu_torch.obs.profiler import PROFILER, FleetCapacity
 from klogs_tpu_torch.service import transport
 from klogs_tpu_torch.service.client import MAX_MESSAGE_BYTES
@@ -119,6 +128,10 @@ class FilterServer:
                  metrics_port: int | None = None,
                  metrics_host: str = "127.0.0.1",
                  registry=None,
+                 multi_set: bool = False,
+                 tenant_max_sets: "int | None" = None,
+                 tenant_quota_lines: "int | None" = None,
+                 tenant_idle_s: "float | None" = None,
                  device=None):
         if backend != "cuda":
             raise ValueError(f"unknown filter backend {backend!r}")
@@ -132,7 +145,8 @@ class FilterServer:
             raise ValueError("pass auth_token OR auth_token_file, not both")
         self.patterns = list(patterns)
         self.exclude = list(exclude or [])
-        if not self.patterns and not self.exclude:
+        self.multi_set = multi_set
+        if not self.patterns and not self.exclude and not multi_set:
             raise ValueError("need at least one --match or --exclude pattern")
         from klogs_tpu_torch.ops.nfa import resolve_device
 
@@ -160,7 +174,6 @@ class FilterServer:
         if metrics_port is not None:
             from klogs_tpu_torch import obs
             from klogs_tpu_torch.filters.base import FilterStats
-            from klogs_tpu_torch.obs import trace
 
             # A registry of this server's own by default: a restarted
             # in-process filterd starts at zero.
@@ -184,23 +197,60 @@ class FilterServer:
             self.health = obs.Health()
             # Live while the coalescer takes work; a cold one is live.
             self.health.add_live_check(
-                "coalescer", lambda: not self._service._closed)
+                "coalescer", lambda: self._service is None
+                or not self._service._closed)
         # Offered and admitted lines and the headroom, in every Hello
         # with or without the sidecar, and on /profile.
         self.capacity = FleetCapacity(registry=self.registry)
         PROFILER.attach_capacity(self.capacity)
-        self._filter = _make_filter(self.patterns, ignore_case=ignore_case,
-                                    exclude=self.exclude, stats=self._stats,
-                                    device=self.device)
-        self._service = AsyncFilterService(self._filter, stats=self._stats)
+        # The registry's sets build on the server's device and stats.
+        self.tenants = None
+        self.default_set: "str | None" = None
+        self._sweep_task: asyncio.Task | None = None
+        self._sweep_stop: "asyncio.Event | None" = None
+        if multi_set:
+            from klogs_tpu_torch.service.tenancy import PatternSetRegistry
+
+            def factory(pats: list[str], excl: list[str], ic: bool):
+                return _make_filter(pats, ignore_case=ic, exclude=excl,
+                                    stats=self._stats, device=self.device)
+
+            self.tenants = PatternSetRegistry(
+                factory, stats=self._stats, max_sets=tenant_max_sets,
+                quota_lines=tenant_quota_lines, idle_evict_s=tenant_idle_s)
+        # The startup set; a registry-only server has none. Under the
+        # registry it rides the shared pool and budget as a pinned set.
+        self._filter = None
+        self._service = None
+        if self.patterns or self.exclude:
+            self._filter = _make_filter(self.patterns,
+                                        ignore_case=ignore_case,
+                                        exclude=self.exclude,
+                                        stats=self._stats,
+                                        device=self.device)
+            shared = ({} if self.tenants is None
+                      else dict(executor=self.tenants.executor,
+                                in_flight=self.tenants.in_flight))
+            self._service = AsyncFilterService(self._filter,
+                                               stats=self._stats, **shared)
+            if self.tenants is not None:
+                self.default_set = self.tenants.adopt(
+                    self.patterns, self.exclude, self.ignore_case,
+                    self._service)
         self._server: grpc.aio.Server | None = None
 
     @property
     def device_sweep(self) -> bool:
         """Whether the device literal sweep gates this server's kernel
         (the thousand-pattern path), in Hello: an operator sees which
-        servers run it without scraping each sidecar."""
-        return _uses_device_sweep(self._filter)
+        servers run it without scraping each sidecar. Under the
+        registry any registered set's engine counts."""
+        if self._filter is not None and _uses_device_sweep(self._filter):
+            return True
+        if self.tenants is not None:
+            return any(not e.pinned and _uses_device_sweep(e.service._filter)
+                       for e in self.tenants.entries())
+        return False
 
     @property
     def auth_enabled(self) -> bool:
@@ -291,6 +341,11 @@ class FilterServer:
         from klogs_tpu_torch.filters.base import frame_lines
 
         try:
+            if self._service is None:
+                # A registry-only server: each registration builds its
+                # own engine, so it is ready once bound.
+                self.health.mark_warm()
+                return
             payload, offsets, _ = frame_lines([b"klogs-warmup probe"])
             await self._service.match_framed(payload, offsets)
             # mark_warm, not set_ready: a drain that raced the warmup
@@ -310,6 +365,8 @@ class FilterServer:
 
     async def _hello(self, request: bytes, context) -> bytes:
         await self._check_auth(context)
+        if self.tenants is not None:
+            return await self._hello_multi(request)
         return transport.pack({
             **self._capacity_keys(),
             "patterns": self.patterns,
@@ -326,17 +383,123 @@ class FilterServer:
             "device_sweep": self.device_sweep,
         })
 
+    async def _hello_multi(self, request: bytes) -> bytes:
+        """The registry's Hello: a request carrying the collector's
+        invocation is answered for that set (echoed when registered, so
+        the client's check passes); the empty Hello gets the startup
+        set. ``multi_set`` tells the client to register."""
+        from klogs_tpu_torch.service.shard import pattern_fingerprint
+
+        want = transport.decode_hello_request(request)
+        patterns, exclude, ignore_case = (self.patterns, self.exclude,
+                                          self.ignore_case)
+        set_id: "str | None" = self.default_set
+        registered = self.default_set is not None
+        if want is not None:
+            set_id = pattern_fingerprint(want["patterns"], want["exclude"],
+                                         want["ignore_case"])
+            entry = self.tenants.get(set_id)
+            registered = entry is not None
+            if registered:
+                patterns = entry.patterns
+                exclude = entry.exclude
+                ignore_case = entry.ignore_case
+        sp = trace.TRACER.current_span()
+        if sp is not None and set_id is not None:
+            sp.set_attr("tenant", set_id)
+        return transport.pack({
+            **self._capacity_keys(),
+            "patterns": patterns,
+            "exclude": exclude,
+            "ignore_case": ignore_case,
+            "backend": self.backend,
+            "version": BUILD_VERSION,
+            "framed": True,
+            "metrics_port": self.metrics_port,
+            "metrics_host": self.metrics_host,
+            "device_sweep": self.device_sweep,
+            "multi_set": True,
+            "sets": self.tenants.count,
+            "set": set_id,
+            "registered": registered,
+        })
+
+    async def _register(self, request: bytes, context) -> bytes:
+        """Register a set (content-addressed: a second registration of
+        a set shares its engine). A set that does not compile is
+        INVALID_ARGUMENT; an engine that fails to build on the card
+        fails this RPC with its error."""
+        await self._check_auth(context)
+        if self.tenants is None:
+            await context.abort(
+                grpc.StatusCode.UNIMPLEMENTED,
+                "this filterd runs in single-set mode (start it with "
+                "--multi-set to accept registrations)")
+        try:
+            req = transport.decode_register_request(request)
+        except (ValueError, KeyError, TypeError) as e:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                                f"bad register request: {e}")
+        try:
+            set_id, shared = await self.tenants.register(
+                req["patterns"], req["exclude"], req["ignore_case"],
+                weight=req["weight"])
+        except ValueError as e:
+            # The tenant's own set is broken; nobody else's fails.
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                                f"cannot compile pattern set: {e}")
+        sp = trace.TRACER.current_span()
+        if sp is not None:
+            sp.set_attr("tenant", set_id)
+        return transport.encode_register_response(
+            set_id, shared, self.tenants.count)
+
+    async def _tenant_match(self, set_id: "str | None", context, run):
+        """One match RPC through the registry: its set, else the
+        startup set; over quota RESOURCE_EXHAUSTED, an unknown or
+        evicted set FAILED_PRECONDITION (the client registers again)."""
+        from klogs_tpu_torch.service.tenancy import (
+            OverQuota,
+            SetNotRegistered,
+        )
+
+        lane = set_id if set_id is not None else self.default_set
+        if lane is None:
+            await context.abort(
+                grpc.StatusCode.FAILED_PRECONDITION,
+                f"{transport.SET_NOT_REGISTERED}: this multi-set "
+                "filterd has no default pattern set; register one "
+                "first")
+        sp = trace.TRACER.current_span()
+        if sp is not None:
+            sp.set_attr("tenant", lane)
+        try:
+            return await run(lane)
+        except OverQuota as e:
+            await context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED,
+                                f"{transport.OVER_QUOTA}: {e}")
+        except SetNotRegistered as e:
+            await context.abort(
+                grpc.StatusCode.FAILED_PRECONDITION,
+                f"{transport.SET_NOT_REGISTERED}: {e}")
+
     async def _match(self, request: bytes, context) -> bytes:
         await self._check_auth(context)
         try:
-            lines, _ = transport.decode_match_request(request)
+            lines, set_id = transport.decode_match_request(request)
         except (ValueError, KeyError, TypeError) as e:
             # A malformed request fails its own RPC with a clean status.
             await context.abort(grpc.StatusCode.INVALID_ARGUMENT,
                                 f"bad match request: {e}")
-        # Offered before the work, admitted once the verdicts are back.
+        # Offered before admission, admitted once the verdicts are back:
+        # a shed batch is the gap between the two.
         self.capacity.note_offered(len(lines))
-        mask = await self._service.match(lines)
+        if self.tenants is not None:
+            mask = await self._tenant_match(
+                set_id, context,
+                lambda lane: self.tenants.match(lane, lines))
+        else:
+            mask = await self._service.match(lines)
         self.capacity.note_admitted(len(lines))
         return transport.encode_match_response(mask)
 
@@ -345,14 +508,21 @@ class FilterServer:
         out, and no per-line Python object on the server."""
         await self._check_auth(context)
         try:
-            payload, offsets, _ = transport.decode_framed_request(request)
+            payload, offsets, set_id = transport.decode_framed_request(
+                request)
         except (ValueError, KeyError, TypeError) as e:
             # Checked here, so it never reaches the shared coalescer.
             await context.abort(grpc.StatusCode.INVALID_ARGUMENT,
                                 f"bad framed request: {e}")
         n_lines = max(len(offsets) - 1, 0)
         self.capacity.note_offered(n_lines)
-        mask = await self._service.match_framed(payload, offsets)
+        if self.tenants is not None:
+            mask = await self._tenant_match(
+                set_id, context,
+                lambda lane: self.tenants.match_framed(
+                    lane, payload, offsets))
+        else:
+            mask = await self._service.match_framed(payload, offsets)
         self.capacity.note_admitted(n_lines)
         return transport.encode_framed_response(mask)
 
@@ -366,7 +536,8 @@ class FilterServer:
                 self._traced(name, self._instrumented(name, fn)))
              for name, fn in (("Hello", self._hello),
                               ("Match", self._match),
-                              ("MatchFramed", self._match_framed))},
+                              ("MatchFramed", self._match_framed),
+                              ("Register", self._register))},
         )
         self._server = grpc.aio.server(options=[
             ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
@@ -409,7 +580,7 @@ class FilterServer:
                 # armed yet); OSError becomes the one-line ValueError.
                 self._http = None
                 await self._server.stop(0)
-                await self._service.aclose()
+                await self._close_sets()
                 if isinstance(e, OSError):
                     raise ValueError(
                         f"cannot bind metrics port "
@@ -420,6 +591,11 @@ class FilterServer:
             # answers 503 until then while /healthz answers 200.
             self._warmup_task = asyncio.get_running_loop().create_task(
                 self._warmup())
+        if self.tenants is not None and self.tenants.idle_evict_s > 0:
+            # The cold-set reaper: an idle set's engine is released.
+            self._sweep_stop = asyncio.Event()
+            self._sweep_task = asyncio.get_running_loop().create_task(
+                self.tenants.run_idle_sweeper(self._sweep_stop))
         return self.port
 
     async def wait(self) -> None:
@@ -433,17 +609,39 @@ class FilterServer:
             except (asyncio.CancelledError, Exception):  # noqa: BLE001
                 pass
             self._warmup_task = None
+        if self._sweep_task is not None:
+            self._sweep_stop.set()
+            self._sweep_task.cancel()
+            try:
+                await self._sweep_task
+            except (asyncio.CancelledError, Exception):  # noqa: BLE001
+                pass
+            self._sweep_task = None
         if self._http is not None:
             await self._http.stop()
             self._http = None
         if self._server is not None:
             await self._server.stop(grace)
-        # Drains the in-flight batches, then releases the engine.
-        await self._service.aclose()
+        await self._close_sets()
+
+    async def _close_sets(self) -> None:
+        """Drain the in-flight batches and release the engines: the
+        startup set's service (the server's own, under the registry
+        too), then the registered sets and their shared pool."""
+        if self._service is not None:
+            await self._service.aclose()
+        if self.tenants is not None:
+            await self.tenants.aclose()
 
 
 def banner_line(server: "FilterServer", where: str, mode: str) -> str:
-    """The startup 'serving ...' line."""
+    """The startup 'serving ...' line; under the registry its live set
+    count and cap."""
+    if server.tenants is not None:
+        return (f"klogs filterd: serving pattern-set registry "
+                f"({server.tenants.count} live set(s), cap "
+                f"{server.tenants.max_sets}) [{server.backend}] on "
+                f"{where} ({mode})")
     return (f"klogs filterd: serving {len(server.patterns)} pattern(s) "
             f"[{server.backend}] on {where} ({mode})")
 
@@ -452,9 +650,7 @@ async def serve(patterns: list[str], backend: str, host: str, port: int,
                 ignore_case: bool = False,
                 trace_json: "str | None" = None,
                 profile_json: "str | None" = None,
-                device=None, **security) -> None:
-    from klogs_tpu_torch.obs import trace
-
+                multi_set: bool = False, device=None, **security) -> None:
     if trace_json is not None:
         # Server-side spans (rooted at rpc.server, or continuing a
         # collector's trace) as JSON lines; /traces serves them too.
@@ -466,8 +662,8 @@ async def serve(patterns: list[str], backend: str, host: str, port: int,
     if profile_json is not None and PROFILER.enable():
         PROFILER.set_json_path(profile_json)
     server = FilterServer(patterns, backend, host=host, port=port,
-                          ignore_case=ignore_case, device=device,
-                          **security)
+                          ignore_case=ignore_case, multi_set=multi_set,
+                          device=device, **security)
     bound = await server.start()
     prof_stop: "asyncio.Event | None" = None
     prof_task: "asyncio.Task | None" = None

@@ -39,8 +39,8 @@ SERVICE = "klogs.Filter"
 HELLO = f"/{SERVICE}/Hello"
 MATCH = f"/{SERVICE}/Match"
 MATCH_FRAMED = f"/{SERVICE}/MatchFramed"
-# Sent only to a server whose Hello says multi_set; the port's server
-# does not answer it (UNIMPLEMENTED).
+# Sent only to a server whose Hello says multi_set; a single-set
+# server answers it UNIMPLEMENTED.
 REGISTER = f"/{SERVICE}/Register"
 # Stable prefixes of a multi-set server's error details: the client
 # keys on these tokens, never on the prose after them or on the bare

@@ -12,7 +12,11 @@ for ``--watch-new`` and follow-mode source discovery,
 whose ``auto`` mode is refused, and for the remote filter service
 ``KLOGS_REMOTE_TIMEOUT_S``, ``KLOGS_REMOTE_TLS_CA``/``_CERT``/``_KEY``,
 ``KLOGS_REMOTE_TOKEN_FILE``, ``KLOGS_TENANT_WEIGHT`` and
-``KLOGS_FLEET_CAPACITY_LPS``) and adds none.
+``KLOGS_FLEET_CAPACITY_LPS``, for the sharded tier ``KLOGS_HEDGE_S``,
+``KLOGS_READYZ_INTERVAL_S``, ``KLOGS_RESOLVER_INTERVAL_S``,
+``KLOGS_WEIGHT_DECAY_S`` and ``KLOGS_FLEET_REFRESH_S``, and for the
+multi-set registry ``KLOGS_TENANT_MAX_SETS``, ``_QUOTA_LINES``,
+``_IDLE_S`` and ``_SLOTS``) and adds none.
 """
 
 import math
@@ -75,5 +79,22 @@ def warn_positive_int(name: str, default: int) -> int:
     if val < 1:
         print(f"klogs: ignoring invalid {name}={raw!r} (want a positive "
               f"integer); using {default}", file=sys.stderr)
+        return default
+    return val
+
+
+def warn_nonneg_float(name: str, default: float) -> float:
+    """A finite float >= 0 (0 often means off); a malformed value warns
+    on stderr and the default is used."""
+    raw = read(name)
+    if raw is None:
+        return default
+    try:
+        val = float(raw)
+        if not math.isfinite(val) or val < 0:
+            raise ValueError
+    except ValueError:
+        print(f"klogs: ignoring invalid {name}={raw!r} (want a "
+              f"non-negative number); using {default}", file=sys.stderr)
         return default
     return val

@@ -331,6 +331,13 @@ def test_pickers_drive_the_app_as_jax(tmp_path):
     ["--remote", "filterd:50051"], ["--remote", "unix:/run/f.sock"],
     ["--on-filter-error", "pass"], ["--on-filter-error", "drop"],
     ["--on-filter-error", "abort", "--remote", "h:1", "--match", "x"],
+    ["--remote", "a:1,b:2,unix:/run/f.sock"],
+    ["--remote", "a:1,b:2", "--shard-mode", "hash"],
+    ["--shard-mode", "round-robin"],
+    ["--resolver", "static:a:1,b:2"],
+    ["--resolver", "file:/etc/klogs/fleet", "--remote", "a:1"],
+    ["--resolver", "dns:filterd.svc:50051", "--shard-mode", "hash"],
+    ["--resolver", "kube:logging/filterd:50051"],
 ], ids=lambda a: " ".join(a))
 def test_remote_flags_parse_as_jax(argv):
     got = vars(cli.parse_args(argv + ["-p", "x"]))
@@ -364,13 +371,78 @@ def test_remote_flag_errors_equal_jax(capsys):
         assert codes[0] in (1, ("exit", 2)) and len(codes[1]) == 1
 
 
-def test_remote_list_is_one_line_error(capsys, tmp_path):
-    """A --remote list (the sharded tier, not ported yet) is rejected
-    before any cluster work, with one line and exit 1."""
-    rc = cli.main(["-a", "--cluster", "fake", "--match", "x", "-p",
-                   str(tmp_path / "o"), "--remote", "a:1,b:2"])
-    out = capsys.readouterr().out
-    errs = [ln for ln in out.splitlines() if "ERROR" in ln]
-    assert rc == 1 and len(errs) == 1
-    assert "a list of filterd endpoints" in errs[0]
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread while the port's filterds run the plain
+    kernel versions in this process (test workers side by side would
+    oversubscribe the cores)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_remote_list_runs_the_fleet_as_jax(tmp_path, capsys,
+                                           one_torch_thread):
+    """``--remote A,B`` (and ``--shard-mode hash``) through the port's
+    CLI against two port filterds on the CPU writes the files the JAX
+    CLI writes against two JAX filterds, byte for byte; a malformed
+    list and a bad ``--resolver`` spec are one line and exit 1 on both
+    CLIs."""
+    from klogs_tpu.cli import main as jax_main
+    from klogs_tpu.service.server import FilterServer as JaxFilterServer
+    from klogs_tpu_torch.service.server import FilterServer
+
+    args = ["--match", "INFO", "--match", r"WARN.*\d"]
+    long_line = b"q" * 7000 + b" WARN deep 9 " + b"r" * 100 + b"\n"
+
+    async def through(side: str, extra: list) -> dict:
+        servers = [JaxFilterServer(args[1::2], backend="cpu", port=0)
+                   if side == "jax" else
+                   FilterServer(args[1::2], port=0, device="cpu")
+                   for _ in range(2)]
+        ports = [await s.start() for s in servers]
+        out_dir = tmp_path / f"{side}{len(extra)}"
+        argv = ["-n", "default", "-a", "-p", str(out_dir), *args, *extra,
+                "--remote", ",".join(f"127.0.0.1:{p}" for p in ports)]
+        try:
+            if side == "jax":
+                fc = JaxFakeCluster.synthetic(n_pods=4, n_containers=1,
+                                              lines_per_container=60,
+                                              clock=lambda: CLOCK)
+                coro = jax_app.run_async(jax_parse_args(argv), backend=fc)
+            else:
+                fc = FakeCluster.synthetic(n_pods=4, n_containers=1,
+                                           lines_per_container=60,
+                                           clock=lambda: CLOCK)
+                # device=None: a collector of a fleet needs no card.
+                coro = app.run_async(cli.parse_args(argv), backend=fc)
+            fc.namespaces["default"]["pod-0001"].containers["c0"].lines.insert(
+                7, (CLOCK - 70, long_line))
+            assert await coro == 0
+        finally:
+            for s in servers:
+                await s.stop()
+        return read_all(out_dir)
+
+    for extra in ([], ["--shard-mode", "hash"]):
+        outs = {side: asyncio.run(through(side, extra))
+                for side in ("jax", "torch")}
+        assert outs["torch"] == outs["jax"]
+        assert len(outs["torch"]) == 4
+        assert b" WARN deep 9 " in outs["torch"]["pod-0001__c0.log"]
+    for bad in (["--remote", "127.0.0.1:1,,127.0.0.1:2"],
+                ["--remote", "127.0.0.1:1,127.0.0.1:1"],
+                ["--resolver", "consul:x"]):
+        got = []
+        for main in (cli.main, jax_main):
+            capsys.readouterr()
+            rc = main(["-a", "--cluster", "fake", "--match", "x", "-p",
+                       str(tmp_path / "o"), *bad])
+            errs = [ln for ln in capsys.readouterr().out.splitlines()
+                    if "ERROR" in ln]
+            got.append((rc, errs))
+        assert got[0] == got[1] and got[0][0] == 1 and len(got[0][1]) == 1
     assert not (tmp_path / "o").exists()

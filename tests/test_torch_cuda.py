@@ -914,3 +914,106 @@ def test_filterd_on_card_serves_two_clients_the_cpu_verdicts(dev):
     assert sum(int(g.sum()) for g in got) > 100
     for k in (nfa_kernels.GROUPED, nfa_kernels.CHUNK, nfa_kernels.PACK):
         assert launches[k] > 0, launches
+
+
+def test_fleet_and_multi_set_filterd_on_card(dev):
+    """A two-filterd fleet on the card behind one ShardedFilterClient
+    (round-robin: both serve), and a multi-set filterd on the card with
+    two registered sets (one of 7 patterns, one of 72, which the sweep
+    gates): every verdict equals the CPU engine's for the batch's own
+    set; evicting the 72-pattern set gives its device memory back (the
+    allocated bytes within 5% of their level before it registered)."""
+    import asyncio
+    import gc
+
+    from klogs_tpu_torch import obs
+    from klogs_tpu_torch.filters.base import frame_lines
+    from klogs_tpu_torch.service.client import RemoteFilterClient
+    from klogs_tpu_torch.service.server import FilterServer
+    from klogs_tpu_torch.service.shard import ShardedFilterClient
+
+    big = PATTERNS + [f"svc{i:02d}-(?:timeout|refused) \\d+"
+                      for i in range(65)]
+    rng = np.random.default_rng(31)
+    frames = []
+    for b in range(8):
+        lines = []
+        for i, n in enumerate(rng.integers(0, 300, size=2000)):
+            body = bytearray(rng.integers(32, 127, size=int(n),
+                                          dtype=np.uint8))
+            if (i + b) % 5 == 0 and n > 30:
+                nd = [b"panic: x", b"code=503", b"svc07-refused 12",
+                      b"svc41-timeout 3"][(i + b) % 4]
+                p = int(rng.integers(0, n - len(nd)))
+                body[p:p + len(nd)] = nd
+            lines.append(bytes(body) + b"\n")
+        frames.append(frame_lines(lines, strip_nl=False)[:2])
+
+    async def fleet():
+        servers = [FilterServer(PATTERNS, port=0, device=dev)
+                   for _ in range(2)]
+        ports = [await s.start() for s in servers]
+        reg = obs.Registry()
+        obs.register_all(reg)
+        sc = ShardedFilterClient([f"127.0.0.1:{p}" for p in ports],
+                                 hedge_s=None, registry=reg)
+        try:
+            await sc.verify_patterns(PATTERNS)
+            got = [await sc.match_framed(p, o) for p, o in frames]
+            fam = reg.family("klogs_shard_batches_total")
+            return got, [c.value for _, c in fam.children()]
+        finally:
+            await sc.aclose()
+            for s in servers:
+                await s.stop()
+
+    async def multi():
+        server = FilterServer([], port=0, device=dev, multi_set=True)
+        port = await server.start()
+        small = RemoteFilterClient(f"127.0.0.1:{port}")
+        large = RemoteFilterClient(f"127.0.0.1:{port}")
+        try:
+            await small.verify_patterns(PATTERNS)
+            # A first batch builds the small set's cached bit tables.
+            await small.match_framed(*frames[1])
+            torch.cuda.synchronize()
+            gc.collect()
+            before = torch.cuda.memory_allocated(dev)
+            await large.verify_patterns(big)
+            got = await asyncio.gather(
+                *[(small if i % 2 else large).match_framed(p, o)
+                  for i, (p, o) in enumerate(frames)])
+            sweep = server.device_sweep
+            assert await server.tenants.evict(large._set_id, "idle")
+            gc.collect()
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated(dev)
+            return got, sweep, before, after
+        finally:
+            await small.aclose()
+            await large.aclose()
+            await server.stop()
+
+    with_sweep = os.environ.get("KLOGS_TPU_SWEEP")
+    os.environ["KLOGS_TPU_SWEEP"] = "1"
+    try:
+        got_fleet, wins = asyncio.run(fleet())
+        got_multi, sweep, before, after = asyncio.run(multi())
+        cpu = {len(p): GpuEngineFilter(p, device="cpu")
+               for p in (PATTERNS, big)}
+    finally:
+        if with_sweep is None:
+            os.environ.pop("KLOGS_TPU_SWEEP")
+        else:
+            os.environ["KLOGS_TPU_SWEEP"] = with_sweep
+    small_cpu, big_cpu = cpu[len(PATTERNS)], cpu[len(big)]
+    for (p, o), g in zip(frames, got_fleet):
+        assert g.tolist() == small_cpu.fetch_framed(
+            small_cpu.dispatch_framed(p, o)).tolist()
+    assert sorted(wins) == [4, 4]
+    for i, ((p, o), g) in enumerate(zip(frames, got_multi)):
+        eng = small_cpu if i % 2 else big_cpu
+        assert g.tolist() == eng.fetch_framed(
+            eng.dispatch_framed(p, o)).tolist()
+    assert sweep
+    assert after <= before * 1.05, (before, after)

@@ -53,7 +53,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "obs/http.py", "resilience/__init__.py",
                 "resilience/faults.py", "service/__init__.py",
                 "service/__main__.py", "service/transport.py",
-                "service/client.py", "service/server.py"):
+                "service/client.py", "service/server.py",
+                "service/shard.py", "service/resolver.py",
+                "service/tenancy.py"):
         assert os.path.join(PORT, mod) in files
     bad = []
     for path in files:
@@ -209,12 +211,15 @@ def test_cuda_entry_points_raise_without_card(tmp_path, monkeypatch):
 
     with pytest.raises(RuntimeError, match="cuda"):
         FilterServer(["x"], port=0)
-    out = subprocess.run(
-        [sys.executable, "-m", "klogs_tpu_torch.service", "--match", "x",
-         "--port", "0"], cwd=ROOT, capture_output=True, text=True,
-        timeout=120)
-    assert out.returncode != 0 and "cuda" in out.stderr
-    assert "serving" not in out.stdout
+    with pytest.raises(RuntimeError, match="cuda"):
+        FilterServer([], port=0, multi_set=True, device=None)
+    for argv in (["--match", "x"], ["--multi-set"]):
+        out = subprocess.run(
+            [sys.executable, "-m", "klogs_tpu_torch.service", *argv,
+             "--port", "0"], cwd=ROOT, capture_output=True, text=True,
+            timeout=120)
+        assert out.returncode != 0 and "cuda" in out.stderr
+        assert "serving" not in out.stdout
 
 
 def test_remote_collector_runs_without_a_card(tmp_path):

@@ -475,6 +475,8 @@ def test_port_client_registers_with_a_jax_multi_set_server():
 
 
 def test_register_is_unimplemented_on_the_port_server():
+    """A single-set port filterd answers Register UNIMPLEMENTED, as the
+    JAX one does (``--multi-set`` is the registry)."""
     async def fn(client, _):
         with pytest.raises(grpc.aio.AioRpcError) as ei:
             await client._register_rpc(
@@ -982,6 +984,7 @@ class TestServeTeardown:
             self.metrics_port = None
             self.backend = "cuda"
             self.patterns = ["x"]
+            self.tenants = None
 
         async def start(self):
             return 50051
@@ -1326,7 +1329,7 @@ def test_remote_timeout_env_rejects_nonpositive(monkeypatch):
 def test_make_pipeline_remote_builds_no_engine(capsys, monkeypatch):
     """A --remote pipeline is a client and no engine (``device`` None
     and no card here), warns about a fault clause aimed elsewhere, and
-    refuses a list with the port's one line."""
+    takes a list as the sharded tier."""
     FAULTS.load_spec("rpc.match@127.0.0.1:2:error*")
 
     async def scenario():
@@ -1342,8 +1345,18 @@ def test_make_pipeline_remote_builds_no_engine(capsys, monkeypatch):
 
     run(scenario())
     assert "127.0.0.1:2 not in the --remote list" in capsys.readouterr().out
-    with pytest.raises(ServiceConfigError, match="not ported yet"):
-        sink.make_pipeline(["x"], remote="127.0.0.1:1,127.0.0.1:2")
+
+    async def fleet():
+        from klogs_tpu_torch.service.shard import ShardedFilterClient
+
+        pipe = sink.make_pipeline(["x"], remote="127.0.0.1:1,127.0.0.1:2")
+        try:
+            assert pipe.log_filter is None
+            assert isinstance(pipe.service, ShardedFilterClient)
+        finally:
+            await pipe.aclose()
+
+    run(fleet())
     with pytest.raises(ServiceConfigError, match="bad port"):
         sink.make_pipeline(["x"], remote="127.0.0.1:0")
 
