@@ -14,6 +14,13 @@ long-line chunks went through the ragged pack (``pack_rows``): the
 payload crosses to the card once per batch and is cut into rows there.
 
 1. card: the card's name and power limit (nvidia-smi), torch and CUDA.
+   Then build (every kernel source at once) and native: the port's
+   host library, built from ``klogs_tpu_torch/native/_hostops.c`` at
+   first use (its path, the build's seconds); each of its four
+   functions (``find_newlines``, ``join_kept_framed``, ``frame_lines``,
+   ``split_frame``) byte for byte its plain numpy version, both timed,
+   on 256 FakeCluster streams cut in 4 KiB chunks (most end mid-line),
+   one stream carrying a 180 KiB line.
 2. grouped_nfa_kernel against its plain PyTorch version on the
    32-pattern program (4 groups x 128 states, 64 classes): 131072 rows
    at the 128-byte width bucket and 4096 rows at the 4096 bucket, plus a
@@ -56,6 +63,16 @@ restored around these two phases):
 9. tune: ``ops/tune.py`` ``tune_grouped`` times K1 and K4 on the fused
    engine's 131072 x 131 batch and caches the winner (in a temporary
    ``XDG_CACHE_HOME``); both lines/s and the winner are printed.
+   Then tune_auto (``KLOGS_TUNE=auto``, the operating-point controller
+   of ``ops/tune.py`` on ``ops/operating_point.json``'s envelope): (a)
+   one AsyncFilterService over the engine, from 4 in flight, under 256
+   concurrent callers of 4000-line frames for 5 s with 0.2 s ticks: at
+   least one step up of ``max_in_flight``, every value in its bounds,
+   every verdict equal to a fixed-flag engine's, and after the load a
+   step down and a clean close; (b) the cli cell under the variable
+   (0.25 s ticks): every file equal to the oracle's, the steps and
+   values beside the fixed-flag cli lines/s, K1, K2 and ``pack_rows``
+   held against their plain versions on its batches.
 
 The thousand-pattern path, on ``make_patterns(1024)`` (``bench.py``'s
 K axis: 156 groups of 128 states, 64 classes):
@@ -884,6 +901,292 @@ def tune_phase(torch, tune, batch) -> dict:
     emit({"phase": "tune", **res})
     if len(seen) != 2 or cached != best:
         raise AssertionError(f"tune phase failed: {res}")
+    return res
+
+
+# ---- the collector's host C and the operating-point controller --------
+
+NATIVE_FUNCTIONS = ("find_newlines", "join_kept_framed", "frame_lines",
+                    "split_frame")
+
+
+def native_phase(np, FakeCluster, n_streams=256, lines_per_stream=400,
+                 chunk=4096) -> dict:
+    """The port's host library, built from ``native/_hostops.c`` at its
+    first use (here, unless an earlier call built it): its path and the
+    build's seconds. Each of its four functions is held byte for byte
+    against its plain numpy version, and both timed, on 256 FakeCluster
+    streams cut in 4 KiB chunks (most end mid-line), the first stream
+    carrying a 180 KiB line: the newline sweep on every chunk and the
+    batcher over each stream, the framing of each stream's lines, its
+    split, and the join of the lines the ``re`` oracle keeps."""
+    from klogs_tpu_torch import native
+    from klogs_tpu_torch.filters import base, framer
+
+    t0 = time.perf_counter()
+    host = native.hostops()
+    load_s = time.perf_counter() - t0
+    info = dict(native.build_info)
+    fc, _ = cli_cluster(np, FakeCluster, n_streams, lines_per_stream,
+                        n_long=0)
+    pods = fc.namespaces["default"]
+    streams = [[ln for _, ln in pods[n].containers["c0"].lines]
+               for n in sorted(pods)]
+    rng = np.random.default_rng(SEED + 30)
+    big = rng.integers(32, 127, size=180 * 1024, dtype=np.uint8).tobytes()
+    streams[0].insert(len(streams[0]) // 2, big + b"\n")
+    ora = oracle_fn()
+    ms = {f: [0.0, 0.0] for f in NATIVE_FUNCTIONS}
+    bad = {f: 0 for f in NATIVE_FUNCTIONS}
+
+    def both(name, c_fn, plain_fn, c_args, plain_args, same=None):
+        t = time.perf_counter()
+        got = c_fn(*c_args)
+        t1 = time.perf_counter()
+        exp = plain_fn(*plain_args)
+        t2 = time.perf_counter()
+        ms[name][0] += (t1 - t) * 1e3
+        ms[name][1] += (t2 - t1) * 1e3
+        bad[name] += (got != exp) if same is None else not same(got, exp)
+        return got
+
+    n_chunks = mid = long_chunks = 0
+    for k, lines in enumerate(streams):
+        data = b"".join(lines)
+        batchers = (framer.FramedBatcher(),
+                    framer.FramedBatcher(find_newlines=framer.find_newlines_plain))
+        for at in range(0, len(data), chunk):
+            ch = data[at:at + chunk]
+            n_chunks += 1
+            mid += not ch.endswith(b"\n")
+            long_chunks += k == 0 and b"\n" not in ch
+            both("find_newlines", host.find_newlines,
+                 framer.find_newlines_plain, (ch, at), (ch, at))
+            for b in batchers:
+                b.feed(ch)
+        got, exp = (b.take(final=True) for b in batchers)
+        bad["find_newlines"] += (got[0], got[1].tobytes(), got[2]) != (
+            exp[0], exp[1].tobytes(), exp[2]) or got[0] != data
+        strip = k % 2
+        payload, offs, raw = both(
+            "frame_lines", host.frame_lines, base.frame_lines_plain,
+            (lines, strip), (lines, bool(strip)),
+            same=lambda g, e: (g[0], g[1], g[2]) == (e[0], e[1].tobytes(),
+                                                     e[2]))
+        o = np.frombuffer(offs, dtype=np.int32)
+        split = both("split_frame", host.split_frame, base.split_frame_plain,
+                     (payload, o, len(lines)), (payload, o))
+        bad["split_frame"] += split != (
+            [ln.rstrip(b"\n") for ln in lines] if strip else lines)
+        if strip:
+            continue
+        mask = np.array([ora(ln.rstrip(b"\n")) for ln in lines])
+        joined = both("join_kept_framed", host.join_kept_framed,
+                      framer.join_kept_framed_plain,
+                      (payload, o, len(lines), mask.view(np.uint8)),
+                      (payload, o, mask))
+        bad["join_kept_framed"] += joined != b"".join(
+            ln for ln, m in zip(lines, mask) if m)
+    path = info.get("path", "")
+    res = dict(source=os.path.relpath(native.SOURCE, os.path.dirname(
+        os.path.abspath(__file__))), library=os.path.basename(str(path)),
+        compiled_here=info.get("compiled"), build_s=info.get("seconds"),
+        load_s=load_s, streams=len(streams), chunks=n_chunks,
+        chunks_ending_mid_line=mid, chunks_inside_the_long_line=long_chunks,
+        long_line_bytes=len(big) + 1, lines=sum(map(len, streams)),
+        bytes=sum(len(b) for lines in streams for b in lines),
+        functions={f: dict(c_ms=ms[f][0], plain_ms=ms[f][1],
+                           mismatches=bad[f]) for f in NATIVE_FUNCTIONS})
+    emit({"phase": "native", **res})
+    if (any(bad.values()) or not mid or not long_chunks
+            or not str(path).startswith(native.BUILD_DIR)
+            or host.__file__ != path):
+        raise AssertionError(f"native phase failed: {res}")
+    return res
+
+
+def tune_auto_service(torch, np, nk, tune, FakeCluster, GpuEngineFilter,
+                      FilterStats, frame_lines, dev, seconds=5.0,
+                      idle_s=4.0, n_callers=256, frame_n=4000) -> dict:
+    """(a) One ``AsyncFilterService(GpuEngineFilter(PATTERNS))``, started
+    at the surface's floor of 4 in flight (an operator's
+    ``KLOGS_MAX_IN_FLIGHT=4``), under 256 concurrent callers of their own
+    4000-line FakeCluster frame for ``seconds``, with the controller
+    ``maybe_controller`` builds under ``KLOGS_TUNE=auto`` and
+    ``KLOGS_TUNE_INTERVAL_S=0.2`` (the committed surface, the profiler
+    ticking every 0.1 s); then idle until the controller steps back
+    down. Every verdict must equal a fixed-flag engine's on the same
+    frame, every step stay in its bounds, and the service close."""
+    from klogs_tpu_torch.filters.async_service import AsyncFilterService
+    from klogs_tpu_torch.obs.profiler import PROFILER
+
+    fc = FakeCluster.synthetic(n_pods=n_callers, n_containers=1,
+                               lines_per_container=frame_n,
+                               clock=lambda: CLOCK)
+    pods = fc.namespaces["default"]
+    frames = [frame_lines([ln for _, ln in pods[n].containers["c0"].lines],
+                          strip_nl=False)[:2] for n in sorted(pods)]
+    del fc, pods
+    fixed = GpuEngineFilter(PATTERNS, device=dev)
+    ref = [fixed.fetch_framed(fixed.dispatch_framed(p, o)) for p, o in frames]
+    obs_reset()
+    svc = AsyncFilterService(GpuEngineFilter(PATTERNS, device=dev),
+                             max_in_flight=4, stats=FilterStats())
+    with env_set("KLOGS_TUNE", "auto"), env_set("KLOGS_TUNE_INTERVAL_S",
+                                                 "0.2"):
+        ctrl = tune.maybe_controller(svc)
+    bounds = dict(ctrl.bounds)
+    steps: list = []
+    real_apply = svc.apply_tuning
+    t0 = time.perf_counter()
+
+    def apply(**kw):
+        steps.append(dict(t=time.perf_counter() - t0, **kw))
+        real_apply(**kw)
+
+    svc.apply_tuning = apply
+    counts = dict(calls=0, lines=0, wrong=0)
+
+    async def go() -> dict:
+        PROFILER.enable(1.0)
+        stop_prof, stop_tune = asyncio.Event(), asyncio.Event()
+        prof_task = asyncio.create_task(PROFILER.run_ticker(stop_prof,
+                                                            interval_s=0.1))
+        tune_task = asyncio.create_task(ctrl.run(stop_tune))
+        deadline = time.perf_counter() + seconds
+
+        async def caller(i: int) -> None:
+            p, o = frames[i]
+            while time.perf_counter() < deadline:
+                v = await svc.match_framed(p, o)
+                counts["calls"] += 1
+                counts["lines"] += len(o) - 1
+                counts["wrong"] += not np.array_equal(v, ref[i])
+
+        t = time.perf_counter()
+        await asyncio.gather(*[caller(i) for i in range(len(frames))])
+        load_s = time.perf_counter() - t
+        loaded_at = time.perf_counter() - t0
+        values_loaded = dict(ctrl.values)
+        # Idle: the controller walks back down after its idle streak.
+        while (time.perf_counter() - t0 - loaded_at < idle_s
+               and not any(st["t"] > loaded_at for st in steps)):
+            await asyncio.sleep(0.05)
+        stop_tune.set()
+        await tune_task
+        stop_prof.set()
+        await prof_task
+        t = time.perf_counter()
+        await asyncio.wait_for(svc.aclose(), 60)
+        return dict(load_s=load_s, loaded_at=loaded_at,
+                    values_after_load=values_loaded,
+                    close_s=time.perf_counter() - t)
+
+    torch.cuda.synchronize()
+    nk.reset_launches()
+    try:
+        out = asyncio.run(go())
+    finally:
+        obs_reset()
+    launches = dict(nk.LAUNCHES)
+    depth, ups = 4, 0
+    for st in steps:
+        if "max_in_flight" in st:
+            ups += st["max_in_flight"] > depth
+            depth = st["max_in_flight"]
+    downs = [st for st in steps if st["t"] > out["loaded_at"]]
+    in_bounds = all(bounds[k][0] <= v <= bounds[k][1] for st in steps
+                    for k, v in st.items() if k != "t")
+    res = dict(callers=n_callers, frame_lines=frame_n, seconds=seconds,
+               bounds=bounds, steps=steps, in_bounds=in_bounds,
+               max_in_flight_ups=ups, steps_after_load=len(downs),
+               final=dict(ctrl.values), permits_at_close=svc._sem._value,
+               lines_per_s=counts["lines"] / out["load_s"],
+               launches=launches, **counts, **out)
+    res["ok"] = bool(ups and downs and in_bounds and counts["wrong"] == 0
+                     and counts["calls"] >= n_callers
+                     and svc._sem._value == svc.max_in_flight
+                     and launches[nk.GROUPED] > 0 and launches[nk.PACK] > 0)
+    return res
+
+
+def tune_auto_cli(torch, np, nk, pack, app, cli, term, FakeCluster, dev,
+                  fixed_lps: float) -> dict:
+    """(b) The cli cell (256 pods x 4000 lines + 16 long) through
+    ``app.run_async`` under ``KLOGS_TUNE=auto`` and
+    ``KLOGS_TUNE_INTERVAL_S=0.25`` with ``--stats-json``: every file
+    equal to the ``re`` oracle; the controller's steps and final values,
+    lines/s beside the fixed-flag cli run's; K1, K2 and ``pack_rows``
+    held against their plain versions on this run's own batches (counts
+    zeroed just before the run). A run of a few seconds may show no two
+    pressure ticks in a row, so no step is required here."""
+    fc, n_lines = cli_cluster(np, FakeCluster)
+    pods = fc.namespaces["default"]
+    want = oracle_files(pods)
+    names = ["match_cls_grouped", "match_chunk_cls", "pack_rows"]
+    with tempfile.TemporaryDirectory() as tmp, \
+            env_set("KLOGS_TUNE", "auto"), \
+            env_set("KLOGS_TUNE_INTERVAL_S", "0.25"), \
+            captured_pipeline() as made, \
+            recording_wrappers(nk, pack, names) as calls:
+        out_dir, stats = os.path.join(tmp, "out"), os.path.join(tmp, "s.json")
+        argv = ["-n", "default", "-a", "-p", out_dir, "--stats-json", stats]
+        for p in PATTERNS:
+            argv += ["--match", p]
+        term.set_ui_stream(io.StringIO())
+        obs_reset()
+        try:
+            torch.cuda.synchronize()
+            nk.reset_launches()
+            t0 = time.perf_counter()
+            rc = asyncio.run(app.run_async(cli.parse_args(argv), backend=fc,
+                                           device=dev))
+            seconds = time.perf_counter() - t0
+            launches = dict(nk.LAUNCHES)
+        finally:
+            term.set_ui_stream(None)
+            obs_reset()
+        bad = sorted(f for f, exp in want.items()
+                     if open(os.path.join(out_dir, f), "rb").read() != exp)
+        with open(stats) as f:
+            metrics = json.load(f)["metrics"]
+        res = dict(rc=rc, lines=n_lines, seconds=seconds,
+                   lines_per_s=n_lines / seconds,
+                   fixed_flag_lines_per_s=fixed_lps,
+                   mismatched_files=bad, launches=launches,
+                   steps={"{param}:{direction}".format(**s["labels"]):
+                          s["value"] for s in
+                          metrics["klogs_tune_steps_total"]["samples"]},
+                   values={s["labels"]["param"]: s["value"] for s in
+                           metrics["klogs_tune_value"]["samples"]},
+                   service_final=dict(
+                       coalesce_lines=made[0].service.coalesce_lines,
+                       max_in_flight=made[0].service.max_in_flight))
+        res.update(held_batches(torch, nk, pack, calls, 2))
+    held = res["k1_batches"] + res["k2_batches"] + res["pack_batches"]
+    res["ok"] = bool(
+        rc == 0 and not bad and len(res["values"]) == 2
+        and all(launches[k] > 0 for k in (nk.GROUPED, nk.CHUNK, nk.PACK))
+        and res["k1_batches"] and res["k2_batches"] and res["pack_batches"]
+        and not any(h.get("max_abs_err", 0) or h.get("mismatches", 0)
+                    for h in held))
+    return res
+
+
+def tune_auto_phase(torch, np, nk, pack, tune, app, cli, term, FakeCluster,
+                    GpuEngineFilter, FilterStats, frame_lines, dev,
+                    fixed_lps: float, card: str = "") -> dict:
+    """KLOGS_TUNE=auto on the card: (a) the controller over the service
+    it tunes, (b) the cli cell through the app's wiring."""
+    res = dict(card=card, surface=tune.operating_surface())
+    res["a"] = tune_auto_service(torch, np, nk, tune, FakeCluster,
+                                 GpuEngineFilter, FilterStats, frame_lines,
+                                 dev)
+    res["b"] = tune_auto_cli(torch, np, nk, pack, app, cli, term,
+                             FakeCluster, dev, fixed_lps)
+    emit({"phase": "tune_auto", **res})
+    if not (res["a"]["ok"] and res["b"]["ok"]):
+        raise AssertionError(f"tune_auto phase failed: {res}")
     return res
 
 
@@ -4166,6 +4469,7 @@ def main() -> int:
     try:
         card = card_phase(torch)
         build_phase(nk, pack, _build)
+        native_phase(np, FakeCluster)
         k1, k1_batches = k1_phase(torch, np, nfa, nk, synthetic_line, dev)
         k2 = k2_phase(torch, np, nfa, nk, compile_patterns, dev)
         eng = engine_phase(torch, np, nk, GpuEngineFilter, frame_lines,
@@ -4181,6 +4485,10 @@ def main() -> int:
                              fused=True)
         del eng
         tune_phase(torch, tune, engf.pop("batch"))
+        # KLOGS_TUNE=auto: the operating-point controller.
+        tune_auto_phase(torch, np, nk, pack, tune, app, cli, term,
+                        FakeCluster, GpuEngineFilter, FilterStats,
+                        frame_lines, dev, run["lines_per_s"], card)
         # The union program of the 1024 patterns (the long-line path's)
         # has 18878 positions, past the compiler's default cap of 4096.
         os.environ["KLOGS_MAX_PATTERN_POSITIONS"] = "65536"

@@ -29,7 +29,9 @@ end. ``--trace-json`` samples every trace (unless
 the file; ``--profile-json`` (or ``KLOGS_PROFILE_SAMPLE``) runs the
 pipeline profiler's ticker. ``KLOGS_FAULTS`` arms the fault points for
 the run. ``--profile DIR`` writes a torch.profiler trace where the JAX
-CLI writes an xprof one.
+CLI writes an xprof one. ``KLOGS_TUNE=auto`` runs the operating-point
+controller (``ops/tune.py``) over the in-process pipeline's service for
+the run, with the profiler's ticker feeding it.
 """
 
 import asyncio
@@ -541,6 +543,8 @@ async def _run_async_inner(opts: Options, backend: ClusterBackend | None,
         pipeline = None
         prof_stop: asyncio.Event | None = None
         prof_task: asyncio.Task | None = None
+        tune_stop: asyncio.Event | None = None
+        tune_task: asyncio.Task | None = None
         metrics_srv = None
         try:
             # Inside this try, so the finally reaps the ticker and undoes
@@ -558,12 +562,33 @@ async def _run_async_inner(opts: Options, backend: ClusterBackend | None,
                 # this run's before any stream opens.
                 await pipeline.start()
                 pipeline.inner_factory = inner_factory
-                from klogs_tpu_torch.ops.tune import tune_mode
+                # KLOGS_TUNE=auto: the operating-point controller moves
+                # the coalescer's group size and the in-flight depth
+                # from the profiler's live signals. Off by default:
+                # nothing is built, the flags hold.
+                from klogs_tpu_torch.ops.tune import maybe_controller
 
                 try:
-                    tune_mode()
+                    ctrl = maybe_controller(pipeline.service,
+                                            registry=obs_registry)
                 except ValueError as e:
                     term.fatal("%s", e)
+                if ctrl is not None:
+                    if not PROFILER.enabled and not PROFILER.enable():
+                        term.warning(
+                            "KLOGS_TUNE=auto needs profiler signals but "
+                            "KLOGS_PROFILE_SAMPLE=0 disables them; the "
+                            "controller will hold the fixed flags")
+                    elif prof_task is None:
+                        # Tuning enabled the profiler: it needs the
+                        # ticker for live samples.
+                        if obs_registry is not None:
+                            PROFILER.bind_registry(obs_registry)
+                        prof_stop = asyncio.Event()
+                        prof_task = asyncio.create_task(
+                            PROFILER.run_ticker(prof_stop))
+                    tune_stop = asyncio.Event()
+                    tune_task = asyncio.create_task(ctrl.run(tune_stop))
             runner = FanoutRunner(
                 backend, namespace, log_opts,
                 sink_factory=(pipeline.sink_factory if pipeline
@@ -689,6 +714,12 @@ async def _run_async_inner(opts: Options, backend: ClusterBackend | None,
                 _write_stats_json(opts.stats_json, obs_registry, pipeline)
             return 130 if interrupted else 0
         finally:
+            if tune_task is not None:
+                tune_stop.set()
+                try:
+                    await tune_task
+                except (asyncio.CancelledError, Exception):  # noqa: BLE001
+                    pass
             if prof_task is not None:
                 # The ticker's last tick ends the --profile-json file.
                 prof_stop.set()

@@ -21,6 +21,13 @@ Each group is a ``coalescer.dispatch`` span, parented under its first
 traced caller; ``device.fetch`` wraps the await of the verdicts (the
 executor thread does not inherit the trace context), so it holds the
 card's time for the group.
+
+``KLOGS_MAX_IN_FLIGHT``, ``KLOGS_FETCH_WORKERS`` and
+``KLOGS_COALESCE_LINES`` set the defaults of the constructor's
+arguments, read at import as in the JAX package (a malformed value warns
+and the default is used). ``apply_tuning`` moves ``coalesce_lines`` and
+``max_in_flight`` live: the ``KLOGS_TUNE=auto`` controller
+(``ops/tune.py``) drives it.
 """
 
 import asyncio
@@ -31,11 +38,15 @@ import numpy as np
 
 from klogs_tpu_torch.filters.base import FilterStats, LogFilter, frame_lines
 from klogs_tpu_torch.obs import trace
+from klogs_tpu_torch.utils.env import warn_positive_int as _env_int
 
-MAX_IN_FLIGHT = 16
-FETCH_WORKERS = 8
-COALESCE_LINES = 8192
-COALESCE_DELAY_S = 0.005
+# Each fetch holds a worker thread for a whole device round trip, so
+# batches/s is capped at workers / round trip; the in-flight depth
+# bounds the batches enqueued on the card at once.
+DEFAULT_MAX_IN_FLIGHT = _env_int("KLOGS_MAX_IN_FLIGHT", 16)
+DEFAULT_FETCH_WORKERS = _env_int("KLOGS_FETCH_WORKERS", 8)
+DEFAULT_COALESCE_LINES = _env_int("KLOGS_COALESCE_LINES", 8192)
+DEFAULT_COALESCE_DELAY_S = 0.005
 
 # Offsets ride int32: a coalesced group whose combined payload passes
 # this is split, or the shifted member offsets would wrap negative.
@@ -47,9 +58,15 @@ class AsyncFilterService:
     asyncio.Semaphore) share one fetch pool and one in-flight budget
     among services: the multi-set registry runs every set's service over
     the same two, as the process owns one card. Without them the service
-    makes its own; it shuts down only a pool it made."""
+    makes its own; it shuts down only a pool it made. A service over a
+    shared ``in_flight`` budget is not ``tunable``: its depth belongs to
+    the registry."""
 
     def __init__(self, log_filter: LogFilter,
+                 max_in_flight: int = DEFAULT_MAX_IN_FLIGHT,
+                 fetch_workers: int = DEFAULT_FETCH_WORKERS,
+                 coalesce_lines: int = DEFAULT_COALESCE_LINES,
+                 coalesce_delay_s: float = DEFAULT_COALESCE_DELAY_S,
                  stats: FilterStats | None = None,
                  executor: "ThreadPoolExecutor | None" = None,
                  in_flight: "asyncio.Semaphore | None" = None):
@@ -71,9 +88,13 @@ class AsyncFilterService:
             }
         # An own semaphore is made at first dispatch, inside the loop.
         self._sem: "asyncio.Semaphore | None" = in_flight
+        self._own_sem = in_flight is None
+        self._max_in_flight = max_in_flight
         self._own_pool = executor is None
         self._pool = executor if executor is not None else ThreadPoolExecutor(
-            max_workers=FETCH_WORKERS, thread_name_prefix="klogs-fetch")
+            max_workers=fetch_workers, thread_name_prefix="klogs-fetch")
+        self._coalesce_lines = coalesce_lines
+        self._coalesce_delay_s = coalesce_delay_s
         # The profiler's probes, read at its ticks (host counters only);
         # services over a shared pool overwrite each other's, which read
         # the same budget.
@@ -101,12 +122,67 @@ class AsyncFilterService:
         self._tasks: set[asyncio.Task] = set()
         self.batches_dispatched = 0
 
+    @property
+    def coalesce_lines(self) -> int:
+        return self._coalesce_lines
+
+    @property
+    def max_in_flight(self) -> int:
+        return self._max_in_flight
+
+    @property
+    def tunable(self) -> bool:
+        """Whether ``apply_tuning`` may move this service's depth: not
+        over a shared in-flight budget."""
+        return self._own_sem
+
+    def apply_tuning(self, coalesce_lines: "int | None" = None,
+                     max_in_flight: "int | None" = None) -> None:
+        """Adopt a new operating point (the ``ops/tune.py`` controller,
+        which bounds the values). ``coalesce_lines`` applies from the
+        next enqueue. ``max_in_flight`` resizes the semaphore live: an
+        increase releases permits at once, a decrease absorbs permits in
+        a background task as batches retire; no dispatched batch is
+        cancelled, and ``aclose`` gathers the task."""
+        if not self._own_sem:
+            raise RuntimeError(
+                "AsyncFilterService over a shared in-flight budget cannot "
+                "be tuned")
+        if coalesce_lines is not None:
+            self._coalesce_lines = int(coalesce_lines)
+        if max_in_flight is None:
+            return
+        new = int(max_in_flight)
+        delta = new - self._max_in_flight
+        if delta == 0:
+            return
+        self._max_in_flight = new
+        sem = self._sem
+        if sem is None:
+            return  # the first dispatch makes it at the new depth
+        if delta > 0:
+            for _ in range(delta):
+                sem.release()
+            return
+
+        async def _absorb(n: int = -delta) -> None:
+            # Acquire and hold: the depth shrinks for good. Permits come
+            # back as groups retire, so this settles once the pipeline
+            # has drained to the new depth; the semaphore dies with the
+            # service, so a cancelled absorb strands nothing.
+            for _ in range(n):
+                await sem.acquire()
+
+        task = asyncio.get_running_loop().create_task(_absorb())
+        self._tasks.add(task)
+        task.add_done_callback(self._tasks.discard)
+
     def _in_flight_used(self) -> float:
         """Occupied in-flight slots (0 before the first dispatch)."""
         sem = self._sem
         if sem is None:
             return 0.0
-        return float(max(0, MAX_IN_FLIGHT - sem._value))
+        return float(max(0, self._max_in_flight - sem._value))
 
     def _fetch_queue_depth(self) -> float:
         """Fetches waiting for a free executor thread."""
@@ -155,11 +231,11 @@ class AsyncFilterService:
         if self._m is not None:
             self._m["depth"].set(len(self._pending))
             self._m["pending"].set(self._pending_lines)
-        if self._pending_lines >= COALESCE_LINES:
+        if self._pending_lines >= self._coalesce_lines:
             self._kick(loop)
         elif self._kick_handle is None:
             self._kick_handle = loop.call_later(
-                COALESCE_DELAY_S, self._kick, loop)
+                self._coalesce_delay_s, self._kick, loop)
         return await fut
 
     def _kick(self, loop) -> None:
@@ -223,7 +299,7 @@ class AsyncFilterService:
             try:
                 t_sem = time.perf_counter()
                 if self._sem is None:
-                    self._sem = asyncio.Semaphore(MAX_IN_FLIGHT)
+                    self._sem = asyncio.Semaphore(self._max_in_flight)
                 async with self._sem:
                     t_dispatch = time.perf_counter()
                     if self._stats is not None:

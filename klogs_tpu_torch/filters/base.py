@@ -6,11 +6,12 @@ lines go in, one keep/drop verdict per line comes out, and only kept
 lines reach the sink.
 
 A "framed batch" is ``(payload: bytes, offsets: int32[n+1])``: one
-contiguous buffer plus prefix sums instead of n ``bytes`` objects. The
-helpers here are numpy only (the JAX package's native packer is not
-part of the port). ``pack_framed_rows`` is kept as the counterpart of
-the JAX package's; the engine cuts its rows on the device instead
-(``ops/pack.py``).
+contiguous buffer plus prefix sums instead of n ``bytes`` objects.
+``frame_lines`` and ``split_frame`` run on the port's C
+(``native/_hostops.c``); ``frame_lines_plain`` and ``split_frame_plain``
+are their numpy versions, which only the tests call.
+``pack_framed_rows`` is kept as the counterpart of the JAX package's;
+the engine cuts its rows on the device instead (``ops/pack.py``).
 """
 
 import abc
@@ -18,6 +19,8 @@ import threading
 import time
 
 import numpy as np
+
+from klogs_tpu_torch.native import hostops
 
 # Offsets ride int32; batches past this must be split upstream, never
 # silently wrapped into negative offsets.
@@ -254,7 +257,13 @@ def frame_lines(lines: list[bytes], strip_nl: bool = True):
     """list[bytes] -> (payload, offsets: int32[n+1], raw_total).
     Trailing-newline runs are stripped when ``strip_nl`` (the engines'
     ``rstrip(b"\\n")`` rule); ``raw_total`` is the unstripped byte
-    count."""
+    count. One C pass; a payload past int32 raises OverflowError."""
+    payload, offs, raw = hostops().frame_lines(lines, int(strip_nl))
+    return payload, np.frombuffer(offs, dtype=np.int32), raw
+
+
+def frame_lines_plain(lines: list[bytes], strip_nl: bool = True):
+    """The numpy version of ``frame_lines``."""
     raw = sum(len(ln) for ln in lines)
     bodies = [ln.rstrip(b"\n") for ln in lines] if strip_nl else lines
     if raw > _INT32_MAX and sum(len(b) for b in bodies) > _INT32_MAX:
@@ -303,10 +312,20 @@ def pack_framed_rows(payload: bytes, offsets, width: int,
 
 def split_frame(payload: bytes, offsets) -> list[bytes]:
     """Framed batch -> list[bytes] (line i = payload[offsets[i]:
-    offsets[i+1]])."""
+    offsets[i+1]]), in C; offsets out of range raise ValueError."""
+    return hostops().split_frame(
+        payload, np.ascontiguousarray(offsets, dtype=np.int32),
+        len(offsets) - 1)
+
+
+def split_frame_plain(payload: bytes, offsets) -> list[bytes]:
+    """The numpy version of ``split_frame``, with its check."""
     if not isinstance(payload, bytes):
         payload = bytes(payload)
     o = np.asarray(offsets).tolist()
+    for lo, hi in zip(o, o[1:]):
+        if lo < 0 or hi < lo or hi > len(payload):
+            raise ValueError("split_frame: offsets out of range")
     return [payload[o[i]:o[i + 1]] for i in range(len(o) - 1)]
 
 

@@ -5,8 +5,9 @@ with the same names, types, label names and buckets, because operators'
 dashboards read them. Instrumented modules obtain a family through
 ``registry.family(name)``, which resolves here, so a name used anywhere
 carries the type, help and buckets of this table. Some families belong
-to layers the port has not ported yet (the adaptive tuner, the host
-engines): they are registered, and stay at zero. Where a help text described the TPU, it
+to layers the port has not ported yet (the host engines of
+``--backend cpu``, the multi-device mesh, the seq-scan): they are
+registered, and stay at zero. Where a help text described the TPU, it
 says what the port counts.
 
 Labels are bounded by deployment shape (method names, the pod set,

@@ -30,9 +30,10 @@ for its verdicts, so the device's own time shows in ``device.fetch``
 admitted lines, their rolling rates, and a headroom in [0, 1] that every
 Hello carries (``klogs_fleet_*`` with a registry). Its rate envelope is
 ``KLOGS_FLEET_CAPACITY_LPS``, else the live profiler's peak stage
-utilization stands in, else there is none: the port has no operating
-point of its own on the card yet, and the JAX package's
-``OPERATING_POINT.json`` was measured on a TPU, so it is never read.
+utilization stands in, else the best lines/s of the port's
+operating-point sweep on the card (``ops/operating_point.json``, by
+``ops/bench_operating_point.py``), else there is none. The JAX package's
+``OPERATING_POINT.json`` was measured on a TPU and is never read.
 """
 
 import json
@@ -534,7 +535,7 @@ class FleetCapacity:
     def envelope_lps(self) -> "float | None":
         """The rate envelope: ``KLOGS_FLEET_CAPACITY_LPS`` when set (the
         deployment's own calibration), else the operating point's
-        (``_operating_point_lps``: none on the card yet)."""
+        (``_operating_point_lps``: the card's sweep)."""
         from klogs_tpu_torch.utils.env import is_set, positive_float
 
         if is_set("KLOGS_FLEET_CAPACITY_LPS"):
@@ -599,10 +600,16 @@ class FleetCapacity:
 
 
 def _operating_point_lps() -> "float | None":
-    """The best lines/s of the port's operating-point sweep on the card:
-    None, since no such sweep is committed yet. The JAX package's
-    ``OPERATING_POINT.json`` holds a TPU's rates and is not read."""
-    return None
+    """The best lines/s of the port's operating-point sweep on the card
+    (``ops/operating_point.json``), or None without it."""
+    from klogs_tpu_torch.ops.tune import operating_point_runs
+
+    best = 0.0
+    for run in operating_point_runs():
+        lps = run.get("lps")
+        if isinstance(lps, (int, float)) and not isinstance(lps, bool):
+            best = max(best, float(lps))
+    return best or None
 
 
 # The process-wide profiler: what --profile-json, /profile and the

@@ -18,10 +18,9 @@ test double. The port fires:
                        as the target)
 - ``resolver.watch``   every membership poll of the sharded tier's
                        resolver (service/resolver.py)
-
-``tune.step`` is a known name (the spec grammar is the JAX package's)
-whose site belongs to a layer the port has not ported yet; armed, it
-never fires.
+- ``tune.step``        each tick of the ``KLOGS_TUNE=auto`` controller
+                       (ops/tune.py): the tick is skipped, the loop
+                       goes on
 
 Tests arm a point with ``FAULTS.arm(point, times=..., exc=...,
 delay_s=...)``; operators use the ``KLOGS_FAULTS`` spec

@@ -38,8 +38,8 @@ from heapq import heappop, heappush
 from typing import Any, Awaitable, Callable, Sequence
 
 from klogs_tpu_torch.filters.async_service import (
-    FETCH_WORKERS,
-    MAX_IN_FLIGHT,
+    DEFAULT_FETCH_WORKERS,
+    DEFAULT_MAX_IN_FLIGHT,
     AsyncFilterService,
 )
 from klogs_tpu_torch.obs import trace
@@ -260,7 +260,7 @@ class PatternSetRegistry:
         # process owns one device; per-set pools would let one tenant
         # monopolize threads the fair gate never saw.
         self._pool = ThreadPoolExecutor(
-            max_workers=FETCH_WORKERS,
+            max_workers=DEFAULT_FETCH_WORKERS,
             thread_name_prefix="klogs-tenant-fetch")
         # Lazy (first Register runs on the loop): a Py3.10 asyncio
         # primitive binds the loop alive at construction, and the
@@ -299,7 +299,7 @@ class PatternSetRegistry:
         """The shared in-flight dispatch budget (see ``executor``),
         created on first use from the running loop."""
         if self._sem is None:
-            self._sem = asyncio.Semaphore(MAX_IN_FLIGHT)
+            self._sem = asyncio.Semaphore(DEFAULT_MAX_IN_FLIGHT)
         return self._sem
 
     @property

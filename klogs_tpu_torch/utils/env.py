@@ -8,9 +8,12 @@ for ``--watch-new`` and follow-mode source discovery,
 ``KLOGS_SOURCE_READAHEAD_MB``, ``KLOGS_REPLAY_RATE`` and
 ``KLOGS_SOCKET_MAX_CONNS``, for the observability and fault layers
 ``KLOGS_TRACE_SAMPLE``, ``KLOGS_FLIGHT_DIR``, ``KLOGS_PROFILE_SAMPLE``,
-``KLOGS_PROFILE_INTERVAL_S`` and ``KLOGS_FAULTS``, ``KLOGS_TUNE``,
-whose ``auto`` mode is refused, and for the remote filter service
-``KLOGS_REMOTE_TIMEOUT_S``, ``KLOGS_REMOTE_TLS_CA``/``_CERT``/``_KEY``,
+``KLOGS_PROFILE_INTERVAL_S`` and ``KLOGS_FAULTS``, for the pipeline's
+operating point ``KLOGS_MAX_IN_FLIGHT``, ``KLOGS_COALESCE_LINES``,
+``KLOGS_FETCH_WORKERS`` and the controller's ``KLOGS_TUNE``,
+``KLOGS_TUNE_INTERVAL_S`` and ``KLOGS_TUNE_STEP``, for the remote filter
+service ``KLOGS_REMOTE_TIMEOUT_S``,
+``KLOGS_REMOTE_TLS_CA``/``_CERT``/``_KEY``,
 ``KLOGS_REMOTE_TOKEN_FILE``, ``KLOGS_TENANT_WEIGHT`` and
 ``KLOGS_FLEET_CAPACITY_LPS``, for the sharded tier ``KLOGS_HEDGE_S``,
 ``KLOGS_READYZ_INTERVAL_S``, ``KLOGS_RESOLVER_INTERVAL_S``,

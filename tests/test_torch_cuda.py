@@ -572,9 +572,9 @@ def test_pack_kernel_large_offsets(dev):
         assert not got[2:].any()
 
 
-def test_async_service_many_batches_in_flight(dev, monkeypatch):
+def test_async_service_many_batches_in_flight(dev):
     """48 distinct framed batches through AsyncFilterService, each its own
-    dispatch (COALESCE_LINES at 1), up to 16 in flight, each with long
+    dispatch (coalesce_lines at 1), up to 16 in flight, each with long
     lines that keep the card busy while later batches are staged: the
     verdicts equal the CPU engine's, so no pinned staging buffer was
     rewritten under a copy still in flight."""
@@ -583,7 +583,6 @@ def test_async_service_many_batches_in_flight(dev, monkeypatch):
     from klogs_tpu_torch.filters import async_service
     from klogs_tpu_torch.filters.base import frame_lines
 
-    monkeypatch.setattr(async_service, "COALESCE_LINES", 1)
     rng = np.random.default_rng(12)
     needles = [b"panic: x", b"retry 3/5", b"code=503", b"FATAL a code=9",
                b"disk is full", b"start", b"end"]
@@ -602,8 +601,8 @@ def test_async_service_many_batches_in_flight(dev, monkeypatch):
                   + (b"code=504" if b % 2 else b"") + b"\n"
                   for n in rng.integers(5000, 40000, size=4)]
         batches.append(frame_lines(lines, strip_nl=False)[:2])
-    svc = async_service.AsyncFilterService(GpuEngineFilter(PATTERNS,
-                                                           device=dev))
+    svc = async_service.AsyncFilterService(
+        GpuEngineFilter(PATTERNS, device=dev), coalesce_lines=1)
 
     async def go():
         res = await asyncio.gather(*[svc.match_framed(p, o)
@@ -1017,3 +1016,37 @@ def test_fleet_and_multi_set_filterd_on_card(dev):
             eng.dispatch_framed(p, o)).tolist()
     assert sweep
     assert after <= before * 1.05, (before, after)
+
+
+# ---- the operating-point controller and the host C ----------------------
+
+def test_tune_auto_controller_on_the_card(dev):
+    """``chip_smoke.py``'s ``tune_auto`` (a) at a smaller size: from 4 in
+    flight under 128 callers of 4000-line frames for 3 s, the
+    ``KLOGS_TUNE=auto`` controller steps the depth up, every value in
+    its bounds, every verdict equal to a fixed-flag engine's; idle, it
+    steps back down, and the service closes with every permit back."""
+    import chip_smoke as cs
+    from klogs_tpu_torch.cluster.fake import FakeCluster
+    from klogs_tpu_torch.filters.base import FilterStats, frame_lines
+    from klogs_tpu_torch.ops import tune
+
+    res = cs.tune_auto_service(torch, np, nfa_kernels, tune, FakeCluster,
+                               GpuEngineFilter, FilterStats, frame_lines,
+                               dev, seconds=3.0, n_callers=128)
+    assert res["ok"], res
+    assert res["max_in_flight_ups"] >= 1 and res["wrong"] == 0
+
+
+def test_native_functions_equal_their_plain_versions(dev):
+    """``chip_smoke.py``'s ``native`` phase at a smaller size, on the
+    card machine's own build of ``native/_hostops.c``: each C function
+    byte for byte its plain version over FakeCluster streams cut in 4 KiB
+    chunks, one carrying a 180 KiB line."""
+    import chip_smoke as cs
+    from klogs_tpu_torch.cluster.fake import FakeCluster
+
+    res = cs.native_phase(np, FakeCluster, n_streams=64,
+                          lines_per_stream=200)
+    assert not any(f["mismatches"] for f in res["functions"].values())
+    assert res["chunks_ending_mid_line"] and res["chunks_inside_the_long_line"]

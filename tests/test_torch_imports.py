@@ -55,8 +55,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "service/__main__.py", "service/transport.py",
                 "service/client.py", "service/server.py",
                 "service/shard.py", "service/resolver.py",
-                "service/tenancy.py"):
+                "service/tenancy.py", "native/__init__.py",
+                "ops/bench_operating_point.py"):
         assert os.path.join(PORT, mod) in files
+    # The port's C file is its own: it includes the C and Python
+    # headers only, nothing of the JAX package's native directory.
+    with open(os.path.join(PORT, "native", "_hostops.c")) as f:
+        includes = [ln.split()[1] for ln in f if ln.startswith("#include")]
+    assert includes == ["<Python.h>", "<string.h>", "<stdint.h>"]
     bad = []
     for path in files:
         for mod in imported_modules(path):

@@ -546,32 +546,55 @@ def test_profile_dir_writes_a_torch_profiler_trace(tmp_path):
 
 
 @pytest.mark.parametrize("raw", ["auto", "AUTO", "sometimes"])
-def test_tune_mode_refuses_auto(raw, tmp_path, monkeypatch, capsys):
-    """KLOGS_TUNE=auto ends the run with one line saying the controller
-    is not ported; another bad value says what the JAX package says."""
+def test_tune_mode_equals_jax(raw, tmp_path, monkeypatch, capsys):
+    """KLOGS_TUNE: ``auto`` in any case is ``auto`` as in the JAX package,
+    and a run under it goes through the operating-point controller (its
+    files exact, ``klogs_tune_value`` set); another value ends the run
+    with the JAX package's message."""
     from klogs_tpu.ops.tune import tune_mode as jax_tune_mode
-    from klogs_tpu_torch.ops.tune import tune_mode
+    from klogs_tpu_torch.ops.tune import operating_surface, tune_mode
 
     monkeypatch.setenv("KLOGS_TUNE", raw)
-    with pytest.raises(ValueError) as e:
-        tune_mode()
-    if raw.lower() == "auto":
-        assert "not ported" in str(e.value)
-        assert jax_tune_mode() == "auto"
+    auto = raw.lower() == "auto"
+    if auto:
+        assert tune_mode() == jax_tune_mode() == "auto"
     else:
+        with pytest.raises(ValueError) as e:
+            tune_mode()
         with pytest.raises(ValueError) as je:
             jax_tune_mode()
         assert str(e.value) == str(je.value)
-    fc = FakeCluster.synthetic(n_pods=1, lines_per_container=5,
+    fc = FakeCluster.synthetic(n_pods=3, lines_per_container=400,
                                clock=lambda: CLOCK)
+    out, stats = tmp_path / "out", tmp_path / "stats.json"
     capsys.readouterr()
-    opts = cli.parse_args(["-n", "default", "-a", "-p", str(tmp_path),
-                           "--match", "ERROR"])
+    opts = cli.parse_args(["-n", "default", "-a", "-p", str(out),
+                           "--match", "ERROR", "--stats-json", str(stats)])
     from klogs_tpu_torch.ui import term
 
-    with pytest.raises(term.FatalError):
-        asyncio.run(app.run_async(opts, backend=fc, device="cpu"))
-    assert "KLOGS_TUNE" in capsys.readouterr().out
+    if not auto:
+        with pytest.raises(term.FatalError):
+            asyncio.run(app.run_async(opts, backend=fc, device="cpu"))
+        assert "KLOGS_TUNE" in capsys.readouterr().out
+        return
+    monkeypatch.setenv("KLOGS_TUNE_INTERVAL_S", "0.05")
+    assert asyncio.run(app.run_async(opts, backend=fc, device="cpu")) == 0
+    pods = fc.namespaces["default"]
+    assert read_all(out) == {
+        f"{name}__c0.log": b"".join(
+            ln for _, ln in pods[name].containers["c0"].lines
+            if b"ERROR" in ln) for name in pods}
+    with open(stats) as f:
+        doc = json.load(f)
+    values = {s["labels"]["param"]: s["value"]
+              for s in doc["metrics"]["klogs_tune_value"]["samples"]}
+    surface = operating_surface()
+    assert set(values) == {"coalesce_lines", "max_in_flight"}
+    initial = {"coalesce_lines": 8192, "max_in_flight": 16}
+    for param, v in values.items():
+        lo, hi = surface[param]
+        assert min(lo, initial[param]) <= v <= max(hi, initial[param])
+    assert PROFILER.enabled  # the controller's signals
 
 
 def test_tune_telemetry(tmp_path, monkeypatch):

@@ -1366,8 +1366,9 @@ def test_make_pipeline_remote_builds_no_engine(capsys, monkeypatch):
 def test_fleet_capacity_equals_jax(monkeypatch):
     """One offered/admitted sequence under one fake clock: the same doc
     at every read, with an envelope from the constructor and from
-    ``KLOGS_FLEET_CAPACITY_LPS``, and with none (the port never reads
-    the TPU's operating point: None where JAX has its file)."""
+    ``KLOGS_FLEET_CAPACITY_LPS``, and with neither: then each package's
+    operating point stands in (the port's is the card's sweep, never the
+    TPU's file), and with the same operating point the docs agree."""
     import types
 
     now = [1000.0]
@@ -1401,21 +1402,31 @@ def test_fleet_capacity_equals_jax(monkeypatch):
     now[0] = 1000.0
     assert got == sequence(jax_profiler)
     monkeypatch.delenv("KLOGS_FLEET_CAPACITY_LPS")
+    from klogs_tpu_torch.ops.tune import operating_point_runs
+
+    card_lps = max(r["lps"] for r in operating_point_runs())
+    assert profiler._operating_point_lps() == card_lps
+    assert card_lps != jax_profiler._operating_point_lps()
+    monkeypatch.setattr(jax_profiler, "_operating_point_lps",
+                        lambda: card_lps)
     now[0] = 1000.0
     got = sequence(profiler)
-    assert all(d["headroom"] is None for d in got)
-    assert profiler._operating_point_lps() is None
+    now[0] = 1000.0
+    assert got == sequence(jax_profiler)
+    assert all(d["headroom"] is not None for d in got)
+    assert any(d["headroom"] < 1 for d in got)
 
 
 def test_fleet_capacity_headroom_from_the_profiler():
     """Without an envelope the headroom is 1 - the profiler's peak stage
-    utilization, as in JAX; the profiler's tick carries the attached
-    capacity block."""
+    utilization, as in JAX (before the profiler has any, the operating
+    point's envelope stands in: full headroom with nothing admitted);
+    the profiler's tick carries the attached capacity block."""
     prof = profiler.PipelineProfiler()
     prof.enable(1.0)
     try:
         cap = profiler.FleetCapacity(profiler=prof)
-        assert cap.headroom() is None
+        assert cap.headroom() == 1.0
         prof._util = {"rpc.server": 0.25, "device.fetch": 0.5}
         assert cap.headroom() == 0.5
         prof._util = {"coalescer.dispatch": 3.0}
