@@ -93,9 +93,9 @@ K axis: 156 groups of 128 states, 64 classes):
    (156 groups in chunks, ungated) the sweep's 131072 x 131 batch and
    the engine's 256-byte bucket (2048 x 259).
 13. engine_k1024: GpuEngineFilter on 1M FakeCluster lines (1% needles)
-   and 256 lines of 4-64 KiB; verdicts equal a K1-only engine's on the
+   and 128 lines of 4-64 KiB; verdicts equal a K1-only engine's on the
    short lines (that engine timed too) and a Python ``re`` oracle (one
-   alternation of the 1024 patterns) on the first 65536 lines and all
+   alternation of the 1024 patterns) on the first 32768 lines and all
    long ones.
 14. cli_k1024: ``app.run_async`` over 256 pods x 250 lines plus 8 long
    lines with ``--match`` x1024, ``--stats`` and ``-p`` a temporary
@@ -160,13 +160,13 @@ removed at the end):
    lines of 4-64 and 128-192 KiB each, through ``app.run_async
    --backfill DIR --match … --stats -p``: (a) the 32 patterns over the
    gzip sets, (b) over the same sets uncompressed, (c) the 1024
-   patterns over the gzip sets (the gated path). Each run: every file
-   equal to the ``re`` oracle's selection in rotated order, lines/s,
-   device batches, K1 (or K3), K2 and ``pack_rows`` held against their
-   plain versions on the run's own batches (counts zeroed just before
-   the run), then a backfill of each set's oldest generation (at 1024
-   patterns, of the first four sets') under cProfile with a 1 s
-   torch.profiler window (the device's busy share).
+   patterns over the first two gzip sets (the gated path). Each run:
+   every file equal to the ``re`` oracle's selection in rotated order,
+   lines/s, device batches, K1 (or K3), K2 and ``pack_rows`` held
+   against their plain versions on the run's own batches (counts zeroed
+   just before the run), then a backfill of each of its sets' oldest
+   generation under cProfile with a 1 s torch.profiler window (the
+   device's busy share).
    Beside them the source alone: the sets drained through
    ``ArchiveStream``.
 19. sources: ``--source replay:`` over each set's stream as one file
@@ -222,11 +222,37 @@ The remote filter service, last:
    ``--on-filter-error pass`` (its sheds counted and written as
    degraded) beside a sibling set whose files stay exact.
 
+The host engines (``--backend cpu``), after them, in a temporary
+``XDG_CACHE_HOME``; every figure of theirs is the host CPU's (its model
+and thread count are printed beside the card's):
+
+22. host_engines: (a) ``app.run_async --backend cpu`` on the cli cell
+   (the 32 patterns: the DFA engine) and on the cli_k1024 cell (the
+   1024: the indexed engine with the host sweep, as a plain
+   ``--backend cpu`` run has it): files equal to the oracle's, lines/s
+   beside the cuda cli and cli_k1024 phases', the engine kinds, the
+   narrowing ratio, the stage seconds and the resolved SIMD tier; (b)
+   ``IndexedFilter(sweep="device")`` at K = 1024 on the card over that
+   cell's lines: its candidate matrix equal to the host sweep's on
+   every 16384-line slab, bit for bit, the sweep's ms a slab on the card
+   and on the host, its verdicts equal to the host sweep's filter and
+   the oracle's, and ``pack_rows``' launches on this path (zeroed just
+   before, read just after); (c) ``python -m klogs_tpu_torch.service
+   --backend cpu`` with one ``--remote`` collector (files exact), and a
+   ``--multi-set`` server with ``KLOGS_TENANT_QUOTA_LINES`` set whose
+   indexed set, evicted and registered again, loads its DFA tables
+   from the cache on disk (a ``hit`` a table; files exact both times);
+   (d) ``dfa_scan``, ``sweep_candidates`` (every tier the CPU has, 8
+   and 16 buckets) and ``group_scan`` of the library the loader built
+   in this run, against their plain versions (0 mismatches), C and
+   plain ms.
+
 Every phase line carries ``phase_s``, the seconds since the line
 before it. Then a ``kernels`` line (each kernel's time beside its bound
 and its plain version's time, with its launches on its main path, on
-the backfill and in the fleet's registry: the four NFA kernels and
-``pack_rows``), the card line, and
+the backfill, in the fleet's registry and, for ``pack_rows``, on the
+host engines' device sweep: the four NFA kernels and ``pack_rows``),
+the card line, and
 last ``{"ok": true,
 "device": {...}}``. Any failed phase exits
 non-zero without that line, as does a run with no CUDA device or
@@ -2056,7 +2082,7 @@ def profile_gated_batch(torch, gpu, frame) -> dict:
 
 def engine_k1024_phase(torch, np, nk, gpu, frame_lines, synthetic_line, eng,
                        dev, n_short=1 << 20,
-                       n_long=256, batch=131072, checked=65536) -> dict:
+                       n_long=128, batch=131072, checked=32768) -> dict:
     rng = np.random.default_rng(SEED + 5)
     pats = make_patterns(1024)
     short = [synthetic_line(f"pod-{i % 512:04d}", f"c{i % 2}", i, CLOCK + i)
@@ -3070,9 +3096,14 @@ def backfill_phase(torch, np, nk, pack, bits, app, cli, term,
     total = sum(len(lines) for lines in corpus["sets"])
     # The profiled reruns read each set's oldest generation (a third of
     # the lines, no long line): at K = 1024 the 16 long lines alone take
-    # about a minute of K2 (PERF.md). At K = 1024 (~60,000 lines/s) only
-    # the first half of the sets' oldest generations, for time.
+    # about a minute of K2 (PERF.md). At K = 1024 (~60,000 lines/s) the
+    # timed run reads the first quarter of the sets (2 of 8: 1,000,004
+    # lines, 4 long lines) and the profiled one their oldest
+    # generations, for time (the whole run stays near 800 s).
     oldest_gz = [os.path.join(gz, "app-*.log.2.gz")]
+    n_c = n_sets // 4
+    want_c = dict(list(expected_files(corpus, v1024,
+                                      names("gz")).items())[:n_c])
     runs = dict(
         a=backfill_run(torch, nk, pack, bits, app, cli, term, dev,
                        "k32_gzip", [gz], PATTERNS,
@@ -3083,10 +3114,12 @@ def backfill_phase(torch, np, nk, pack, bits, app, cli, term,
                        expected_files(corpus, v32, names("plain")), total,
                        [os.path.join(plain, "app-*.log.2")]),
         c=backfill_run(torch, nk, pack, bits, app, cli, term, dev,
-                       "k1024_gzip", [gz], k1024,
-                       expected_files(corpus, v1024, names("gz")), total,
+                       "k1024_gzip",
+                       [os.path.join(gz, f"app-{i:02d}.log*")
+                        for i in range(n_c)], k1024, want_c,
+                       sum(len(lines) for lines in corpus["sets"][:n_c]),
                        [os.path.join(gz, f"app-{i:02d}.log.2.gz")
-                        for i in range(n_sets // 2)]))
+                        for i in range(n_c)]))
     capacity = dict(gzip=source_capacity([gz]),
                     plain=source_capacity([plain]))
     res = dict(card=card, lines=total, sets=n_sets,
@@ -3102,7 +3135,8 @@ def backfill_phase(torch, np, nk, pack, bits, app, cli, term,
         need = ([nk.GATED, nk.PAIRS] if key == "c" else [nk.GROUPED])
         held = r["k1_batches"] + r["k2_batches"] + r["pack_batches"] \
             + r["k3_batches"]
-        if (r["rc"] != 0 or r["mismatched_files"] or r["files"] != n_sets
+        if (r["rc"] != 0 or r["mismatched_files"]
+                or r["files"] != (n_c if key == "c" else n_sets)
                 or not r["kept_lines"] or not r["counts_ok"]
                 or r["summary"] is None or r["profile"]["rc"] != 0
                 or any(r["launches"][k] == 0
@@ -3421,15 +3455,15 @@ def dump_value(doc: dict, name: str, **labels) -> float:
 
 
 def start_filterd(root: str, patterns: list, args: tuple = (),
-                  env: "dict | None" = None) -> dict:
+                  env: "dict | None" = None, backend: str = "cuda") -> dict:
     """Start ``python -m klogs_tpu_torch.service --backend cuda --match
     ... --metrics-port 0`` (``--port 0`` unless ``args`` names one; a
     ``--metrics-port`` in ``args`` wins) in a process of its own, as it
     is deployed, with ``env`` added to this process's environment:
     {proc, lines, ...}; ``await_filterd`` waits for it, ``stop_filterd``
-    ends it."""
+    ends it. ``backend="cpu"`` serves the host engines."""
     argv = [sys.executable, "-m", "klogs_tpu_torch.service", "--backend",
-            "cuda", "--metrics-port", "0", *args]
+            backend, "--metrics-port", "0", *args]
     if "--port" not in args:
         argv += ["--port", "0"]
     for p in patterns:
@@ -3448,7 +3482,7 @@ def start_filterd(root: str, patterns: list, args: tuple = (),
     reader = threading.Thread(target=read_stdout, daemon=True)
     reader.start()
     return dict(proc=proc, err=err, lines=lines, reader=reader,
-                t0=time.perf_counter())
+                t0=time.perf_counter(), backend=backend)
 
 
 def filterd_died(box: dict, what: str) -> AssertionError:
@@ -3468,7 +3502,8 @@ def await_filterd(box: dict, limit: float = 240.0) -> dict:
     proc, lines, t0 = box["proc"], box["lines"], box["t0"]
     while True:
         text = "".join(lines)
-        m = re.search(r"serving .*\[cuda\] on 127\.0\.0\.1:(\d+)", text)
+        m = re.search(r"serving .*\[%s\] on 127\.0\.0\.1:(\d+)"
+                      % box.get("backend", "cuda"), text)
         mm = re.search(r"metrics on http://127\.0\.0\.1:(\d+)/metrics",
                        text)
         if m and mm:
@@ -4433,6 +4468,400 @@ def fleet_phase(torch, np, nk, pack, bits, sweep, app, cli, term,
     return res
 
 
+# ---- the host engines (--backend cpu) ------------------------------------
+
+def host_cpu() -> dict:
+    """The host's CPU (its model name, vendor, family and model numbers,
+    and which of the sweep's SIMD extensions it reports) and its thread
+    count: the host engines' numbers are the host's, not the card's."""
+    info: dict = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                key, _, value = ln.partition(":")
+                key = key.strip()
+                if not ln.strip():
+                    break
+                if key in ("model name", "vendor_id", "cpu family", "model",
+                           "flags"):
+                    info[key] = value.strip()
+    except OSError:
+        pass
+    flags = set(info.pop("flags", "").split())
+    return dict(cpu=info, simd_flags=sorted(
+        flags & {"ssse3", "avx2", "avx512f", "avx512bw"}),
+        threads=os.cpu_count(), usable_threads=len(os.sched_getaffinity(0)))
+
+
+def host_cli(app, cli, term, fc, pats: list, want: dict, n_lines: int):
+    """One ``--backend cpu`` run of ``app.run_async`` (no device
+    argument: the user's entry point) over ``fc``: its files against
+    ``want``, lines/s and the engine it built; returns (numbers, the
+    pipeline)."""
+    from klogs_tpu_torch.filters.sink import _indexed_engine
+
+    argv = ["-n", "default", "-a", "--backend", "cpu", "--stats", "-p", ""]
+    for p in pats:
+        argv += ["--match", p]
+    with tempfile.TemporaryDirectory() as out_dir, captured_pipeline() as made:
+        argv[7] = out_dir
+        opts = cli.parse_args(argv)
+        ui = io.StringIO()
+        term.set_ui_stream(ui)
+        try:
+            t0 = time.perf_counter()
+            rc = asyncio.run(app.run_async(opts, backend=fc))
+            seconds = time.perf_counter() - t0
+        finally:
+            term.set_ui_stream(None)
+        bad = files_equal(out_dir, want)
+    pipe = made[0]
+    res = dict(rc=rc, patterns=len(pats), lines=n_lines, seconds=seconds,
+               lines_per_s=n_lines / seconds, mismatched_files=bad,
+               kept_lines=sum(v.count(b"\n") for v in want.values()),
+               engine=type(pipe.log_filter).__name__,
+               sink_batches=pipe.stats.batches,
+               index_line=next((ln.strip() for ln in ui.getvalue()
+                                .splitlines() if "indexed engine:" in ln),
+                               None))
+    idx = _indexed_engine(pipe.log_filter)
+    if idx is not None:
+        res.update(engine_kinds=idx.engine_kinds, groups=len(idx.groups),
+                   narrowing_ratio=idx.narrowing_ratio,
+                   candidate_cells=idx.candidate_cells,
+                   swept_cells=idx.swept_cells,
+                   stage_s=dict(idx.stage_s), sweep_path=idx._sweep_path,
+                   sweep_impl=idx.index.last_impl,
+                   group_scan_impl=idx.group_scan_impl)
+    return res, pipe
+
+
+def short_frames(frame_lines, lines: list, size: int) -> list:
+    """(payload, offsets) frames of ``size`` lines each, as a sink
+    frames them (trailing newlines stripped)."""
+    out = []
+    for i in range(0, len(lines), size):
+        payload, off, _ = frame_lines(lines[i:i + size])
+        out.append((payload, off))
+    return out
+
+
+def host_device_sweep(torch, np, nk, frame_lines, dev, pats: list,
+                      all_lines: dict, host_f) -> dict:
+    """(b) ``IndexedFilter(sweep="device")`` on the card over the
+    cli_k1024 cell's lines: its candidate matrix against its index's
+    host sweep (the C ``sweep_candidates``) on every 16384-line slab,
+    bit for bit; the sweep's ms a slab on the card (the H2D copy,
+    ``pack_rows``, the torch sweep and the matrix's way back) and on
+    the host; the filter's verdicts on every slab, and on a slab of
+    the long lines (routed to the host by width), against the host
+    sweep's filter ``host_f`` and, on the first slab's first 4096 lines
+    and the long ones, the ``re`` oracle; ``pack_rows``' launches on this path (counts
+    zeroed just before, read just after)."""
+    from klogs_tpu_torch.filters.indexed import SWEEP_MAX_WIDTH, IndexedFilter
+
+    flat = [ln for name in sorted(all_lines) for ln in all_lines[name]]
+    short = [ln for ln in flat if len(ln.rstrip(b"\n")) <= SWEEP_MAX_WIDTH]
+    long_ = [ln for ln in flat if len(ln.rstrip(b"\n")) > SWEEP_MAX_WIDTH]
+    t0 = time.perf_counter()
+    d = IndexedFilter(pats, sweep="device", device=dev)
+    build_s = time.perf_counter() - t0
+    frames = short_frames(frame_lines, short, 16384)
+    d._device_candidates(*frames[0])  # warm-up: the first torch calls
+    dev_ms, host_ms, bad_cells, cells = [], [], 0, 0
+    for payload, off in frames:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gm = d._device_candidates(payload, off)
+        dev_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        ref = d.index.group_candidates(payload, off)
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        bad_cells += int(np.count_nonzero(gm != ref))
+        cells += int(ref.size)
+    frames.append(frame_lines(long_)[:2])
+    torch.cuda.synchronize()
+    nk.reset_launches()
+    got = [d.fetch_framed(d.dispatch_framed(p, o)) for p, o in frames]
+    torch.cuda.synchronize()
+    launches = dict(nk.LAUNCHES)
+    want = [host_f.fetch_framed(host_f.dispatch_framed(p, o))
+            for p, o in frames]
+    bad_verdicts = sum(int(np.count_nonzero(a != b))
+                       for a, b in zip(got, want))
+    bodies = [ln.rstrip(b"\n") for ln in short[:4096] + long_]
+    ora = np.array(oracle_verdicts(pats, bodies))
+    bad_oracle = int(np.count_nonzero(
+        np.concatenate([got[0][:4096], got[-1]]) != ora))
+    batches = {labels[0]: c.value for labels, c in d.registry.family(
+        "klogs_sweep_batches_total").children()}
+    return dict(build_s=build_s, slabs=len(frames) - 1, slab_lines=16384,
+                lines=len(short) + len(long_), long_lines=len(long_),
+                groups=len(d.groups), cells=cells,
+                mismatched_cells=bad_cells,
+                device_sweep_ms=dev_ms, host_sweep_ms=host_ms,
+                device_sweep_ms_median=float(np.median(dev_ms)),
+                host_sweep_ms_median=float(np.median(host_ms)),
+                mismatched_verdicts=bad_verdicts,
+                oracle_lines=len(bodies), mismatched_oracle=bad_oracle,
+                kept=int(sum(int(g.sum()) for g in got)),
+                sweep_batches=batches, launches=launches,
+                pack_launches=launches[nk.PACK], sweep_path=d._sweep_path)
+
+
+def host_filterd(np, app, cli, term, FakeCluster, root: str,
+                 env: dict) -> dict:
+    """(c) ``python -m klogs_tpu_torch.service --backend cpu`` --match
+    x32 as its own process, with one collector of 64 pods x 4000 lines
+    (+ 16 long lines) through ``--remote``: files exact, lines/s and its
+    RPCs; then a ``--multi-set`` FilterServer ``backend="cpu"`` in this
+    process (``KLOGS_TENANT_QUOTA_LINES`` set) and a collector of 96
+    patterns (the indexed engine) over 32 pods x 250 lines: files
+    exact; the set evicted and the same collector again: it registers
+    again, its files exact, and its DFA tables load from the cache on
+    disk (one ``hit`` a DFA group; the only new ``miss`` events are the
+    group builds that overflow the state budget and are bisected, which
+    are never cached, as in JAX)."""
+    from klogs_tpu_torch.service.server import FilterServer
+    from klogs_tpu_torch.service.shard import pattern_fingerprint
+
+    fc, n_lines = cli_cluster(np, FakeCluster, n_pods=64)
+    want = oracle_files(fc.namespaces["default"])
+    out: dict = dict(lines=n_lines)
+    box = start_filterd(root, PATTERNS, env=env, backend="cpu")
+    try:
+        await_filterd(box, 120)
+        out["ready_s"] = box["ready_s"]
+        out["banner"] = box["banner"]
+        before = scrape(box["metrics_port"])
+        with tempfile.TemporaryDirectory() as d:
+            term.set_ui_stream(io.StringIO())
+            try:
+                t0 = time.perf_counter()
+                out["rc"] = asyncio.run(remote_run(
+                    app, cli, fc, ["-n", "default", "-a", "-p", d,
+                                   *[a for p in PATTERNS
+                                     for a in ("--match", p)]],
+                    box["port"]))
+                out["seconds"] = time.perf_counter() - t0
+            finally:
+                term.set_ui_stream(None)
+            out["mismatched_files"] = files_equal(d, want)
+        after = scrape(box["metrics_port"])
+        out["lines_per_s"] = n_lines / out["seconds"]
+        out["rpcs"] = rpcs_by_method(before, after)
+        if box["proc"].poll() is not None:
+            raise filterd_died(box, "died during the phase")
+    finally:
+        stop_filterd(box)
+
+    pats = make_patterns(128)[32:]
+    fp = pattern_fingerprint(pats, [], False)
+    fc2, lines2 = k1024_cluster(np, FakeCluster, n_pods=32, n_long=2)
+    # The oracle in this process: 96 patterns over 8,002 lines.
+    want2 = {f"{name}__c0.log": b"".join(
+        ln for ln, v in zip(lines2[name], _oracle_chunk(
+            tuple(pats), [ln.rstrip(b"\n") for ln in lines2[name]])) if v)
+        for name in sorted(lines2)}
+
+    def events(server) -> dict:
+        fam = server.registry.family(
+            "klogs_prefilter_table_cache_events_total")
+        return {labels[0]: c.value for labels, c in fam.children()}
+
+    async def scenario(d: str) -> dict:
+        server = FilterServer([], backend="cpu", port=0, multi_set=True,
+                              metrics_port=0)
+        port = await server.start()
+        res: dict = {}
+        try:
+            argv = ["-n", "default", "-a", *[a for p in pats
+                                             for a in ("--match", p)]]
+            res["rc1"] = await remote_run(
+                app, cli, fc2, argv + ["-p", os.path.join(d, "1")], port)
+            res["events_built"] = events(server)
+            res["evicted"] = await server.tenants.evict(fp, "idle")
+            res["sets_after_evict"] = server.tenants.count
+            t0 = time.perf_counter()
+            res["rc2"] = await remote_run(
+                app, cli, fc2, argv + ["-p", os.path.join(d, "2")], port)
+            res["second_run_s"] = time.perf_counter() - t0
+            res["events_after"] = events(server)
+            res["engine_builds"] = server.tenants.engine_builds
+            res["kinds"] = server.tenants.get(fp).service._filter.engine_kinds
+            res["quota_lines"] = server.tenants.quota_lines
+        finally:
+            await server.stop()
+        return res
+
+    with tempfile.TemporaryDirectory() as d, \
+            env_set("KLOGS_TENANT_QUOTA_LINES", str(TENANT_QUOTA_LINES[0])):
+        term.set_ui_stream(io.StringIO())
+        try:
+            ms = asyncio.run(scenario(d))
+        finally:
+            term.set_ui_stream(None)
+        ms["mismatched_files"] = [files_equal(os.path.join(d, k), want2)
+                                  for k in ("1", "2")]
+    ms["patterns"] = len(pats)
+    out["multi_set"] = ms
+    return out
+
+
+def host_c_functions(np, frame_lines, idx, lines: list) -> dict:
+    """(d) the three scans of ``native/_hostops.c``, built by the loader
+    in this run, each held against its plain version, both timed:
+    ``dfa_scan`` on the 32 patterns' tables against ``scan_python``
+    over the first 20,000 lines; ``sweep_candidates`` on the K = 1024
+    index at every stage-1 tier this CPU has, with 8 and 16 buckets,
+    against the numpy sweep over a 16384-line slab (cells that differ);
+    ``group_scan`` against the per-group loop on that slab's candidate
+    matrix (verdicts that differ)."""
+    from klogs_tpu_torch import native
+    from klogs_tpu_torch.filters.compiler.dfa import (
+        build_dfa_cached,
+        scan_python,
+    )
+
+    host = native.hostops()
+    out: dict = dict(library=os.path.basename(str(native.build_info.get(
+        "path", ""))), compiled_here=native.build_info.get("compiled"),
+        build_s=native.build_info.get("seconds"),
+        simd_level=host.sweep_simd_level(-1))
+    sample = lines[:20000]
+    payload, off, _ = frame_lines(sample, strip_nl=False)
+    t = build_dfa_cached(PATTERNS)
+    t0 = time.perf_counter()
+    mask = host.dfa_scan(payload, off, len(sample), t.table.tobytes(),
+                         t.n_classes, t.accept.tobytes(),
+                         t.byte_class.tobytes(), t.start, t.end_class,
+                         1 if t.table.dtype == np.uint32 else 0)
+    c_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain = scan_python(t, sample)
+    out["dfa_scan"] = dict(
+        lines=len(sample), c_ms=c_ms,
+        plain_ms=(time.perf_counter() - t0) * 1e3,
+        mismatches=int(np.count_nonzero(
+            np.frombuffer(mask, dtype=np.uint8).astype(bool)
+            != np.array(plain))))
+
+    payload, off, _ = frame_lines(lines[:16384])
+    B = len(off) - 1
+    index = idx.index
+    t0 = time.perf_counter()
+    ref = index.group_candidates(payload, off, impl="numpy")
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    W = (index.n_groups + 31) // 32
+    tiers = []
+    for buckets in ("8", "16"):
+        with env_set("KLOGS_SWEEP_BUCKETS", buckets):
+            blob = index.native_sweep_blob()
+        for level in range(out["simd_level"] + 1):
+            stats = np.zeros(3 + 32 * W, dtype=np.uint64)
+            t0 = time.perf_counter()
+            raw = host.sweep_candidates(blob, payload, off, B, level, stats)
+            ms = (time.perf_counter() - t0) * 1e3
+            gm = np.unpackbits(
+                np.frombuffer(raw, dtype=np.uint8).reshape(B, 4 * W),
+                axis=1, bitorder="little", count=index.n_groups).view(bool)
+            tiers.append(dict(buckets=int(buckets), level=level, c_ms=ms,
+                              survivors=int(stats[0]),
+                              mismatched_cells=int(np.count_nonzero(
+                                  gm != ref))))
+    out["sweep_candidates"] = dict(lines=B, groups=index.n_groups,
+                                   plain_ms=numpy_ms, tiers=tiers)
+
+    gm = np.ascontiguousarray(ref)
+    arr = np.frombuffer(payload, dtype=np.uint8)
+    lens = np.diff(off)
+    dsum = gm.sum(axis=0, dtype=np.int64)[idx._dfa_cols_arr]
+    c_out = np.zeros(B, dtype=bool)
+    t0 = time.perf_counter()
+    cells = idx._groupscan_native(payload, off, gm, dsum, c_out)
+    c_ms = (time.perf_counter() - t0) * 1e3
+    p_out = np.zeros(B, dtype=bool)
+    t0 = time.perf_counter()
+    for g in idx._dfa_cols:
+        idx._scan_group(g, gm[:, g], p_out, payload, off, arr, lens)
+    out["group_scan"] = dict(
+        lines=B, dfa_groups=len(idx._dfa_cols), cells=cells, c_ms=c_ms,
+        plain_ms=(time.perf_counter() - t0) * 1e3,
+        mismatches=int(np.count_nonzero(c_out != p_out)),
+        kept=int(c_out.sum()))
+    return out
+
+
+def host_engines_phase(torch, np, nk, app, cli, term, FakeCluster,
+                       frame_lines, dev, repo: str, card: str,
+                       cuda_lps: "float | None" = None,
+                       cuda_lps_1024: "float | None" = None,
+                       want1024: "dict | None" = None) -> dict:
+    """``--backend cpu``, the host engines, in a temporary
+    ``XDG_CACHE_HOME`` (the DFA table cache starts empty): (a) the CLI
+    on the cli cell (the 32 patterns: the DFA engine) and on the
+    cli_k1024 cell (the 1024: the indexed engine, host sweep as a plain
+    ``--backend cpu`` run has it), files against the oracle, lines/s
+    beside the ``cuda`` phases' on the same corpus; (b) the indexed
+    engine's device sweep on the card (``host_device_sweep``); (c)
+    filterd ``--backend cpu`` (``host_filterd``); (d) the three C
+    scans against their plain versions (``host_c_functions``). Every
+    figure of the host engines is the host CPU's."""
+    from klogs_tpu_torch import native
+
+    with tempfile.TemporaryDirectory() as xdg, \
+            env_set("XDG_CACHE_HOME", xdg):
+        fc, n_lines = cli_cluster(np, FakeCluster)
+        a32, _ = host_cli(app, cli, term, fc, PATTERNS,
+                          oracle_files(fc.namespaces["default"]), n_lines)
+        del fc
+        pats = make_patterns(1024)
+        fc3, all_lines = k1024_cluster(np, FakeCluster)
+        if want1024 is None:
+            want1024, _ = k1024_expected(pats, all_lines)
+        n3 = sum(map(len, all_lines.values()))
+        with env_set("KLOGS_TPU_SWEEP", "0"):
+            a1024, pipe = host_cli(app, cli, term, fc3, pats, want1024, n3)
+        from klogs_tpu_torch.filters.sink import _indexed_engine
+
+        idx = _indexed_engine(pipe.log_filter)
+        del pipe, fc3
+        b = host_device_sweep(torch, np, nk, frame_lines, dev, pats,
+                              all_lines, idx)
+        c = host_filterd(np, app, cli, term, FakeCluster, repo,
+                         {"XDG_CACHE_HOME": xdg})
+        flat = [ln for name in sorted(all_lines) for ln in all_lines[name]]
+        d = host_c_functions(np, frame_lines, idx, flat)
+    a32["cuda_lines_per_s"] = cuda_lps
+    a1024["cuda_lines_per_s"] = cuda_lps_1024
+    res = dict(card=card, host=host_cpu(), simd_level=d["simd_level"],
+               native_library=native.build_info.get("path"),
+               cli=a32, cli_k1024=a1024, device_sweep=b, filterd=c,
+               native=d)
+    emit({"phase": "host_engines", **res})
+    ms = c["multi_set"]
+    built, after = ms["events_built"], ms["events_after"]
+    if (a32["rc"] or a32["mismatched_files"] or a32["engine"] != "DFAFilter"
+            or a1024["rc"] or a1024["mismatched_files"]
+            or a1024["engine"] != "IndexedFilter"
+            or a1024["sweep_path"] != "host" or a1024["index_line"] is None
+            or b["mismatched_cells"] or b["mismatched_verdicts"]
+            or b["mismatched_oracle"] or b["pack_launches"] < b["slabs"]
+            or b["sweep_batches"].get("device") != b["slabs"]
+            or b["sweep_batches"].get("host") != 1
+            or c["rc"] or c["mismatched_files"]
+            or ms["rc1"] or ms["rc2"] or any(ms["mismatched_files"])
+            or not ms["evicted"] or ms["engine_builds"] != 2
+            or not built.get("miss") or built.get("hit")
+            or after.get("hit") != ms["kinds"].get("dfa")
+            or after["miss"] - built["miss"] != built["miss"] - after["hit"]
+            or d["dfa_scan"]["mismatches"] or d["group_scan"]["mismatches"]
+            or any(t["mismatched_cells"]
+                   for t in d["sweep_candidates"]["tiers"])):
+        raise AssertionError(f"host_engines phase failed: {res}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4504,9 +4933,10 @@ def main() -> int:
                                FakeCluster, dev)
         # The observability and fault layers on the K = 32 path, and
         # once on the K = 1024 one.
+        want1024 = run3.pop("want")
         obs_phase(torch, np, nk, app, cli, term, FakeCluster,
                   GpuEngineFilter, FilterStats, frame0, dev, card,
-                  run3.pop("want"))
+                  want1024)
         del frame0
         # Follow mode: many small deadline-driven batches.
         follow_phase(torch, np, nk, pack, app, cli, term, FakeCluster,
@@ -4532,6 +4962,13 @@ def main() -> int:
         fl = fleet_phase(torch, np, nk, pack, bits, sweep, app, cli, term,
                          FakeCluster, dev, repo, card,
                          fd["cell"]["lines_per_s"])["registry"]["launches"]
+        # --backend cpu: the host engines, and the indexed engine's
+        # sweep on the card.
+        he = host_engines_phase(torch, np, nk, app, cli, term, FakeCluster,
+                                frame_lines, dev, repo, card,
+                                run["lines_per_s"], run3["lines_per_s"],
+                                want1024)["device_sweep"]["launches"]
+        del want1024
     except Exception:
         traceback.print_exc()
         emit({"phase": "failed"})
@@ -4585,6 +5022,7 @@ def main() -> int:
          "replaces": pk["replaces"], "launches": run["launches"][nk.PACK],
          "backfill_launches": bfr["a"]["launches"][nk.PACK],
          "fleet_launches": fl[nk.PACK],
+         "host_engines_launches": he[nk.PACK],
          "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
          "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
          "bound_by": pk["bound_by"], "library_ms": None},

@@ -11,7 +11,11 @@ namespace, no pod selection, no kube client; in follow mode the source
 is always re-discovered, and a backfill ends with its match/shed
 account. ``run_async`` takes an injected ClusterBackend (tests pass a
 FakeCluster), a ``stop`` event for library callers of follow mode, and
-the filter's ``device`` (None means ``"cuda"``). With ``--remote`` the
+the filter's ``device`` (None means ``"cuda"``; ``--backend cpu`` runs
+the host engines of filters/cpu.py, which read no device and never
+touch the card, and its ``--stats`` prints the indexed engine's
+groups, engine kinds, narrowing ratio and stage seconds). With
+``--remote`` the
 filter is a filterd elsewhere, or a fleet of them (a list,
 ``--shard-mode``, ``--resolver``): its pattern set is checked against
 the run's before any stream opens, no engine is built and no card is
@@ -302,6 +306,8 @@ def make_pipeline_for(opts: Options, device=None, registry=None):
         term.fatal("invalid --match/--exclude pattern %r: %s", e.pattern, e)
     except RegexSyntaxError as e:
         term.fatal("unsupported --match/--exclude pattern: %s", e)
+    except ImportError as e:
+        term.fatal("--backend %s is unavailable: %s", opts.backend, e)
 
 
 def _write_stats_json(path: str, registry, pipeline) -> None:
@@ -349,7 +355,11 @@ def _start_torch_profiler(opts: Options, device):
     only when the caller asked for the CPU."""
     import torch
 
-    dev = torch.device(device) if device is not None else torch.device("cuda")
+    if opts.backend == "cpu" and opts.remote is None and opts.resolver is None:
+        dev = torch.device("cpu")  # the host engines: no card
+    else:
+        dev = (torch.device(device) if device is not None
+               else torch.device("cuda"))
     activity = (torch.profiler.ProfilerActivity.CPU if dev.type == "cpu"
                 else torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(

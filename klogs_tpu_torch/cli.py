@@ -25,7 +25,9 @@ shorthands, defaults, choices and checks:
   --previous        logs of the previous terminated container instance
   --since-time      only logs after an absolute RFC3339 time
   --timestamps      server-side RFC3339 timestamp before each line
-  --backend         filter engine: cuda (batch NFA on the GPU)
+  --backend         filter engine: cuda (batch NFA on the GPU, the
+                    default) | cpu (the host engines: indexed, DFA,
+                    combined re, re; never touches the card)
   --remote          filter through remote filterd service(s) (HOST:PORT;
                     the port's ``python -m klogs_tpu_torch.service`` or
                     the JAX package's) instead of an in-process engine:
@@ -148,8 +150,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-I", "--ignore-case", action="store_true",
                    dest="ignore_case",
                    help="Case-insensitive --match/--exclude patterns")
-    p.add_argument("--backend", choices=["cuda"], default="cuda",
-                   help="Line-filter engine: batch NFA on the GPU")
+    p.add_argument("--backend", choices=["cuda", "cpu"], default="cuda",
+                   help="Line-filter engine: batch NFA on the GPU (cuda) "
+                   "or the host engines (cpu: indexed, DFA, combined "
+                   "re, re)")
     p.add_argument("--remote", default=None,
                    metavar="HOST:PORT[,HOST:PORT...]",
                    help="Filter via remote klogs-filterd service(s) "

@@ -2,16 +2,25 @@
 
 Counterpart of ``klogs_tpu/filters/sink.py``. A FilteredSink sits where
 a container's log bytes would be written: it frames chunks into lines,
-asks the filter for a keep-mask once ``BATCH_LINES`` lines are pending,
+asks the filter for a keep-mask once ``batch_lines`` lines are pending,
 when the oldest pending line has waited ``deadline_s`` (checked at the
 next write and by the pipeline's follow-mode deadline flusher), and at
 close, and writes only kept lines, in the original order.
-``make_pipeline`` builds the shared engine, its AsyncFilterService and
-the per-container sink factory; with ``remote`` or ``resolver`` it
-builds no engine and the sinks ask filterd for their verdicts, through
-a RemoteFilterClient (``service/client.py``) for one endpoint or a
-ShardedFilterClient (``service/shard.py``) for a fleet; neither needs
-a card.
+``make_pipeline`` builds the shared engine and the per-container sink
+factory:
+
+- ``backend="cuda"``: the GPU engine behind an AsyncFilterService,
+  which coalesces every sink's batches (``BATCH_LINES`` = 8192);
+- ``backend="cpu"``: the strongest host engine the set admits
+  (filters/cpu.py ``best_host_filter``), which each sink calls directly,
+  ``dispatch_framed`` then ``fetch_framed``, with no service and
+  batches of ``CPU_BATCH_LINES`` = 1024, as the JAX sink does: the C
+  scans run at millions of lines a second, so a service hop would only
+  add latency. It never touches the card;
+- ``remote`` or ``resolver``: no engine; the sinks ask filterd for their
+  verdicts, through a RemoteFilterClient (``service/client.py``) for one
+  endpoint or a ShardedFilterClient (``service/shard.py``) for a fleet;
+  neither needs a card.
 
 Each flush is a ``sink.flush`` span (a child of the chunk's
 ``fanout.read`` span, or a root under the deadline flusher and at
@@ -53,17 +62,28 @@ if TYPE_CHECKING:
 # Lines a sink gathers before it asks for their verdicts; the service
 # coalesces the batches of many sinks into one device batch.
 BATCH_LINES = 8192
+# The host engines' batch: each sink calls its engine directly.
+CPU_BATCH_LINES = 1024
 # How long a pending line may wait for its verdict in follow mode.
 DEADLINE_S = 0.05
 
 
 class FilteredSink(Sink):
-    def __init__(self, inner: Sink, service: "FilterService",
+    """``service`` None: the sink calls ``log_filter`` itself (the host
+    engines' direct path)."""
+
+    def __init__(self, inner: Sink, service: "FilterService | None",
                  stats: FilterStats, deadline_s: float = DEADLINE_S,
                  on_close: "Callable[[FilteredSink], None] | None" = None,
-                 on_filter_error: str = "abort"):
+                 on_filter_error: str = "abort",
+                 log_filter: "LogFilter | None" = None,
+                 batch_lines: int = BATCH_LINES):
+        if service is None and log_filter is None:
+            raise ValueError("FilteredSink needs a service or a log_filter")
         self._inner = inner
         self._service = service
+        self._filter = log_filter
+        self._batch_lines = batch_lines
         self._stats = stats
         self._deadline_s = deadline_s
         self._on_close = on_close
@@ -86,7 +106,7 @@ class FilteredSink(Sink):
         n = self._batcher.feed(chunk)
         if n and not had:
             self._pending_since = time.perf_counter()
-        if n >= BATCH_LINES or (
+        if n >= self._batch_lines or (
                 n and self._pending_since is not None
                 and time.perf_counter() - self._pending_since
                 >= self._deadline_s):
@@ -106,12 +126,18 @@ class FilteredSink(Sink):
         if n == 0:
             return
         t0 = time.perf_counter()
-        try:
-            mask = await self._service.match_framed(payload, offsets)
-        except Unavailable as e:
-            await self._degrade(e, n_lines=n, payload=payload)
-            return
-        self._note_recovered()
+        if self._service is None:
+            # The host engines' direct path: their C scans release the
+            # GIL and run at millions of lines a second, no service hop.
+            mask = self._filter.fetch_framed(
+                self._filter.dispatch_framed(payload, offsets))
+        else:
+            try:
+                mask = await self._service.match_framed(payload, offsets)
+            except Unavailable as e:
+                await self._degrade(e, n_lines=n, payload=payload)
+                return
+            self._note_recovered()
         latency = time.perf_counter() - t0
         n_kept = int(np.count_nonzero(mask))
         out = join_kept_framed(payload, offsets, mask)
@@ -187,12 +213,14 @@ class FilterPipeline:
     per-container sink. With a remote filterd ``log_filter`` is None
     (the engine lives there), ``service`` is the RemoteFilterClient, and
     ``patterns``/``ignore_case``/``exclude`` are what ``start`` checks
-    the server's set against."""
+    the server's set against. With the host engines ``service`` is None
+    and each sink calls ``log_filter`` itself."""
 
     log_filter: "LogFilter | None"
     stats: FilterStats
-    service: "FilterService"
+    service: "FilterService | None"
     deadline_s: float = DEADLINE_S
+    batch_lines: int = BATCH_LINES
     patterns: "list[str] | None" = None
     ignore_case: bool = False
     exclude: "list[str] | None" = None
@@ -209,7 +237,9 @@ class FilterPipeline:
         sink = FilteredSink(inner, self.service, self.stats,
                             deadline_s=self.deadline_s,
                             on_close=self._live_sinks.discard,
-                            on_filter_error=self.on_filter_error)
+                            on_filter_error=self.on_filter_error,
+                            log_filter=self.log_filter,
+                            batch_lines=self.batch_lines)
         self._live_sinks.add(sink)
         return sink
 
@@ -255,8 +285,12 @@ class FilterPipeline:
 
     async def aclose(self) -> None:
         """Inside the loop: drain the in-flight batches and release the
-        engine, or close a remote client's channel."""
-        await self.service.aclose()
+        engine, or close a remote client's channel, or release a host
+        engine."""
+        if self.service is not None:
+            await self.service.aclose()
+        elif self.log_filter is not None:
+            self.log_filter.close()
 
     def print_summary(self) -> None:
         s = self.stats
@@ -284,6 +318,32 @@ class FilterPipeline:
             )
         elif s.pf_disabled_reason:
             term.info("  %s", s.pf_disabled_reason)
+        index = _indexed_engine(self.log_filter)
+        if index is not None:
+            term.info(
+                "  indexed engine: %d groups %s, narrowing ratio %.3f "
+                "(%d/%d cells), stage s sweep=%.3f group_scan=%.3f "
+                "merge=%.3f",
+                len(index.groups), index.engine_kinds,
+                index.narrowing_ratio, index.candidate_cells,
+                index.swept_cells, index.stage_s["sweep"],
+                index.stage_s["group_scan"], index.stage_s["merge"])
+
+
+def _indexed_engine(log_filter):
+    """The IndexedFilter behind ``log_filter`` (the include side of an
+    include/exclude pair first), or None."""
+    from klogs_tpu_torch.filters.base import IncludeExcludeFilter
+    from klogs_tpu_torch.filters.indexed import IndexedFilter
+
+    stack = [log_filter]
+    while stack:
+        f = stack.pop(0)
+        if isinstance(f, IndexedFilter):
+            return f
+        if isinstance(f, IncludeExcludeFilter):
+            stack += [x for x in (f.include, f.exclude) if x is not None]
+    return None
 
 
 def make_pipeline(patterns: list[str], backend: str = "cuda",
@@ -295,9 +355,11 @@ def make_pipeline(patterns: list[str], backend: str = "cuda",
                   shard_mode: str = "round-robin",
                   resolver: str | None = None,
                   kubeconfig: str | None = None) -> FilterPipeline:
-    """The --match/--exclude pipeline on the GPU engine. ``device=None``
-    means ``"cuda"`` (raising where there is no card); tests pass
-    ``"cpu"``. ``registry`` (an obs Registry) backs the stats for a
+    """The --match/--exclude pipeline: on the GPU engine for ``backend``
+    ``"cuda"``, on the host engines for ``"cpu"`` (module docstring).
+    ``device=None`` means ``"cuda"`` for the GPU engine (raising where
+    there is no card); tests pass ``"cpu"``; the host engines do not
+    read it. ``registry`` (an obs Registry) backs the stats for a
     /metrics sidecar or a --stats-json dump; None keeps them private.
     ``remote`` (HOST:PORT, or a comma-separated fleet) or ``resolver``
     (a ``--resolver`` spec) asks filterd instead of building an engine;
@@ -311,6 +373,24 @@ def make_pipeline(patterns: list[str], backend: str = "cuda",
                                     kubeconfig, registry),
             patterns=list(patterns), ignore_case=ignore_case,
             exclude=list(exclude or []), on_filter_error=on_filter_error)
+    if backend == "cpu":
+        from klogs_tpu_torch.filters.cpu import best_host_filter
+
+        # The engines' families ride the include side only (feeding
+        # both would count twice), as the stats do on the GPU path.
+        made = []
+
+        def host(pats):
+            f = best_host_filter(
+                pats, ignore_case=ignore_case,
+                registry=stats.registry if not made else None)[0]
+            made.append(f)
+            return f
+
+        return FilterPipeline(
+            log_filter=build_include_exclude(host, patterns, exclude),
+            stats=stats, service=None, batch_lines=CPU_BATCH_LINES,
+            on_filter_error=on_filter_error)
     if backend != "cuda":
         raise ValueError(f"unknown filter backend {backend!r}")
     from klogs_tpu_torch.filters.gpu import GpuEngineFilter

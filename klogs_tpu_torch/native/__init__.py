@@ -32,7 +32,7 @@ from klogs_tpu_torch.ops._build import BUILD_DIR
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "_hostops.c")
-CFLAGS = ("-O3", "-shared", "-fPIC")
+CFLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
 _EXT = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
 
 _lock = threading.Lock()

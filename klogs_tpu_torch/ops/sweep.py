@@ -187,3 +187,14 @@ def sweep_group_candidates(st: SweepTables, batch: torch.Tensor,
     guard factor of group g occurs inside the line, or g is an
     always-candidate group."""
     return unpack_bits(sweep_group_bits(st, batch, lengths), st.n_groups)
+
+
+def sweep_span_attrs(st: SweepTables) -> "dict[str, int]":
+    """The table shape (never content) a ``device.sweep`` span carries:
+    groups, factors and each tier's hash slots."""
+    return {
+        "sweep_groups": int(st.n_groups),
+        "sweep_factors": int(st.fac_len.shape[0]),
+        "sweep_narrow_slots": int(st.narrow.slot_key.shape[-1]),
+        "sweep_wide_slots": int(st.wide.slot_key.shape[-1]),
+    }

@@ -1,10 +1,12 @@
-"""``python -m klogs_tpu_torch.service``: run filterd on the card.
+"""``python -m klogs_tpu_torch.service``: run filterd.
 
-Counterpart of ``python -m klogs_tpu.service``, with its flags;
-``--backend`` takes ``cuda`` only. ``--multi-set`` serves the
-pattern-set registry (collectors register their own sets; ``--match``
-and ``--exclude`` become the optional set of collectors that do not).
-Without a card it raises, as every entry point of the port does.
+Counterpart of ``python -m klogs_tpu.service``, with its flags.
+``--backend cuda`` (the default) serves the GPU engine and raises
+without a card, as every entry point of the port does; ``--backend
+cpu`` serves the host engines (filters/cpu.py) and never touches the
+card. ``--multi-set`` serves the pattern-set registry (collectors
+register their own sets; ``--match`` and ``--exclude`` become the
+optional set of collectors that do not).
 """
 
 import argparse
@@ -26,7 +28,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--exclude", action="append", default=[],
                     help="regex pattern to DROP even when kept "
                     "(repeatable; alone = keep all non-matching)")
-    ap.add_argument("--backend", choices=["cuda"], default="cuda")
+    ap.add_argument("--backend", choices=["cuda", "cpu"], default="cuda",
+                    help="filter engine: batch NFA on the GPU (cuda) or "
+                    "the host engines (cpu: indexed, DFA, combined re, re)")
     ap.add_argument("--multi-set", action="store_true", dest="multi_set",
                     help="multi-tenant registry mode: collectors "
                     "register their own pattern sets (content-addressed "

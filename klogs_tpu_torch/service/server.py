@@ -5,14 +5,19 @@ set (``--match``/``--exclude``/``-I``) on one GpuEngineFilter: ``python
 -m klogs_tpu_torch.service --backend cuda --match ERROR --port 50051``.
 Every client's batches go through one AsyncFilterService, so concurrent
 collectors coalesce into shared device batches however small each
-one's flushes are.
+one's flushes are. ``--backend cpu`` serves the host engines instead
+(filters/cpu.py ``best_host_filter``: indexed, DFA, combined re, re),
+behind the same service, and never touches the card; its C module is
+built (at first use) before the port binds, as the CUDA libraries are
+for ``cuda``.
 
 With ``--multi-set`` (``multi_set=True``) the server holds a registry of
 pattern sets (``tenancy.py``): a collector registers its set with the
 Register RPC and tags its match RPCs with the set id it got back; each
-set has its own GpuEngineFilter on the same card, built in a worker
-thread at its first registration, and all sets share one fetch pool
-and one in-flight budget. The startup set, if any, is a pinned set for
+set has its own engine (a GpuEngineFilter on the same card, or the
+host engines under ``--backend cpu``), built in a worker thread at its
+first registration, and all sets share one fetch pool and one
+in-flight budget. The startup set, if any, is a pinned set for
 collectors that do not register. A set over its quota is shed
 (RESOURCE_EXHAUSTED), an unknown or evicted one fails
 FAILED_PRECONDITION, and an engine that does not build fails its
@@ -55,17 +60,29 @@ from klogs_tpu_torch.version import BUILD_VERSION
 
 def _make_filter(patterns: list[str], ignore_case: bool = False,
                  exclude: "list[str] | None" = None, stats=None,
-                 device=None):
-    """The include/exclude engine on ``device``; the stats ride the
-    first side built only (feeding both would count twice)."""
+                 device=None, backend: str = "cuda"):
+    """The include/exclude engine: the GPU engine on ``device``, or for
+    ``backend="cpu"`` the host engines. The stats (and the host
+    engines' families) ride the first side built only (feeding both
+    would count twice)."""
     from klogs_tpu_torch.filters.base import build_include_exclude
-    from klogs_tpu_torch.filters.gpu import GpuEngineFilter
 
     made = []
 
     def one(pats):
-        f = GpuEngineFilter(pats, ignore_case=ignore_case, device=device,
-                            stats=stats if not made else None)
+        if backend == "cpu":
+            from klogs_tpu_torch.filters.cpu import best_host_filter
+
+            f = best_host_filter(
+                pats, ignore_case=ignore_case,
+                registry=stats.registry
+                if stats is not None and not made else None)[0]
+        else:
+            from klogs_tpu_torch.filters.gpu import GpuEngineFilter
+
+            f = GpuEngineFilter(pats, ignore_case=ignore_case,
+                                device=device,
+                                stats=stats if not made else None)
         made.append(f)
         return f
 
@@ -74,20 +91,30 @@ def _make_filter(patterns: list[str], ignore_case: bool = False,
 
 def _uses_device_sweep(filt) -> bool:
     """Whether an engine behind ``filt`` (perhaps an include/exclude
-    pair) gates its short lines with the device literal sweep."""
+    pair) runs the device literal sweep: the GPU engine's gate, or an
+    IndexedFilter narrowing on the card (and not bypassed: a stream
+    switched to scan-all sweeps nothing)."""
     stack = [filt]
     while stack:
         f = stack.pop()
         if isinstance(f, IncludeExcludeFilter):
             stack += [s for s in (f.include, f.exclude) if s is not None]
-        elif getattr(f, "_sweep_tables", None) is not None:
+        elif (getattr(f, "_sweep_tables", None) is not None
+              and getattr(f, "_sweep_path", "device") == "device"
+              and not getattr(f, "bypassed", False)):
             return True
     return False
 
 
-def _load_kernels(device) -> None:
-    """Build (at first use) and load the CUDA libraries the engine
-    launches; nothing on the CPU, where the plain versions run."""
+def _load_kernels(device, backend: str = "cuda") -> None:
+    """Build (at first use) and load what the engine runs: the host C
+    for ``backend="cpu"``, the CUDA libraries on a card, nothing on the
+    CPU, where the plain versions run."""
+    if backend == "cpu":
+        from klogs_tpu_torch.native import hostops
+
+        hostops()
+        return
     if device.type != "cuda":
         return
     from klogs_tpu_torch.ops import _build
@@ -115,7 +142,8 @@ def _client_host(peer: str) -> str:
 
 class FilterServer:
     """``device=None`` means ``"cuda"`` and raises without a card; tests
-    pass ``"cpu"`` (the kernels' plain versions)."""
+    pass ``"cpu"`` (the kernels' plain versions). ``backend="cpu"``
+    serves the host engines and reads no device."""
 
     def __init__(self, patterns: list[str], backend: str = "cuda",
                  host: str = "127.0.0.1", port: int = 50051,
@@ -133,7 +161,7 @@ class FilterServer:
                  tenant_quota_lines: "int | None" = None,
                  tenant_idle_s: "float | None" = None,
                  device=None):
-        if backend != "cuda":
+        if backend not in ("cuda", "cpu"):
             raise ValueError(f"unknown filter backend {backend!r}")
         if bool(tls_cert) != bool(tls_key):
             raise ValueError(
@@ -148,9 +176,15 @@ class FilterServer:
         self.multi_set = multi_set
         if not self.patterns and not self.exclude and not multi_set:
             raise ValueError("need at least one --match or --exclude pattern")
-        from klogs_tpu_torch.ops.nfa import resolve_device
+        if backend == "cpu":
+            import torch
 
-        self.device = resolve_device(device)
+            # The host engines: the card is never touched.
+            self.device = torch.device("cpu")
+        else:
+            from klogs_tpu_torch.ops.nfa import resolve_device
+
+            self.device = resolve_device(device)
         self.backend = backend
         self.host = host
         self.port = port
@@ -213,7 +247,8 @@ class FilterServer:
 
             def factory(pats: list[str], excl: list[str], ic: bool):
                 return _make_filter(pats, ignore_case=ic, exclude=excl,
-                                    stats=self._stats, device=self.device)
+                                    stats=self._stats, device=self.device,
+                                    backend=backend)
 
             self.tenants = PatternSetRegistry(
                 factory, stats=self._stats, max_sets=tenant_max_sets,
@@ -227,7 +262,8 @@ class FilterServer:
                                         ignore_case=ignore_case,
                                         exclude=self.exclude,
                                         stats=self._stats,
-                                        device=self.device)
+                                        device=self.device,
+                                        backend=backend)
             shared = ({} if self.tenants is None
                       else dict(executor=self.tenants.executor,
                                 in_flight=self.tenants.in_flight))
@@ -529,7 +565,7 @@ class FilterServer:
     async def start(self) -> int:
         """Load the kernels, bind and serve; returns the bound port (the
         OS's pick for port 0)."""
-        await asyncio.to_thread(_load_kernels, self.device)
+        await asyncio.to_thread(_load_kernels, self.device, self.backend)
         handler = grpc.method_handlers_generic_handler(
             transport.SERVICE,
             {name: grpc.unary_unary_rpc_method_handler(

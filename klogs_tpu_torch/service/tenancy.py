@@ -23,11 +23,13 @@ a batch meets, in order:
 
 A cold set is evicted (idle past ``KLOGS_TENANT_IDLE_S``, or the least
 recently used past ``KLOGS_TENANT_MAX_SETS``): its service drains and
-its engine is closed, which drops the engine's device tables. The JAX
-package keeps an evicted set's DFA tables in an on-disk cache; the port
-has none yet, so registering the set again builds its engine anew (the
-counters are the same). A match RPC naming an evicted set fails
-FAILED_PRECONDITION and the client registers again.
+its engine is closed, which drops the engine's device tables. Under
+``--backend cpu`` its DFA tables stay in the on-disk LRU of
+filters/compiler/dfa.py ``build_dfa_cached``, so registering the set
+again is a table load, not a determinization (a ``hit`` in
+``klogs_prefilter_table_cache_events_total`` for an indexed set). A
+match RPC naming an evicted set fails FAILED_PRECONDITION and the client
+registers again.
 """
 
 import asyncio
@@ -431,7 +433,7 @@ class PatternSetRegistry:
     async def evict(self, fp: str, reason: str) -> bool:
         """Drain one set's service and close its engine, which drops
         its device tables; registering the set again builds a new
-        engine."""
+        engine, from the DFA table cache on disk under --backend cpu."""
         entry = self._sets.get(fp)
         if entry is None or entry.pinned:
             return False

@@ -1,7 +1,8 @@
 """The port's app writes the same files, byte for byte, as the JAX app
 with ``--backend tpu`` (JAX on the CPU), both over a fixed-clock
 FakeCluster; the port runs on device "cpu" (the kernels' plain
-versions)."""
+versions). With ``--backend cpu`` (the host engines) each side runs its
+own ``--backend cpu``."""
 
 import asyncio
 import io
@@ -35,7 +36,9 @@ def read_all(out_dir) -> dict:
 
 
 def run_both(tmp_path, args, n_pods=3, n_containers=1, lines=80,
-             long_line: bytes | None = None):
+             long_line: bytes | None = None, backend: str = "device"):
+    """``backend="device"``: JAX's tpu against the port's cuda (on
+    device "cpu"); ``"cpu"``: each package's host engines."""
     outs = {}
     for side in ("jax", "torch"):
         out_dir = str(tmp_path / side)
@@ -45,15 +48,18 @@ def run_both(tmp_path, args, n_pods=3, n_containers=1, lines=80,
                                           n_containers=n_containers,
                                           lines_per_container=lines,
                                           clock=lambda: CLOCK)
-            opts = jax_parse_args(argv + ["--backend", "tpu"])
+            opts = jax_parse_args(argv + [
+                "--backend", "cpu" if backend == "cpu" else "tpu"])
             run = jax_app.run_async(opts, backend=fc)
         else:
             fc = FakeCluster.synthetic(n_pods=n_pods,
                                        n_containers=n_containers,
                                        lines_per_container=lines,
                                        clock=lambda: CLOCK)
-            opts = cli.parse_args(argv + ["--backend", "cuda"])
-            run = app.run_async(opts, backend=fc, device="cpu")
+            opts = cli.parse_args(argv + [
+                "--backend", "cpu" if backend == "cpu" else "cuda"])
+            run = app.run_async(opts, backend=fc,
+                                device=None if backend == "cpu" else "cpu")
         if long_line is not None:
             pod = fc.namespaces["default"]["pod-0001"].containers["c0"]
             pod.lines.insert(10, (CLOCK - 70, long_line))
@@ -77,6 +83,68 @@ def test_files_byte_identical_to_jax(tmp_path, args):
     assert outs["torch"] == outs["jax"]
     assert outs["torch"], "no files written"
     assert any(outs["torch"].values()), "every file empty"
+
+
+def index_patterns(k: int) -> "list[str]":
+    """k patterns for the indexed engine: literal families whose members
+    the synthetic lines hold, and a few regexes."""
+    fam = [lambda i: f"seq={i}\\b", lambda i: f"pod-{i:04d} ",
+           lambda i: rf"latency={i}ms", lambda i: f"user=u{i:05d}"]
+    return [r"(?:ERROR|WARN).*\d", r"code=50[34]"] + [
+        fam[i % 4](i) for i in range(k - 2)]
+
+
+@pytest.mark.parametrize("args", [
+    ["-a", "--match", r"(?:ERROR|WARN).*\d"],
+    ["-a", "--match", "ERROR", "--match", "latency=4[0-9]ms"],
+    ["-a", "--exclude", "INFO|DEBUG"],
+    ["-a", "--match", "error", "-I", "--exclude", "v2"],
+    ["-a", "--match", r"(seq)=1\1?", "--match", "WARN"],
+    ["-a", "-c", "c1", "--match", "WARN"],
+    ["-a", *sum((["--match", p] for p in index_patterns(64)), [])],
+    ["-a", "-I", "--exclude", "debug", *sum(
+        (["--match", p.upper()] for p in index_patterns(96)), [])],
+], ids=["match", "union", "exclude_only", "ignore_case_exclude", "backref",
+        "container_re", "indexed_64", "indexed_96_I_exclude"])
+def test_backend_cpu_files_equal_jax_cpu(tmp_path, args, monkeypatch):
+    """``--backend cpu``: the port's host engines write the JAX CLI's
+    ``--backend cpu`` files, byte for byte (DFA, the group-reference
+    rule, and the indexed engine from 64 patterns)."""
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    outs = run_both(tmp_path, args, n_pods=5, n_containers=2, lines=120,
+                    backend="cpu")
+    assert outs["torch"] == outs["jax"]
+    assert any(outs["torch"].values()), "every file empty"
+
+
+def test_backend_cpu_long_lines_equal_jax_cpu(tmp_path, monkeypatch):
+    """Lines over 4 KiB through the host engines, DFA and indexed."""
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    long_line = (b"x" * 6000 + b" ERROR tail seq=3 " + b"y" * 3000 + b"\n")
+    for args in (["--match", "ERROR tail"],
+                 sum((["--match", p] for p in index_patterns(64)), [])):
+        d = tmp_path / str(len(args))
+        d.mkdir()
+        outs = run_both(d, ["-a", *args], long_line=long_line,
+                        backend="cpu")
+        assert outs["torch"] == outs["jax"]
+        assert long_line in outs["torch"]["pod-0001__c0.log"]
+
+
+def test_backend_cpu_stats_print_the_indexed_engine(tmp_path, capsys,
+                                                     monkeypatch):
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    fc = FakeCluster.synthetic(n_pods=2, lines_per_container=30,
+                               clock=lambda: CLOCK)
+    opts = cli.parse_args(["-n", "default", "-a", "-p", str(tmp_path / "o"),
+                           "--backend", "cpu", "--stats", *sum(
+                               (["--match", p]
+                                for p in index_patterns(64)), [])])
+    assert asyncio.run(app.run_async(opts, backend=fc)) == 0
+    out = capsys.readouterr().out
+    assert "Filter stats: 60 lines in" in out
+    assert "indexed engine: " in out and "'dfa':" in out
+    assert "narrowing ratio" in out
 
 
 def test_long_line_through_chunk_path(tmp_path):

@@ -1050,3 +1050,95 @@ def test_native_functions_equal_their_plain_versions(dev):
                           lines_per_stream=200)
     assert not any(f["mismatches"] for f in res["functions"].values())
     assert res["chunks_ending_mid_line"] and res["chunks_inside_the_long_line"]
+
+
+def _literal_families(k: int) -> list:
+    fam = [lambda i: f"svc-{i:04d} unreachable", lambda i: rf"errcode={i:05d}\b",
+           lambda i: rf"CRIT{i:05d}", lambda i: f"user=u{i:06d} denied"]
+    return [r"ERROR \d+", "timed out"] + [fam[i % 4](i) for i in range(k - 2)]
+
+
+def _family_lines(k: int, n: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    hits = [f"svc-{i:04d} unreachable" for i in range(0, k + 40, 4)] + [
+        "ERROR 5", "timed out", "CRIT00013"]
+    out = []
+    for j in range(n):
+        body = rng.integers(32, 127, size=int(rng.integers(0, 200)),
+                            dtype=np.uint8).tobytes()
+        if j % 9 == 0:
+            body += hits[int(rng.integers(0, len(hits)))].encode()
+        out.append(body + b"\n")
+    return out
+
+
+def test_indexed_device_sweep_on_card_equals_host(dev, tmp_path, monkeypatch):
+    """IndexedFilter(sweep="device") on the card: its candidate matrix
+    equals its index's host sweep bit for bit, its verdicts the host
+    sweep filter's, through pack_rows (counted) and the torch sweep; a
+    slab with a line past 4096 bytes sweeps on the host."""
+    from klogs_tpu_torch.filters.base import frame_lines
+    from klogs_tpu_torch.filters.indexed import IndexedFilter
+
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    pats = _literal_families(256)
+    d = IndexedFilter(pats, sweep="device", device=dev)
+    h = IndexedFilter(pats, sweep="host")
+    assert d._sweep_path == "device"
+    frames = [frame_lines(_family_lines(256, 5000, s))[:2] for s in (1, 2)]
+    frames.append(frame_lines(_family_lines(256, 50, 3)
+                              + [b"y" * 6000 + b"ERROR 1\n"])[:2])
+    for payload, off in frames[:2]:
+        assert np.array_equal(d._device_candidates(payload, off),
+                              d.index.group_candidates(payload, off))
+    torch.cuda.synchronize()
+    nfa_kernels.reset_launches()
+    got = [d.fetch_framed(d.dispatch_framed(p, o)) for p, o in frames]
+    torch.cuda.synchronize()
+    assert nfa_kernels.LAUNCHES[nfa_kernels.PACK] == 2
+    for g, (p, o) in zip(got, frames):
+        assert np.array_equal(g, h.fetch_framed(h.dispatch_framed(p, o)))
+    assert got[2][-1]
+
+
+def test_backend_cpu_files_exact_in_a_cuda_process(dev, tmp_path,
+                                                   monkeypatch):
+    """--backend cpu through the user's entry point in a process that has
+    initialised CUDA: the auto rule narrows the indexed engine on the
+    card, and every file holds exactly the `re` oracle's lines; the DFA
+    engine's files too."""
+    import asyncio
+    import re
+
+    from klogs_tpu_torch import app, cli
+    from klogs_tpu_torch.cluster.fake import FakeCluster
+    from klogs_tpu_torch.filters import sink as sink_mod
+
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    torch.zeros(1, device=dev)
+    assert torch.cuda.is_initialized()
+    made = []
+    real = sink_mod.make_pipeline
+
+    def capture(*a, **kw):
+        made.append(real(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(sink_mod, "make_pipeline", capture)
+    for k, pats in ((2, ["ERROR", r"latency=4\dms"]),
+                    (70, [f"seq={i}\\b" for i in range(70)])):
+        fc = FakeCluster.synthetic(n_pods=4, lines_per_container=300)
+        out = tmp_path / str(k)
+        opts = cli.parse_args(["-n", "default", "-a", "--backend", "cpu",
+                               "-p", str(out),
+                               *sum((["--match", p] for p in pats), [])])
+        assert asyncio.run(app.run_async(opts, backend=fc)) == 0
+        union = re.compile("|".join(f"(?:{p})" for p in pats).encode())
+        for name, pod in fc.namespaces["default"].items():
+            want = b"".join(ln for _, ln in pod.containers["c0"].lines
+                            if union.search(ln.rstrip(b"\n")))
+            assert (out / f"{name}__c0.log").read_bytes() == want
+    from klogs_tpu_torch.filters.indexed import IndexedFilter
+
+    assert isinstance(made[1].log_filter, IndexedFilter)
+    assert made[1].log_filter._sweep_path == "device"

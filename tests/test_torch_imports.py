@@ -56,13 +56,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "service/client.py", "service/server.py",
                 "service/shard.py", "service/resolver.py",
                 "service/tenancy.py", "native/__init__.py",
-                "ops/bench_operating_point.py"):
+                "ops/bench_operating_point.py", "utils/cache.py",
+                "filters/compiler/dfa.py", "filters/compiler/index.py",
+                "filters/indexed.py"):
         assert os.path.join(PORT, mod) in files
-    # The port's C file is its own: it includes the C and Python
-    # headers only, nothing of the JAX package's native directory.
+    # The port's C file is its own: it includes the C, POSIX thread,
+    # x86 intrinsic and Python headers only, nothing of the JAX
+    # package's native directory.
     with open(os.path.join(PORT, "native", "_hostops.c")) as f:
-        includes = [ln.split()[1] for ln in f if ln.startswith("#include")]
-    assert includes == ["<Python.h>", "<string.h>", "<stdint.h>"]
+        includes = [ln.split()[1] for ln in f
+                    if ln.lstrip().startswith("#include")]
+    assert includes == ["<Python.h>", "<string.h>", "<stdint.h>",
+                        "<pthread.h>", "<stddef.h>", "<immintrin.h>"]
     bad = []
     for path in files:
         for mod in imported_modules(path):
@@ -141,6 +146,13 @@ def test_cuda_entry_points_raise_without_card(tmp_path, monkeypatch):
         GpuEngineFilter(["x"])
     with pytest.raises(RuntimeError, match="cuda"):
         make_pipeline(["x"])
+    # The indexed host engine asked to narrow on the card.
+    from klogs_tpu_torch.filters.indexed import IndexedFilter
+
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path.parent / "xdg"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        IndexedFilter([f"svc-{i:03d} down" for i in range(64)],
+                      sweep="device")
     # The fused path: its engine, its tuner's default timing, and its
     # wrapper on a tensor that is neither on the CPU nor on a card.
     from klogs_tpu_torch.ops import nfa_kernels, tune
@@ -330,3 +342,36 @@ def test_chip_smoke_minted_needles():
         assert re.search(pats[32 + i].encode(), chip_smoke.minted_needle(i))
     for i in range(992, 1000):
         assert not union.search(chip_smoke.minted_needle(i))
+
+
+def test_backend_cpu_run_never_touches_cuda(tmp_path, monkeypatch):
+    """A ``--backend cpu`` run through the user's entry point, with
+    ``device=None`` and an indexed set (the engine that can narrow on
+    the card): CUDA is never asked for or initialised, and the files
+    are written."""
+    import asyncio
+
+    from klogs_tpu_torch import app, cli
+    from klogs_tpu_torch.cluster.fake import FakeCluster
+
+    calls = []
+
+    def refuse(name):
+        def fn(*a, **kw):
+            calls.append(name)
+            raise AssertionError(f"torch.cuda.{name} called")
+        return fn
+
+    for name in ("is_available", "_lazy_init", "init", "device_count",
+                 "current_device", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, refuse(name))
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    fc = FakeCluster.synthetic(n_pods=2, lines_per_container=40)
+    pats = sum((["--match", f"seq={i}\\b"] for i in range(70)), [])
+    opts = cli.parse_args(["-n", "default", "-a", "--backend", "cpu",
+                           "-p", str(tmp_path / "out"), *pats])
+    assert asyncio.run(app.run_async(opts, backend=fc)) == 0
+    assert calls == [] and not torch.cuda.is_initialized()
+    assert sorted(os.listdir(tmp_path / "out")) == [
+        "pod-0000__c0.log", "pod-0001__c0.log"]
+    assert os.path.getsize(tmp_path / "out" / "pod-0000__c0.log") > 0

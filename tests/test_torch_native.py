@@ -1,9 +1,13 @@
-"""The port's own C for the collector's host work (``native/_hostops.c``):
-its four functions and their numpy plain versions, each equal byte for
-byte to the JAX package's C functions (``klogs_tpu.native.hostops``,
-built by its own loader), errors included; ``FramedBatcher`` against
-the JAX one at every chunk split; and the loader's build, which raises
-where it cannot build."""
+"""The port's own C (``native/_hostops.c``): the collector's four framing
+functions and their numpy plain versions, each equal byte for byte to
+the JAX package's C functions (``klogs_tpu.native.hostops``, built by
+its own loader), errors included; ``FramedBatcher`` against the JAX one
+at every chunk split; the host engines' three scans (``dfa_scan``,
+``sweep_candidates`` at every stage-1 tier this host has and with 8 and
+16 buckets, ``group_scan``) against their plain versions and JAX's C,
+with the sweep and MultiDFA blobs equal to JAX's byte for byte and the
+knobs that select a plain version raising; and the loader's build,
+which raises where it cannot build."""
 
 import threading
 
@@ -331,3 +335,199 @@ def test_concurrent_builds_land_one_library(tmp_path, monkeypatch):
     mod = importlib.util.module_from_spec(spec)
     loader.exec_module(mod)
     assert mod.find_newlines(b"a\nb\n", 0) == C.find_newlines(b"a\nb\n", 0)
+
+
+# -- the host engines' scans (dfa_scan, sweep_candidates, group_scan) ---
+
+def engine_corpus(seed: int, n: int) -> "list[bytes]":
+    """Seeded log lines holding the literals of ENGINE_PATTERNS now and
+    then, random bytes elsewhere (newlines stripped)."""
+    rng = np.random.default_rng(seed)
+    hits = [b"svc-0042 unreachable", b"errcode=00017", b"CRIT00099",
+            b"ERROR 7", b"abccd", b"timed out", b"job-00003", b"xzq"]
+    out = []
+    for _ in range(n):
+        body = rng.integers(32, 127, size=int(rng.integers(0, 120)),
+                            dtype=np.uint8).tobytes()
+        if rng.random() < 0.2:
+            h = hits[int(rng.integers(0, len(hits)))]
+            at = int(rng.integers(0, len(body) + 1))
+            body = body[:at] + h + body[at:]
+        out.append(body)
+    return out
+
+
+ENGINE_PATTERNS = (
+    [r"ERROR \d+", "abc+d", "(x|y)z?q", "timed out", r"(?:FATAL|PANIC) "
+     r"job-\d{5}"]
+    + [f"svc-{i:04d} unreachable" for i in range(40)]
+    + [rf"errcode={i:05d}\b" for i in range(40)]
+    + [rf"CRIT{i:05d}" for i in range(40)])
+
+
+@pytest.fixture(scope="module")
+def indexes(tmp_path_factory):
+    """The port's and JAX's IndexedFilter over ENGINE_PATTERNS (host
+    sweep), built once."""
+    from klogs_tpu.filters.indexed import IndexedFilter as JIndexed
+    from klogs_tpu_torch.filters.indexed import IndexedFilter as PIndexed
+
+    mp = pytest.MonkeyPatch()
+    mp.setenv("XDG_CACHE_HOME", str(tmp_path_factory.mktemp("xdg")))
+    try:
+        return (PIndexed(ENGINE_PATTERNS, sweep="host"),
+                JIndexed(ENGINE_PATTERNS, sweep="host"))
+    finally:
+        mp.undo()
+
+
+@pytest.mark.parametrize("threads", ["1", "3"])
+@pytest.mark.parametrize("pats", [["ERROR", r"code=50[34]"],
+                                  ["(ab|ba)+q", "^x", "y$"],
+                                  ENGINE_PATTERNS[:20]],
+                         ids=["two", "anchors", "twenty"])
+def test_dfa_scan_equals_scan_python_and_jax(pats, threads, monkeypatch):
+    """dfa_scan over 9000 lines (past the row-parallel threshold of 8192
+    when KLOGS_HOST_THREADS > 1) equals scan_python and JAX's C; u16
+    and u32 tables."""
+    from klogs_tpu_torch.filters.compiler.dfa import build_dfa, scan_python
+    from klogs_tpu_torch.filters.compiler.glushkov import compile_patterns
+
+    monkeypatch.setenv("KLOGS_HOST_THREADS", threads)
+    lines = [ln + b"\n" * (i % 3) for i, ln in
+             enumerate(engine_corpus(11, 9000))]
+    payload, off, _ = base.frame_lines_plain(lines, strip_nl=False)
+    t = build_dfa(compile_patterns(pats))
+    for table in (t.table, t.table.astype(np.uint32)):
+        args = (payload, off, len(lines), table.tobytes(), t.n_classes,
+                t.accept.tobytes(), t.byte_class.tobytes(), t.start,
+                t.end_class, 1 if table.dtype == np.uint32 else 0)
+        got = C.dfa_scan(*args)
+        assert got == jax_hostops.dfa_scan(*args)
+        assert (np.frombuffer(got, dtype=np.uint8).astype(bool).tolist()
+                == scan_python(t, lines))
+    with pytest.raises(ValueError, match="dfa_scan"):
+        C.dfa_scan(payload, off[:-1], len(lines), t.table.tobytes(),
+                   t.n_classes, t.accept.tobytes(), t.byte_class.tobytes(),
+                   t.start, t.end_class, 0)
+
+
+def simd_levels() -> "list[int]":
+    """Every stage-1 tier this host's CPU has (0 scalar .. 3 avx512)."""
+    return list(range(C.sweep_simd_level(-1) + 1))
+
+
+@pytest.mark.parametrize("buckets", ["8", "16"])
+def test_sweep_blob_and_candidates_equal_plain_and_jax(indexes, buckets,
+                                                       monkeypatch):
+    """The sweep blob equals JAX's byte for byte; sweep_candidates at
+    every tier this host has gives the numpy sweep's mask and JAX's C's
+    bits, survivors and column sums."""
+    monkeypatch.setenv("KLOGS_SWEEP_BUCKETS", buckets)
+    p, j = (f.index for f in indexes)
+    blob = p.native_sweep_blob()
+    assert blob == j.native_sweep_blob()
+    assert np.frombuffer(blob, dtype="<i4")[32] == int(buckets)
+    payload, off, _ = base.frame_lines_plain(engine_corpus(12, 3000))
+    want = p.group_candidates(payload, off, impl="numpy")
+    W = (p.n_groups + 31) // 32
+    for level in simd_levels():
+        stats, jstats = (np.zeros(3 + 32 * W, dtype=np.uint64)
+                         for _ in range(2))
+        raw = C.sweep_candidates(blob, payload, off, len(off) - 1, level,
+                                 stats)
+        assert raw == jax_hostops.sweep_candidates(
+            blob, payload, off, len(off) - 1, level, jstats)
+        assert np.array_equal(stats, jstats)
+        bits = np.frombuffer(raw, dtype="<u4").reshape(len(off) - 1, W)
+        gm = np.unpackbits(bits.view(np.uint8), axis=1, bitorder="little",
+                           count=p.n_groups).view(bool)
+        assert np.array_equal(gm, want), level
+        assert np.array_equal(stats[3:3 + p.n_groups],
+                              want.sum(axis=0))
+    assert C.sweep_simd_level(3) == jax_hostops.sweep_simd_level(3)
+
+
+def test_group_candidates_default_is_the_c(indexes, monkeypatch):
+    """The index's own entry points run the C (last_impl "native") at
+    each pinned tier, and equal the numpy sweep and JAX's."""
+    p, j = (f.index for f in indexes)
+    payload, off, _ = base.frame_lines_plain(engine_corpus(13, 2000))
+    want = j.group_candidates(payload, off, impl="numpy")
+    for pin in ("auto", "scalar", "ssse3", "sse2", "avx2", "avx512"):
+        monkeypatch.setenv("KLOGS_NATIVE_SIMD", pin)
+        assert np.array_equal(p.group_candidates(payload, off), want)
+        assert p.last_impl == "native"
+        assert p.last_stats.candidate_cells == int(want.sum())
+
+
+def test_multidfa_blob_and_group_scan_equal_plain_and_jax(indexes):
+    """multidfa_blob equals JAX's byte for byte; group_scan over the
+    bool and the packed candidate matrix equals JAX's C and the
+    per-group loop."""
+    from klogs_tpu.filters.compiler.index import multidfa_blob as jblob
+    from klogs_tpu_torch.filters.compiler.index import multidfa_blob
+
+    pf, jf = indexes
+    tables = [pf.groups[g].filt.tables for g in pf._dfa_cols]
+    assert multidfa_blob(tables) == jblob(
+        [jf.groups[g].filt.tables for g in jf._dfa_cols])
+    payload, off, _ = base.frame_lines_plain(engine_corpus(14, 3000))
+    gm = np.ascontiguousarray(pf.index.group_candidates(payload, off))
+    packed = pf.index.group_candidates_packed(payload, off)
+    dsum = gm.sum(axis=0)[pf._dfa_cols_arr]
+    order = np.ascontiguousarray(
+        np.argsort(dsum, kind="stable").astype(np.int32))
+    plain = pf._scan_candidates(payload, off, gm, plain=True)
+    blob = multidfa_blob(tables)
+    for cand, is_packed in ((gm, 0), (packed, 1)):
+        outs = []
+        for mod in (C, jax_hostops):
+            out = np.zeros(len(off) - 1, dtype=bool)
+            n = mod.group_scan(blob, payload, off, len(off) - 1, cand,
+                               cand.shape[1], pf._dfa_cols_arr, order, out,
+                               is_packed)
+            outs.append((n, out))
+        assert outs[0][0] == outs[1][0]
+        assert np.array_equal(outs[0][1], outs[1][1])
+        rest = np.zeros_like(plain)
+        for g in pf._rest_cols:
+            rest |= gm[:, g]
+        assert np.array_equal(outs[0][1] | (plain & rest), plain)
+    with pytest.raises(ValueError):
+        C.group_scan(b"bad blob", payload, off, len(off) - 1, gm,
+                     gm.shape[1], pf._dfa_cols_arr, order,
+                     np.zeros(len(off) - 1, dtype=bool), 0)
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("KLOGS_NATIVE_SIMD", "off"), ("KLOGS_NATIVE_SIMD", "OFF"),
+    ("KLOGS_NATIVE_GROUPSCAN", "off"), ("KLOGS_NATIVE_SIMD", "avx9"),
+    ("KLOGS_NATIVE_GROUPSCAN", "maybe"), ("KLOGS_SWEEP_BUCKETS", "12")])
+def test_plain_version_knobs_raise(indexes, knob, value, monkeypatch):
+    """The knobs that select the numpy sweep or the per-group loop in
+    the JAX package raise here, naming the knob, as malformed values
+    do."""
+    from klogs_tpu_torch.filters.compiler import index
+
+    monkeypatch.setenv(knob, value)
+    payload, off, _ = base.frame_lines_plain(engine_corpus(15, 50))
+    with pytest.raises(ValueError, match=knob):
+        indexes[0].fetch_framed(indexes[0].dispatch_framed(payload, off))
+    if knob == "KLOGS_NATIVE_GROUPSCAN":
+        with pytest.raises(ValueError, match=knob):
+            index.native_groupscan_mode()
+    monkeypatch.setenv("KLOGS_NATIVE_GROUPSCAN", "native")
+    if knob != "KLOGS_NATIVE_GROUPSCAN":
+        assert index.native_groupscan_mode() == "auto"
+
+
+def test_library_builds_with_pthread_and_no_march():
+    """The flags carry -pthread (the row-parallel scans) and no -march:
+    the wide stage-1 tiers compile under target attributes."""
+    assert "-pthread" in native.CFLAGS
+    assert not any(f.startswith("-march") for f in native.CFLAGS)
+    with open(native.SOURCE) as f:
+        src = f.read()
+    assert '__attribute__((target("avx512f,avx512bw")))' in src
+    assert "__builtin_cpu_supports" in src

@@ -25,6 +25,7 @@ import os
 import random
 import re
 import subprocess
+import sys
 import threading
 import time
 
@@ -1439,3 +1440,107 @@ def test_fleet_capacity_headroom_from_the_profiler():
         assert doc["capacity"]["admitted_lines"] == 10
     finally:
         prof.reset()
+
+
+# ---- filterd --backend cpu ----------------------------------------------
+
+def _index_set(k: int) -> list:
+    return ["ERROR", r"WARN.*\d"] + [f"svc-{i:04d} unreachable"
+                                     for i in range(k - 2)]
+
+
+@pytest.mark.parametrize("k,exclude", [(2, ()), (2, ("42",)), (64, ()),
+                                       (64, ("code",))],
+                         ids=["dfa", "dfa_exclude", "indexed",
+                              "indexed_exclude"])
+def test_backend_cpu_filterd_both_ways(k, exclude, tmp_path, monkeypatch):
+    """filterd --backend cpu: a JAX client against the port's server and
+    the port's client against JAX's, each masks equal to `re`; the two
+    Hellos equal but for the version, backend "cpu" on both."""
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    pats = _index_set(k)
+    lines = seeded_lines(31, 400) + [b"svc-0013 unreachable now", b"x" * 5000
+                                     + b" ERROR"]
+
+    async def scenario():
+        ps = FilterServer(pats, backend="cpu", port=0,
+                          exclude=list(exclude))
+        pport = await ps.start()
+        js = jax_server.FilterServer(pats, backend="cpu", port=0,
+                                     exclude=list(exclude))
+        jport = await js.start()
+        out = {}
+        try:
+            for name, cls, port in (
+                    ("jax_on_port", jax_client.RemoteFilterClient, pport),
+                    ("port_on_jax", RemoteFilterClient, jport)):
+                c = cls(f"127.0.0.1:{port}")
+                try:
+                    await c.verify_patterns(pats, exclude=list(exclude))
+                    payload, offsets, _ = frame_lines(lines, strip_nl=False)
+                    out[name] = ((await c.match_framed(payload, offsets))
+                                 .tolist(), await c.match(lines),
+                                 await c.hello())
+                finally:
+                    await c.aclose()
+            return out, ps.device.type
+        finally:
+            await ps.stop()
+            await js.stop()
+
+    out, dev = run(scenario())
+    want = oracle(pats, lines, exclude)
+    for framed, listed, _ in out.values():
+        assert framed == listed == want
+    hp, hj = out["jax_on_port"][2], out["port_on_jax"][2]
+    assert hp["backend"] == hj["backend"] == "cpu"
+    skip = {"version", "headroom"}  # headroom reads each side's clock
+    assert {k: v for k, v in hp.items() if k not in skip} == {
+        k: v for k, v in hj.items() if k not in skip}
+    assert dev == "cpu"
+
+
+def test_cli_through_port_cpu_filterd_equals_jax(tmp_path, monkeypatch):
+    """The port's CLI through a port filterd --backend cpu writes what
+    the JAX CLI writes through a JAX filterd --backend cpu."""
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    real = FilterServer
+
+    def cpu_server(*a, **kw):
+        kw.pop("device", None)
+        return real(*a, backend="cpu", **kw)
+
+    monkeypatch.setattr(sys.modules[__name__], "FilterServer", cpu_server)
+    args = ["--match", "INFO", "--match", r"WARN.*\d", "--exclude", "v2"]
+    outs = {side: run(_cli_through(tmp_path, side, args))
+            for side in ("jax", "port")}
+    assert outs["port"] == outs["jax"]
+    assert any(outs["port"].values())
+
+
+def test_device_sweep_advertised_for_an_indexed_engine(tmp_path,
+                                                       monkeypatch):
+    """_uses_device_sweep reads an IndexedFilter's narrowing path: on
+    for sweep="device", off for the host sweep and once bypassed."""
+    from klogs_tpu_torch.filters.base import IncludeExcludeFilter
+    from klogs_tpu_torch.filters.indexed import IndexedFilter
+
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    pats = _index_set(64)
+    dev = IndexedFilter(pats, sweep="device", device="cpu")
+    host = IndexedFilter(pats, sweep="host")
+    assert server_mod._uses_device_sweep(dev)
+    assert server_mod._uses_device_sweep(IncludeExcludeFilter(None, dev))
+    assert not server_mod._uses_device_sweep(host)
+    dev.bypassed = True
+    assert not server_mod._uses_device_sweep(dev)
+
+
+def test_filterd_main_parses_backend_cpu():
+    from klogs_tpu_torch.service.__main__ import build_parser
+
+    for argv in (["--backend", "cpu", "--match", "x"], ["--match", "x"]):
+        ns = build_parser().parse_args(argv)
+        assert ns.backend == ("cpu" if "cpu" in argv else "cuda")
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--backend", "tpu"])

@@ -1120,3 +1120,55 @@ def test_failed_engine_build_fails_the_registration():
                 await c.aclose()
 
     asyncio.run(_with_multi_server(fn, patterns=()))
+
+
+def _cache_events(registry) -> dict:
+    fam = registry.family("klogs_prefilter_table_cache_events_total")
+    return {dict(zip(fam.labelnames, lv))["event"]: c.value
+            for lv, c in fam.children()}
+
+
+def test_backend_cpu_reregistration_is_a_cache_load(tmp_path, monkeypatch):
+    """--multi-set --backend cpu: an evicted indexed set registers again
+    from the DFA table cache on disk (one hit per group table, no new
+    miss), with the verdicts of the first build; the JAX registry does
+    the same against its own cache."""
+    from klogs_tpu.service import client as jax_client
+    from klogs_tpu.service import server as jax_server
+
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    pats = ["ERROR"] + [f"svc-{i:04d} unreachable" for i in range(70)]
+    lines = [b"svc-0007 unreachable", b"ERROR x", b"fine", b"svc-0099 up"]
+
+    async def scenario(side):
+        if side == "port":
+            server = FilterServer([], backend="cpu", port=0, multi_set=True,
+                                  metrics_port=0)
+            cls = RemoteFilterClient
+        else:
+            server = jax_server.FilterServer([], backend="cpu", port=0,
+                                             multi_set=True, metrics_port=0)
+            cls = jax_client.RemoteFilterClient
+        port = await server.start()
+        c = cls(f"127.0.0.1:{port}")
+        try:
+            await c.verify_patterns(pats)
+            first = await c.match(lines)
+            built = _cache_events(server.registry)
+            assert await server.tenants.evict(c._set_id, "idle")
+            second = await c.match(lines)
+            return first, second, built, _cache_events(server.registry), \
+                server.tenants.engine_builds
+        finally:
+            await c.aclose()
+            await server.stop()
+
+    got = {side: asyncio.run(asyncio.wait_for(scenario(side), 120))
+           for side in ("port", "jax")}
+    first, second, built, after, builds = got["port"]
+    assert first == second == [True, True, False, False]
+    assert builds == 2
+    assert built.get("miss", 0) > 0 and built.get("hit", 0) == 0
+    assert after["miss"] == built["miss"]
+    assert after["hit"] == built["miss"]
+    assert got["port"][2:] == got["jax"][2:]
