@@ -105,6 +105,30 @@ K axis: 156 groups of 128 states, 64 classes):
    its plain version and timed on the run's own most frequent batch
    (its pair list held against the plain one there too).
 
+The mesh engine (``klogs_tpu_torch/parallel/``), after them, on the one
+card listed several times (it shows the split, each shard's kernels and
+the OR across pattern shards, not multi-card scaling); four ``mesh``
+lines:
+
+   (a) ``GpuEngineFilter(PATTERNS, engine=MeshEngine(...))`` over grids
+   (1,1), (4,1), (2,2) and (1,4) on the engine phase's first frame and
+   16 long lines: verdicts equal the single engine's, K1 and
+   ``pack_rows`` launched once a shard a width bucket (and K2 on the
+   long lines), lines/s beside the single engine's, K1 and
+   ``pack_rows`` held against their plain versions on one shard's
+   batches; (b) the 1024 patterns on a (2,2) grid: each shard's sweep
+   tables on the card, verdicts equal the single K = 1024 engine's, K3
+   and its pair list held on one shard's batch; (c) ``app.run_async``
+   with the engine factory's device list patched to the card four
+   times (the engine asserted a ``MeshEngine``, counts zeroed just
+   before and read just after): the cli_k1024 cell (files equal to its
+   oracle's) and BASELINE config 5's shape, 4096 pods x 64 lines and 8
+   long lines (files equal to the single engine's verdicts, that engine
+   held to ``re`` on the first 4096 lines); (d) two processes over
+   gloo, both ranks on the card, a (1,2) grid over the world's two
+   devices, then a world of one over NCCL: every rank's verdicts equal
+   the single engine's on 8192 lines.
+
 The observability and fault layers, after them:
 
 15. obs: the cli cell (256 pods x 4000 lines, 16 long lines, --match
@@ -250,8 +274,10 @@ and thread count are printed beside the card's):
 Every phase line carries ``phase_s``, the seconds since the line
 before it. Then a ``kernels`` line (each kernel's time beside its bound
 and its plain version's time, with its launches on its main path, on
-the backfill, in the fleet's registry and, for ``pack_rows``, on the
-host engines' device sweep: the four NFA kernels and ``pack_rows``),
+the backfill, in the fleet's registry, on the mesh (K1 on (a)'s (2,2)
+grid, K3 and ``pack_rows`` on (c)'s cli_k1024 cell) and, for
+``pack_rows``, on the host engines' device sweep: the four NFA kernels
+and ``pack_rows``),
 the card line, and
 last ``{"ok": true,
 "device": {...}}``. Any failed phase exits
@@ -2281,6 +2307,412 @@ def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
                    for b in k3_batches)):
         raise AssertionError(f"cli_k1024 phase failed: {res}")
     return res
+
+
+# ---- the mesh: data x pattern shards over one card ------------------------
+
+# Grids of the K = 32 part, over [cuda:0] x d*g (one card listed again).
+MESH_GRIDS = ((1, 1), (4, 1), (2, 2), (1, 4))
+# BASELINE config 5's shape: 4096 pods x 64 lines, 8 long lines.
+CONFIG5_PODS, CONFIG5_LINES = 4096, 64
+
+
+def with_lines(np, frame, lines: list) -> tuple:
+    """A framed batch with ``lines`` appended (unstripped)."""
+    payload, offsets = frame
+    ends = offsets[-1] + np.cumsum([len(ln) for ln in lines])
+    return (payload + b"".join(lines),
+            np.concatenate([offsets, ends]).astype(np.int32))
+
+
+def mesh_expected(f, frame) -> dict:
+    """The launches one dispatch of ``frame`` makes through ``f``'s mesh
+    engine: K1 (or K3) and ``pack_rows`` once a shard whose rows hold a
+    line, a width bucket; ``pack_rows`` once more a chunk of the long
+    lines (K2, on the first device)."""
+    layout, _ = f._layout(*frame)
+    d, g = f._engine.grid
+    shards = chunks = 0
+    for idx, width, rows, longest in layout:
+        if width is None:
+            chunks += -(-longest // f._chunk_bytes)
+        else:
+            shards += g * sum(di * (rows // d) < len(idx) for di in range(d))
+    return dict(kernel=shards, pack=shards + chunks, chunk=chunks)
+
+
+def timed_dispatches(torch, f, frame, reps: int) -> tuple:
+    """(verdicts, seconds) of ``reps`` dispatch-and-fetch rounds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        got = f.fetch_framed(f.dispatch_framed(*frame))
+    return got, time.perf_counter() - t0
+
+
+def mesh_grids(torch, np, nk, pack, GpuEngineFilter, MeshEngine, frame0,
+               dev, card: str, reps: int = 3) -> dict:
+    """(a) The 32 patterns over each grid on the engine phase's first frame
+    and 16 long lines: the single engine's verdicts, the launches a
+    shard, K1 held on one shard's batch, lines/s beside the single
+    engine's."""
+    rng = np.random.default_rng(SEED + 8)
+    longs = []
+    for i in range(16):
+        body = bytearray(rng.integers(32, 127, size=int(
+            rng.integers(4097, 64 * 1024)), dtype=np.uint8))
+        if i % 2:
+            body[len(body) // 3:len(body) // 3 + 8] = b"code=503"
+        longs.append(bytes(body) + b"\n")
+    frame = with_lines(np, frame0, longs)
+    n = len(frame[1]) - 1
+    single = GpuEngineFilter(PATTERNS, device=dev)
+    single.fetch_framed(single.dispatch_framed(*frame))  # warm-up
+    want, secs = timed_dispatches(torch, single, frame, reps)
+    ora = oracle_fn()
+    bad_long = sum(bool(v) != ora(ln.rstrip(b"\n"))
+                   for v, ln in zip(want[-16:], longs))
+    rows, bad = [], []
+    for d, g in MESH_GRIDS:
+        f = GpuEngineFilter(PATTERNS, engine=MeshEngine(
+            PATTERNS, devices=[dev] * (d * g), grid=(d, g)))
+        f.fetch_framed(f.dispatch_framed(*frame))  # warm-up
+        exp = mesh_expected(f, frame)
+        nk.reset_launches()
+        got, t = timed_dispatches(torch, f, frame, reps)
+        launches = dict(nk.LAUNCHES)
+        row = dict(grid=f"{d}x{g}", lines_per_s=n * reps / t,
+                   vs_single=secs / t, mismatches=int((got != want).sum()),
+                   launches=launches, expected={k: v * reps
+                                                for k, v in exp.items()})
+        if (row["mismatches"] or launches[nk.GROUPED] != exp["kernel"] * reps
+                or launches[nk.PACK] != exp["pack"] * reps
+                or launches[nk.CHUNK] != exp["chunk"] * reps):
+            bad.append(row["grid"])
+        if (d, g) == (2, 2):
+            # One shard's batches, as the shard built them, held against
+            # the plain versions: its K1 batch and its pack_rows cut.
+            with recording_wrappers(nk, pack, ["match_cls_grouped",
+                                               "pack_rows"]) as calls:
+                f.fetch_framed(f.dispatch_framed(*frame))
+            held = held_batches(torch, nk, pack, calls, 1)
+            k1, cut = held["k1_batches"][0], held["pack_batches"][0]
+            row.update(k1=k1, pack=cut)
+            mesh_launches = launches
+        rows.append(row)
+    res = dict(part="a", card=card, lines=n, long_lines=len(longs),
+               reps=reps, single_lines_per_s=n * reps / secs,
+               long_oracle_mismatches=bad_long, grids=rows,
+               failed_grids=bad)
+    emit({"phase": "mesh", **res})
+    if bad or bad_long or k1["max_abs_err"] or cut["mismatches"]:
+        raise AssertionError(f"mesh (a) failed: {res}")
+    return dict(res, k1=k1, pack=cut, launches=mesh_launches)
+
+
+def k1024_lines(np, synthetic_line, n: int, seed: int) -> list:
+    """``n`` FakeCluster lines, 1% with a minted-family needle."""
+    rng = np.random.default_rng(seed)
+    lines = [synthetic_line(f"pod-{i % 512:04d}", "c0", i, CLOCK + i)
+             for i in range(n)]
+    for i in range(3, n, 100):
+        lines[i] = (lines[i][:40] + minted_needle(int(rng.integers(0, 1200)))
+                    + lines[i][40:])
+    return lines
+
+
+def mesh_k1024(torch, np, nk, bits, pack, GpuEngineFilter, MeshEngine,
+               frame_lines, synthetic_line, eng1024, dev, card: str,
+               n_lines: int = 65536) -> dict:
+    """(b) The 1024 patterns over a (2, 2) grid: each shard's sweep tables
+    on the card, the single engine's verdicts, K3 and its pair list held
+    on one shard's batch."""
+    pats = make_patterns(1024)
+    frame = frame_lines(k1024_lines(np, synthetic_line, n_lines, SEED + 9),
+                        strip_nl=False)[:2]
+    eng1024.fetch_framed(eng1024.dispatch_framed(*frame))  # warm-up
+    want, secs = timed_dispatches(torch, eng1024, frame, 1)
+    t0 = time.perf_counter()
+    eng = MeshEngine(pats, devices=[dev] * 4, grid=(2, 2))
+    f = GpuEngineFilter(pats, engine=eng)
+    build_s = time.perf_counter() - t0
+    on_card = eng.swept and all(sh._sweep_tables.device == dev
+                                for sh in eng._shards.values())
+    f.fetch_framed(f.dispatch_framed(*frame))  # warm-up
+    exp = mesh_expected(f, frame)
+    with recording_wrappers(nk, pack, ["match_cls_grouped_gated"]) as calls:
+        nk.reset_launches()
+        got, t = timed_dispatches(torch, f, frame, 1)
+        launches = dict(nk.LAUNCHES)
+    args = max(calls["match_cls_grouped_gated"].values(),
+               key=lambda e: e[0])[1][0][0]
+    k3 = k3_check(torch, bits, nk, *args[:5], 10)
+    res = dict(part="b", card=card, lines=n_lines, build_s=build_s,
+               sweep_on_card=on_card,
+               shard_groups=[int(sh._grouped.follow.shape[0])
+                             for sh in eng._shards.values()],
+               lines_per_s=n_lines / t, single_lines_per_s=n_lines / secs,
+               mismatches=int((got != want).sum()), matched=int(got.sum()),
+               launches=launches, expected=exp,
+               k3={k: v for k, v in k3.items() if not hasattr(v, "shape")})
+    emit({"phase": "mesh", **res})
+    if (res["mismatches"] or not on_card or not got.any()
+            or launches[nk.GATED] != exp["kernel"]
+            or launches[nk.PAIRS] != exp["kernel"]
+            or launches[nk.GROUPED] != 0 or launches[nk.PACK] != exp["pack"]
+            or k3["max_abs_err"] or k3["pairs_mismatches"]):
+        raise AssertionError(f"mesh (b) failed: {res}")
+    return dict(res, k3=k3)
+
+
+def mesh_cli_run(torch, nk, app, cli, term, mesh_mod, MeshEngine, fc,
+                 pats: list, dev, stats: bool) -> dict:
+    """``app.run_async`` with the engine factory's device list at
+    [cuda:0] x 4: its files, lines/s, launches and engine."""
+    argv = ["-n", "default", "-a", "-p", ""] + (["--stats"] if stats else [])
+    for p in pats:
+        argv += ["--match", p]
+    real = mesh_mod.engine_devices
+    with tempfile.TemporaryDirectory() as out_dir, \
+            captured_pipeline() as made:
+        argv[4] = out_dir
+        opts = cli.parse_args(argv)
+        ui = io.StringIO()
+        term.set_ui_stream(ui)
+        mesh_mod.engine_devices = lambda device=None: [dev] * 4
+        try:
+            torch.cuda.synchronize()
+            nk.reset_launches()
+            t0 = time.perf_counter()
+            rc = asyncio.run(app.run_async(opts, backend=fc, device=dev))
+            seconds = time.perf_counter() - t0
+            launches = dict(nk.LAUNCHES)
+        finally:
+            mesh_mod.engine_devices = real
+            term.set_ui_stream(None)
+        files = {}
+        for name in os.listdir(out_dir):
+            with open(os.path.join(out_dir, name), "rb") as fh:
+                files[name] = fh.read()
+    eng = made[0].log_filter._engine if made else None
+    return dict(rc=rc, files=files, seconds=seconds, launches=launches,
+                mesh=isinstance(eng, MeshEngine),
+                grid=list(eng.grid) if eng is not None else None,
+                swept=getattr(eng, "swept", None), ui=ui.getvalue())
+
+
+def config5_cluster(np, FakeCluster, n_pods: int):
+    """BASELINE config 5's shape: ``n_pods`` pods x 64 lines (~1% minted
+    needles), a long line in 8 of them."""
+    return k1024_cluster(np, FakeCluster, n_pods=n_pods,
+                         lines_per_pod=CONFIG5_LINES, n_long=8)
+
+
+def mesh_cli(torch, np, nk, app, cli, term, FakeCluster, frame_lines,
+             mesh_mod, MeshEngine, eng1024, dev, card: str,
+             want1024: dict) -> dict:
+    """(c) The user's entry point through the mesh: the cli_k1024 cell
+    (files = its oracle's), then BASELINE config 5's shape (files = the
+    single engine's verdicts, that engine held to ``re`` on the first
+    4096 lines)."""
+    import resource
+
+    pats = make_patterns(1024)
+    fc, all_lines = k1024_cluster(np, FakeCluster)
+    a = mesh_cli_run(torch, nk, app, cli, term, mesh_mod, MeshEngine, fc,
+                     pats, dev, stats=True)
+    n_a = sum(map(len, all_lines.values()))
+    bad_a = sorted(n for n, b in want1024.items() if a["files"].get(n) != b)
+    # 4096 streams write 4096 files at once.
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    n_pods = min(CONFIG5_PODS, max(256, hard - 1024))
+    fc5, lines5 = config5_cluster(np, FakeCluster, n_pods)
+    flat = [ln for name in sorted(lines5) for ln in lines5[name]]
+    verdicts = np.concatenate([
+        eng1024.fetch_framed(eng1024.dispatch_framed(
+            *frame_lines(flat[i:i + 131072], strip_nl=False)[:2]))
+        for i in range(0, len(flat), 131072)])
+    exp = oracle_verdicts(pats, [ln.rstrip(b"\n") for ln in flat[:4096]])
+    oracle_bad = int((verdicts[:4096] != np.asarray(exp)).sum())
+    want5, at = {}, 0
+    for name in sorted(lines5):
+        k = len(lines5[name])
+        want5[f"{name}__c0.log"] = b"".join(
+            ln for ln, v in zip(lines5[name], verdicts[at:at + k]) if v)
+        at += k
+    c5 = mesh_cli_run(torch, nk, app, cli, term, mesh_mod, MeshEngine, fc5,
+                      pats, dev, stats=False)
+    bad_5 = sorted(n for n, b in want5.items() if c5["files"].get(n) != b)
+    cells = []
+    for name, run, n, badf, want in (("cli_k1024", a, n_a, bad_a, want1024),
+                                     ("config5", c5, len(flat), bad_5,
+                                      want5)):
+        cells.append(dict(
+            cell=name, rc=run["rc"], mesh=run["mesh"], grid=run["grid"],
+            swept=run["swept"], lines=n, files=len(run["files"]),
+            want_files=len(want), seconds=run["seconds"],
+            lines_per_s=n / run["seconds"], mismatched_files=badf[:8],
+            n_mismatched=len(badf), launches=run["launches"]))
+    stats_line = next((ln.strip() for ln in a["ui"].splitlines()
+                       if "Filter stats:" in ln), None)
+    res = dict(part="c", card=card, cells=cells, config5_pods=n_pods,
+               config5_cut=n_pods < CONFIG5_PODS, nofile=[soft, hard],
+               single_oracle_checked=4096, single_oracle_mismatches=oracle_bad,
+               stats_line=stats_line, kept_config5=int(verdicts.sum()))
+    emit({"phase": "mesh", **res})
+    if (oracle_bad or stats_line is None
+            or any(c["rc"] or not c["mesh"] or c["n_mismatched"]
+                   or c["files"] != c["want_files"]
+                   or c["launches"][nk.GATED] == 0
+                   or c["launches"][nk.PACK] == 0
+                   or c["launches"][nk.CHUNK] == 0 for c in cells)):
+        raise AssertionError(f"mesh (c) failed: {res}")
+    return dict(res, launches=cells[0]["launches"])
+
+
+def mesh_rank_main(rank: int, world: int, port: int, backend: str,
+                   device: str, frame_path: str, out_path: str) -> None:
+    """One rank of (d), in a process of its own: the process group (over
+    ``parallel/distributed.py`` for two ranks, directly for a world of
+    one, which ``initialize`` leaves alone), a (1, 2) grid over the two
+    devices of the world (``device`` each), one batch, the verdicts
+    written to ``out_path``."""
+    import datetime
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from klogs_tpu_torch.filters.gpu import GpuEngineFilter
+    from klogs_tpu_torch.ops import nfa_kernels as nk
+    from klogs_tpu_torch.parallel import distributed
+    from klogs_tpu_torch.parallel.mesh import MeshEngine
+
+    if world > 1:
+        distributed.initialize(f"127.0.0.1:{port}", world, rank,
+                               backend=backend, timeout_s=180)
+    else:
+        torch.distributed.init_process_group(
+            backend, init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+            rank=0, timeout=datetime.timedelta(seconds=180))
+    dev = torch.device(device)
+    data = np.load(frame_path)
+    payload, offsets = data["payload"].tobytes(), data["offsets"]
+    f = GpuEngineFilter(PATTERNS, engine=MeshEngine(
+        PATTERNS, devices=[dev] * (2 // world), grid=(1, 2)))
+    f.fetch_framed(f.dispatch_framed(payload, offsets))  # warm-up
+    nk.reset_launches()
+    t0 = time.perf_counter()
+    got = f.fetch_framed(f.dispatch_framed(payload, offsets))
+    seconds = time.perf_counter() - t0
+    with open(out_path, "w") as fh:
+        json.dump({"rank": torch.distributed.get_rank(),
+                   "world": torch.distributed.get_world_size(),
+                   "backend": torch.distributed.get_backend(),
+                   "local": [[di, gi] for di, gi, _ in f._engine._local],
+                   "seconds": seconds, "launches": dict(nk.LAUNCHES),
+                   "verdicts": np.packbits(got).tobytes().hex()}, fh)
+    torch.distributed.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_ranks(repo: str, root: str, world: int, backend: str,
+               device: str, frame_path: str) -> list:
+    """The ``world`` rank processes of (d), started together and each
+    awaited with a timeout; their JSON documents."""
+    port = free_port()
+    procs, outs = [], []
+    for rank in range(world):
+        out = os.path.join(root, f"{backend}-{world}-{rank}.json")
+        outs.append(out)
+        code = ("import chip_smoke; chip_smoke.mesh_rank_main("
+                f"{rank}, {world}, {port}, {backend!r}, {device!r}, "
+                f"{frame_path!r}, {out!r})")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], cwd=repo,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    fail = []
+    for rank, p in enumerate(procs):
+        try:
+            text, _ = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text, _ = p.communicate()
+        if p.returncode != 0:
+            fail.append(f"rank {rank} of {world} ({backend}) rc "
+                        f"{p.returncode}: {text.decode()[-1500:]}")
+    if fail:
+        raise AssertionError("\n".join(fail))
+    docs = []
+    for out in outs:
+        with open(out) as fh:
+            docs.append(json.load(fh))
+    return docs
+
+
+def mesh_dist(np, nk, GpuEngineFilter, frame0, dev, repo: str,
+              card: str, n_lines: int = 8192) -> dict:
+    """(d) Across processes: two ranks over gloo, both on cuda:0, a (1, 2)
+    grid over the world's two devices; then a world of one over NCCL.
+    Every rank's verdicts equal the single engine's."""
+    payload, offsets = frame0
+    offsets = offsets[:n_lines + 1]
+    payload = payload[:int(offsets[-1])]
+    single = GpuEngineFilter(PATTERNS, device=dev)
+    want = single.fetch_framed(single.dispatch_framed(payload, offsets))
+    with tempfile.TemporaryDirectory() as root:
+        frame_path = os.path.join(root, "frame.npz")
+        np.savez(frame_path, payload=np.frombuffer(payload, np.uint8),
+                 offsets=offsets)
+        docs = (mesh_ranks(repo, root, 2, "gloo", str(dev), frame_path)
+                + mesh_ranks(repo, root, 1, "nccl", str(dev), frame_path))
+    runs = []
+    for doc in docs:
+        got = np.unpackbits(np.frombuffer(bytes.fromhex(doc.pop("verdicts")),
+                                          np.uint8))[:n_lines].astype(bool)
+        runs.append(dict(doc, mismatches=int((got != want).sum())))
+    res = dict(part="d", card=card, lines=n_lines, matched=int(want.sum()),
+               runs=runs)
+    emit({"phase": "mesh", **res})
+    if (any(r["mismatches"] or r["launches"][nk.GROUPED] == 0 for r in runs)
+            or [r["backend"] for r in runs] != ["gloo", "gloo", "nccl"]
+            or [r["local"] for r in runs] != [[[0, 0]], [[0, 1]],
+                                              [[0, 0], [0, 1]]]):
+        raise AssertionError(f"mesh (d) failed: {res}")
+    return res
+
+
+def mesh_phase(torch, np, nk, bits, pack, app, cli, term, FakeCluster,
+               GpuEngineFilter, frame_lines, synthetic_line, frame0, eng1024,
+               dev, repo: str, card: str, want1024: dict) -> dict:
+    """The mesh engine (``klogs_tpu_torch/parallel/``) on the one card
+    listed several times: (a) grids at K = 32, (b) K = 1024 on a (2, 2)
+    grid, (c) the CLI through the engine factory's mesh, (d) across
+    processes. The launches of (a)'s (2, 2) grid (K1) and (c)'s
+    cli_k1024 cell (K3, pack_rows) go to the kernels line."""
+    from klogs_tpu_torch.parallel import mesh as mesh_mod
+    from klogs_tpu_torch.parallel.mesh import MeshEngine
+
+    a = mesh_grids(torch, np, nk, pack, GpuEngineFilter, MeshEngine, frame0,
+                   dev, card)
+    b = mesh_k1024(torch, np, nk, bits, pack, GpuEngineFilter, MeshEngine,
+                   frame_lines, synthetic_line, eng1024, dev, card)
+    c = mesh_cli(torch, np, nk, app, cli, term, FakeCluster, frame_lines,
+                 mesh_mod, MeshEngine, eng1024, dev, card, want1024)
+    mesh_dist(np, nk, GpuEngineFilter, frame0, dev, repo, card)
+    return {nk.GROUPED: a["launches"][nk.GROUPED],
+            nk.GATED: c["launches"][nk.GATED],
+            nk.PACK: c["launches"][nk.PACK], "k1": a["k1"], "k3": b["k3"],
+            "pack": a["pack"]}
 
 
 # ---- follow mode ---------------------------------------------------------
@@ -4934,6 +5366,12 @@ def main() -> int:
         # The observability and fault layers on the K = 32 path, and
         # once on the K = 1024 one.
         want1024 = run3.pop("want")
+        # The mesh engine: data x pattern shards on the card listed
+        # several times, the CLI through it, and across processes.
+        ms = mesh_phase(torch, np, nk, bits, pack, app, cli, term,
+                        FakeCluster, GpuEngineFilter, frame_lines,
+                        synthetic_line, frame0, sw["eng"], dev, repo, card,
+                        want1024)
         obs_phase(torch, np, nk, app, cli, term, FakeCluster,
                   GpuEngineFilter, FilterStats, frame0, dev, card,
                   want1024)
@@ -4981,7 +5419,9 @@ def main() -> int:
          "launches": run["launches"][nk.GROUPED],
          "backfill_launches": bfr["a"]["launches"][nk.GROUPED],
          "fleet_launches": fl[nk.GROUPED],
-         "max_abs_err": float(w["max_abs_err"]), "ms": w["ms"],
+         "mesh_launches": ms[nk.GROUPED],
+         "max_abs_err": float(max(w["max_abs_err"],
+                                  ms["k1"]["max_abs_err"])), "ms": w["ms"],
          "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
          "bound_by": w["bound_by"], "library_ms": None},
         {"name": nk.CHUNK, "route": "cuda", "source": SOURCE,
@@ -5000,16 +5440,19 @@ def main() -> int:
          "launches": run3["launches"][nk.GATED],
          "backfill_launches": bfr["c"]["launches"][nk.GATED],
          "fleet_launches": fl[nk.GATED],
+         "mesh_launches": ms[nk.GATED],
          "max_abs_err": float(max(b["max_abs_err"] for b in
                                   [g, k3["sweep_gate"], k3["random_gate"],
-                                   k3["sparse_gate"], k3["full"]])),
+                                   k3["sparse_gate"], k3["full"],
+                                   ms["k3"]])),
          "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
          "bound_by": g["bound_by"], "library_ms": None,
          "wrapper_ms": g["wrapper_ms"], "pairs_ms": g["pairs_ms"],
          "pairs": g["pairs"], "pairs_launches": run3["launches"][nk.PAIRS],
          "pairs_mismatches": max(b["pairs_mismatches"] for b in
                                  [g, k3["sweep_gate"], k3["random_gate"],
-                                  k3["sparse_gate"], k3["full"]])},
+                                  k3["sparse_gate"], k3["full"],
+                                  ms["k3"]])},
         {"name": nk.FUSED, "route": "cuda", "source": SOURCE,
          "replaces": "klogs_tpu/ops/pallas_nfa.py:334",
          "launches": run4["launches"][nk.FUSED],
@@ -5023,7 +5466,10 @@ def main() -> int:
          "backfill_launches": bfr["a"]["launches"][nk.PACK],
          "fleet_launches": fl[nk.PACK],
          "host_engines_launches": he[nk.PACK],
-         "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
+         "mesh_launches": ms[nk.PACK],
+         "max_abs_err": max(pk["max_abs_err"],
+                            float(ms["pack"]["mismatches"])),
+         "ms": pk["ms"],
          "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
          "bound_by": pk["bound_by"], "library_ms": None},
     ]})

@@ -230,11 +230,13 @@ def device_gate_choice(n_patterns: int, have_prefilter: bool,
     return "sweep"
 
 
-def note_sweep_supersedes() -> None:
-    """The notice when a forced sweep replaces a working prefilter."""
+def note_sweep_supersedes(mesh: bool = False) -> None:
+    """The notice when a forced sweep replaces a working prefilter (on
+    every shard of a mesh engine, ``mesh``)."""
     term.info(
-        "KLOGS_TPU_SWEEP=1 supersedes KLOGS_TPU_PREFILTER: "
-        "the literal sweep subsumes the pair-CNF gate")
+        "KLOGS_TPU_SWEEP=1 supersedes KLOGS_TPU_PREFILTER%s: "
+        "the literal sweep subsumes the pair-CNF gate",
+        " on the mesh" if mesh else "")
 
 
 def check_fused_gates(n_patterns: int, device: torch.device) -> None:

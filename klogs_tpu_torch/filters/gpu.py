@@ -40,6 +40,17 @@ host instead, in ``klogs_tpu/native/_hostops.c``.)
 So short lines run K1 by default, K3 under a gate, K4 under
 ``KLOGS_TPU_FUSED_GROUPS=1``; long lines run K2 always.
 
+The short lines' half (the grouped program, the kernel choice and the
+gate) is ``ShortLines``. With ``engine=`` a ``parallel.mesh.MeshEngine``
+(the engine factory builds one on a host of several cards), the filter
+keeps only the long lines, on the mesh's first device: it lays a batch
+out once, with each width bucket's rows padded to a multiple of the
+mesh's data shards, stages it once on each distinct device of the mesh,
+and hands each bucket to the mesh, whose pattern shards are each a
+``ShortLines`` of their own (``parallel/mesh.py``). The stats count a
+sub-batch once, not once a shard, and (as in the JAX engine) record no
+gate counts from a mesh.
+
 ``dispatch``/``dispatch_framed`` enqueue the device work on the calling
 thread's current stream, start the copies of the verdicts into pinned
 host memory and record a CUDA event; ``fetch``/``fetch_framed`` wait on
@@ -62,6 +73,9 @@ one sub-batch's enqueue (``pack_rows``, classify, the gate, the kernel;
 card's time shows in the coalescer's ``device.fetch``. No span, counter
 or probe here waits on the card.
 """
+
+import copy
+import dataclasses
 
 import numpy as np
 import torch
@@ -128,39 +142,57 @@ def strip_newlines(payload: bytes, offsets) -> tuple[np.ndarray, np.ndarray]:
     return starts, ends
 
 
-class GpuEngineFilter(LogFilter):
-    """Batch-NFA filter on the port's CUDA kernels (``device=None`` means
-    ``"cuda"``; a CPU device runs the kernels' plain versions)."""
+def _moved(x, device: torch.device):
+    """A copy of a tensor, a tuple or a dataclass of them (a program, a
+    gate's tables) on ``device``; a program's ``cache`` of bit layouts
+    starts empty there."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, tuple):
+        return tuple(_moved(v, device) for v in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: {} if f.name == "cache" else _moved(getattr(x, f.name),
+                                                       device)
+            for f in dataclasses.fields(x) if f.init})
+    return x
 
-    SEQ_SCAN_BYTES = 128 * 1024
+
+def stage(payload: bytes, meta: np.ndarray, devices) -> dict:
+    """{device: (metadata [M] int64, payload [P] uint8)} for each distinct
+    device of ``devices``, from one host buffer (pinned when a card is
+    among them) holding both: one host memcpy of the payload and one
+    non-blocking H2D copy a card."""
+    devices = list(dict.fromkeys(devices))
+    head = meta.nbytes
+    host = torch.empty(head + len(payload), dtype=torch.uint8,
+                       pin_memory=any(d.type == "cuda" for d in devices))
+    buf = host.numpy()
+    buf[:head] = meta.view(np.uint8)
+    buf[head:] = np.frombuffer(payload, dtype=np.uint8)
+    out = {}
+    for dev in devices:
+        t = host.to(dev, non_blocking=True) if dev.type == "cuda" else host
+        out[dev] = (t[:head].view(torch.int64), t[head:])
+    return out
+
+
+class ShortLines:
+    """The short lines' half of the engine: one pattern set's grouped
+    automata on one device, the kernel that runs them (K1; K4 when
+    ``fused``) and, once built, the gate of K3 (the pair-CNF tables or the
+    literal sweep's). ``GpuEngineFilter`` is one; a mesh engine
+    (``parallel/mesh.py``) holds one a pattern shard and device."""
 
     def __init__(self, patterns: list[str], ignore_case: bool = False,
-                 chunk_bytes: int = 4096, device=None, stats=None):
+                 device=None, stats=None, fused: bool = False):
         self.device = nfa.resolve_device(device)
-        # The short-line kernel: K4 under KLOGS_TPU_FUSED_GROUPS=1 (no
-        # gate: checked before anything is built), else K1 or K3.
-        self._fused = bool(tune.chain_selection().get("fused"))
-        if self._fused:
-            check_fused_gates(len(patterns), self.device)
-        self._chunk_bytes = chunk_bytes
         self._stats = stats
-        prog = compile_patterns(patterns, ignore_case=ignore_case)
-        self._match_all = prog.match_all
-        # Full-line batches: patterns binned into automata of <= 128
-        # states over one shared classifier.
+        self._fused = fused
         self._grouped, self._g_live, self._g_acc = nfa.compile_grouped(
             patterns, ignore_case=ignore_case, device=self.device)
-        # Long-line chunks: the single augmented union automaton (one
-        # state space to carry across chunks).
-        self._aug = nfa.pack_program(nfa.augment(prog), device=self.device)
-        self._live, self._acc = prog.n_states, prog.n_states + 1
-        # The gate of the grouped kernel: at most one of the two, and
-        # none with K4.
         self._n_patterns = len(patterns)
-        self._pf_tables = None
-        self._sweep_tables = None
-        if not self._fused:
-            self._build_gate(patterns, ignore_case)
+        self._pf_tables = self._sweep_tables = self._onehot = None
 
     def _build_gate(self, patterns: list[str], ignore_case: bool) -> None:
         """The pair-CNF tables when asked for, then the sweep's when the
@@ -175,24 +207,34 @@ class GpuEngineFilter(LogFilter):
                 self._pf_tables = None
 
     def _build_prefilter(self, patterns: list[str], ignore_case: bool):
-        """The pair-CNF tables (class domain, else byte domain), or None
-        with the reason said (and kept in the stats) when the set is not
-        ``usable``."""
+        """The pair-CNF tables, or None with the reason said (and kept in
+        the stats) when the set is not ``usable``."""
         pf = compile_prefilter(patterns, ignore_case=ignore_case)
         if not pf.usable:
-            culprits = [p for p, n in zip(patterns, pf.clause_counts or [])
-                        if n == 0]
-            if culprits:
-                reason = ("prefilter disabled: no mandatory byte pairs "
-                          "for pattern(s) %s" %
-                          ", ".join(repr(p) for p in culprits[:4]))
-            else:
-                reason = ("prefilter disabled: clause slot table "
-                          "exhausted (pattern set too diverse)")
-            term.info("%s", reason)
-            if self._stats is not None:
-                self._stats.pf_disabled_reason = reason
+            self._note_prefilter_off(pf, patterns)
             return None
+        return self._prefilter_tables(pf)
+
+    def _note_prefilter_off(self, pf, patterns: list[str]) -> None:
+        """Say why the pair-CNF gate is off for a set whose program is
+        not ``usable`` (the patterns without a mandatory byte pair, or
+        the clause slots running out), and keep it in the stats."""
+        culprits = [p for p, n in zip(patterns, pf.clause_counts or [])
+                    if n == 0]
+        if culprits:
+            reason = ("prefilter disabled: no mandatory byte pairs for "
+                      "pattern(s) %s" % ", ".join(repr(p)
+                                                  for p in culprits[:4]))
+        else:
+            reason = ("prefilter disabled: clause slot table exhausted "
+                      "(pattern set too diverse)")
+        term.info("%s", reason)
+        if self._stats is not None:
+            self._stats.pf_disabled_reason = reason
+
+    def _prefilter_tables(self, pf):
+        """A usable program's tables (class domain, else byte domain),
+        with the pattern -> group one-hot they reduce through."""
         g = self._grouped
         self._onehot = prefilter.pattern_group_onehot(
             g.pattern_group, g.follow.shape[0], device=self.device)
@@ -210,14 +252,109 @@ class GpuEngineFilter(LogFilter):
             n_groups=int(g.follow.shape[0]))
         return sweep.device_sweep_tables(prog, device=self.device)
 
+    def to(self, device) -> "ShortLines":
+        """This program and its gate's tables copied to ``device``."""
+        new = copy.copy(self)
+        new.device = torch.device(device)
+        for name in ("_grouped", "_pf_tables", "_sweep_tables", "_onehot"):
+            setattr(new, name, _moved(getattr(self, name), new.device))
+        return new
+
+    def _match_short(self, batch: torch.Tensor, lengths: torch.Tensor):
+        """[rows, width] bytes + lengths, on the device -> ([rows] bool,
+        gate stats [3] or None): the main path (device classify, then
+        K1 or K4, or the gate and K3)."""
+        g = self._grouped
+        cls = nfa.classify_chunk(g, batch, lengths, first=True, final=True)
+        gate = self._gate_bits(batch, lengths, cls)
+        if gate is None:
+            kernel = (nfa_kernels.match_cls_grouped_fused if self._fused
+                      else nfa_kernels.match_cls_grouped)
+            return kernel(g, self._g_live, self._g_acc, cls), None
+        return nfa_kernels.match_cls_grouped_gated(
+            g, self._g_live, self._g_acc, cls, gate,
+            want_stats=self._stats is not None)
+
+    def _gate_bits(self, batch: torch.Tensor, lengths: torch.Tensor,
+                   cls: torch.Tensor) -> "torch.Tensor | None":
+        """[rows, GW] group words of the active gate, or None."""
+        if self._sweep_tables is not None:
+            return sweep.sweep_group_bits(self._sweep_tables, batch, lengths)
+        if self._pf_tables is None:
+            return None
+        if len(self._pf_tables) == 4:
+            pm = prefilter.candidate_matrix_from_cls(self._pf_tables, cls)
+        else:
+            pm = prefilter.candidate_matrix(self._pf_tables, batch, lengths)
+        return pack_bits(prefilter.group_candidates(pm, self._onehot,
+                                                    self._n_patterns))
+
+
+class GpuEngineFilter(ShortLines, LogFilter):
+    """Batch-NFA filter on the port's CUDA kernels (``device=None`` means
+    ``"cuda"``; a CPU device runs the kernels' plain versions). With
+    ``engine`` (a ``parallel.mesh.MeshEngine``) the short lines run on
+    the mesh and the long lines on its first device, which is the
+    filter's."""
+
+    SEQ_SCAN_BYTES = 128 * 1024
+
+    def __init__(self, patterns: list[str], ignore_case: bool = False,
+                 chunk_bytes: int = 4096, device=None, stats=None,
+                 engine=None):
+        self._engine = engine
+        self._chunk_bytes = chunk_bytes
+        prog = compile_patterns(patterns, ignore_case=ignore_case)
+        self._match_all = prog.match_all
+        if engine is None:
+            dev = nfa.resolve_device(device)
+            # The short-line kernel: K4 under KLOGS_TPU_FUSED_GROUPS=1 (no
+            # gate: checked before anything is built), else K1 or K3.
+            fused = bool(tune.chain_selection().get("fused"))
+            if fused:
+                check_fused_gates(len(patterns), dev)
+            super().__init__(patterns, ignore_case, dev, stats, fused)
+            # The gate of the grouped kernel: at most one of the two, and
+            # none with K4.
+            if not fused:
+                self._build_gate(patterns, ignore_case)
+        else:
+            self._use_engine(engine, device, stats, patterns, ignore_case)
+        # Long-line chunks: the single augmented union automaton (one
+        # state space to carry across chunks).
+        self._aug = nfa.pack_program(nfa.augment(prog), device=self.device)
+        self._live, self._acc = prog.n_states, prog.n_states + 1
+
+    def _use_engine(self, engine, device, stats, patterns: list[str],
+                    ignore_case: bool) -> None:
+        """The short lines go to ``engine``, which holds their programs
+        and gate; the filter keeps the long lines, on the engine's first
+        device, and says (as the single engine does) when the whole set
+        admits no pair-CNF gate."""
+        self.device = engine.devices[0]
+        if device is not None and torch.device(device) != self.device:
+            raise ValueError(f"device {device} is not the engine's first "
+                             f"device, {self.device}")
+        self._stats = stats
+        self._fused = False
+        self._n_patterns = len(patterns)
+        self._grouped = self._pf_tables = self._sweep_tables = None
+        self._onehot = None
+        if env_read("KLOGS_TPU_PREFILTER", "0") == "1":
+            pf = compile_prefilter(patterns, ignore_case=ignore_case)
+            if not pf.usable:
+                self._note_prefilter_off(pf, patterns)
+
     def close(self) -> None:
         """Drop the device tables (the programs with their cached bit
-        layouts, the gate's tables), so their memory goes back to the
-        card even while something still holds the engine; it takes no
-        batch after. A multi-set filterd closes an evicted set's engine
-        so."""
+        layouts, the gate's tables, a mesh engine's), so their memory
+        goes back to the card even while something still holds the
+        engine; it takes no batch after. A multi-set filterd closes an
+        evicted set's engine so."""
         self._grouped = self._aug = None
         self._pf_tables = self._sweep_tables = self._onehot = None
+        if self._engine is not None:
+            self._engine.close()
 
     def match_lines(self, lines: list[bytes]) -> list[bool]:
         return self.fetch(self.dispatch(lines))
@@ -251,38 +388,50 @@ class GpuEngineFilter(LogFilter):
             return (n, None, None)
         tr = trace.TRACER
         path = self._path()
+        eng = self._engine
         loaded = _build.loaded_count()
         with tr.span("device.frame", rows=n, bytes=len(payload), path=path,
                      staged=True):
             layout, meta = self._layout(payload, offsets, path)
-            meta_d, payload_d = self._stage(payload, meta)
+            staged = stage(payload, meta, eng.local_devices if eng is not None
+                           else [self.device])
+        meta_d, payload_d = staged[self.device]
         parts, at = [], 0
         for idx, width, rows, longest in layout:
             starts_d = meta_d[at:at + rows]
             lens_d = meta_d[at + rows:at + 2 * rows]
             n_bytes = int(meta[at + rows:at + 2 * rows].sum())
-            at += 2 * rows
             if width is None:
                 chunks = -(-longest // self._chunk_bytes)
                 with tr.span("device.kernel", width=self._chunk_bytes,
                              rows=rows, chunks=chunks):
                     parts.append((idx, self._match_long(
                         payload_d, starts_d, lens_d, longest), None))
-                continue
-            self._record_sub_batch(width, rows, n_bytes)
-            with tr.span("device.kernel", width=width, rows=rows,
-                         **({"swept": True} if path == "bytes" else {})):
-                batch = pack.pack_rows(payload_d, starts_d, lens_d, width,
-                                       rows)
-                parts.append((idx, *self._match_short(batch, lens_d)))
+            else:
+                bucket = _bucket_batch(len(idx))
+                self._record_sub_batch(width, bucket, n_bytes)
+                with tr.span("device.kernel", width=width, rows=bucket,
+                             **({"swept": True} if path == "bytes" else {})):
+                    if eng is not None:
+                        parts.append((idx, eng.dispatch_rows(
+                            staged, at, rows, len(idx), width), None))
+                    else:
+                        batch = pack.pack_rows(payload_d, starts_d, lens_d,
+                                               width, rows)
+                        parts.append((idx, *self._match_short(batch,
+                                                              lens_d)))
+            at += 2 * rows
         if self._stats is not None and _build.loaded_count() > loaded:
             self._stats.record_compile(_build.loaded_count() - loaded)
         return self._start_fetch(n, parts)
 
     def _path(self) -> str:
         """The JAX engine's name for the short lines' path: ``bytes``
-        when the literal sweep reads the rows' bytes, else ``cls``."""
-        return "bytes" if self._sweep_tables is not None else "cls"
+        when the literal sweep reads the rows' bytes (a mesh engine's
+        included), else ``cls``."""
+        swept = (self._engine.swept if self._engine is not None
+                 else self._sweep_tables is not None)
+        return "bytes" if swept else "cls"
 
     def _record_sub_batch(self, width: int, rows: int,
                           payload_bytes: int) -> None:
@@ -296,7 +445,9 @@ class GpuEngineFilter(LogFilter):
         of (line indices, width or None for the long lines, rows, longest
         length) per sub-batch, the int64 metadata the device reads, each
         sub-batch's starts then lengths (trailing newlines stripped),
-        zero-padded to its rows. Each sub-batch's slice is a
+        zero-padded to its rows. A width bucket's rows are its batch
+        bucket, rounded up to a multiple of a mesh engine's data shards
+        (the padding rows hold no line). Each sub-batch's slice is a
         ``device.frame`` span (``path`` is its attribute; the long
         lines' is ``long``)."""
         starts, ends = strip_newlines(payload, offsets)
@@ -309,12 +460,15 @@ class GpuEngineFilter(LogFilter):
                        for w in np.unique(width_of[short])]
         if not bool(short.all()):
             buckets.append((~short, None, "long"))
+        d = self._engine.data_parallelism if self._engine is not None else 1
         layout, parts = [], []
         for mask, w, p in buckets:
             sel = np.nonzero(mask)[0]
             rows = _bucket_batch(len(sel))
             with trace.TRACER.span("device.frame", width=w, rows=rows,
                                    path=p):
+                if w is not None:
+                    rows = -(-rows // d) * d
                 part = np.zeros(2 * rows, dtype=np.int64)
                 part[:len(sel)] = starts[sel]
                 part[rows:rows + len(sel)] = lens[sel]
@@ -324,47 +478,9 @@ class GpuEngineFilter(LogFilter):
         return layout, meta
 
     def _stage(self, payload: bytes, meta: np.ndarray):
-        """(metadata [M] int64, payload [P] uint8) on the device, from one
-        host buffer (pinned for a card) holding both: one host memcpy of
-        the payload and one non-blocking H2D copy."""
-        head = meta.nbytes
-        host = torch.empty(head + len(payload), dtype=torch.uint8,
-                           pin_memory=self.device.type == "cuda")
-        buf = host.numpy()
-        buf[:head] = meta.view(np.uint8)
-        buf[head:] = np.frombuffer(payload, dtype=np.uint8)
-        if self.device.type == "cuda":
-            host = host.to(self.device, non_blocking=True)
-        return host[:head].view(torch.int64), host[head:]
-
-    def _match_short(self, batch: torch.Tensor, lengths: torch.Tensor):
-        """[rows, width] bytes + lengths, on the device -> ([rows] bool,
-        gate stats [3] or None): the main path (device classify, then
-        K1 or K4, or the gate and K3)."""
-        g = self._grouped
-        cls = nfa.classify_chunk(g, batch, lengths, first=True, final=True)
-        gate = self._gate_bits(batch, lengths, cls)
-        if gate is None:
-            kernel = (nfa_kernels.match_cls_grouped_fused if self._fused
-                      else nfa_kernels.match_cls_grouped)
-            return kernel(g, self._g_live, self._g_acc, cls), None
-        return nfa_kernels.match_cls_grouped_gated(
-            g, self._g_live, self._g_acc, cls, gate,
-            want_stats=self._stats is not None)
-
-    def _gate_bits(self, batch: torch.Tensor, lengths: torch.Tensor,
-                   cls: torch.Tensor) -> "torch.Tensor | None":
-        """[rows, GW] group words of the active gate, or None."""
-        if self._sweep_tables is not None:
-            return sweep.sweep_group_bits(self._sweep_tables, batch, lengths)
-        if self._pf_tables is None:
-            return None
-        if len(self._pf_tables) == 4:
-            pm = prefilter.candidate_matrix_from_cls(self._pf_tables, cls)
-        else:
-            pm = prefilter.candidate_matrix(self._pf_tables, batch, lengths)
-        return pack_bits(prefilter.group_candidates(pm, self._onehot,
-                                                    self._n_patterns))
+        """(metadata [M] int64, payload [P] uint8) on the filter's device:
+        ``stage`` for it alone."""
+        return stage(payload, meta, [self.device])[self.device]
 
     def _match_long(self, payload: torch.Tensor, starts: torch.Tensor,
                     lens: torch.Tensor, longest: int) -> torch.Tensor:

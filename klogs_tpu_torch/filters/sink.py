@@ -394,11 +394,22 @@ def make_pipeline(patterns: list[str], backend: str = "cuda",
     if backend != "cuda":
         raise ValueError(f"unknown filter backend {backend!r}")
     from klogs_tpu_torch.filters.gpu import GpuEngineFilter
+    from klogs_tpu_torch.parallel import mesh
 
-    log_filter = build_include_exclude(
-        lambda pats: GpuEngineFilter(pats, ignore_case=ignore_case,
-                                     device=device, stats=stats),
-        patterns, exclude)
+    # Several cards: lines (data) x pattern shards over a mesh of them;
+    # one card: the engine alone, with no OR across shards.
+    devices = mesh.engine_devices(device)
+
+    def engine(pats):
+        if len(devices) < 2:
+            return GpuEngineFilter(pats, ignore_case=ignore_case,
+                                   device=device, stats=stats)
+        return GpuEngineFilter(
+            pats, ignore_case=ignore_case, stats=stats,
+            engine=mesh.MeshEngine(pats, ignore_case=ignore_case,
+                                   devices=devices))
+
+    log_filter = build_include_exclude(engine, patterns, exclude)
     return FilterPipeline(
         log_filter=log_filter,
         stats=stats,

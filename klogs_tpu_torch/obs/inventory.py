@@ -4,11 +4,9 @@ Counterpart of ``klogs_tpu/obs/inventory.py``: the same 95 families,
 with the same names, types, label names and buckets, because operators'
 dashboards read them. Instrumented modules obtain a family through
 ``registry.family(name)``, which resolves here, so a name used anywhere
-carries the type, help and buckets of this table. Some families belong
-to layers the port has not ported yet (the host engines of
-``--backend cpu``, the multi-device mesh, the seq-scan): they are
-registered, and stay at zero. Where a help text described the TPU, it
-says what the port counts.
+carries the type, help and buckets of this table. Every family is
+updated by some layer of the port. Where a help text described the TPU,
+it says what the port counts.
 
 Labels are bounded by deployment shape (method names, the pod set,
 client hosts), never by traffic content.

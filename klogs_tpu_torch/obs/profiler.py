@@ -52,9 +52,8 @@ if TYPE_CHECKING:
 
 # The pipeline stage catalog: the span names the profiler folds, the
 # same as the JAX package's (a fixed enum bounding the `stage` label of
-# the klogs_profile_* families). The port emits no shard.*, tenant.*,
-# mesh.*, device.sweep or device.groupscan span yet; filterd and its
-# client emit rpc.server and rpc.client.
+# the klogs_profile_* families). The port emits every one of them:
+# mesh.dispatch is a sub-batch's enqueue on a mesh engine's shards.
 STAGES: "tuple[str, ...]" = (
     "source.read",
     "fanout.read",

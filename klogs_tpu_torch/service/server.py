@@ -91,9 +91,9 @@ def _make_filter(patterns: list[str], ignore_case: bool = False,
 
 def _uses_device_sweep(filt) -> bool:
     """Whether an engine behind ``filt`` (perhaps an include/exclude
-    pair) runs the device literal sweep: the GPU engine's gate, or an
-    IndexedFilter narrowing on the card (and not bypassed: a stream
-    switched to scan-all sweeps nothing)."""
+    pair) runs the device literal sweep: the GPU engine's gate (or its
+    mesh engine's), or an IndexedFilter narrowing on the card (and not
+    bypassed: a stream switched to scan-all sweeps nothing)."""
     stack = [filt]
     while stack:
         f = stack.pop()
@@ -102,6 +102,9 @@ def _uses_device_sweep(filt) -> bool:
         elif (getattr(f, "_sweep_tables", None) is not None
               and getattr(f, "_sweep_path", "device") == "device"
               and not getattr(f, "bypassed", False)):
+            return True
+        elif getattr(getattr(f, "_engine", None), "swept", False):
+            # A mesh engine holds the sweep in its shards.
             return True
     return False
 

@@ -19,7 +19,9 @@ service ``KLOGS_REMOTE_TIMEOUT_S``,
 ``KLOGS_READYZ_INTERVAL_S``, ``KLOGS_RESOLVER_INTERVAL_S``,
 ``KLOGS_WEIGHT_DECAY_S`` and ``KLOGS_FLEET_REFRESH_S``, and for the
 multi-set registry ``KLOGS_TENANT_MAX_SETS``, ``_QUOTA_LINES``,
-``_IDLE_S`` and ``_SLOTS``) and adds none.
+``_IDLE_S`` and ``_SLOTS``, and for a mesh across processes
+``KLOGS_COORDINATOR``, ``KLOGS_NUM_PROCESSES`` and ``KLOGS_PROCESS_ID``)
+and adds none.
 """
 
 import math

@@ -1142,3 +1142,55 @@ def test_backend_cpu_files_exact_in_a_cuda_process(dev, tmp_path,
 
     assert isinstance(made[1].log_filter, IndexedFilter)
     assert made[1].log_filter._sweep_path == "device"
+
+
+@pytest.mark.parametrize("grid", [(4, 1), (2, 2), (1, 4)])
+def test_mesh_on_card_equals_single_engine_k32(dev, grid):
+    """A grid over [cuda:0] x 4: the same verdicts as the single engine on
+    short lines in several width buckets and long lines; K1 and
+    pack_rows launch once a shard a bucket holding lines, and the long
+    lines' K2 on the first device."""
+    from klogs_tpu_torch.parallel.mesh import MeshEngine
+
+    rng = np.random.default_rng(11)
+    lines = [rng.integers(32, 127, size=int(n), dtype=np.uint8).tobytes()
+             for n in rng.integers(0, 9000, size=300)]
+    lines += [b"panic: now", b"start", b"the end", b"x" * 5000 + b"code=503"]
+    single = GpuEngineFilter(PATTERNS, device=dev).match_lines(lines)
+    eng = MeshEngine(PATTERNS, devices=[dev] * 4, grid=grid)
+    f = GpuEngineFilter(PATTERNS, engine=eng)
+    assert f.device == dev
+    nfa_kernels.reset_launches()
+    assert f.match_lines(lines) == single
+    k1 = nfa_kernels.LAUNCHES[nfa_kernels.GROUPED]
+    assert k1 > 0 and k1 % grid[1] == 0
+    assert nfa_kernels.LAUNCHES[nfa_kernels.CHUNK] > 0
+    assert sum(single) >= 4
+
+
+def test_mesh_on_card_equals_single_engine_k1024(dev, monkeypatch):
+    """K = 1024 over a (2, 2) grid on [cuda:0] x 4: every shard sweeps its
+    own 512 patterns on the card and runs K3; the verdicts equal the
+    single engine's."""
+    from chip_smoke import make_patterns, minted_needle
+
+    from klogs_tpu_torch.cluster.fake import synthetic_line
+    from klogs_tpu_torch.parallel.mesh import MeshEngine
+
+    monkeypatch.setenv("KLOGS_MAX_PATTERN_POSITIONS", "65536")
+    pats = make_patterns(1024)
+    lines = []
+    for i in range(3000):
+        ln = synthetic_line(f"pod-{i % 64:04d}", "c0", i, 1.7e9 + i)
+        if i % 37 == 0:
+            ln = ln[:30] + minted_needle(i * 7 % 1000) + ln[30:]
+        lines.append(ln)
+    single = GpuEngineFilter(pats, device=dev).match_lines(lines)
+    eng = MeshEngine(pats, devices=[dev] * 4, grid=(2, 2))
+    assert eng.swept
+    nfa_kernels.reset_launches()
+    got = GpuEngineFilter(pats, engine=eng).match_lines(lines)
+    assert got == single
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GATED] > 0
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED] == 0
+    assert any(got) and not all(got)

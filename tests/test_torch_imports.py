@@ -58,7 +58,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "service/tenancy.py", "native/__init__.py",
                 "ops/bench_operating_point.py", "utils/cache.py",
                 "filters/compiler/dfa.py", "filters/compiler/index.py",
-                "filters/indexed.py"):
+                "filters/indexed.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/distributed.py"):
         assert os.path.join(PORT, mod) in files
     # The port's C file is its own: it includes the C, POSIX thread,
     # x86 intrinsic and Python headers only, nothing of the JAX
@@ -146,6 +147,13 @@ def test_cuda_entry_points_raise_without_card(tmp_path, monkeypatch):
         GpuEngineFilter(["x"])
     with pytest.raises(RuntimeError, match="cuda"):
         make_pipeline(["x"])
+    # The mesh over every visible card, and over a card named.
+    from klogs_tpu_torch.parallel.mesh import MeshEngine
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        MeshEngine(["x"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        MeshEngine(["x"], devices=["cuda:0", "cuda:0"])
     # The indexed host engine asked to narrow on the card.
     from klogs_tpu_torch.filters.indexed import IndexedFilter
 
