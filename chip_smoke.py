@@ -92,18 +92,30 @@ K axis: 156 groups of 128 states, 64 classes):
    batch, the 4096 bucket, the 1280-state wide program, and at K = 1024
    (156 groups in chunks, ungated) the sweep's 131072 x 131 batch and
    the engine's 256-byte bucket (2048 x 259).
+   grouped_chunk_kernel (K2g, the long lines' kernel of a set whose
+   union is wider than 1024 states) against its plain version, every
+   4096-byte chunk chained, carries and verdicts exactly equal: the
+   K = 1024 engine's grouped program (156 groups) over 1, 8 and 33
+   lines of 4-192 KiB (some ending on a chunk edge), and a 5-group set
+   over 8 lines of 4-64 KiB; then K2g and K2's wide variant
+   (``chunk_nfa_wide``, on the 18,878-state union of the same patterns)
+   on the same 8 x 4096 chunks, each timed, verdicts equal, with K2g's
+   bound and plain time. The sweep line before them carries the K = 1024
+   engine's construction seconds and card bytes.
 13. engine_k1024: GpuEngineFilter on 1M FakeCluster lines (1% needles)
-   and 128 lines of 4-64 KiB; verdicts equal a K1-only engine's on the
+   and 256 lines of 4-64 KiB; verdicts equal a K1-only engine's on the
    short lines (that engine timed too) and a Python ``re`` oracle (one
    alternation of the 1024 patterns) on the first 32768 lines and all
-   long ones.
+   long ones; the long lines launch K2g and never K2, and K2g is held
+   against its plain version on their most frequent chunk batch.
 14. cli_k1024: ``app.run_async`` over 256 pods x 250 lines plus 8 long
    lines with ``--match`` x1024, ``--stats`` and ``-p`` a temporary
    directory: this path's main run (counts zeroed just before, read
-   just after; K3 must launch), every file equal to the oracle's lines
-   and the ``prefilter:`` stats line printed. Then K3 is held against
-   its plain version and timed on the run's own most frequent batch
-   (its pair list held against the plain one there too).
+   just after; K3 and K2g must launch, K2 must not), every file equal
+   to the oracle's lines and the ``prefilter:`` stats line printed.
+   Then K3 is held against its plain version and timed on the run's own
+   most frequent batch (its pair list held against the plain one there
+   too), and K2g on its most frequent chunk batch.
 
 The mesh engine (``klogs_tpu_torch/parallel/``), after them, on the one
 card listed several times (it shows the split, each shard's kernels and
@@ -124,7 +136,8 @@ lines:
    before and read just after): the cli_k1024 cell (files equal to its
    oracle's) and BASELINE config 5's shape, 4096 pods x 64 lines and 8
    long lines (files equal to the single engine's verdicts, that engine
-   held to ``re`` on the first 4096 lines); (d) two processes over
+   held to ``re`` on the first 4096 lines), each launching K2g and never
+   K2, K2g held on its own batches; (d) two processes over
    gloo, both ranks on the card, a (1,2) grid over the world's two
    devices, then a world of one over NCCL: every rank's verdicts equal
    the single engine's on 8192 lines.
@@ -184,13 +197,13 @@ removed at the end):
    lines of 4-64 and 128-192 KiB each, through ``app.run_async
    --backfill DIR --match … --stats -p``: (a) the 32 patterns over the
    gzip sets, (b) over the same sets uncompressed, (c) the 1024
-   patterns over the first two gzip sets (the gated path). Each run:
-   every file equal to the ``re`` oracle's selection in rotated order,
-   lines/s, device batches, K1 (or K3), K2 and ``pack_rows`` held
-   against their plain versions on the run's own batches (counts zeroed
-   just before the run), then a backfill of each of its sets' oldest
-   generation under cProfile with a 1 s torch.profiler window (the
-   device's busy share).
+   patterns over the gzip sets (the gated path, long lines on K2g).
+   Each run: every file equal to the ``re`` oracle's selection in
+   rotated order, lines/s, device batches, K1 (or K3), K2 (or K2g) and
+   ``pack_rows`` held against their plain versions on the run's own
+   batches (counts zeroed just before the run), then a backfill of each
+   of its sets' oldest generation under cProfile with a 1 s
+   torch.profiler window (the device's busy share).
    Beside them the source alone: the sets drained through
    ``ArchiveStream``.
 19. sources: ``--source replay:`` over each set's stream as one file
@@ -236,11 +249,12 @@ The remote filter service, last:
    with no line degraded, the restarted B serving, and the membership
    events, reroutes and hedges counted; (c) three
    collectors of the multi-set filterd at once (the 32 patterns twice,
-   the 1024 on 64 pods x 250 lines): files exact, 2 engine builds,
-   Hello's ``multi_set``, and ``nvidia-smi``'s compute apps; then a
-   multi-set filterd in this process: K1, K2 and ``pack_rows`` held on
-   the 32-pattern set's batches, the sweep and K3 (with its pair list)
-   on the 1024 set's, and ``torch.cuda.memory_allocated`` back within
+   the 1024 on 64 pods x 250 lines and 4 long lines): files exact, 2
+   engine builds, Hello's ``multi_set``, and ``nvidia-smi``'s compute
+   apps; then a multi-set filterd in this process: K1, K2 and
+   ``pack_rows`` held on the 32-pattern set's batches, the sweep, K3
+   (with its pair list) and K2g on the 1024 set's, and
+   ``torch.cuda.memory_allocated`` back within
    5% of its level before that set registered once it is evicted; (d)
    a collector over ``KLOGS_TENANT_QUOTA_LINES`` with
    ``--on-filter-error pass`` (its sheds counted and written as
@@ -275,9 +289,10 @@ Every phase line carries ``phase_s``, the seconds since the line
 before it. Then a ``kernels`` line (each kernel's time beside its bound
 and its plain version's time, with its launches on its main path, on
 the backfill, in the fleet's registry, on the mesh (K1 on (a)'s (2,2)
-grid, K3 and ``pack_rows`` on (c)'s cli_k1024 cell) and, for
-``pack_rows``, on the host engines' device sweep: the four NFA kernels
-and ``pack_rows``),
+grid, K3, K2g and ``pack_rows`` on (c)'s cli_k1024 cell) and, for
+``pack_rows``, on the host engines' device sweep: the four NFA kernels,
+K2g and ``pack_rows``; K2g's main path is cli_k1024, its time the
+8 x 4096 chunks of the 1024 patterns, beside ``chunk_nfa_wide``'s),
 the card line, and
 last ``{"ok": true,
 "device": {...}}``. Any failed phase exits
@@ -697,6 +712,215 @@ def k2_phase(torch, np, nfa, nk, compile_patterns, dev, lines=1024,
     emit({"phase": "chunk_nfa_kernel", **res})
     if any(r["max_abs_err"] or not r["matched"] for r in res.values()):
         raise AssertionError(f"chunk_nfa_kernel disagrees: {res}")
+    return res
+
+
+def k2g_check(torch, nk, prog, live, acc, cls, v0, final, reps: int) -> dict:
+    """K2g against its plain version (carry and matched) on one chunk
+    batch, timed, with its bounds."""
+    v, m = nk.match_chunk_cls_grouped(prog, live, acc, cls, v0, final)
+    work: dict = {}
+    vp, mp = nk.match_chunk_cls_grouped_plain(prog, live, acc, cls, v0,
+                                              work=work)
+    if final and prog.match_all:
+        mp = torch.ones_like(mp)
+    torch.cuda.synchronize()
+    err = max(int((v.long() - vp.long()).abs().max()),
+              int((m.int() - mp.int()).abs().max()))
+    ms = cuda_ms(torch, lambda: nk.match_chunk_cls_grouped(
+        prog, live, acc, cls, v0, final), reps)
+    plain_ms = cuda_ms(torch, lambda: nk.match_chunk_cls_grouped_plain(
+        prog, live, acc, cls, v0), 1)
+    B, T = cls.shape
+    G, C, S = prog.char_mask.shape
+    W, steps = S // 32, B * G * T
+    # Class ids, the carry in and out, the verdicts, and the group
+    # tables (follow rows and constants, mask rows with the zero row).
+    n_bytes = (B * T * 2 + 2 * B * G * W * 4 + B
+               + G * (S * W + (C + 2) * W + 4 * W) * 4)
+    return dict(rows=B, T=T, states=S, groups=G, final=final,
+                max_abs_err=err, ms=ms, us_per_step=ms * 1e3 / T,
+                plain_ms=plain_ms, matched=int(m.sum()),
+                active_per_step=work["active"] / steps,
+                exc_per_step=work["exc"] / steps,
+                **step_bounds(n_bytes, S, C, steps, work["active"]))
+
+
+def held_k2g(torch, nk, calls: dict) -> list:
+    """K2g against its plain version on the run's most frequent chunk
+    batch shape (``launches``: the run's count of that shape)."""
+    out = []
+    for count, seen in sorted(calls.get("match_chunk_cls_grouped", {})
+                              .values(), key=lambda e: -e[0])[:1]:
+        a, kw = seen[0]
+        final = kw.get("final", a[5] if len(a) > 5 else True)
+        out.append(dict(launches=count,
+                        **k2g_check(torch, nk, *a[:5], final, 5)))
+    return out
+
+
+def long_rows(np, rng, B: int, L: int, lo: int, hi: int, needles: list):
+    """[B, hi] printable rows with lengths in [lo, hi] (a third of them
+    on a chunk edge of L bytes, row 0 the longest) and ``needles``
+    planted: in every other row, one row's on a chunk edge, one row's
+    across one."""
+    lens = rng.integers(lo, hi + 1, size=B)
+    for i in range(1, B, 3):
+        lens[i] = L * int(rng.integers(-(-lo // L), hi // L + 1))
+    lens[0] = hi
+    rows = rng.integers(32, 127, size=(B, hi), dtype=np.uint8)
+    for i in range(0, B, 2):
+        nd = needles[int(rng.integers(0, len(needles)))]
+        p = int(rng.integers(0, lens[i] - len(nd) + 1))
+        rows[i, p:p + len(nd)] = np.frombuffer(nd, np.uint8)
+    if B > 2:
+        nd = needles[0]
+        p = int(lens[1]) - len(nd)  # ends on the line's last chunk edge
+        rows[1, p:p + len(nd)] = np.frombuffer(nd, np.uint8)
+        p = L - len(nd) // 2  # across the first edge
+        rows[2, p:p + len(nd)] = np.frombuffer(nd, np.uint8)
+    return rows, lens.astype(np.int32)
+
+
+def k2g_chain(torch, nfa, nk, prog, live, acc, rows, lens, L, dev,
+              sizes: tuple) -> dict:
+    """K2g chained over every chunk of the first b rows, for each b in
+    ``sizes`` (row 0 the longest, so each runs every chunk), and its
+    plain version once over all rows (a row's steps depend on that row
+    alone): each size's carries and verdicts equal the plain version's
+    first b after each chunk. Per size: the launch's mean ms, and the
+    plain version's over all rows."""
+    B = rows.shape[0]
+    n = -(-int(lens.max()) // L)
+    if -(-int(lens[0]) // L) != n:
+        raise ValueError("row 0 must be the longest")
+    rows_d = torch.from_numpy(rows).to(dev)
+    lens_d = torch.from_numpy(lens).to(dev)
+    v = {b: nk.initial_state_grouped(prog, live, b) for b in sizes}
+    vp = nk.initial_state_grouped(prog, live, B)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    err = dict.fromkeys(sizes, 0)
+    k_ms = dict.fromkeys(sizes, 0.0)
+    p_ms, steps = 0.0, 0
+    # One untimed launch first: the program's tables are built at its
+    # first call.
+    nk.match_chunk_cls_grouped(prog, live, acc, nfa.classify_chunk(
+        prog, rows_d[:, :L].contiguous(), lens_d, True, False), vp, False)
+    for k in range(n):
+        final = k == n - 1
+        cls = nfa.classify_chunk(
+            prog, rows_d[:, k * L:(k + 1) * L].contiguous(), lens_d - k * L,
+            k == 0, final)
+        m = {}
+        for b in sizes:
+            ev[0].record()
+            v[b], m[b] = nk.match_chunk_cls_grouped(prog, live, acc,
+                                                    cls[:b], v[b], final)
+            ev[1].record()
+            ev[1].synchronize()
+            k_ms[b] += ev[0].elapsed_time(ev[1])
+        ev[0].record()
+        vp, mp = nk.match_chunk_cls_grouped_plain(prog, live, acc, cls, vp)
+        ev[1].record()
+        ev[1].synchronize()
+        p_ms += ev[0].elapsed_time(ev[1])
+        if final and prog.match_all:
+            mp = torch.ones_like(mp)
+        for b in sizes:
+            err[b] = max(err[b], int((v[b].long() - vp[:b].long()).abs().max()),
+                         int((m[b].int() - mp[:b].int()).abs().max()))
+        steps += cls.shape[1]
+    return {b: dict(lines=b, chunks=n, groups=int(prog.follow.shape[0]),
+                    max_abs_err=err[b], ms=k_ms[b] / n,
+                    us_per_step=k_ms[b] * 1e3 / steps, plain_ms=p_ms / n,
+                    plain_lines=B, matched=int(m[b].sum()),
+                    longest=int(lens[:b].max()),
+                    edge_lines=int((lens[:b] % L == 0).sum()))
+            for b in sizes}
+
+
+def k2g_against_wide(torch, np, nfa, nk, compile_patterns, pats, long, rng,
+                     dev, B=8, n_chunks=4, L=4096, reps=20) -> dict:
+    """K2g on the grouped program and K2's wide variant
+    (``chunk_nfa_wide``) on the augmented union of the same patterns,
+    over the same B x L chunks of B lines n_chunks chunks long, each
+    chunk timed; K2g held against its plain version there (its bounds),
+    and the two kernels' verdicts equal."""
+    gp, live, acc = long
+    union = compile_patterns(pats)
+    up = nfa.pack_program(nfa.augment(union), device=dev)
+    if nk.kernel_states(up.n_states) <= 1024:
+        raise AssertionError("the union fits the register K2")
+    needles = [minted_needle(int(i)) for i in
+               rng.integers(0, 992, size=8)] + NEEDLES
+    rows, lens = long_rows(np, rng, B, L, (n_chunks - 1) * L + 1,
+                           n_chunks * L, needles)
+    rows_d = torch.from_numpy(rows).to(dev)
+    lens_d = torch.from_numpy(lens).to(dev)
+    vg = nk.initial_state_grouped(gp, live, B)
+    vu = nk.initial_state(up, union.n_states, B)
+    per = []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for k in range(n_chunks):
+        final = k == n_chunks - 1
+        chunk = rows_d[:, k * L:(k + 1) * L].contiguous()
+        cg = nfa.classify_chunk(gp, chunk, lens_d - k * L, k == 0, final)
+        cu = nfa.classify_chunk(up, chunk, lens_d - k * L, k == 0, final)
+        r = k2g_check(torch, nk, gp, live, acc, cg, vg, final, reps)
+        vg, mg = nk.match_chunk_cls_grouped(gp, live, acc, cg, vg, final)
+        ev[0].record()
+        vu, mu = nk.match_chunk_cls(up, union.n_states + 1, cu, vu, final)
+        ev[1].record()
+        ev[1].synchronize()
+        r["wide_ms"] = ev[0].elapsed_time(ev[1])
+        per.append(r)
+    torch.cuda.synchronize()
+    n = len(per)
+    mean = {key: sum(r[key] for r in per) / n
+            for key in ("ms", "us_per_step", "plain_ms", "wide_ms",
+                        "bound_ms", "dense_bound_ms", "bytes_ms")}
+    bounds = [r["bound_by"] for r in per]
+    return dict(lines=B, chunks=n, union_states=up.n_states,
+                groups=int(gp.follow.shape[0]), **mean,
+                bound_by=max(set(bounds), key=bounds.count),
+                wide_us_per_step=mean["wide_ms"] * 1e3 / per[0]["T"],
+                max_abs_err=max(r["max_abs_err"] for r in per),
+                verdict_mismatches=int((mg != mu).sum()),
+                matched=int(mg.sum()), per_chunk=per)
+
+
+def grouped_chunk_phase(torch, np, nfa, nk, compile_patterns, eng1024,
+                        dev, L=4096) -> dict:
+    """K2g (``grouped_chunk_kernel``) against its plain version, every
+    chunk chained, carries and verdicts exactly equal: the K = 1024
+    engine's grouped program (156 groups) over the first 1, 8 and 33 of
+    33 long lines of 4-192 KiB, and a 5-group set; then K2g and
+    ``chunk_nfa_wide`` timed on the same 8 x 4096 chunks of the 1024
+    patterns."""
+    rng = np.random.default_rng(SEED + 16)
+    pats = make_patterns(1024)
+    long = eng1024._long
+    if long is None or eng1024._aug is not None:
+        raise AssertionError("the K = 1024 engine is not on the grouped "
+                             "route")
+    needles = [minted_needle(int(i)) for i in
+               rng.integers(0, 992, size=16)] + NEEDLES
+    rows, lens = long_rows(np, rng, 33, L, 4 * 1024, 192 * 1024, needles)
+    res = {f"k1024_b{b}": r for b, r in k2g_chain(
+        torch, nfa, nk, *long, rows, lens, L, dev, (1, 8, 33)).items()}
+    pats5 = make_patterns(40)
+    g5 = nfa.compile_grouped(pats5, device=dev)
+    rows, lens = long_rows(np, rng, 8, L, 4 * 1024, 64 * 1024,
+                           [minted_needle(i) for i in range(8)] + NEEDLES)
+    res["g5_b8"] = k2g_chain(torch, nfa, nk, *g5, rows, lens, L, dev,
+                             (8,))[8]
+    res["vs_wide"] = k2g_against_wide(torch, np, nfa, nk, compile_patterns,
+                                      pats, long, rng, dev)
+    emit({"phase": "grouped_chunk_kernel", **res})
+    if (any(r["max_abs_err"] or not r["matched"] for r in res.values())
+            or res["g5_b8"]["groups"] != 5
+            or res["vs_wide"]["verdict_mismatches"]):
+        raise AssertionError(f"grouped_chunk_kernel disagrees: {res}")
     return res
 
 
@@ -1929,9 +2153,13 @@ def sweep_phase(torch, np, sweep, bits, gpu, FilterStats, synthetic_line,
     """The K=1024 engine and its gate tables; the sweep on the card
     against the same function, on tables built for the CPU."""
     pats = make_patterns(1024)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     eng = gpu.GpuEngineFilter(pats, device=dev, stats=FilterStats())
+    torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    build_bytes = torch.cuda.memory_allocated(dev) - mem0
     st = eng._sweep_tables
     if st is None:
         raise AssertionError("auto mode did not gate K=1024 on the card")
@@ -1957,7 +2185,9 @@ def sweep_phase(torch, np, sweep, bits, gpu, FilterStats, synthetic_line,
     bad = int((gm != host).sum())
     res = dict(rows=rows, width=width, groups=st.n_groups,
                words=int(st.always_mask.numel()),
-               factors=int(st.fac_len.numel()), build_s=build_s, ms=ms,
+               factors=int(st.fac_len.numel()), build_s=build_s,
+               build_bytes=build_bytes, long_route=(
+                   "grouped" if eng._long is not None else "union"), ms=ms,
                cpu_s=cpu_s, mismatched_cells=bad,
                candidate_line_share=float(gm.any(1).float().mean()),
                groups_per_line=float(gm.sum(1).float().mean()),
@@ -2108,7 +2338,7 @@ def profile_gated_batch(torch, gpu, frame) -> dict:
 
 def engine_k1024_phase(torch, np, nk, gpu, frame_lines, synthetic_line, eng,
                        dev, n_short=1 << 20,
-                       n_long=128, batch=131072, checked=32768) -> dict:
+                       n_long=256, batch=131072, checked=32768) -> dict:
     rng = np.random.default_rng(SEED + 5)
     pats = make_patterns(1024)
     short = [synthetic_line(f"pod-{i % 512:04d}", f"c{i % 2}", i, CLOCK + i)
@@ -2144,10 +2374,13 @@ def engine_k1024_phase(torch, np, nk, gpu, frame_lines, synthetic_line, eng,
         a - b for a, b in zip((stats.pf_lines, stats.pf_candidates,
                                stats.pf_tiles_total, stats.pf_tiles_live),
                               pf0))
-    t0 = time.perf_counter()
-    long_v = eng.fetch_framed(eng.dispatch_framed(*long_frame))
-    t_long = time.perf_counter() - t0
+    with recording_wrappers(nk, None, ["match_chunk_cls_grouped"]) as calls:
+        t0 = time.perf_counter()
+        long_v = eng.fetch_framed(eng.dispatch_framed(*long_frame))
+        t_long = time.perf_counter() - t0
     launches = dict(nk.LAUNCHES)
+    k2g_batches = held_k2g(torch, nk, calls)
+    del calls
     got = np.concatenate(verdicts)
     # The same short lines through K1 alone (no gate). Its warm-up
     # captures the 256-byte bucket's K1 launch for k4_b256_check.
@@ -2191,12 +2424,15 @@ def engine_k1024_phase(torch, np, nk, gpu, frame_lines, synthetic_line, eng,
                k1_only_profile=k1_prof,
                # One batch's device time, gated (sweep and K3) and K1 only.
                gated_device_ms=prof["device_ms"],
-               k1_only_device_ms=k1_prof["device_ms"])
+               k1_only_device_ms=k1_prof["device_ms"],
+               k2g_batches=k2g_batches)
     emit({"phase": "engine_k1024", **res})
     if (bad or vs_k1 or short_launches[nk.GATED] == 0
             or short_launches[nk.PAIRS] == 0 or short_launches[nk.PACK] == 0
-            or short_launches[nk.GROUPED] != 0 or launches[nk.CHUNK] == 0
-            or not got.any()):
+            or short_launches[nk.GROUPED] != 0
+            or launches[nk.GROUPED_CHUNK] == 0 or launches[nk.CHUNK] != 0
+            or not k2g_batches or k2g_batches[0]["max_abs_err"]
+            or not got.any() or not long_v.any()):
         raise AssertionError(f"engine_k1024 phase failed: {res}")
     return dict(res, b256=b256[0] if b256 else None)
 
@@ -2261,7 +2497,8 @@ def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
         entry[0] += 1
         return gated(prog, live, acc, cls, words, want_stats=want_stats)
 
-    with tempfile.TemporaryDirectory() as out_dir:
+    with tempfile.TemporaryDirectory() as out_dir, \
+            recording_wrappers(nk, None, ["match_chunk_cls_grouped"]) as calls:
         argv[5] = out_dir
         opts = cli.parse_args(argv)
         ui = io.StringIO()
@@ -2291,20 +2528,24 @@ def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
     for n, args in sorted(shapes.values(), key=lambda e: -e[0])[:1]:
         k3_batches.append(dict(launches=n, **k3_check(torch, bits, nk,
                                                       *args, 20)))
+    k2g_batches = held_k2g(torch, nk, calls)
+    del calls
     res = dict(rc=rc, pods=len(pods), files=files, lines=len(flat),
                kept_lines=kept, seconds=seconds,
                lines_per_s=len(flat) / seconds, mismatched_files=bad,
                launches=launches, prefilter_line=pf_line,
                k3_shapes={f"{B}x{T}": e[0] for (B, T), e in shapes.items()},
-               k3_batches=k3_batches)
+               k3_batches=k3_batches, k2g_batches=k2g_batches)
     emit({"phase": "cli_k1024", **res})
     res["want"] = want
     if (rc != 0 or bad or files != len(pods) or not kept
             or launches[nk.GATED] == 0 or launches[nk.PAIRS] == 0
             or launches[nk.PACK] == 0
             or launches[nk.GROUPED] != 0 or pf_line is None or not k3_batches
-            or any(b["max_abs_err"] or b["pairs_mismatches"]
-                   for b in k3_batches)):
+            or launches[nk.GROUPED_CHUNK] == 0 or launches[nk.CHUNK] != 0
+            or not k2g_batches
+            or any(b["max_abs_err"] or b.get("pairs_mismatches")
+                   for b in k3_batches + k2g_batches)):
         raise AssertionError(f"cli_k1024 phase failed: {res}")
     return res
 
@@ -2474,7 +2715,8 @@ def mesh_cli_run(torch, nk, app, cli, term, mesh_mod, MeshEngine, fc,
         argv += ["--match", p]
     real = mesh_mod.engine_devices
     with tempfile.TemporaryDirectory() as out_dir, \
-            captured_pipeline() as made:
+            captured_pipeline() as made, \
+            recording_wrappers(nk, None, ["match_chunk_cls_grouped"]) as calls:
         argv[4] = out_dir
         opts = cli.parse_args(argv)
         ui = io.StringIO()
@@ -2498,7 +2740,8 @@ def mesh_cli_run(torch, nk, app, cli, term, mesh_mod, MeshEngine, fc,
     return dict(rc=rc, files=files, seconds=seconds, launches=launches,
                 mesh=isinstance(eng, MeshEngine),
                 grid=list(eng.grid) if eng is not None else None,
-                swept=getattr(eng, "swept", None), ui=ui.getvalue())
+                swept=getattr(eng, "swept", None), ui=ui.getvalue(),
+                k2g_batches=held_k2g(torch, nk, calls))
 
 
 def config5_cluster(np, FakeCluster, n_pods: int):
@@ -2554,7 +2797,8 @@ def mesh_cli(torch, np, nk, app, cli, term, FakeCluster, frame_lines,
             swept=run["swept"], lines=n, files=len(run["files"]),
             want_files=len(want), seconds=run["seconds"],
             lines_per_s=n / run["seconds"], mismatched_files=badf[:8],
-            n_mismatched=len(badf), launches=run["launches"]))
+            n_mismatched=len(badf), launches=run["launches"],
+            k2g_batches=run["k2g_batches"]))
     stats_line = next((ln.strip() for ln in a["ui"].splitlines()
                        if "Filter stats:" in ln), None)
     res = dict(part="c", card=card, cells=cells, config5_pods=n_pods,
@@ -2567,7 +2811,9 @@ def mesh_cli(torch, np, nk, app, cli, term, FakeCluster, frame_lines,
                    or c["files"] != c["want_files"]
                    or c["launches"][nk.GATED] == 0
                    or c["launches"][nk.PACK] == 0
-                   or c["launches"][nk.CHUNK] == 0 for c in cells)):
+                   or c["launches"][nk.GROUPED_CHUNK] == 0
+                   or c["launches"][nk.CHUNK] != 0 or not c["k2g_batches"]
+                   or c["k2g_batches"][0]["max_abs_err"] for c in cells)):
         raise AssertionError(f"mesh (c) failed: {res}")
     return dict(res, launches=cells[0]["launches"])
 
@@ -2698,7 +2944,7 @@ def mesh_phase(torch, np, nk, bits, pack, app, cli, term, FakeCluster,
     listed several times: (a) grids at K = 32, (b) K = 1024 on a (2, 2)
     grid, (c) the CLI through the engine factory's mesh, (d) across
     processes. The launches of (a)'s (2, 2) grid (K1) and (c)'s
-    cli_k1024 cell (K3, pack_rows) go to the kernels line."""
+    cli_k1024 cell (K3, pack_rows, K2g) go to the kernels line."""
     from klogs_tpu_torch.parallel import mesh as mesh_mod
     from klogs_tpu_torch.parallel.mesh import MeshEngine
 
@@ -2711,8 +2957,10 @@ def mesh_phase(torch, np, nk, bits, pack, app, cli, term, FakeCluster,
     mesh_dist(np, nk, GpuEngineFilter, frame0, dev, repo, card)
     return {nk.GROUPED: a["launches"][nk.GROUPED],
             nk.GATED: c["launches"][nk.GATED],
-            nk.PACK: c["launches"][nk.PACK], "k1": a["k1"], "k3": b["k3"],
-            "pack": a["pack"]}
+            nk.PACK: c["launches"][nk.PACK],
+            nk.GROUPED_CHUNK: c["launches"][nk.GROUPED_CHUNK],
+            "k1": a["k1"], "k3": b["k3"], "pack": a["pack"],
+            "k2g": [b for cell in c["cells"] for b in cell["k2g_batches"]]}
 
 
 # ---- follow mode ---------------------------------------------------------
@@ -3407,7 +3655,7 @@ def backfill_run(torch, nk, pack, bits, app, cli, term, dev, label: str,
     for p in patterns:
         argv += ["--match", p]
     names = ["match_cls_grouped", "match_chunk_cls", "pack_rows",
-             "match_cls_grouped_gated"]
+             "match_cls_grouped_gated", "match_chunk_cls_grouped"]
     built_at: list = []
     with tempfile.TemporaryDirectory() as out_dir, \
             captured_pipeline(built_at) as made, \
@@ -3439,6 +3687,7 @@ def backfill_run(torch, nk, pack, bits, app, cli, term, dev, label: str,
                launches=launches, **nums)
     res.update(held_batches(torch, nk, pack, calls, 4))
     res["k3_batches"] = held_gated(torch, bits, nk, calls)
+    res["k2g_batches"] = held_k2g(torch, nk, calls)
     del calls
     argv = ["--backfill", *profile_paths] + argv[len(paths) + 1:]
     res["profile"] = backfill_profile(torch, app, cli, term, dev, argv,
@@ -3527,15 +3776,9 @@ def backfill_phase(torch, np, nk, pack, bits, app, cli, term,
     gz, plain = os.path.join(root, "gz"), os.path.join(root, "plain")
     total = sum(len(lines) for lines in corpus["sets"])
     # The profiled reruns read each set's oldest generation (a third of
-    # the lines, no long line): at K = 1024 the 16 long lines alone take
-    # about a minute of K2 (PERF.md). At K = 1024 (~60,000 lines/s) the
-    # timed run reads the first quarter of the sets (2 of 8: 1,000,004
-    # lines, 4 long lines) and the profiled one their oldest
-    # generations, for time (the whole run stays near 800 s).
+    # the lines, no long line).
     oldest_gz = [os.path.join(gz, "app-*.log.2.gz")]
-    n_c = n_sets // 4
-    want_c = dict(list(expected_files(corpus, v1024,
-                                      names("gz")).items())[:n_c])
+    want_c = expected_files(corpus, v1024, names("gz"))
     runs = dict(
         a=backfill_run(torch, nk, pack, bits, app, cli, term, dev,
                        "k32_gzip", [gz], PATTERNS,
@@ -3546,12 +3789,7 @@ def backfill_phase(torch, np, nk, pack, bits, app, cli, term,
                        expected_files(corpus, v32, names("plain")), total,
                        [os.path.join(plain, "app-*.log.2")]),
         c=backfill_run(torch, nk, pack, bits, app, cli, term, dev,
-                       "k1024_gzip",
-                       [os.path.join(gz, f"app-{i:02d}.log*")
-                        for i in range(n_c)], k1024, want_c,
-                       sum(len(lines) for lines in corpus["sets"][:n_c]),
-                       [os.path.join(gz, f"app-{i:02d}.log.2.gz")
-                        for i in range(n_c)]))
+                       "k1024_gzip", [gz], k1024, want_c, total, oldest_gz))
     capacity = dict(gzip=source_capacity([gz]),
                     plain=source_capacity([plain]))
     res = dict(card=card, lines=total, sets=n_sets,
@@ -3564,18 +3802,21 @@ def backfill_phase(torch, np, nk, pack, bits, app, cli, term,
                source_capacity=capacity, runs=runs)
     emit({"phase": "backfill", **res})
     for key, r in runs.items():
-        need = ([nk.GATED, nk.PAIRS] if key == "c" else [nk.GROUPED])
+        # K = 1024: the gate and K3 on short lines, K2g (never K2) on
+        # long ones.
+        k1024_run = key == "c"
+        need = ([nk.GATED, nk.PAIRS, nk.GROUPED_CHUNK] if k1024_run
+                else [nk.GROUPED, nk.CHUNK])
         held = r["k1_batches"] + r["k2_batches"] + r["pack_batches"] \
-            + r["k3_batches"]
-        if (r["rc"] != 0 or r["mismatched_files"]
-                or r["files"] != (n_c if key == "c" else n_sets)
+            + r["k3_batches"] + r["k2g_batches"]
+        if (r["rc"] != 0 or r["mismatched_files"] or r["files"] != n_sets
                 or not r["kept_lines"] or not r["counts_ok"]
                 or r["summary"] is None or r["profile"]["rc"] != 0
-                or any(r["launches"][k] == 0
-                       for k in need + [nk.CHUNK, nk.PACK])
-                or (key != "c" and not r["k1_batches"])
-                or (key == "c" and not r["k3_batches"])
-                or not r["k2_batches"] or not r["pack_batches"]
+                or any(r["launches"][k] == 0 for k in need + [nk.PACK])
+                or (k1024_run and r["launches"][nk.CHUNK] != 0)
+                or not r["k1_batches" if not k1024_run else "k3_batches"]
+                or not r["k2_batches" if not k1024_run else "k2g_batches"]
+                or not r["pack_batches"]
                 or any(b.get("max_abs_err", 0) or b.get("mismatches", 0)
                        or b.get("pairs_mismatches", 0) for b in held)):
             raise AssertionError(f"backfill phase failed: run {key}: {r}")
@@ -4617,8 +4858,9 @@ def fleet_registry(torch, np, nk, pack, bits, sweep, app, cli, term,
     process. A collector of the 32 patterns (32 pods x 4000 lines + 4
     long lines) under ``recording_wrappers``: K1, K2 and pack_rows held
     against their plain versions on its batches. Then the 1024
-    patterns' collector (64 pods x 250 lines): the sweep and K3 with its
-    pair list held on the batches that set's engine built. The card's
+    patterns' collector (64 pods x 250 lines + 4 long lines): the sweep
+    and K3 with its pair list, and K2g, held on the batches that set's
+    engine built (``launches_1024``: its own counts). The card's
     allocated memory before that set registered, while it lives, and
     after its eviction. ``launches`` adds the two collectors' runs, each
     counted from 0 just before it and read just after it, before any
@@ -4661,11 +4903,14 @@ def fleet_registry(torch, np, nk, pack, bits, sweep, app, cli, term,
             calls.clear()
             out["memory_before"] = memory()
             with recording_wrappers(nk, pack, ["match_cls_grouped_gated",
-                                               "sweep_group_bits"],
+                                               "sweep_group_bits",
+                                               "match_chunk_cls_grouped"],
                                     sweep) as calls:
                 out["rc1024"], n1024 = await collect(fc3, pats3, "1024",
                                                      port)
             out["launches"] = {k: n32[k] + n1024[k] for k in n32}
+            out["launches_1024"] = n1024
+            out["k2g_batches"] = held_k2g(torch, nk, calls)
             eng = server.tenants.get(fp3).service._filter
             out["sweep"] = sweep_held(
                 torch, np, bits, sweep, pats3, eng._grouped.pattern_group,
@@ -4801,7 +5046,7 @@ def fleet_phase(torch, np, nk, pack, bits, sweep, app, cli, term,
         # The cells and their oracles while the processes come up.
         fc, n_lines = cli_cluster(np, FakeCluster)
         want = oracle_files(fc.namespaces["default"])
-        fc3, lines3 = k1024_cluster(np, FakeCluster, n_pods=64, n_long=0)
+        fc3, lines3 = k1024_cluster(np, FakeCluster, n_pods=64, n_long=4)
         want3, kept3 = k1024_expected(make_patterns(1024), lines3)
         for box in boxes:
             await_filterd(box)
@@ -4875,7 +5120,10 @@ def fleet_phase(torch, np, nk, pack, bits, sweep, app, cli, term,
         ("(c) kernels", r["rc32"] != 0 or r["rc1024"] != 0
          or any(r["mismatched_files"])
          or any(r["launches"][k] == 0 for k in (
-             nk.GROUPED, nk.CHUNK, nk.PACK, nk.GATED, nk.PAIRS))
+             nk.GROUPED, nk.CHUNK, nk.PACK, nk.GATED, nk.PAIRS,
+             nk.GROUPED_CHUNK))
+         or r["launches_1024"][nk.CHUNK] != 0 or not r["k2g_batches"]
+         or r["k2g_batches"][0]["max_abs_err"]
          or len(r["k1_batches"]) < 2 or not r["k2_batches"]
          or not r["pack_batches"]
          or any(h.get("max_abs_err", 0) or h.get("mismatches", 0)
@@ -5358,6 +5606,8 @@ def main() -> int:
         k3 = k3_phase(torch, nfa, bits, nk, sw)
         k4 = k4_phase(torch, nfa, nk, k1_batches, sw)
         del k1_batches
+        k2g = grouped_chunk_phase(torch, np, nfa, nk, compile_patterns,
+                                  sw["eng"], dev)
         ek = engine_k1024_phase(torch, np, nk, gpu, frame_lines,
                                 synthetic_line, sw["eng"], dev)
         k4_b256_check(torch, nk, k4, ek.pop("b256"))
@@ -5397,9 +5647,11 @@ def main() -> int:
                            run["lines_per_s"])
         # The sharded tier and the multi-set registry: a fleet of
         # filterd processes, and a registry in this process.
-        fl = fleet_phase(torch, np, nk, pack, bits, sweep, app, cli, term,
-                         FakeCluster, dev, repo, card,
-                         fd["cell"]["lines_per_s"])["registry"]["launches"]
+        reg = fleet_phase(torch, np, nk, pack, bits, sweep, app, cli, term,
+                          FakeCluster, dev, repo, card,
+                          fd["cell"]["lines_per_s"])["registry"]
+        fl, fl_k2g = reg["launches"], reg["k2g_batches"]
+        del reg
         # --backend cpu: the host engines, and the indexed engine's
         # sweep on the card.
         he = host_engines_phase(torch, np, nk, app, cli, term, FakeCluster,
@@ -5413,6 +5665,10 @@ def main() -> int:
         return 1
     w, c, g = k1["w128"], k2["s512"], run3["k3_batches"][0]
     f, cc = run4["k4_batches"][0], run["k2_batches"][0]
+    vw, gc3 = k2g["vs_wide"], run3["k2g_batches"][0]
+    k2g_held = ([r for k, r in k2g.items() if k != "vs_wide"] + [vw]
+                + run3["k2g_batches"] + ek["k2g_batches"]
+                + bfr["c"]["k2g_batches"] + ms["k2g"] + fl_k2g)
     emit({"kernels": [
         {"name": nk.GROUPED, "route": "cuda", "source": SOURCE,
          "replaces": "klogs_tpu/ops/pallas_nfa.py:200",
@@ -5434,7 +5690,22 @@ def main() -> int:
                                   + run4["k2_batches"])),
          "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
          "bound_by": c["bound_by"], "library_ms": None,
-         "cli_ms": cc["ms"], "cli_shape": f"{cc['rows']}x{cc['T']}"},
+         "cli_ms": cc["ms"], "cli_shape": f"{cc['rows']}x{cc['T']}",
+         "k1024_wide_ms": vw["wide_ms"]},
+        {"name": nk.GROUPED_CHUNK, "route": "cuda", "source": SOURCE,
+         "replaces": "klogs_tpu/ops/pallas_nfa.py:50",
+         "launches": run3["launches"][nk.GROUPED_CHUNK],
+         "engine_launches": ek["launches"][nk.GROUPED_CHUNK],
+         "backfill_launches": bfr["c"]["launches"][nk.GROUPED_CHUNK],
+         "fleet_launches": fl[nk.GROUPED_CHUNK],
+         "mesh_launches": ms[nk.GROUPED_CHUNK],
+         "max_abs_err": float(max(r["max_abs_err"] for r in k2g_held)),
+         "ms": vw["ms"], "plain_ms": vw["plain_ms"],
+         "bound_ms": vw["bound_ms"], "bound_by": vw["bound_by"],
+         "library_ms": None, "us_per_step": vw["us_per_step"],
+         "shape": f"{vw['lines']}x4096, {vw['groups']} groups",
+         "wide_ms": vw["wide_ms"], "cli_ms": gc3["ms"],
+         "cli_shape": f"{gc3['rows']}x{gc3['T']}"},
         {"name": nk.GATED, "route": "cuda", "source": SOURCE,
          "replaces": "klogs_tpu/ops/pallas_nfa.py:377",
          "launches": run3["launches"][nk.GATED],

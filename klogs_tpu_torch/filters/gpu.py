@@ -14,10 +14,16 @@ host instead, in ``klogs_tpu/native/_hostops.c``.)
 
 - Widths and batch sizes are padded to power-of-two buckets, exactly as
   the JAX engine buckets them (the width clamps to ``chunk_bytes``).
-- Lines longer than ``chunk_bytes`` run the carried-state chunk kernel
+- Lines longer than ``chunk_bytes`` run a carried-state chunk kernel
   (``_match_long``), chunk by chunk with the state carried on the
   device, each chunk packed from the payload already there
-  (``pack_rows`` with ``skip = k * chunk_bytes``). Lines over
+  (``pack_rows`` with ``skip = k * chunk_bytes``): K2
+  (``match_chunk_cls``) over the augmented union automaton, or, for a
+  set whose union is wider than ``GROUPED_LONG_STATES`` (K2's register
+  kernel), K2g (``match_chunk_cls_grouped``) over the grouped program,
+  a carry per (line, group); the union is then never built on the
+  device. A set with a group past a register width (a single pattern of
+  more than ~1000 positions) stays on the union. Lines over
   ``SEQ_SCAN_BYTES``, which the JAX engine sends to its
   sequence-parallel scan, take the same chunk path here; the verdicts
   are the same.
@@ -29,16 +35,17 @@ host instead, in ``klogs_tpu/native/_hostops.c``.)
   short lines get per-(line, group) candidate bits on the device (the
   sweep over the packed rows, or the pair-CNF over the class ids) and
   run the gated kernel K3 (``match_cls_grouped_gated``) instead of K1.
-  Long lines stay on K2, ungated, as in the JAX engine. A failed table
-  build or launch raises; nothing falls back to K1.
+  Long lines stay on K2 or K2g, ungated, as in the JAX engine. A
+  failed table build or launch raises; nothing falls back to K1.
 - ``KLOGS_TPU_FUSED_GROUPS=1`` (``ops/tune.py`` ``chain_selection``)
   runs the fused-groups kernel K4 (``match_cls_grouped_fused``) on
   short lines instead of K1. K4 has no gated variant: an auto sweep
   stays off, a forced gate raises (``check_fused_gates``), both when
-  the engine is built. Long lines stay on K2.
+  the engine is built. Long lines stay on K2 or K2g.
 
 So short lines run K1 by default, K3 under a gate, K4 under
-``KLOGS_TPU_FUSED_GROUPS=1``; long lines run K2 always.
+``KLOGS_TPU_FUSED_GROUPS=1``; long lines run K2, or K2g past
+``GROUPED_LONG_STATES`` union states.
 
 The short lines' half (the grouped program, the kernel choice and the
 gate) is ``ShortLines``. With ``engine=`` a ``parallel.mesh.MeshEngine``
@@ -108,6 +115,10 @@ from klogs_tpu_torch.utils.env import read as env_read
 MIN_BUCKET = 128
 # Smallest batch-dimension bucket.
 MIN_BATCH_BUCKET = 8
+# Long lines of a set whose augmented union runs at more states than
+# this (``kernel_states``: past K2's register widths) take K2g over the
+# grouped program instead of K2 over the union.
+GROUPED_LONG_STATES = 1024
 
 
 def _bucket_len(n: int, chunk_bytes: int) -> int:
@@ -320,10 +331,33 @@ class GpuEngineFilter(ShortLines, LogFilter):
                 self._build_gate(patterns, ignore_case)
         else:
             self._use_engine(engine, device, stats, patterns, ignore_case)
-        # Long-line chunks: the single augmented union automaton (one
-        # state space to carry across chunks).
-        self._aug = nfa.pack_program(nfa.augment(prog), device=self.device)
+        self._long = self._long_program(prog, patterns, ignore_case)
+        # Otherwise long-line chunks run the single augmented union
+        # automaton (one state space to carry across chunks).
+        self._aug = None
+        if self._long is None:
+            self._aug = nfa.pack_program(nfa.augment(prog),
+                                         device=self.device)
         self._live, self._acc = prog.n_states, prog.n_states + 1
+
+    def _long_program(self, prog, patterns: list[str], ignore_case: bool):
+        """(grouped program, live, acc) for K2g when the union is wider
+        than ``GROUPED_LONG_STATES`` and every group fits a register
+        width, else None (the union on K2). A mesh's filter compiles the
+        whole set's grouped program on its device for this."""
+        union = nfa_kernels.kernel_states(nfa.padded_states(prog.n_states
+                                                            + 2))
+        if union <= GROUPED_LONG_STATES:
+            return None
+        if self._grouped is not None:
+            long = (self._grouped, self._g_live, self._g_acc)
+        else:
+            long = nfa.compile_grouped(patterns, ignore_case=ignore_case,
+                                       device=self.device)
+        if nfa_kernels.grouped_state_words(long[0]) not in \
+                nfa_kernels.REGISTER_WORDS:
+            return None
+        return long
 
     def _use_engine(self, engine, device, stats, patterns: list[str],
                     ignore_case: bool) -> None:
@@ -351,7 +385,7 @@ class GpuEngineFilter(ShortLines, LogFilter):
         goes back to the card even while something still holds the
         engine; it takes no batch after. A multi-set filterd closes an
         evicted set's engine so."""
-        self._grouped = self._aug = None
+        self._grouped = self._aug = self._long = None
         self._pf_tables = self._sweep_tables = self._onehot = None
         if self._engine is not None:
             self._engine.close()
@@ -487,19 +521,29 @@ class GpuEngineFilter(ShortLines, LogFilter):
         """Carried-state chunked matching of the lines at ``starts`` with
         ``lens`` (zero-padded to a batch bucket) in ``payload``, on the
         device: every line advances in lockstep, each chunk packed from
-        the payload, the state carried across chunks."""
+        the payload, the state carried across chunks (K2g's per (line,
+        group) on the grouped route, else K2's on the union)."""
         L = self._chunk_bytes
         B = starts.shape[0]
         n_chunks = -(-longest // L)
-        v = nfa_kernels.initial_state(self._aug, self._live, B)
+        if self._long is not None:
+            prog, live, acc = self._long
+            v = nfa_kernels.initial_state_grouped(prog, live, B)
+        else:
+            prog = self._aug
+            v = nfa_kernels.initial_state(prog, self._live, B)
         matched = None
         for k in range(n_chunks):
             chunk = pack.pack_rows(payload, starts, lens, L, B, skip=k * L)
             final = k == n_chunks - 1
-            cls = nfa.classify_chunk(self._aug, chunk, lens - k * L,
+            cls = nfa.classify_chunk(prog, chunk, lens - k * L,
                                      first=k == 0, final=final)
-            v, matched = nfa_kernels.match_chunk_cls(self._aug, self._acc,
-                                                     cls, v, final=final)
+            if self._long is not None:
+                v, matched = nfa_kernels.match_chunk_cls_grouped(
+                    prog, live, acc, cls, v, final=final)
+            else:
+                v, matched = nfa_kernels.match_chunk_cls(
+                    prog, self._acc, cls, v, final=final)
         return matched
 
     def _start_fetch(self, n: int, parts: list):

@@ -9,13 +9,15 @@ them:
     python3 klogs_tpu_torch/ops/bench_engine.py [--tree DIR] [--label L]
         [--phases engine,cli,k1024,loop,follow,backfill_a]
 
-``--phases`` picks among those (default ``engine,cli,k1024``) and three
-more that time the collector's loop: ``loop`` (the cli cell once more
-under cProfile: the own and cumulative ms of ``FramedBatcher.feed`` and
-``take``, ``join_kept_framed``, ``frame_lines``, ``split_frame`` and
+``--phases`` picks among those (default ``engine,cli,k1024``) and four
+more: three that time the collector's loop, ``loop`` (the cli cell once
+more under cProfile: the own and cumulative ms of ``FramedBatcher.feed``
+and ``take``, ``join_kept_framed``, ``frame_lines``, ``split_frame`` and
 ``bytes.join``), ``follow`` (chip_smoke's follow phase: 1000 streams,
 20 s) and ``backfill_a`` (chip_smoke's backfill run (a): 4M lines in 8
-rotated gzip sets at 32 patterns).
+rotated gzip sets at 32 patterns); and ``build1024``, the construction
+of the 1024-pattern engine (``GpuEngineFilter(make_patterns(1024))``,
+three times: seconds each and the card memory it holds).
 
 ``--tree`` is the root of the checkout whose ``chip_smoke.py`` and
 ``klogs_tpu_torch`` run (default: the one holding this file), so two
@@ -109,12 +111,36 @@ def backfill_a(cs, torch, np, nk, pack, bits, app, cli, term, synthetic_line,
     return run
 
 
+def build_k1024(cs, torch, gpu, FilterStats, dev, turns: int = 3) -> dict:
+    """The 1024-pattern engine built ``turns`` times: the seconds of
+    each construction (to a synchronised card) and the card memory the
+    last one holds (``torch.cuda.memory_allocated`` before and after)."""
+    import gc
+    import time
+
+    pats = cs.make_patterns(1024)
+    seconds, held = [], 0
+    for _ in range(turns):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        eng = gpu.GpuEngineFilter(pats, device=dev, stats=FilterStats())
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        held = torch.cuda.memory_allocated(dev) - before
+        del eng
+    return dict(seconds=seconds, bytes=held)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     here = os.path.dirname(os.path.abspath(__file__))
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(here)))
     ap.add_argument("--label", default="")
-    ap.add_argument("--phases", default="engine,cli,k1024")
+    ap.add_argument("--phases", default="engine,cli,k1024",
+                    help="comma-separated: engine, cli, k1024, loop, "
+                    "follow, backfill_a, build1024")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     tree = os.path.abspath(args.tree)
@@ -184,6 +210,11 @@ def main(argv=None) -> int:
                          "k3_batches")}}), flush=True)
         out.update(backfill_a_lines_per_s=bf["lines_per_s"],
                    backfill_a_host_top=bf["profile"]["host_top"][:6])
+    if "build1024" in phases:
+        os.environ["KLOGS_MAX_PATTERN_POSITIONS"] = "65536"
+        b = build_k1024(cs, torch, gpu, FilterStats, dev)
+        print(json.dumps({"phase": "build1024", **b}), flush=True)
+        out.update(build1024_s=b["seconds"], build1024_bytes=b["bytes"])
     if "k1024" in phases:
         os.environ["KLOGS_MAX_PATTERN_POSITIONS"] = "65536"
         k1024 = gpu.GpuEngineFilter(cs.make_patterns(1024), device=dev,

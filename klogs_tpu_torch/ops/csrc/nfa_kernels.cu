@@ -128,6 +128,26 @@
 // words in shared memory, 136 KB at S = 1024 and C = 64), so 1024 lines
 // spread over 128 SMs.
 //
+// grouped_chunk_kernel (K2g) also replaces pallas_nfa.py:50 _kernel, in
+// what it computes for a line: one chunk of long lines, the state
+// carried in and out, the verdict (on the final chunk) acc ORed over
+// the automata. It runs them over a compile_grouped program instead of
+// the augmented union, for sets whose union is wider than K2 holds in
+// registers (S > 1024; 18,878 states at 1024 patterns, where K2's wide
+// variant ORs a follow row of hundreds of words, read through L2 from a
+// table the size of the L2, per set state per step). The union is a
+// disjoint union of the patterns' automata and the groups partition the
+// patterns, so the union holds acc exactly when some group does. The
+// carry is a [B][G][W] word array, a (line, group) state each. Its
+// batches are few lines by thousands of steps, so what bounds it is the
+// latency of one chain of T steps, not bytes or arithmetic; the unit is
+// K1's, a thread per (line, group) on the shift-and-exceptions step
+// (scan_steps, from the carried state), so a step is a few register
+// operations and B x G chains (1,248 at 8 lines and 156 groups) run
+// side by side. A block is 32 groups of one line: its threads read the
+// same class ids (one L1 line) ID_AHEAD steps ahead, and the group
+// tables through L1, as K3 does, with no barrier anywhere.
+//
 // Programs wider than S = 1024 (W > 32): the *_wide kernels give each
 // line (K1, K2), (line, group) pair (K4) or listed pair (K3) a warp,
 // its state in shared memory, and read follow/mask rows from device
@@ -327,23 +347,21 @@ __device__ __forceinline__ int row_of(int c, int C) {
   return (int)min((unsigned)c, (unsigned)C) * W;
 }
 
-// One group's automaton, started at {live} (bit lsh of word lw), over
-// one line's T class ids at `row`: whether it holds `acc` after the last
-// step. f_g and m_g are the group's follow [S][W] and mask [C+1][W]
-// words (row C all zero), in shared or device memory. cur holds the row
-// offsets of steps [t0, t0 + ID_AHEAD), nxt the ids of the ID_AHEAD
-// steps after, in flight; step i's mask row m is loaded during step
-// i - 1, so no load is on the step's chain.
+// One group's automaton stepped from state v (live is bit lsh of word
+// lw) over one line's T class ids at `row`, v updated in place. f_g and
+// m_g are the group's follow [S][W] and mask [C+1][W] words (row C all
+// zero), in shared or device memory. cur holds the row offsets of steps
+// [t0, t0 + ID_AHEAD), nxt the ids of the ID_AHEAD steps after, in
+// flight; step i's mask row m is loaded during step i - 1, so no load is
+// on the step's chain.
 template <int W, bool REG>
-__device__ __forceinline__ bool scan_line(const ShiftConsts<W, REG>& k,
-                                          int lw, int lsh, int acc,
-                                          const uint32_t* f_g,
-                                          const uint32_t* m_g,
-                                          const int16_t* __restrict__ row,
-                                          int T, int C) {
-  uint32_t v[W];
-#pragma unroll
-  for (int j = 0; j < W; ++j) v[j] = j == lw ? 1u << lsh : 0u;
+__device__ __forceinline__ void scan_steps(uint32_t (&v)[W],
+                                           const ShiftConsts<W, REG>& k,
+                                           int lw, int lsh,
+                                           const uint32_t* f_g,
+                                           const uint32_t* m_g,
+                                           const int16_t* __restrict__ row,
+                                           int T, int C) {
   int cur[ID_AHEAD], nxt[ID_AHEAD];
   fetch_ids(nxt, row, 0, T);
 #pragma unroll
@@ -368,6 +386,21 @@ __device__ __forceinline__ bool scan_line(const ShiftConsts<W, REG>& k,
     for (int i = 0; i < ID_AHEAD; ++i) cur[i] = row_of<W>(nxt[i], C);
     fetch_ids(nxt, row, t0 + 2 * ID_AHEAD, T);
   }
+}
+
+// One group's automaton, started at {live}, over one line's T class
+// ids: whether it holds `acc` after the last step (scan_steps).
+template <int W, bool REG>
+__device__ __forceinline__ bool scan_line(const ShiftConsts<W, REG>& k,
+                                          int lw, int lsh, int acc,
+                                          const uint32_t* f_g,
+                                          const uint32_t* m_g,
+                                          const int16_t* __restrict__ row,
+                                          int T, int C) {
+  uint32_t v[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) v[j] = j == lw ? 1u << lsh : 0u;
+  scan_steps<W>(v, k, lw, lsh, f_g, m_g, row, T, C);
   return test_bit<W>(v, acc);
 }
 
@@ -624,6 +657,50 @@ __global__ void __launch_bounds__(GATED_THREADS)
                      cls + (size_t)line * T, T, C))
       set_verdict(out, line);
   }
+}
+
+// ---- K2g: a chunk of long lines through the grouped automata ---------
+// (see the note at the top)
+
+constexpr int GCHUNK_THREADS = 32;  // groups of one line per K2g block
+
+template <int W>
+__device__ __forceinline__ void store_row(uint32_t* p,
+                                          const uint32_t (&r)[W]) {
+  uint4* p4 = reinterpret_cast<uint4*>(p);
+#pragma unroll
+  for (int q = 0; q < W / 4; ++q)
+    p4[q] = make_uint4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
+}
+
+// K2g: block (x, y) is line x's groups [32 y, 32 y + 32), a thread each.
+// The thread reads its (line, group) state from v0 [B][G][W], steps it
+// over the line's T class ids (K1's step, tables in device memory as
+// K3 reads them), writes it to vout and, where it holds `acc`, sets the
+// line's verdict byte in `out` (zeroed before the launch).
+template <int W>
+__global__ void __launch_bounds__(GCHUNK_THREADS)
+    grouped_chunk_kernel(const int16_t* __restrict__ cls, int T,
+                         const uint32_t* __restrict__ follow,
+                         const uint32_t* __restrict__ mask, int G, int C,
+                         int live, int acc, const uint32_t* __restrict__ v0,
+                         uint32_t* __restrict__ vout,
+                         uint32_t* __restrict__ out) {
+  constexpr int S = 32 * W;
+  const int line = blockIdx.x;
+  const int g = blockIdx.y * GCHUNK_THREADS + threadIdx.x;
+  if (g >= G) return;
+  const uint4* consts =
+      reinterpret_cast<const uint4*>(follow + (size_t)G * S * W);
+  const ShiftConsts<W> k(consts + (size_t)g * W);
+  const size_t at = ((size_t)line * G + g) * W;
+  uint32_t v[W];
+  load_row<W>(v, v0 + at);
+  scan_steps<W>(v, k, live >> 5, live & 31, follow + (size_t)g * S * W,
+                mask + (size_t)g * (C + 1) * W, cls + (size_t)line * T, T,
+                C);
+  store_row<W>(vout + at, v);
+  if (test_bit<W>(v, acc)) set_verdict(out, line);
 }
 
 // Four int8 lanes of a 32-bit word -> a 4-bit "nonzero" nibble.
@@ -1118,6 +1195,18 @@ cudaError_t launch_shift(const int16_t* cls, int B, int T,
 }
 
 template <int W>
+cudaError_t launch_grouped_chunk(const int16_t* cls, int B, int T,
+                                 const uint32_t* follow, const uint32_t* mask,
+                                 int G, int C, int live, int acc,
+                                 const uint32_t* v0, uint32_t* vout,
+                                 uint32_t* out, cudaStream_t stream) {
+  const dim3 grid(B, (G + GCHUNK_THREADS - 1) / GCHUNK_THREADS);
+  grouped_chunk_kernel<W><<<grid, GCHUNK_THREADS, 0, stream>>>(
+      cls, T, follow, mask, G, C, live, acc, v0, vout, out);
+  return cudaGetLastError();
+}
+
+template <int W>
 cudaError_t launch_chunk(const int16_t* cls, int B, int T,
                          const uint32_t* follow, const uint32_t* mask, int C,
                          int acc, const int8_t* v0, int8_t* vout,
@@ -1249,6 +1338,33 @@ int klogs_grouped_nfa_fused(const int16_t* cls, int B, int T,
                            st>>>(cls, B, T, follow, mask, G, S, C, live, acc,
                                  out);
   return cudaGetLastError();
+}
+
+// K2g: cls, follow (with its constants) and mask [G, C + 1, S/32] as
+// for klogs_grouped_nfa_gated at a register width (S/32 in 4, 8, 16,
+// 32; anything else is refused); v0 and vout [B, G, S/32] words, the
+// carry of each (line, group); out ceil(B / 4) uint32 words, zeroed
+// here, whose byte b is set to 1 where some group of line b holds acc.
+int klogs_grouped_chunk_nfa(const int16_t* cls, int B, int T,
+                            const uint32_t* follow, const uint32_t* mask,
+                            int G, int S, int C, int live, int acc,
+                            const uint32_t* v0, uint32_t* vout,
+                            uint32_t* out, void* stream, int device) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if (B <= 0) return cudaSuccess;
+  if (G <= 0 || G > 65535 * GCHUNK_THREADS) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  e = cudaMemsetAsync(out, 0, (size_t)(B + 3) / 4 * 4, st);
+  if (e != cudaSuccess) return e;
+  switch (S / 32) {
+    case 4: return launch_grouped_chunk<4>(cls, B, T, follow, mask, G, C, live, acc, v0, vout, out, st);
+    case 8: return launch_grouped_chunk<8>(cls, B, T, follow, mask, G, C, live, acc, v0, vout, out, st);
+    case 16: return launch_grouped_chunk<16>(cls, B, T, follow, mask, G, C, live, acc, v0, vout, out, st);
+    case 32: return launch_grouped_chunk<32>(cls, B, T, follow, mask, G, C, live, acc, v0, vout, out, st);
+    default: break;
+  }
+  return cudaErrorInvalidValue;
 }
 
 // cls [B, T] int16, follow [S, S/32] and mask [C, S/32] bit tables, v0

@@ -72,6 +72,11 @@ def _pad_to(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
+def padded_states(n: int) -> int:
+    """The state count ``pack_program`` pads an n-state automaton to."""
+    return max(STATE_PAD, _pad_to(n, STATE_PAD))
+
+
 def _tensors(device, char_mask, follow, inject, accept, byte_class) -> dict:
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int8)).to(device)
@@ -87,7 +92,7 @@ def pack_program(prog: NFAProgram, device=None) -> TorchProgram:
     states have all-zero rows/cols, padded classes all-zero mask rows.
     ``device`` follows ``resolve_device`` (None means ``cuda``)."""
     device = resolve_device(device)
-    S = max(STATE_PAD, _pad_to(prog.n_states, STATE_PAD))
+    S = padded_states(prog.n_states)
     C = _pad_to(prog.n_classes, 8)
     char_mask = np.zeros((C, S), dtype=np.int8)
     char_mask[: prog.n_classes, : prog.n_states] = prog.char_mask

@@ -25,7 +25,13 @@ ids laid out BEGIN, body, END, PAD latch:
   (``ops/tune.py``);
 - ``match_chunk_cls`` (K2, ``chunk_nfa_kernel``, replacing ``_kernel``):
   the single augmented union automaton with the [B, S] int8 state
-  carried across the chunks of long lines.
+  carried across the chunks of long lines;
+- ``match_chunk_cls_grouped`` (K2g, ``grouped_chunk_kernel``, also in
+  place of ``_kernel``): the chunks of long lines through a
+  ``compile_grouped`` program, each (line, group) state carried as
+  words, the verdict ``acc`` ORed over the groups (the union's verdict:
+  the groups partition the patterns). The engine runs it for sets whose
+  union is wider than K2's register kernel.
 
 A tensor on the CPU runs the plain PyTorch version (a Python loop over
 the steps); a CUDA tensor launches the kernel from
@@ -47,6 +53,7 @@ GROUPED = "grouped_nfa_kernel"
 GATED = "grouped_nfa_gated_kernel"
 CHUNK = "chunk_nfa_kernel"
 FUSED = "grouped_nfa_fused_kernel"
+GROUPED_CHUNK = "grouped_chunk_kernel"
 # K3's pair builder (gate_pairs_count, gate_pairs_scan and
 # gate_pairs_scatter, launched together: counted once per list built).
 PAIRS = "gate_pairs"
@@ -54,7 +61,8 @@ PAIRS = "gate_pairs"
 # out of a batch's payload on the device.
 PACK = "pack_rows"
 
-LAUNCHES = {GROUPED: 0, GATED: 0, CHUNK: 0, FUSED: 0, PAIRS: 0, PACK: 0}
+LAUNCHES = {GROUPED: 0, GATED: 0, CHUNK: 0, FUSED: 0, GROUPED_CHUNK: 0,
+            PAIRS: 0, PACK: 0}
 
 # Lines per tile of the gate's stats: the JAX engine counts candidate
 # lines clustered into tiles of its kernel's width, and the --stats
@@ -107,6 +115,9 @@ def _library():
             lib.klogs_chunk_nfa.argtypes = [p, i, i, p, p, i, i, i, p, p, p,
                                             p, i]
             lib.klogs_chunk_nfa.restype = i
+            lib.klogs_grouped_chunk_nfa.argtypes = [p, i, i, p, p, i, i, i,
+                                                    i, i, p, p, p, p, i]
+            lib.klogs_grouped_chunk_nfa.restype = i
             lib.klogs_error_string.argtypes = [i]
             lib.klogs_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -276,22 +287,18 @@ def _mask_table(char_mask: torch.Tensor, cls: torch.Tensor):
     return table, torch.where((c >= 0) & (c < C), c, C)
 
 
-def _group_accepts_plain(prog: TorchProgram, live: int, acc: int,
-                         cls: torch.Tensor, work: "dict | None",
-                         cells: "torch.Tensor | None" = None) -> torch.Tensor:
-    """[G, B] bool: group g's automaton, started at ``{live}``, holds
-    ``acc`` after the last step — a loop over T of the boolean step on
-    a [G, B, S] state. ``work``, when given, receives under "active" the
-    number of state bits the steps read (summed over groups, lines and
-    steps; only over the [G, B] ``cells`` when given), and under "exc"
-    those of exception states (``shift_masks``): the follow rows K1 and
-    K4 read."""
-    B, T = cls.shape
-    G, C, S = prog.char_mask.shape
+def _group_steps_plain(prog: TorchProgram, live: int, cls: torch.Tensor,
+                       v: torch.Tensor, work: "dict | None",
+                       cells: "torch.Tensor | None" = None) -> torch.Tensor:
+    """The [G, B, S] bool state ``v`` of every group's automaton stepped
+    over the [B, T] class ids — a loop over T of the boolean step.
+    ``work``, when given, receives under "active" the number of state
+    bits the steps read (summed over groups, lines and steps; only over
+    the [G, B] ``cells`` when given), and under "exc" those of exception
+    states (``shift_masks``): the follow rows K1, K2g and K4 read."""
+    T = cls.shape[1]
     follow = prog.follow.float()  # [G, S, S]
     table, idx = _mask_table(prog.char_mask, cls)  # [G, C+1, S], [B, T]
-    v = torch.zeros((G, B, S), dtype=torch.bool, device=cls.device)
-    v[:, :, live] = True
     active = torch.zeros((), dtype=torch.int64, device=cls.device)
     exc = torch.zeros((), dtype=torch.int64, device=cls.device)
     if work is not None:
@@ -307,7 +314,20 @@ def _group_accepts_plain(prog: TorchProgram, live: int, acc: int,
     if work is not None:
         work["active"] = work.get("active", 0) + int(active)
         work["exc"] = work.get("exc", 0) + int(exc)
-    return v[:, :, acc]
+    return v
+
+
+def _group_accepts_plain(prog: TorchProgram, live: int, acc: int,
+                         cls: torch.Tensor, work: "dict | None",
+                         cells: "torch.Tensor | None" = None) -> torch.Tensor:
+    """[G, B] bool: group g's automaton, started at ``{live}``, holds
+    ``acc`` after the last step; ``work`` and ``cells`` as in
+    ``_group_steps_plain``."""
+    G, C, S = prog.char_mask.shape
+    v = torch.zeros((G, cls.shape[0], S), dtype=torch.bool,
+                    device=cls.device)
+    v[:, :, live] = True
+    return _group_steps_plain(prog, live, cls, v, work, cells)[:, :, acc]
 
 
 def match_cls_grouped_plain(prog: TorchProgram, live: int, acc: int,
@@ -569,3 +589,96 @@ def match_chunk_cls_plain(prog: TorchProgram, acc: int, cls: torch.Tensor,
     if work is not None:
         work["active"] = work.get("active", 0) + int(active)
     return v.to(torch.int8), v[:, acc].clone()
+
+
+# ---- K2g: carried-state chunk match over the grouped automata --------------
+
+
+def grouped_state_words(prog: TorchProgram) -> int:
+    """Words of one (line, group) state in K2g's carry: the group's
+    states padded to ``kernel_states``."""
+    return kernel_states(prog.n_states) // 32
+
+
+def initial_state_grouped(prog: TorchProgram, live: int,
+                          batch_size: int) -> torch.Tensor:
+    """[B, G, W] int32 words, ``{live}`` in every (line, group): the
+    start of K2g's carry (bit b of word j is state 32j+b)."""
+    G = prog.follow.shape[0]
+    v = torch.zeros((batch_size, G, grouped_state_words(prog)),
+                    dtype=torch.int32, device=prog.device)
+    bit = 1 << (live % 32)
+    v[:, :, live // 32] = bit - (1 << 32 if bit >= 1 << 31 else 0)
+    return v
+
+
+def _check_carry(prog: TorchProgram, cls: torch.Tensor,
+                 v0: torch.Tensor) -> None:
+    want = (cls.shape[0], prog.follow.shape[0], grouped_state_words(prog))
+    if (tuple(v0.shape) != want or v0.dtype != torch.int32
+            or v0.device != cls.device):
+        raise ValueError(f"v0 must be {list(want)} int32 words on "
+                         f"{cls.device}, got {tuple(v0.shape)} {v0.dtype} "
+                         f"on {v0.device}")
+
+
+def match_chunk_cls_grouped(prog: TorchProgram, live: int, acc: int,
+                            cls: torch.Tensor, v0: torch.Tensor,
+                            final: bool = True):
+    """One chunk of carried-state matching over a ``compile_grouped``
+    program: [B, T] class ids (``classify_chunk`` layout, latch column on
+    the final chunk) and the [B, G, W] carry (``initial_state_grouped``)
+    -> (carry, matched [B] bool: some group holds ``acc``); ``match_all``
+    is ORed in on the final chunk. Groups must fit a register width
+    (``kernel_states`` of at most 1024 states)."""
+    if prog.follow.dim() != 3:
+        raise ValueError(f"{GROUPED_CHUNK} needs a compile_grouped program")
+    if cls.device.type == "cpu":
+        v, matched = match_chunk_cls_grouped_plain(prog, live, acc, cls, v0)
+    elif cls.device.type == "cuda":
+        v, matched = _launch_grouped_chunk(prog, live, acc, cls, v0)
+    else:
+        raise ValueError(f"unsupported device {cls.device}")
+    return v, (_or_match_all(prog, matched) if final else matched)
+
+
+def _launch_grouped_chunk(prog: TorchProgram, live: int, acc: int,
+                          cls: torch.Tensor, v0: torch.Tensor):
+    _check_states(prog)
+    if grouped_state_words(prog) not in REGISTER_WORDS:
+        raise ValueError(f"{GROUPED_CHUNK} takes groups of at most 1024 "
+                         f"states, got {prog.n_states}")
+    cls = _cls16(prog, cls)
+    _check_carry(prog, cls, v0)
+    B, T = cls.shape
+    G, C, S = prog.char_mask.shape
+    v0 = v0.contiguous()
+    follow, mask = _gated_tables(prog, live)
+    vout = torch.empty_like(v0)
+    # A verdict byte per line, zeroed by the call and set in place
+    # through its 32-bit word.
+    out = torch.empty(-(-B // 4) * 4, dtype=torch.uint8, device=cls.device)
+    stream = torch.cuda.current_stream(cls.device).cuda_stream
+    err = _library().klogs_grouped_chunk_nfa(
+        cls.data_ptr(), B, T, follow.data_ptr(), mask.data_ptr(), G,
+        kernel_states(S), C, live, acc, v0.data_ptr(), vout.data_ptr(),
+        out.data_ptr(), stream, cls.device.index or 0)
+    _count(GROUPED_CHUNK)
+    _check(err, GROUPED_CHUNK)
+    return vout, out[:B].view(torch.bool)
+
+
+def match_chunk_cls_grouped_plain(prog: TorchProgram, live: int, acc: int,
+                                  cls: torch.Tensor, v0: torch.Tensor,
+                                  work: dict | None = None):
+    """Plain version of K2g: the carry unpacked to a [G, B, S] state,
+    stepped by ``_group_steps_plain``, packed back. Returns (carry [B, G,
+    W] int32, [B] bool: some group holds ``acc``); ``work`` as in
+    ``_group_steps_plain``."""
+    _check_carry(prog, cls, v0)
+    S = prog.n_states
+    v = unpack_bits(v0, S).permute(1, 0, 2)  # [G, B, S]
+    v = _group_steps_plain(prog, live, cls, v, work)
+    words = to_int32(pack_bits(v.permute(1, 0, 2)))  # [B, G, S/32]
+    words = F.pad(words, (0, v0.shape[-1] - words.shape[-1]))
+    return words.contiguous(), v[:, :, acc].any(dim=0)

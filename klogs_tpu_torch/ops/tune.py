@@ -55,6 +55,9 @@ CANDIDATE_VARIANTS = (
 # Pallas layout choices with no counterpart in the CUDA kernels; "1"
 # restates the plain chain for the two that take a count.
 _TPU_ONLY = ("KLOGS_TPU_TILE", "KLOGS_TPU_INTERLEAVE", "KLOGS_TPU_MASK_BLOCK")
+# KLOGS_TPU_KERNEL values that pick the JAX package's paths without the
+# Pallas kernels (jnp; the kernels interpreted on the host).
+_JAX_ONLY_KERNELS = ("jnp", "interpret")
 
 
 def _cache_path() -> str:
@@ -169,7 +172,16 @@ def tune_grouped(prog: Any, live: int, acc: int, cls: torch.Tensor,
 def env_overrides() -> dict:
     """``{"fused": True}`` under KLOGS_TPU_FUSED_GROUPS=1, else ``{}``.
     The TPU-only knobs raise ``ValueError`` (``=1`` restates the plain
-    chain for KLOGS_TPU_INTERLEAVE and KLOGS_TPU_MASK_BLOCK)."""
+    chain for KLOGS_TPU_INTERLEAVE and KLOGS_TPU_MASK_BLOCK), and so does
+    KLOGS_TPU_KERNEL=jnp or =interpret, which ask for the JAX package's
+    paths without its kernels (``auto`` and ``pallas``, the kernels,
+    pass)."""
+    kernel = env_read("KLOGS_TPU_KERNEL")
+    if kernel in _JAX_ONLY_KERNELS:
+        raise ValueError(
+            f"KLOGS_TPU_KERNEL={kernel!r} is a TPU-only choice (the JAX "
+            "package's path without its Pallas kernels); the port runs "
+            "its CUDA kernels, so unset it or set it to auto or pallas")
     for name in _TPU_ONLY:
         value = env_read(name)
         if value and (name == "KLOGS_TPU_TILE" or value != "1"):

@@ -176,6 +176,74 @@ def test_chunk_kernel_equals_plain_chained(dev, patterns, needle, B):
         assert bool(m[0])
 
 
+@pytest.mark.parametrize("B", [1, 8, 33])
+@pytest.mark.parametrize("patterns,needle,max_positions", [
+    (PATTERNS + EXC_PATS, b"panic: x", 24),  # 128-state groups, W = 4
+    (["a" * 200 + "b", r"x\d+y", "panic:"], b"x123y", 126),  # 256, W = 8
+], ids=["w4", "w8"])
+def test_grouped_chunk_kernel_equals_plain_chained(dev, patterns, needle,
+                                                   max_positions, B):
+    """K2g equals its plain version bit for bit, carries and verdicts,
+    chained over 3 chunks of real class ids: several groups, lines
+    ending on a chunk edge, a ragged last block (B = 33), a dense-state
+    line (row 0), and class ids outside [0, C) in the middle chunk; one
+    launch a chunk."""
+    prog, live, acc = nfa.compile_grouped(patterns,
+                                          max_positions=max_positions,
+                                          device=dev)
+    assert prog.follow.shape[0] > 1
+    L, n_chunks = 256, 3
+    rows, lens = chunk_rows(B, L, n_chunks, needle, B)
+    rows_d = torch.from_numpy(rows).to(dev)
+    lens_d = torch.from_numpy(lens).to(dev)
+    v = nfa_kernels.initial_state_grouped(prog, live, B)
+    vp = v.clone()
+    nfa_kernels.reset_launches()
+    for k in range(n_chunks):
+        final = k == n_chunks - 1
+        chunk = rows_d[:, k * L:(k + 1) * L].contiguous()
+        cls = nfa.classify_chunk(prog, chunk, lens_d - k * L, k == 0, final)
+        if k == 1:
+            cls[4::17, 5] = prog.n_classes + 5
+            cls[3::19, 9] = -1
+        v, m = nfa_kernels.match_chunk_cls_grouped(prog, live, acc, cls, v,
+                                                   final=final)
+        vp, mp = nfa_kernels.match_chunk_cls_grouped_plain(prog, live, acc,
+                                                           cls, vp)
+        assert v.dtype == torch.int32 and v.shape == vp.shape
+        assert torch.equal(v, vp) and torch.equal(m, mp)
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED_CHUNK] == n_chunks
+    if B >= 8:
+        assert m.any() and not m.all()
+
+
+def test_engine_long_lines_take_k2g_past_1024_states(dev):
+    """80 patterns (a union of 1,298 states): the engine's long lines
+    run K2g, never K2, and get the CPU engine's verdicts."""
+    from chip_smoke import make_patterns, minted_needle
+
+    pats = make_patterns(80)
+    rng = np.random.default_rng(80)
+    lines = []
+    for i in range(12):
+        n = int(rng.integers(4097, 3 * 4096))
+        body = bytearray(rng.integers(32, 127, size=n, dtype=np.uint8))
+        if i % 2:
+            nd = minted_needle(int(rng.integers(0, 60)))
+            p = int(rng.integers(0, n - len(nd)))
+            body[p:p + len(nd)] = nd
+        lines.append(bytes(body))
+    lines += [b"svc-0040 unreachable", b"nothing"]
+    card = GpuEngineFilter(pats, device=dev)
+    assert card._long is not None and card._aug is None
+    nfa_kernels.reset_launches()
+    got = card.match_lines(lines)
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED_CHUNK] == 3
+    assert nfa_kernels.LAUNCHES[nfa_kernels.CHUNK] == 0
+    assert got == GpuEngineFilter(pats, device="cpu").match_lines(lines)
+    assert any(got[:12]) and not all(got[:12])
+
+
 def test_kernels_count_launches(dev):
     prog, live, acc = nfa.compile_grouped(PATTERNS, device=dev)
     nfa_kernels.reset_launches()

@@ -177,6 +177,12 @@ def test_cuda_entry_points_raise_without_card(tmp_path, monkeypatch):
         nfa_kernels.match_cls_grouped_fused(
             dp, live, acc, torch.zeros((8, 5), dtype=torch.int16,
                                        device="meta"))
+    # The long lines' grouped chunk kernel (K2g) likewise.
+    with pytest.raises(ValueError, match="device"):
+        nfa_kernels.match_chunk_cls_grouped(
+            dp, live, acc, torch.zeros((8, 5), dtype=torch.int16,
+                                       device="meta"),
+            nfa_kernels.initial_state_grouped(dp, live, 8))
     with pytest.raises(ValueError):
         make_pipeline(["x"], backend="tpu", device="cpu")
     # The ragged pack follows its tensors' device: neither CPU nor card

@@ -200,6 +200,8 @@ def test_wrappers_count_only_kernel_launches():
     nfa_kernels.match_cls_grouped_fused(tp, live, acc, cls)
     nfa_kernels.match_cls_grouped_gated(
         tp, live, acc, cls, torch.ones((4, 1), dtype=torch.int64))
+    nfa_kernels.match_chunk_cls_grouped(
+        tp, live, acc, cls, nfa_kernels.initial_state_grouped(tp, live, 4))
     pack.pack_rows(torch.zeros(4, dtype=torch.uint8),
                    torch.zeros(2, dtype=torch.int64),
                    torch.full((2,), 4, dtype=torch.int64), 8, 4)
@@ -207,6 +209,7 @@ def test_wrappers_count_only_kernel_launches():
                                     nfa_kernels.GATED: 0,
                                     nfa_kernels.CHUNK: 0,
                                     nfa_kernels.FUSED: 0,
+                                    nfa_kernels.GROUPED_CHUNK: 0,
                                     nfa_kernels.PAIRS: 0,
                                     nfa_kernels.PACK: 0}
 

@@ -315,27 +315,31 @@ def _obs_run(tmp_path, side: str, args: list, long_line: bytes,
             "--trace-json", str(d / "t.jsonl"),
             "--profile-json", str(d / "p.jsonl"), *args]
     monkeypatch.setenv("KLOGS_PROFILE_INTERVAL_S", "0.05")
-    if side == "jax":
-        # The JAX engine's one-device framed path (the one the port
-        # ports), where its device.frame and device.kernel spans are: the
-        # Pallas kernels in interpret mode, and one device (the test
-        # platform's eight virtual ones would take its mesh path, which
-        # has none of them).
-        import jax
+    # The JAX side's settings hold for its run only: the port raises on
+    # KLOGS_TPU_KERNEL=interpret.
+    with monkeypatch.context() as side_patch:
+        if side == "jax":
+            # The JAX engine's one-device framed path (the one the port
+            # ports), where its device.frame and device.kernel spans are:
+            # the Pallas kernels in interpret mode, and one device (the
+            # test platform's eight virtual ones would take its mesh
+            # path, which has none of them).
+            import jax
 
-        monkeypatch.setenv("KLOGS_TPU_KERNEL", "interpret")
-        monkeypatch.setattr(jax, "device_count", lambda: 1)
-        fc = JaxFakeCluster.synthetic(n_pods=3, lines_per_container=120,
-                                      clock=lambda: CLOCK)
-        run = jax_app.run_async(jax_parse_args(argv + ["--backend", "tpu"]),
-                                backend=fc)
-    else:
-        fc = FakeCluster.synthetic(n_pods=3, lines_per_container=120,
-                                   clock=lambda: CLOCK)
-        run = app.run_async(cli.parse_args(argv), backend=fc, device="cpu")
-    fc.namespaces["default"]["pod-0001"].containers["c0"].lines.insert(
-        10, (CLOCK - 70, long_line))
-    assert asyncio.run(run) == 0
+            side_patch.setenv("KLOGS_TPU_KERNEL", "interpret")
+            side_patch.setattr(jax, "device_count", lambda: 1)
+            fc = JaxFakeCluster.synthetic(n_pods=3, lines_per_container=120,
+                                          clock=lambda: CLOCK)
+            run = jax_app.run_async(
+                jax_parse_args(argv + ["--backend", "tpu"]), backend=fc)
+        else:
+            fc = FakeCluster.synthetic(n_pods=3, lines_per_container=120,
+                                       clock=lambda: CLOCK)
+            run = app.run_async(cli.parse_args(argv), backend=fc,
+                                device="cpu")
+        fc.namespaces["default"]["pod-0001"].containers["c0"].lines.insert(
+            10, (CLOCK - 70, long_line))
+        assert asyncio.run(run) == 0
     with open(d / "s.json") as f:
         stats = json.load(f)
     with open(d / "p.jsonl") as f:

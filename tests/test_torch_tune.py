@@ -9,7 +9,7 @@ from klogs_tpu.ops import tune as jtune
 from klogs_tpu_torch.ops import nfa, tune
 
 TPU_VARS = ("KLOGS_TPU_TILE", "KLOGS_TPU_INTERLEAVE", "KLOGS_TPU_MASK_BLOCK",
-            "KLOGS_TPU_FUSED_GROUPS")
+            "KLOGS_TPU_FUSED_GROUPS", "KLOGS_TPU_KERNEL")
 
 
 @pytest.fixture
@@ -89,13 +89,23 @@ def test_env_overrides_fused(clean_env, monkeypatch):
 @pytest.mark.parametrize("var,value", [
     ("KLOGS_TPU_TILE", "4096"), ("KLOGS_TPU_TILE", "1"),
     ("KLOGS_TPU_INTERLEAVE", "2"), ("KLOGS_TPU_MASK_BLOCK", "4"),
-    ("KLOGS_TPU_MASK_BLOCK", "junk")])
+    ("KLOGS_TPU_MASK_BLOCK", "junk"), ("KLOGS_TPU_KERNEL", "jnp"),
+    ("KLOGS_TPU_KERNEL", "interpret")])
 def test_tpu_only_knobs_raise(clean_env, monkeypatch, var, value):
     monkeypatch.setenv(var, value)
     with pytest.raises(ValueError, match=f"{var}.*TPU-only"):
         tune.env_overrides()
     with pytest.raises(ValueError, match=var):
         tune.chain_selection()
+
+
+@pytest.mark.parametrize("value", ["auto", "pallas"])
+def test_kernel_knob_naming_the_kernels_is_accepted(clean_env, monkeypatch,
+                                                    value):
+    monkeypatch.setenv("KLOGS_TPU_KERNEL", value)
+    assert tune.env_overrides() == {}
+    monkeypatch.setenv("KLOGS_TPU_FUSED_GROUPS", "1")
+    assert tune.chain_selection() == {"fused": True}
 
 
 @pytest.mark.parametrize("var", ["KLOGS_TPU_INTERLEAVE",
