@@ -102,6 +102,22 @@ K axis: 156 groups of 128 states, 64 classes):
    on the same 8 x 4096 chunks, each timed, verdicts equal, with K2g's
    bound and plain time. The sweep line before them carries the K = 1024
    engine's construction seconds and card bytes.
+   seqscan (``ops/seqscan.py``, the JAX engine's route for lines over
+   128 KiB; no kernel of its own, the products are ``torch.matmul`` in
+   fp16): (a) ``classify_line`` and ``tile_transfer_matrices`` on the
+   card equal to the same functions on the CPU, bit for bit, on 4 tiles
+   at S = 128 (512 classes a tile) and S = 512 (64); (b) the grid: at
+   S = 128, 256 and 512 (one pattern, four, the 32), one line of 192
+   KiB, one of 1 MiB and eight of 128-192 KiB, the tree
+   (``match_lines_scan``) and K2 (the engine's ``_match_long`` on the
+   same lines) warmed up, then timed by CUDA events in turns, with the
+   tree's dense bound (2 S^3 (tile_t - 1) a tile over the fp16 peak)
+   and, where the module pads chunk counts to a power of two (eight
+   lines at S <= 256), the tree unpadded beside it; every verdict equal
+   to ``re``'s; (c) ``match_line_sharded`` over the card listed four
+   times on each set's 192 KiB line, verdicts equal to (b)'s (not a
+   scaling figure). The engine does not route to it: it lost to K2 at
+   every point.
 13. engine_k1024: GpuEngineFilter on 1M FakeCluster lines (1% needles)
    and 256 lines of 4-64 KiB; verdicts equal a K1-only engine's on the
    short lines (that engine timed too) and a Python ``re`` oracle (one
@@ -921,6 +937,179 @@ def grouped_chunk_phase(torch, np, nfa, nk, compile_patterns, eng1024,
             or res["g5_b8"]["groups"] != 5
             or res["vs_wide"]["verdict_mismatches"]):
         raise AssertionError(f"grouped_chunk_kernel disagrees: {res}")
+    return res
+
+
+# The seq-scan's grid: (name, patterns, needles) at S = 128, 256 and
+# 512 augmented union states, and (name, lines, KiB from, KiB to).
+SEQ_SETS = (
+    ("s128", ["needle"], [b"needle"]),
+    ("s256", [r'msg=\"request failed path=/api/v1/items\"',
+              "ERROR.*path=/api/v2/admin",
+              r"(?:FATAL|CRIT).*code=\d+ at [a-z_]+\.go:\d+",
+              r"connection refused by upstream [a-z.]+:\d+"],
+     [b'msg="request failed path=/api/v1/items"',
+      b"ERROR x path=/api/v2/admin", b"CRIT y code=7 at main_loop.go:12",
+      b"connection refused by upstream db.local:5432"]),
+    ("s512", PATTERNS, NEEDLES),
+)
+SEQ_LINES = (("1x192k", 1, 192, 192), ("1x1m", 1, 1024, 1024),
+             ("8x128-192k", 8, 128, 192))
+# H100 SXM dense fp16/bf16 tensor-core peak (NVIDIA data sheet).
+FP16_FLOPS_S = 989e12
+
+
+def seq_lines(np, rng, n: int, lo_kib: int, hi_kib: int, needles) -> list:
+    """``n`` printable lines of lo..hi KiB (each over 128 KiB), a needle
+    planted in the first and every other one after."""
+    out = []
+    for i in range(n):
+        size = int(rng.integers(lo_kib * 1024 + 1, hi_kib * 1024 + 2))
+        body = bytearray(rng.integers(32, 127, size=size, dtype=np.uint8))
+        if i % 2 == 0:
+            nd = needles[(i // 2) % len(needles)]
+            p = int(rng.integers(0, size - len(nd)))
+            body[p:p + len(nd)] = nd
+        out.append(bytes(body))
+    return out
+
+
+def tree_bound_ms(S: int, tiles: int, tile_t: int) -> float:
+    """The tree's dense bound: 2 S^3 operations for each of a tile's
+    tile_t - 1 products, over the fp16 peak."""
+    return 2 * S ** 3 * (tile_t - 1) * tiles / FP16_FLOPS_S * 1e3
+
+
+def seqscan_tiles(torch, np, nfa, seqscan, compile_patterns, pats, line,
+                  tile_t: int, n_tiles: int, dev) -> dict:
+    """``classify_line`` and ``tile_transfer_matrices`` on the card against
+    the same functions on the CPU, over the first ``n_tiles`` tiles of
+    ``line``."""
+    union = compile_patterns(pats)
+    on = {d: nfa.pack_program(nfa.augment(union), device=d)
+          for d in ("cpu", dev)}
+    cls = {d: seqscan.classify_line(p, line, tile_t) for d, p in on.items()}
+    tiles = cls["cpu"][:n_tiles * tile_t].view(n_tiles, tile_t)
+    t0 = time.perf_counter()
+    want = seqscan.tile_transfer_matrices(on["cpu"], tiles)
+    cpu_s = time.perf_counter() - t0
+    got = seqscan.tile_transfer_matrices(on[dev], tiles.to(dev)).cpu()
+    return dict(states=on[dev].n_states, tile_t=tile_t, tiles=n_tiles,
+                cls_mismatches=int((cls[dev].cpu() != cls["cpu"]).sum()),
+                mismatches=int((got != want).sum()), ones=int(want.sum()),
+                dtype=str(got.dtype), cpu_s=cpu_s)
+
+
+def timed_call(torch, fn) -> tuple:
+    """(fn's result, ms by CUDA events around it)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    ev[1].synchronize()
+    return out, ev[0].elapsed_time(ev[1])
+
+
+def seqscan_point(torch, np, seqscan, eng, prog, live, acc, S, lines,
+                  want: list, turns: int, dev) -> dict:
+    """The tree (``match_lines_scan``) and the engine's chunk path
+    (``_match_long``: K2, on the lines staged beforehand) on the same
+    lines, both warmed up, then timed by CUDA events, in turns (tree,
+    K2, K2, tree with ``turns`` 2; tree, K2 with 1); both verdicts held
+    to ``want``. Where the module pads the chunk counts to a power of
+    two (a fold holds several lines), the tree again unpadded
+    (``tree_exact``)."""
+    n = len(lines)
+    host_lens = np.array([len(x) for x in lines], dtype=np.int64)
+    payload = torch.from_numpy(
+        np.frombuffer(b"".join(lines), np.uint8).copy()).to(dev)
+    lens = torch.from_numpy(host_lens).to(dev)
+    starts = torch.from_numpy(np.cumsum(host_lens) - host_lens).to(dev)
+    tile_t = seqscan.DEFAULT_TILE_T
+    n_tiles = -(-(host_lens + 3) // tile_t)
+    tpc, max_n = seqscan._plan(S, n, int(n_tiles.max()), tile_t,
+                               seqscan.DEFAULT_STEP_BYTES_BUDGET,
+                               seqscan._elem_bytes(dev))
+    pad = max_n > 1
+    counts = seqscan._chunk_counts(n_tiles, tpc, pad)
+
+    def tree():
+        return seqscan.match_lines_scan(prog, live, acc, lines)
+
+    def k2():
+        return eng._match_long(payload, starts, lens, int(host_lens.max()))[:n]
+
+    def exact():
+        real = seqscan._chunk_counts
+        seqscan._chunk_counts = lambda t, c, _: real(t, c, False)
+        try:
+            return tree()
+        finally:
+            seqscan._chunk_counts = real
+
+    runs = {"tree": tree, "k2": k2, **({"tree_exact": exact} if pad else {})}
+    ms = {k: [] for k in runs}
+    bad = {}
+    for k, fn in runs.items():  # warm-up, and the verdicts
+        got = fn().cpu().tolist()
+        bad[k] = sum(g != w for g, w in zip(got, want))
+    for k in (list(runs) + list(runs)[::-1])[:turns * len(runs)]:
+        ms[k].append(timed_call(torch, runs[k])[1])
+    return dict(lines=n, kib=int(host_lens.sum()) // 1024,
+                tiles=int(n_tiles.sum()), tiles_per_chunk=tpc,
+                lines_per_fold=max_n, pow2_chunks=pad,
+                groups=len(np.unique(counts)),
+                tiles_computed=int((counts * tpc).sum()),
+                **{f"{k}_ms": min(v) for k, v in ms.items()},
+                **{f"{k}_ms_all": v for k, v in ms.items()},
+                bound_ms=tree_bound_ms(S, int(n_tiles.sum()), tile_t),
+                matched=int(sum(want)), mismatches=bad)
+
+
+def seqscan_phase(torch, np, nfa, seqscan, compile_patterns, GpuEngineFilter,
+                  dev) -> dict:
+    """The sequence-parallel scan (``ops/seqscan.py``): (a) the card's
+    class ids and transfer matrices against the CPU's, bit for bit, at
+    S = 128 and 512; (b) the grid: the tree against K2 (the engine's
+    chunk path) at each set and line shape, times and the tree's dense
+    bound, every verdict held to ``re``; (c) ``match_line_sharded`` over
+    the card listed four times on each set's 192 KiB line (not a scaling
+    figure), verdicts equal to (b)'s."""
+    rng = np.random.default_rng(SEED + 17)
+    text = seq_lines(np, rng, 1, 8, 8, NEEDLES)[0]
+    res = {"tiles": {
+        "s128": seqscan_tiles(torch, np, nfa, seqscan, compile_patterns,
+                              ["needle"], b"needle " + text, 512, 4, dev),
+        "s512": seqscan_tiles(torch, np, nfa, seqscan, compile_patterns,
+                              PATTERNS, text, 64, 4, dev)}}
+    grid, sharded = {}, {}
+    for set_name, pats, needles in SEQ_SETS:
+        union = compile_patterns(pats)
+        prog = nfa.pack_program(nfa.augment(union), device=dev)
+        live, acc, S = union.n_states, union.n_states + 1, prog.n_states
+        eng = GpuEngineFilter(pats, device=dev)
+        for shape, n, lo, hi in SEQ_LINES:
+            lines = seq_lines(np, rng, n, lo, hi, needles)
+            want = _oracle_chunk(tuple(pats), lines)
+            key = f"{set_name}_{shape}"
+            grid[key] = dict(states=S, **seqscan_point(
+                torch, np, seqscan, eng, prog, live, acc, S, lines, want,
+                turns=1 if S > 256 else 2, dev=dev))
+            if shape == SEQ_LINES[0][0]:  # the single 192 KiB line
+                got, ms = timed_call(torch, lambda: seqscan.match_line_sharded(
+                    prog, live, acc, lines[0], devices=[dev] * 4))
+                sharded[key] = dict(devices=4, verdict=got, want=want[0],
+                                    ms=ms)
+        del eng, prog
+    res.update(grid=grid, sharded=sharded, peak_fp16_flops=FP16_FLOPS_S,
+               peak_source="H100 SXM data sheet, dense fp16/bf16")
+    emit({"phase": "seqscan", **res})
+    if (any(t["mismatches"] or t["cls_mismatches"] or not t["ones"]
+            for t in res["tiles"].values())
+            or any(any(p["mismatches"].values()) or not p["matched"]
+                   for p in grid.values())
+            or any(s["verdict"] != s["want"] for s in sharded.values())):
+        raise AssertionError(f"seqscan disagrees: {res}")
     return res
 
 
@@ -3776,7 +3965,8 @@ def backfill_phase(torch, np, nk, pack, bits, app, cli, term,
     gz, plain = os.path.join(root, "gz"), os.path.join(root, "plain")
     total = sum(len(lines) for lines in corpus["sets"])
     # The profiled reruns read each set's oldest generation (a third of
-    # the lines, no long line).
+    # the lines, no long line); (c)'s, at K = 1024, the first half of
+    # the sets' only.
     oldest_gz = [os.path.join(gz, "app-*.log.2.gz")]
     want_c = expected_files(corpus, v1024, names("gz"))
     runs = dict(
@@ -3789,7 +3979,9 @@ def backfill_phase(torch, np, nk, pack, bits, app, cli, term,
                        expected_files(corpus, v32, names("plain")), total,
                        [os.path.join(plain, "app-*.log.2")]),
         c=backfill_run(torch, nk, pack, bits, app, cli, term, dev,
-                       "k1024_gzip", [gz], k1024, want_c, total, oldest_gz))
+                       "k1024_gzip", [gz], k1024, want_c, total,
+                       [os.path.join(gz, "app-%02d.log.2.gz" % s)
+                        for s in range(n_sets // 2)]))
     capacity = dict(gzip=source_capacity([gz]),
                     plain=source_capacity([plain]))
     res = dict(card=card, lines=total, sets=n_sets,
@@ -5570,7 +5762,8 @@ def main() -> int:
     from klogs_tpu_torch.filters.base import FilterStats, frame_lines
     from klogs_tpu_torch.filters.compiler.glushkov import compile_patterns
     from klogs_tpu_torch.filters.gpu import GpuEngineFilter
-    from klogs_tpu_torch.ops import _build, bits, nfa, pack, sweep, tune
+    from klogs_tpu_torch.ops import (_build, bits, nfa, pack, seqscan, sweep,
+                                     tune)
     from klogs_tpu_torch.ops import nfa_kernels as nk
     from klogs_tpu_torch.ui import term
 
@@ -5608,6 +5801,8 @@ def main() -> int:
         del k1_batches
         k2g = grouped_chunk_phase(torch, np, nfa, nk, compile_patterns,
                                   sw["eng"], dev)
+        seqscan_phase(torch, np, nfa, seqscan, compile_patterns,
+                      GpuEngineFilter, dev)
         ek = engine_k1024_phase(torch, np, nk, gpu, frame_lines,
                                 synthetic_line, sw["eng"], dev)
         k4_b256_check(torch, nk, k4, ek.pop("b256"))

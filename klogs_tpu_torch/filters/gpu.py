@@ -25,8 +25,11 @@ host instead, in ``klogs_tpu/native/_hostops.c``.)
   device. A set with a group past a register width (a single pattern of
   more than ~1000 positions) stays on the union. Lines over
   ``SEQ_SCAN_BYTES``, which the JAX engine sends to its
-  sequence-parallel scan, take the same chunk path here; the verdicts
-  are the same.
+  sequence-parallel scan, take the same chunk path here, with the same
+  verdicts: the port's scan (``ops/seqscan.py``) lost to K2 at every
+  point measured on the H100 (S = 128 to 512; one line of 192 KiB or
+  1 MiB, eight of 128-192 KiB; ``PERF.md`` §6), so no line is routed to
+  it.
 - Trailing newlines are stripped before matching, so ``$`` sees the
   logical end of the line; a ``match_all`` pattern set skips the device.
 - The thousand-pattern path: when the gate policy (``filters/cpu.py``)

@@ -244,6 +244,77 @@ def test_engine_long_lines_take_k2g_past_1024_states(dev):
     assert any(got[:12]) and not all(got[:12])
 
 
+SEQ_PATTERNS = ["needle", "^start", "end$", r"retry \d+/\d+"]
+
+
+def seq_lines(n: int, lo: int, hi: int, seed: int) -> list:
+    """Printable lines of lo..hi bytes, a needle in every other one."""
+    rng = np.random.default_rng(seed)
+    needles = [b"needle", b"retry 3/5"]
+    out = []
+    for i in range(n):
+        size = int(rng.integers(lo, hi + 1))
+        body = bytearray(rng.integers(32, 127, size=size, dtype=np.uint8))
+        if i % 2:
+            nd = needles[(i // 2) % 2]
+            p = int(rng.integers(0, size - len(nd)))
+            body[p:p + len(nd)] = nd
+        out.append(bytes(body))
+    out[0] = b"start" + out[0]
+    return out + [out[1][:700] + b"end", b""]
+
+
+@pytest.mark.parametrize("patterns,tile_t", [
+    (SEQ_PATTERNS, 512), (PATTERNS + ["a" * 150 + "b"], 64),
+], ids=["s128", "s256"])
+def test_seqscan_tiles_on_card_equal_cpu(dev, patterns, tile_t):
+    """``classify_line`` and ``tile_transfer_matrices`` (fp16 products on
+    the card, float32 on the CPU) give the same int8 matrices."""
+    from klogs_tpu_torch.ops import seqscan
+
+    union = compile_patterns(patterns)
+    progs = [nfa.pack_program(nfa.augment(union), device=d)
+             for d in ("cpu", dev)]
+    line = seq_lines(2, 5 * tile_t, 5 * tile_t, 1)[1]
+    cls = [seqscan.classify_line(p, line, tile_t) for p in progs]
+    assert torch.equal(cls[0], cls[1].cpu())
+    tiles = cls[0].view(-1, tile_t)
+    want = seqscan.tile_transfer_matrices(progs[0], tiles)
+    got = seqscan.tile_transfer_matrices(progs[1], tiles.to(dev))
+    assert got.device == dev and got.dtype == torch.int8
+    assert torch.equal(got.cpu(), want)
+    assert int(want.sum()) > tiles.shape[0]
+
+
+def test_seqscan_lines_on_card_equal_cpu(dev):
+    """``match_lines_scan`` on the card: enqueued without a host
+    synchronisation, a bool tensor there, equal to the CPU's and the
+    chunk kernel's verdicts; ``match_line_sharded`` over the card listed
+    twice gives the same."""
+    from klogs_tpu_torch.ops import seqscan
+
+    union = compile_patterns(SEQ_PATTERNS)
+    live, acc = union.n_states, union.n_states + 1
+    progs = [nfa.pack_program(nfa.augment(union), device=d)
+             for d in ("cpu", dev)]
+    lines = seq_lines(6, 20_000, 40_000, 2)
+    seqscan.match_lines_scan(progs[1], live, acc, lines)  # tables built
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # enqueued, never waited on
+    try:
+        got = seqscan.match_lines_scan(progs[1], live, acc, lines)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got.device == dev and got.dtype == torch.bool
+    want = seqscan.match_lines_scan(progs[0], live, acc, lines).tolist()
+    assert got.tolist() == want
+    assert want == GpuEngineFilter(SEQ_PATTERNS, device=dev).match_lines(lines)
+    assert any(want) and not all(want)
+    for i in (0, 1, 2):
+        assert seqscan.match_line_sharded(progs[1], live, acc, lines[i],
+                                          devices=[dev] * 2) is want[i]
+
+
 def test_kernels_count_launches(dev):
     prog, live, acc = nfa.compile_grouped(PATTERNS, device=dev)
     nfa_kernels.reset_launches()

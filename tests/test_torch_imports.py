@@ -59,7 +59,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "ops/bench_operating_point.py", "utils/cache.py",
                 "filters/compiler/dfa.py", "filters/compiler/index.py",
                 "filters/indexed.py", "parallel/__init__.py",
-                "parallel/mesh.py", "parallel/distributed.py"):
+                "parallel/mesh.py", "parallel/distributed.py",
+                "ops/seqscan.py"):
         assert os.path.join(PORT, mod) in files
     # The port's C file is its own: it includes the C, POSIX thread,
     # x86 intrinsic and Python headers only, nothing of the JAX
@@ -154,6 +155,18 @@ def test_cuda_entry_points_raise_without_card(tmp_path, monkeypatch):
         MeshEngine(["x"])
     with pytest.raises(RuntimeError, match="cuda"):
         MeshEngine(["x"], devices=["cuda:0", "cuda:0"])
+    # The seq-scan: a program built for the default device, and a line
+    # sharded over a card named beside the CPU.
+    from klogs_tpu_torch.ops import seqscan
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        seqscan.match_line_sharded(pack_program(augment(union), device=None),
+                                   union.n_states, union.n_states + 1, b"x")
+    cpu_prog = pack_program(augment(union), device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        seqscan.match_line_sharded(cpu_prog, union.n_states,
+                                   union.n_states + 1, b"x",
+                                   devices=["cpu", "cuda:0"])
     # The indexed host engine asked to narrow on the card.
     from klogs_tpu_torch.filters.indexed import IndexedFilter
 
