@@ -10,8 +10,10 @@ It builds the CUDA kernels from ``klogs_tpu_torch/ops/csrc`` (one nvcc
 per source, all at once) and runs these phases, each printing one JSON
 line. Every phase that drives an entry point (engine, cli and their
 fused and thousand-pattern variants) fails unless its short rows and
-long-line chunks went through the ragged pack (``pack_rows``): the
-payload crosses to the card once per batch and is cut into rows there.
+long-line chunks went through the device packer
+(``pack_classify_rows``): the payload crosses to the card once per batch
+and is cut into rows, stripped of trailing newlines and classified
+there.
 
 1. card: the card's name and power limit (nvidia-smi), torch and CUDA.
    Then build (every kernel source at once) and native: the port's
@@ -33,10 +35,12 @@ payload crosses to the card once per batch and is cut into rows there.
    step.
 4. engine: GpuEngineFilter on 1M synthetic log lines and 2000 long
    lines (4 KiB to 192 KiB); verdicts equal a Python ``re`` oracle.
-5. pack: pack_rows against its plain version, byte for byte, on what
-   the engine stages for the engine phase's first frame (every width
-   bucket) and for its long frame (every 4096-byte chunk), both timed,
-   with the bound.
+5. pack: pack_classify_rows against its plain version, element for
+   element, on what the engine stages for the engine phase's first
+   frame (every width bucket) and for its long frame (every 4096-byte
+   chunk), both timed, with the bound, beside the ``pack_rows`` +
+   ``classify_chunk`` pair it replaced on the same lines (equal class
+   ids); ``pack_rows`` held against its plain version on the buckets.
 6. cli: the user's entry point, ``app.run_async`` over a 256-pod
    FakeCluster (4000 lines each, plus long lines) with ``--match`` on
    the 32 patterns and ``-p`` a temporary directory; every file must
@@ -71,8 +75,9 @@ restored around these two phases):
    every verdict equal to a fixed-flag engine's, and after the load a
    step down and a clean close; (b) the cli cell under the variable
    (0.25 s ticks): every file equal to the oracle's, the steps and
-   values beside the fixed-flag cli lines/s, K1, K2 and ``pack_rows``
-   held against their plain versions on its batches.
+   values beside the fixed-flag cli lines/s, K1, K2 and
+   ``pack_classify_rows`` held against their plain versions on its
+   batches.
 
 The thousand-pattern path, on ``make_patterns(1024)`` (``bench.py``'s
 K axis: 156 groups of 128 states, 64 classes):
@@ -141,11 +146,11 @@ lines:
    (a) ``GpuEngineFilter(PATTERNS, engine=MeshEngine(...))`` over grids
    (1,1), (4,1), (2,2) and (1,4) on the engine phase's first frame and
    16 long lines: verdicts equal the single engine's, K1 and
-   ``pack_rows`` launched once a shard a width bucket (and K2 on the
-   long lines), lines/s beside the single engine's, K1 and
-   ``pack_rows`` held against their plain versions on one shard's
-   batches; (b) the 1024 patterns on a (2,2) grid: each shard's sweep
-   tables on the card, verdicts equal the single K = 1024 engine's, K3
+   ``pack_classify_rows`` launched once a shard a width bucket (and K2
+   and it on the long lines), lines/s beside the single engine's, K1
+   and ``pack_classify_rows`` held against their plain versions on one
+   shard's batches; (b) the 1024 patterns on a (2,2) grid: each shard's
+   sweep tables on the card, verdicts equal the single K = 1024 engine's, K3
    and its pair list held on one shard's batch; (c) ``app.run_async``
    with the engine factory's device list patched to the card four
    times (the engine asserted a ``MeshEngine``, counts zeroed just
@@ -180,7 +185,7 @@ The observability and fault layers, after them:
    reconnects, 8 faults fired and 8 retries counted); a short run with
    ``--profile DIR`` whose torch.profiler trace names
    ``grouped_shift_kernel``, ``chunk_nfa_kernel`` and
-   ``pack_rows_kernel``.
+   ``pack_classify_kernel``.
 
 Follow mode (BASELINE config 4), after them:
 
@@ -194,7 +199,8 @@ Follow mode (BASELINE config 4), after them:
    the device busy share of one profiled second, and each matching
    line's emission-to-file latency on 8 tailed streams. K1 is held
    against its plain version on 8 of the run's batches, K2 and
-   ``pack_rows`` on one each (counts zeroed just before the run).
+   ``pack_classify_rows`` on one each (counts zeroed just before the
+   run).
 17. kube_follow: the same entry point on the default ``--cluster kube``
    (``-a -f --timestamps --kubeconfig``) against a fake apiserver in a
    process of its own: 64 pods, 4000 backlog lines each in 4 KiB pieces,
@@ -216,9 +222,9 @@ removed at the end):
    patterns over the gzip sets (the gated path, long lines on K2g).
    Each run: every file equal to the ``re`` oracle's selection in
    rotated order, lines/s, device batches, K1 (or K3), K2 (or K2g) and
-   ``pack_rows`` held against their plain versions on the run's own
-   batches (counts zeroed just before the run), then a backfill of each
-   of its sets' oldest generation under cProfile with a 1 s
+   ``pack_classify_rows`` held against their plain versions on the
+   run's own batches (counts zeroed just before the run), then a
+   backfill of each of its sets' oldest generation under cProfile with a 1 s
    torch.profiler window (the device's busy share).
    Beside them the source alone: the sets drained through
    ``ArchiveStream``.
@@ -240,8 +246,8 @@ The remote filter service, last:
    channel (``tools/bench_service.py``'s shape), 1.5 s each, every
    verdict equal to the in-process engine's: lines/s and lines a device
    batch; (c) an in-process filterd on the card with one collector (32
-   pods x 4000 lines + 4 long lines): K1, K2 and ``pack_rows`` held
-   against their plain versions on the batches it built, then at the
+   pods x 4000 lines + 4 long lines): K1, K2 and ``pack_classify_rows``
+   held against their plain versions on the batches it built, then at the
    1024 patterns Hello's ``device_sweep``, a collector of 64 pods x 250
    lines (files = oracle) and K3 with its pair list held on its most
    frequent batch; (d) a collector under
@@ -268,8 +274,8 @@ The remote filter service, last:
    the 1024 on 64 pods x 250 lines and 4 long lines): files exact, 2
    engine builds, Hello's ``multi_set``, and ``nvidia-smi``'s compute
    apps; then a multi-set filterd in this process: K1, K2 and
-   ``pack_rows`` held on the 32-pattern set's batches, the sweep, K3
-   (with its pair list) and K2g on the 1024 set's, and
+   ``pack_classify_rows`` held on the 32-pattern set's batches, the
+   sweep, K3 (with its pair list) and K2g on the 1024 set's, and
    ``torch.cuda.memory_allocated`` back within
    5% of its level before that set registered once it is evicted; (d)
    a collector over ``KLOGS_TENANT_QUOTA_LINES`` with
@@ -305,9 +311,10 @@ Every phase line carries ``phase_s``, the seconds since the line
 before it. Then a ``kernels`` line (each kernel's time beside its bound
 and its plain version's time, with its launches on its main path, on
 the backfill, in the fleet's registry, on the mesh (K1 on (a)'s (2,2)
-grid, K3, K2g and ``pack_rows`` on (c)'s cli_k1024 cell) and, for
-``pack_rows``, on the host engines' device sweep: the four NFA kernels,
-K2g and ``pack_rows``; K2g's main path is cli_k1024, its time the
+grid, K3, K2g and ``pack_classify_rows`` on (c)'s cli_k1024 cell): the
+four NFA kernels, K2g, ``pack_classify_rows`` and ``pack_rows`` (whose
+main path is the host engines' device sweep); K2g's main path is
+cli_k1024, its time the
 8 x 4096 chunks of the 1024 patterns, beside ``chunk_nfa_wide``'s),
 the card line, and
 last ``{"ok": true,
@@ -1159,7 +1166,8 @@ def profile_batch(torch, eng, frame) -> dict:
     top = sorted(rows, key=lambda r: -r[1])[:6]
     kernels: dict = {}
     for k, ms in rows:  # the hand-written kernels, by template instance
-        m = re.search(r"\w*(?:nfa|gate_pairs|pack_rows)\w*(?:<[^>]*>)?", k)
+        m = re.search(r"\w*(?:nfa|gate_pairs|pack_rows|pack_classify)\w*"
+                      r"(?:<[^>]*>)?", k)
         if m:
             kernels[m.group(0)] = kernels.get(m.group(0), 0.0) + ms
     cp = cProfile.Profile()
@@ -1226,7 +1234,7 @@ def engine_phase(torch, np, nk, GpuEngineFilter, frame_lines, synthetic_line,
                grouped_launches_per_batch=launches[nk.GROUPED] / len(frames))
     emit({"phase": "engine", **res})
     if (bad or len(got) != len(exp) or launches[nk.GROUPED] == 0
-            or launches[nk.CHUNK] == 0 or launches[nk.PACK] == 0):
+            or launches[nk.CHUNK] == 0 or launches[nk.PACK_CLS] == 0):
         raise AssertionError(f"engine phase failed: {res}")
     return dict(res, frames=frames, long_frame=long_frame,
                 verdicts=np.asarray(got))
@@ -1252,14 +1260,95 @@ def pack_check(torch, pack, payload, starts, lens, width: int, rows: int,
                 n_bytes=n_bytes)
 
 
+def kernel_alone_ms(torch, fn, reps: int, name: str) -> float:
+    """Mean device ms of the kernels whose name holds ``name`` over
+    ``reps`` calls of ``fn``, by torch.profiler: the kernel alone, where
+    CUDA events around back-to-back calls time the launch path when the
+    host is the slower."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # The first of two sessions is thrown away: one that follows another
+    # phase's profiler has come back without the kernels it ran.
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if name in e.key) / reps / 1e3
+
+
+def pack_cls_check(torch, pack, payload, starts, lens, width: int, rows: int,
+                   prog, skip: int = 0, first: bool = True,
+                   final: bool = True, want_bytes: bool = False,
+                   reps: int = 10, alone: bool = False) -> dict:
+    """pack_classify_rows against its plain version on one sub-batch or
+    chunk (class ids, stripped lengths and byte rows, element for
+    element), both timed, beside the pair it replaced on the same lines:
+    ``pack_rows`` + ``classify_chunk`` on the stripped lengths (which the
+    host computed before), whose class ids must equal the kernel's; and
+    the kernel's flat schedule, held equal and timed; with ``alone``,
+    both schedules' kernels alone too (torch.profiler). The bound: the
+    kept bytes read once, starts and lengths read once, the class ids,
+    lengths (and byte rows) written once."""
+    from klogs_tpu_torch.ops import nfa
+
+    args = (payload, starts, lens, width, rows, prog, skip, first, final,
+            want_bytes)
+    got = pack.pack_classify_rows(*args)
+    exp = pack.pack_classify_rows_plain(*args)
+    bad = sum(int((g != e).sum()) for g, e in zip(got, exp) if g is not None)
+    ms = cuda_ms(torch, lambda: pack.pack_classify_rows(*args), reps)
+    plain_ms = cuda_ms(torch, lambda: pack.pack_classify_rows_plain(*args), 1)
+    stripped = got[1]
+
+    def pair():
+        b = pack.pack_rows(payload, starts, stripped[:len(starts)], width,
+                           rows, skip)
+        return nfa.classify_chunk(prog, b, stripped - skip, first, final)
+
+    pair_bad = int((pair() != got[0]).sum())
+    pair_ms = cuda_ms(torch, pair, reps)
+    # The kernel's flat schedule (rows past 1024 bytes take it) on the
+    # same inputs.
+    flat = pack._launch_classify(*args, flat=True)
+    flat_bad = sum(int((g != e).sum()) for g, e in zip(flat, got)
+                   if g is not None)
+    flat_ms = cuda_ms(torch, lambda: pack._launch_classify(*args, flat=True),
+                      reps)
+    extra = {}
+    if alone:
+        extra = dict(
+            kernel_ms=kernel_alone_ms(torch, lambda: pack.pack_classify_rows(
+                *args), reps, "pack_classify"),
+            flat_kernel_ms=kernel_alone_ms(
+                torch, lambda: pack._launch_classify(*args, flat=True), reps,
+                "pack_classify"))
+    T = width + int(first) + 2 * int(final)
+    n_bytes = (int((lens - skip).clamp(0, width).sum()) + 16 * len(starts)
+               + 8 * rows + 2 * rows * T + (rows * width if want_bytes else 0))
+    b_ms, b_by = bound(n_bytes, 0)
+    return dict(rows=rows, width=width, T=T, skip=skip, bytes_out=want_bytes,
+                mismatches=bad + flat_bad, pair_mismatches=pair_bad, ms=ms,
+                plain_ms=plain_ms, pair_ms=pair_ms, flat_ms=flat_ms,
+                bound_ms=b_ms, bound_by=b_by, n_bytes=n_bytes, **extra)
+
+
 def pack_phase(torch, nk, pack, GpuEngineFilter, base, dev) -> dict:
-    """The ragged pack against its plain version on what the engine phase
-    staged: every width bucket of its first frame, and every chunk of its
-    long frame, on the engine's own metadata and device payload. Any
-    mismatch fails. ``launches`` are the engine phase's."""
+    """The device packer against its plain version on what the engine
+    phase staged: every width bucket of its first frame, and every chunk
+    of its long frame, on the engine's own metadata, device payload and
+    programs. ``pack_classify_rows`` (the main path's) is timed beside the
+    ``pack_rows`` + ``classify_chunk`` pair it replaced; ``pack_rows``
+    (the indexed engine's device sweep) is held on the same cuts with the
+    stripped lengths. Any mismatch fails. ``launches`` are the engine
+    phase's."""
     eng = GpuEngineFilter(PATTERNS, device=dev)
     L = eng._chunk_bytes
-    buckets, chunks = [], []
+    buckets, chunks, rows_cuts = [], [], []
     for frame in (base["frames"][0], base["long_frame"]):
         layout, meta = eng._layout(*frame)
         meta_d, payload_d = eng._stage(frame[0], meta)
@@ -1268,27 +1357,54 @@ def pack_phase(torch, nk, pack, GpuEngineFilter, base, dev) -> dict:
             starts, lens = meta_d[at:at + rows], meta_d[at + rows:at + 2 * rows]
             at += 2 * rows
             if width is not None:
-                buckets.append(dict(lines=len(idx), **pack_check(
-                    torch, pack, payload_d, starts, lens, width, rows, 0, 20)))
+                buckets.append(dict(lines=len(idx), **pack_cls_check(
+                    torch, pack, payload_d, starts, lens, width, rows,
+                    eng._grouped, reps=20, alone=True)))
+                stripped = pack.pack_classify_rows_plain(
+                    payload_d, starts, lens, width, rows, eng._grouped)[1]
+                rows_cuts.append(pack_check(torch, pack, payload_d, starts,
+                                            stripped, width, rows, 0, 20))
                 continue
-            for k in range(-(-longest // L)):
-                chunks.append(pack_check(torch, pack, payload_d, starts, lens,
-                                         L, rows, k * L, 5))
+            n_chunks = -(-longest // L)
+            prog = eng._long[0] if eng._long is not None else eng._aug
+            for k in range(n_chunks):
+                chunks.append(pack_cls_check(
+                    torch, pack, payload_d, starts, lens, L, rows, prog,
+                    k * L, k == 0, k == n_chunks - 1, reps=5,
+                    alone=k in (0, 1, n_chunks - 1)))
     long_sum = {key + "_sum": sum(c[key] for c in chunks)
-                for key in ("mismatches", "ms", "plain_ms", "bound_ms")}
+                for key in ("mismatches", "pair_mismatches", "ms",
+                            "plain_ms", "pair_ms", "flat_ms", "bound_ms")}
+    timed = [c for c in chunks if "kernel_ms" in c]
+    long_sum.update(alone_chunks=len(timed), **{
+        key + "_mean": sum(c[key] for c in timed) / len(timed)
+        for key in ("kernel_ms", "flat_kernel_ms", "bound_ms")})
     main = max(buckets, key=lambda b: b["rows"])
-    res = dict(name=nk.PACK, route="cuda",
+    rmain = max(rows_cuts, key=lambda b: b["rows"])
+    held = buckets + chunks
+    res = dict(name=nk.PACK_CLS, route="cuda",
                source="klogs_tpu_torch/ops/csrc/pack_kernels.cu",
                replaces="klogs_tpu/native/_hostops.c:593",
-               launches=base["launches"][nk.PACK],
-               max_abs_err=float(max(b["mismatches"] for b in buckets + chunks)),
+               launches=base["launches"][nk.PACK_CLS],
+               max_abs_err=float(max(b["mismatches"] for b in held)),
+               pair_mismatches=max(b["pair_mismatches"] for b in held),
                ms=main["ms"], plain_ms=main["plain_ms"],
-               bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-               library_ms=None, buckets=buckets,
+               pair_ms=main["pair_ms"], flat_ms=main["flat_ms"],
+               kernel_ms=main["kernel_ms"],
+               flat_kernel_ms=main["flat_kernel_ms"],
+               bound_ms=main["bound_ms"],
+               bound_by=main["bound_by"], library_ms=None, buckets=buckets,
                long_chunks=dict(rows=chunks[0]["rows"], width=L,
-                                chunks=len(chunks), **long_sum))
+                                chunks=len(chunks), **long_sum),
+               pack_rows=dict(
+                   name=nk.PACK, max_abs_err=float(max(
+                       b["mismatches"] for b in rows_cuts)),
+                   ms=rmain["ms"], plain_ms=rmain["plain_ms"],
+                   bound_ms=rmain["bound_ms"], bound_by=rmain["bound_by"],
+                   buckets=rows_cuts))
     emit({"phase": "pack", **res})
-    if res["max_abs_err"] or not chunks:
+    if (res["max_abs_err"] or res["pair_mismatches"] or not chunks
+            or res["pack_rows"]["max_abs_err"]):
         raise AssertionError(f"pack phase failed: {res}")
     return res
 
@@ -1341,7 +1457,7 @@ def engine_fused_phase(torch, np, nk, GpuEngineFilter, base, dev) -> dict:
     main_shape = max(batches, key=lambda k: batches[k][0]) if batches else None
     if (bad or not eng._fused or launches[nk.FUSED] == 0
             or launches[nk.GROUPED] != 0 or launches[nk.CHUNK] == 0
-            or launches[nk.PACK] == 0
+            or launches[nk.PACK_CLS] == 0
             or main_shape is None or main_shape[1] != 131):
         raise AssertionError(f"engine_fused phase failed: {res}")
     return dict(res, batch=batches[main_shape][1])
@@ -1571,7 +1687,8 @@ def tune_auto_service(torch, np, nk, tune, FakeCluster, GpuEngineFilter,
     res["ok"] = bool(ups and downs and in_bounds and counts["wrong"] == 0
                      and counts["calls"] >= n_callers
                      and svc._sem._value == svc.max_in_flight
-                     and launches[nk.GROUPED] > 0 and launches[nk.PACK] > 0)
+                     and launches[nk.GROUPED] > 0
+                     and launches[nk.PACK_CLS] > 0)
     return res
 
 
@@ -1581,14 +1698,14 @@ def tune_auto_cli(torch, np, nk, pack, app, cli, term, FakeCluster, dev,
     ``app.run_async`` under ``KLOGS_TUNE=auto`` and
     ``KLOGS_TUNE_INTERVAL_S=0.25`` with ``--stats-json``: every file
     equal to the ``re`` oracle; the controller's steps and final values,
-    lines/s beside the fixed-flag cli run's; K1, K2 and ``pack_rows``
+    lines/s beside the fixed-flag cli run's; K1, K2 and ``pack_classify_rows``
     held against their plain versions on this run's own batches (counts
     zeroed just before the run). A run of a few seconds may show no two
     pressure ticks in a row, so no step is required here."""
     fc, n_lines = cli_cluster(np, FakeCluster)
     pods = fc.namespaces["default"]
     want = oracle_files(pods)
-    names = ["match_cls_grouped", "match_chunk_cls", "pack_rows"]
+    names = ["match_cls_grouped", "match_chunk_cls", "pack_classify_rows"]
     with tempfile.TemporaryDirectory() as tmp, \
             env_set("KLOGS_TUNE", "auto"), \
             env_set("KLOGS_TUNE_INTERVAL_S", "0.25"), \
@@ -1631,7 +1748,7 @@ def tune_auto_cli(torch, np, nk, pack, app, cli, term, FakeCluster, dev,
     held = res["k1_batches"] + res["k2_batches"] + res["pack_batches"]
     res["ok"] = bool(
         rc == 0 and not bad and len(res["values"]) == 2
-        and all(launches[k] > 0 for k in (nk.GROUPED, nk.CHUNK, nk.PACK))
+        and all(launches[k] > 0 for k in (nk.GROUPED, nk.CHUNK, nk.PACK_CLS))
         and res["k1_batches"] and res["k2_batches"] and res["pack_batches"]
         and not any(h.get("max_abs_err", 0) or h.get("mismatches", 0)
                     for h in held))
@@ -1797,7 +1914,7 @@ def cli_phase(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
     ran, idle = (nk.FUSED, nk.GROUPED) if fused else (nk.GROUPED, nk.FUSED)
     if (rc != 0 or bad or len(files) != len(pods) or not batches or not k2
             or launches[ran] == 0 or launches[idle] != 0
-            or launches[nk.CHUNK] == 0 or launches[nk.PACK] == 0
+            or launches[nk.CHUNK] == 0 or launches[nk.PACK_CLS] == 0
             or any(b["max_abs_err"] or b.get("k1_mismatches")
                    for b in batches + k2)):
         raise AssertionError(f"{name} phase failed: {res}")
@@ -2130,7 +2247,7 @@ def profile_run(torch, app, cli, term, FakeCluster, np, dev,
                 kernels[ev["name"]] = kernels.get(ev["name"], 0) + 1
     named = {k: sum(n for name, n in kernels.items() if k in name)
              for k in ("grouped_shift_kernel", "chunk_nfa_kernel",
-                       "pack_rows_kernel")}
+                       "pack_classify")}
     res = dict(rc=rc, lines=n_lines, trace_files=traces,
                kernel_events=sum(kernels.values()), named=named,
                mismatched_files=files_equal(os.path.join(out, "logs"), want))
@@ -2617,7 +2734,8 @@ def engine_k1024_phase(torch, np, nk, gpu, frame_lines, synthetic_line, eng,
                k2g_batches=k2g_batches)
     emit({"phase": "engine_k1024", **res})
     if (bad or vs_k1 or short_launches[nk.GATED] == 0
-            or short_launches[nk.PAIRS] == 0 or short_launches[nk.PACK] == 0
+            or short_launches[nk.PAIRS] == 0
+            or short_launches[nk.PACK_CLS] == 0
             or short_launches[nk.GROUPED] != 0
             or launches[nk.GROUPED_CHUNK] == 0 or launches[nk.CHUNK] != 0
             or not k2g_batches or k2g_batches[0]["max_abs_err"]
@@ -2729,7 +2847,7 @@ def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
     res["want"] = want
     if (rc != 0 or bad or files != len(pods) or not kept
             or launches[nk.GATED] == 0 or launches[nk.PAIRS] == 0
-            or launches[nk.PACK] == 0
+            or launches[nk.PACK_CLS] == 0
             or launches[nk.GROUPED] != 0 or pf_line is None or not k3_batches
             or launches[nk.GROUPED_CHUNK] == 0 or launches[nk.CHUNK] != 0
             or not k2g_batches
@@ -2757,9 +2875,9 @@ def with_lines(np, frame, lines: list) -> tuple:
 
 def mesh_expected(f, frame) -> dict:
     """The launches one dispatch of ``frame`` makes through ``f``'s mesh
-    engine: K1 (or K3) and ``pack_rows`` once a shard whose rows hold a
-    line, a width bucket; ``pack_rows`` once more a chunk of the long
-    lines (K2, on the first device)."""
+    engine: K1 (or K3) and ``pack_classify_rows`` once a shard whose rows
+    hold a line, a width bucket; ``pack_classify_rows`` once more a chunk
+    of the long lines (K2, on the first device)."""
     layout, _ = f._layout(*frame)
     d, g = f._engine.grid
     shards = chunks = 0
@@ -2816,14 +2934,14 @@ def mesh_grids(torch, np, nk, pack, GpuEngineFilter, MeshEngine, frame0,
                    launches=launches, expected={k: v * reps
                                                 for k, v in exp.items()})
         if (row["mismatches"] or launches[nk.GROUPED] != exp["kernel"] * reps
-                or launches[nk.PACK] != exp["pack"] * reps
+                or launches[nk.PACK_CLS] != exp["pack"] * reps
                 or launches[nk.CHUNK] != exp["chunk"] * reps):
             bad.append(row["grid"])
         if (d, g) == (2, 2):
             # One shard's batches, as the shard built them, held against
-            # the plain versions: its K1 batch and its pack_rows cut.
+            # the plain versions: its K1 batch and its pack_classify_rows cut.
             with recording_wrappers(nk, pack, ["match_cls_grouped",
-                                               "pack_rows"]) as calls:
+                                               "pack_classify_rows"]) as calls:
                 f.fetch_framed(f.dispatch_framed(*frame))
             held = held_batches(torch, nk, pack, calls, 1)
             k1, cut = held["k1_batches"][0], held["pack_batches"][0]
@@ -2889,7 +3007,8 @@ def mesh_k1024(torch, np, nk, bits, pack, GpuEngineFilter, MeshEngine,
     if (res["mismatches"] or not on_card or not got.any()
             or launches[nk.GATED] != exp["kernel"]
             or launches[nk.PAIRS] != exp["kernel"]
-            or launches[nk.GROUPED] != 0 or launches[nk.PACK] != exp["pack"]
+            or launches[nk.GROUPED] != 0
+            or launches[nk.PACK_CLS] != exp["pack"]
             or k3["max_abs_err"] or k3["pairs_mismatches"]):
         raise AssertionError(f"mesh (b) failed: {res}")
     return dict(res, k3=k3)
@@ -2999,7 +3118,7 @@ def mesh_cli(torch, np, nk, app, cli, term, FakeCluster, frame_lines,
             or any(c["rc"] or not c["mesh"] or c["n_mismatched"]
                    or c["files"] != c["want_files"]
                    or c["launches"][nk.GATED] == 0
-                   or c["launches"][nk.PACK] == 0
+                   or c["launches"][nk.PACK_CLS] == 0
                    or c["launches"][nk.GROUPED_CHUNK] == 0
                    or c["launches"][nk.CHUNK] != 0 or not c["k2g_batches"]
                    or c["k2g_batches"][0]["max_abs_err"] for c in cells)):
@@ -3133,7 +3252,7 @@ def mesh_phase(torch, np, nk, bits, pack, app, cli, term, FakeCluster,
     listed several times: (a) grids at K = 32, (b) K = 1024 on a (2, 2)
     grid, (c) the CLI through the engine factory's mesh, (d) across
     processes. The launches of (a)'s (2, 2) grid (K1) and (c)'s
-    cli_k1024 cell (K3, pack_rows, K2g) go to the kernels line."""
+    cli_k1024 cell (K3, pack_classify_rows, K2g) go to the kernels line."""
     from klogs_tpu_torch.parallel import mesh as mesh_mod
     from klogs_tpu_torch.parallel.mesh import MeshEngine
 
@@ -3146,7 +3265,7 @@ def mesh_phase(torch, np, nk, bits, pack, app, cli, term, FakeCluster,
     mesh_dist(np, nk, GpuEngineFilter, frame0, dev, repo, card)
     return {nk.GROUPED: a["launches"][nk.GROUPED],
             nk.GATED: c["launches"][nk.GATED],
-            nk.PACK: c["launches"][nk.PACK],
+            nk.PACK_CLS: c["launches"][nk.PACK_CLS],
             nk.GROUPED_CHUNK: c["launches"][nk.GROUPED_CHUNK],
             "k1": a["k1"], "k3": b["k3"], "pack": a["pack"],
             "k2g": [b for cell in c["cells"] for b in cell["k2g_batches"]]}
@@ -3158,14 +3277,16 @@ def mesh_phase(torch, np, nk, bits, pack, app, cli, term, FakeCluster,
 @contextlib.contextmanager
 def recording_wrappers(nk, pack, names: list, sweep=None):
     """For the block, each wrapper named (``nfa_kernels`` ones,
-    ``pack_rows``, and ``sweep``'s ``sweep_group_bits``) records its
+    ``pack_classify_rows`` or ``pack_rows``, and ``sweep``'s
+    ``sweep_group_bits``) records its
     calls: yields ``{name: {shapes: [count, [(args, kwargs), ...]]}}``,
     keeping the first 8 calls of each shape of its tensor arguments.
     The wrappers are restored after."""
     calls: dict = {n: {} for n in names}
     saved = {}
     for n in names:
-        mod = {"pack_rows": pack, "sweep_group_bits": sweep}.get(n, nk)
+        mod = {"pack_rows": pack, "pack_classify_rows": pack,
+               "sweep_group_bits": sweep}.get(n, nk)
         real = getattr(mod, n)
         saved[n] = (mod, real)
 
@@ -3228,9 +3349,10 @@ def pipeline_numbers(pipe) -> dict:
 def held_batches(torch, nk, pack, calls: dict, n_k1: int) -> dict:
     """Each kernel against its plain version on what the run gave it,
     timed: K1 on ``n_k1`` class batches (from its most frequent shapes
-    down), K2 on a batch of its most frequent chunk shape, ``pack_rows``
-    on a cut of its most frequent shape. ``launches`` is the run's count
-    of the batch's shape."""
+    down), K2 on a batch of its most frequent chunk shape,
+    ``pack_classify_rows`` on a cut of its most frequent shape (beside
+    the ``pack_rows`` + ``classify_chunk`` pair it replaced). ``launches``
+    is the run's count of the batch's shape."""
     def top(name: str, n: int) -> list:
         out = []
         for count, seen in sorted(calls.get(name, {}).values(),
@@ -3245,11 +3367,9 @@ def held_batches(torch, nk, pack, calls: dict, n_k1: int) -> dict:
                                     kw.get("final", a[4] if len(a) > 4
                                            else True), 5))
         for c, a, kw in top("match_chunk_cls", 1)]
-    out["pack_batches"] = [
-        dict(launches=c, **pack_check(
-            torch, pack, *a[:5], a[5] if len(a) > 5 else kw.get("skip", 0),
-            10))
-        for c, a, kw in top("pack_rows", 1)]
+    out["pack_batches"] = [dict(launches=c, **pack_cls_check(
+        torch, pack, *a, reps=10, **kw))
+        for c, a, kw in top("pack_classify_rows", 1)]
     return out
 
 
@@ -3396,7 +3516,7 @@ def follow_phase(torch, np, nk, pack, app, cli, term, FakeCluster,
             captured_pipeline() as made, \
             recording_wrappers(nk, pack, ["match_cls_grouped",
                                           "match_chunk_cls",
-                                          "pack_rows"]) as calls:
+                                          "pack_classify_rows"]) as calls:
         term.set_ui_stream(io.StringIO())
         try:
             torch.cuda.synchronize()
@@ -3450,7 +3570,7 @@ def follow_phase(torch, np, nk, pack, app, cli, term, FakeCluster,
     held = res["k1_batches"] + res["k2_batches"] + res["pack_batches"]
     if (rc != 0 or bad or files != n_pods or not kept or not len(lat)
             or launches[nk.GROUPED] == 0 or launches[nk.CHUNK] == 0
-            or launches[nk.PACK] == 0 or len(res["k1_batches"]) < 8
+            or launches[nk.PACK_CLS] == 0 or len(res["k1_batches"]) < 8
             or not res["k2_batches"] or not res["pack_batches"]
             or any(b.get("max_abs_err", 0) or b.get("mismatches", 0)
                    for b in held)):
@@ -3629,7 +3749,8 @@ def kube_follow_phase(torch, np, nk, pack, app, cli, term, dev,
                                            device=dev)
 
             with captured_pipeline() as made, recording_wrappers(
-                    nk, pack, ["match_cls_grouped", "pack_rows"]) as calls:
+                    nk, pack,
+                    ["match_cls_grouped", "pack_classify_rows"]) as calls:
                 term.set_ui_stream(io.StringIO())
                 try:
                     torch.cuda.synchronize()
@@ -3693,7 +3814,7 @@ def kube_follow_phase(torch, np, nk, pack, app, cli, term, dev,
     if (rc != 0 or bad or files != n_pods or not kept or untokened
             or bad_reconnects or res["reconnected_pods"] != drop
             or len(logs) != n_pods + n_drop
-            or launches[nk.GROUPED] == 0 or launches[nk.PACK] == 0
+            or launches[nk.GROUPED] == 0 or launches[nk.PACK_CLS] == 0
             or len(res["k1_batches"]) < 2 or not res["pack_batches"]
             or any(b.get("max_abs_err", 0) or b.get("mismatches", 0)
                    for b in held)):
@@ -3843,7 +3964,7 @@ def backfill_run(torch, nk, pack, bits, app, cli, term, dev, label: str,
     argv = ["--backfill", *paths, "--stats", "-p", ""]
     for p in patterns:
         argv += ["--match", p]
-    names = ["match_cls_grouped", "match_chunk_cls", "pack_rows",
+    names = ["match_cls_grouped", "match_chunk_cls", "pack_classify_rows",
              "match_cls_grouped_gated", "match_chunk_cls_grouped"]
     built_at: list = []
     with tempfile.TemporaryDirectory() as out_dir, \
@@ -3940,7 +4061,7 @@ def backfill_phase(torch, np, nk, pack, bits, app, cli, term,
     --backfill DIR --match … --stats -p``: (a) K = 32 over the gzip
     sets, (b) K = 32 over the same sets uncompressed, (c) K = 1024 over
     the gzip sets (the gated path). Every file must equal the ``re``
-    oracle's selection in rotated order; K1, K2, pack_rows and at K =
+    oracle's selection in rotated order; K1, K2, pack_classify_rows and at K =
     1024 K3 are held against their plain versions on each run's own
     batches. Beside each, the source alone: the sets drained through
     ArchiveStream."""
@@ -4004,7 +4125,7 @@ def backfill_phase(torch, np, nk, pack, bits, app, cli, term,
         if (r["rc"] != 0 or r["mismatched_files"] or r["files"] != n_sets
                 or not r["kept_lines"] or not r["counts_ok"]
                 or r["summary"] is None or r["profile"]["rc"] != 0
-                or any(r["launches"][k] == 0 for k in need + [nk.PACK])
+                or any(r["launches"][k] == 0 for k in need + [nk.PACK_CLS])
                 or (k1024_run and r["launches"][nk.CHUNK] != 0)
                 or not r["k1_batches" if not k1024_run else "k3_batches"]
                 or not r["k2_batches" if not k1024_run else "k2g_batches"]
@@ -4261,7 +4382,8 @@ def sources_phase(torch, np, nk, app, cli, term, dev, root: str, bf: dict,
     emit({"phase": "sources", **res})
     r, s, t = res["replay"], res["socket"], res["rotation"]
     if (r["rc"] != 0 or r["mismatched_files"] or r["files"] != n_sets
-            or r["launches"][nk.GROUPED] == 0 or r["launches"][nk.PACK] == 0
+            or r["launches"][nk.GROUPED] == 0
+            or r["launches"][nk.PACK_CLS] == 0
             or s["rc"] != 0 or not s["complete"] or s["mismatched_peers"]
             or s["files"] != n_peers or s["lost_lines"] or s["doubled_lines"]
             or any(c != 0 for c in s["peer_exit_codes"])
@@ -4544,8 +4666,8 @@ async def inprocess_filterd(patterns: list, dev, fc, argv: list, app, cli,
 
 def filterd_kernels(torch, np, nk, pack, bits, app, cli, term, FakeCluster,
                     dev) -> dict:
-    """(c) K1, K2 and pack_rows held against their plain versions on the
-    batches an in-process filterd built for one collector (32 pods x
+    """(c) K1, K2 and pack_classify_rows held against their plain versions
+    on the batches an in-process filterd built for one collector (32 pods x
     4000 lines + 4 long lines); then the 1024 patterns: Hello says
     device_sweep, a collector of 64 pods x 250 lines gets the oracle's
     files, and K3 with its pair list is held on the server's most
@@ -4557,7 +4679,7 @@ def filterd_kernels(torch, np, nk, pack, bits, app, cli, term, FakeCluster,
     with tempfile.TemporaryDirectory() as out_dir, \
             recording_wrappers(nk, pack, ["match_cls_grouped",
                                           "match_chunk_cls",
-                                          "pack_rows"]) as calls:
+                                          "pack_classify_rows"]) as calls:
         term.set_ui_stream(io.StringIO())
         try:
             torch.cuda.synchronize()
@@ -4751,7 +4873,7 @@ def filterd_phase(torch, np, nk, pack, bits, app, cli, term, FakeCluster,
                    for r in b["runs"])
             or k32["rc"] != 0 or k32["mismatched_files"]
             or any(k32["launches"][k] == 0
-                   for k in (nk.GROUPED, nk.CHUNK, nk.PACK))
+                   for k in (nk.GROUPED, nk.CHUNK, nk.PACK_CLS))
             or len(k32["k1_batches"]) < 2 or not k32["k2_batches"]
             or not k32["pack_batches"]
             or any(h.get("max_abs_err", 0) or h.get("mismatches", 0)
@@ -5048,11 +5170,12 @@ def fleet_registry(torch, np, nk, pack, bits, sweep, app, cli, term,
                    FakeCluster, dev, fc3, want3: dict) -> dict:
     """(c), then: a ``--multi-set`` FilterServer on the card in this
     process. A collector of the 32 patterns (32 pods x 4000 lines + 4
-    long lines) under ``recording_wrappers``: K1, K2 and pack_rows held
-    against their plain versions on its batches. Then the 1024
-    patterns' collector (64 pods x 250 lines + 4 long lines): the sweep
-    and K3 with its pair list, and K2g, held on the batches that set's
-    engine built (``launches_1024``: its own counts). The card's
+    long lines) under ``recording_wrappers``: K1, K2 and
+    pack_classify_rows held against their plain versions on its batches.
+    Then the 1024 patterns' collector (64 pods x 250 lines + 4 long
+    lines): the sweep and K3 with its pair list, and K2g, held on the
+    batches that set's engine built (``launches_1024``: its own counts).
+    The card's
     allocated memory before that set registered, while it lives, and
     after its eviction. ``launches`` adds the two collectors' runs, each
     counted from 0 just before it and read just after it, before any
@@ -5089,7 +5212,7 @@ def fleet_registry(torch, np, nk, pack, bits, sweep, app, cli, term,
         try:
             with recording_wrappers(nk, pack, ["match_cls_grouped",
                                                "match_chunk_cls",
-                                               "pack_rows"]) as calls:
+                                               "pack_classify_rows"]) as calls:
                 out["rc32"], n32 = await collect(fc, PATTERNS, "32", port)
             out.update(held_batches(torch, nk, pack, calls, 2))
             calls.clear()
@@ -5312,7 +5435,7 @@ def fleet_phase(torch, np, nk, pack, bits, sweep, app, cli, term,
         ("(c) kernels", r["rc32"] != 0 or r["rc1024"] != 0
          or any(r["mismatched_files"])
          or any(r["launches"][k] == 0 for k in (
-             nk.GROUPED, nk.CHUNK, nk.PACK, nk.GATED, nk.PAIRS,
+             nk.GROUPED, nk.CHUNK, nk.PACK_CLS, nk.GATED, nk.PAIRS,
              nk.GROUPED_CHUNK))
          or r["launches_1024"][nk.CHUNK] != 0 or not r["k2g_batches"]
          or r["k2g_batches"][0]["max_abs_err"]
@@ -5927,17 +6050,27 @@ def main() -> int:
                                   run4["k4_batches"] + list(k4.values()))),
          "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
          "bound_by": f["bound_by"], "library_ms": None, "k1_ms": f["k1_ms"]},
-        {"name": nk.PACK, "route": "cuda", "source": pk["source"],
-         "replaces": pk["replaces"], "launches": run["launches"][nk.PACK],
-         "backfill_launches": bfr["a"]["launches"][nk.PACK],
-         "fleet_launches": fl[nk.PACK],
-         "host_engines_launches": he[nk.PACK],
-         "mesh_launches": ms[nk.PACK],
+        {"name": nk.PACK_CLS, "route": "cuda", "source": pk["source"],
+         "replaces": pk["replaces"], "launches": run["launches"][nk.PACK_CLS],
+         "engine_launches": pk["launches"],
+         "backfill_launches": bfr["a"]["launches"][nk.PACK_CLS],
+         "fleet_launches": fl[nk.PACK_CLS],
+         "mesh_launches": ms[nk.PACK_CLS],
          "max_abs_err": max(pk["max_abs_err"],
                             float(ms["pack"]["mismatches"])),
-         "ms": pk["ms"],
-         "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
-         "bound_by": pk["bound_by"], "library_ms": None},
+         "ms": pk["ms"], "plain_ms": pk["plain_ms"],
+         "bound_ms": pk["bound_ms"], "bound_by": pk["bound_by"],
+         "library_ms": None, "pair_ms": pk["pair_ms"],
+         "kernel_ms": pk["kernel_ms"], "flat_kernel_ms": pk["flat_kernel_ms"],
+         "shape": "{rows}x{T}".format(**max(pk["buckets"],
+                                            key=lambda b: b["rows"]))},
+        {"name": nk.PACK, "route": "cuda", "source": pk["source"],
+         "replaces": pk["replaces"], "launches": he[nk.PACK],
+         "main_path": "host_engines (b): the indexed engine's device sweep",
+         "max_abs_err": pk["pack_rows"]["max_abs_err"],
+         "ms": pk["pack_rows"]["ms"], "plain_ms": pk["pack_rows"]["plain_ms"],
+         "bound_ms": pk["pack_rows"]["bound_ms"],
+         "bound_by": pk["pack_rows"]["bound_by"], "library_ms": None},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -17,6 +17,12 @@ With a ``FilterStats`` the coalescer reports into its registry
 (``klogs_coalescer_*``) and registers the profiler's probes
 (``coalescer.queue_depth``, ``coalescer.pending_lines``,
 ``device.in_flight_used``, ``device.fetch_queue``), dropped at close.
+``coalescer.queue_depth`` counts every caller queued ahead of the card:
+those still coalescing and those whose group waits for an in-flight
+slot. (The JAX package's counts the first only; under many callers,
+whose groups fill at once and then wait for a slot, the ``ops/tune.py``
+controller's "slots full with callers queued" then shows only while a
+leftover caller happens to be coalescing.)
 Each group is a ``coalescer.dispatch`` span, parented under its first
 traced caller; ``device.fetch`` wraps the await of the verdicts (the
 executor thread does not inherit the trace context), so it holds the
@@ -31,6 +37,7 @@ and the default is used). ``apply_tuning`` moves ``coalesce_lines`` and
 """
 
 import asyncio
+import contextlib
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -104,7 +111,7 @@ class AsyncFilterService:
 
             self._probes = {
                 "coalescer.queue_depth":
-                    lambda: float(len(self._pending)),
+                    lambda: float(len(self._pending) + self._slot_waiters),
                 "coalescer.pending_lines":
                     lambda: float(self._pending_lines),
                 "device.in_flight_used": self._in_flight_used,
@@ -116,6 +123,8 @@ class AsyncFilterService:
         # context) per caller.
         self._pending: list[tuple] = []
         self._pending_lines = 0
+        # Callers whose group waits for an in-flight slot.
+        self._slot_waiters = 0
         self._kick_handle: asyncio.TimerHandle | None = None
         self._closed = False
         # Strong references: the loop holds tasks weakly.
@@ -300,7 +309,7 @@ class AsyncFilterService:
                 t_sem = time.perf_counter()
                 if self._sem is None:
                     self._sem = asyncio.Semaphore(self._max_in_flight)
-                async with self._sem:
+                async with self._slot(len(group)):
                     t_dispatch = time.perf_counter()
                     if self._stats is not None:
                         self._stats.mark_batch_started(t_dispatch)
@@ -338,6 +347,20 @@ class AsyncFilterService:
             if not fut.done():
                 fut.set_result(verdicts[off:off + n])
             off += n
+
+    @contextlib.asynccontextmanager
+    async def _slot(self, n_callers: int):
+        """An in-flight slot for a group of ``n_callers``, who count as
+        queued (``coalescer.queue_depth``) while they wait for it."""
+        self._slot_waiters += n_callers
+        try:
+            await self._sem.acquire()
+        finally:
+            self._slot_waiters -= n_callers
+        try:
+            yield
+        finally:
+            self._sem.release()
 
     async def aclose(self) -> None:
         """Dispatch any coalescing lines, drain in-flight batches, then

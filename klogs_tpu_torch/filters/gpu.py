@@ -1,23 +1,26 @@
 """GpuEngineFilter: the ``--backend cuda`` LogFilter.
 
 Counterpart of ``klogs_tpu/filters/tpu.py`` (``NFAEngineFilter``). A
-framed batch crosses to the device once: the host strips trailing
-newlines, sorts the lines into width buckets and writes the payload and
-every bucket's starts and lengths into one pinned buffer, copied with
-one non-blocking H2D. On the device the ragged pack
-(``ops/pack.py:pack_rows``) cuts each bucket's ``[rows, width]`` uint8
-rows out of the payload, ``ops/nfa.py:classify_chunk`` turns them into
-class ids and the grouped NFA kernel
+framed batch crosses to the device once: the host sorts the lines into
+width buckets and writes the payload and every bucket's starts and
+lengths into one pinned buffer, copied with one non-blocking H2D. On the
+device one kernel a bucket (``ops/pack.py:pack_classify_rows``) strips
+each line's trailing newlines and cuts and classifies its row out of the
+payload into class ids, and the grouped NFA kernel
 (``ops/nfa_kernels.py:match_cls_grouped``) gives the per-line verdicts
-that gate the file writes. (The JAX engine packs and classifies on the
-host instead, in ``klogs_tpu/native/_hostops.c``.)
+that gate the file writes. (The JAX engine packs, strips and classifies
+on the host instead, in ``klogs_tpu/native/_hostops.c``.)
 
 - Widths and batch sizes are padded to power-of-two buckets, exactly as
-  the JAX engine buckets them (the width clamps to ``chunk_bytes``).
+  the JAX engine buckets them (the width clamps to ``chunk_bytes``). As
+  in the JAX engine's cls path, the buckets, the split into short and
+  long lines and the stats' bytes go by raw lengths, trailing newlines
+  included; on the bytes path (the literal sweep) the host strips the
+  newlines first, as the JAX engine's bytes path does.
 - Lines longer than ``chunk_bytes`` run a carried-state chunk kernel
   (``_match_long``), chunk by chunk with the state carried on the
-  device, each chunk packed from the payload already there
-  (``pack_rows`` with ``skip = k * chunk_bytes``): K2
+  device, each chunk cut and classified from the payload already there
+  (``pack_classify_rows`` with ``skip = k * chunk_bytes``): K2
   (``match_chunk_cls``) over the augmented union automaton, or, for a
   set whose union is wider than ``GROUPED_LONG_STATES`` (K2's register
   kernel), K2g (``match_chunk_cls_grouped``) over the grouped program,
@@ -31,13 +34,16 @@ host instead, in ``klogs_tpu/native/_hostops.c``.)
   1 MiB, eight of 128-192 KiB; ``PERF.md`` §6), so no line is routed to
   it.
 - Trailing newlines are stripped before matching, so ``$`` sees the
-  logical end of the line; a ``match_all`` pattern set skips the device.
+  logical end of the line (on the card, by ``pack_classify_rows``); a
+  ``match_all`` pattern set skips the device.
 - The thousand-pattern path: when the gate policy (``filters/cpu.py``)
   picks the device literal sweep (auto: K >= ``KLOGS_INDEX_MIN_K`` on
   ``cuda``), or ``KLOGS_TPU_PREFILTER=1`` asks for the pair-CNF gate,
   short lines get per-(line, group) candidate bits on the device (the
   sweep over the packed rows, or the pair-CNF over the class ids) and
   run the gated kernel K3 (``match_cls_grouped_gated``) instead of K1.
+  A gate that reads bytes (the sweep, the byte-domain pair-CNF) gets the
+  rows' bytes from the same ``pack_classify_rows`` launch.
   Long lines stay on K2 or K2g, ungated, as in the JAX engine. A
   failed table build or launch raises; nothing falls back to K1.
 - ``KLOGS_TPU_FUSED_GROUPS=1`` (``ops/tune.py`` ``chain_selection``)
@@ -75,11 +81,12 @@ counts ride back with the verdicts (same pinned copy, same event) and
 are recorded at fetch.
 
 Trace spans (``obs/trace.py``), as the JAX engine's mean them: a
-``device.frame`` span is host framing (the batch's newline strip, width
-buckets and staging copy, with one child a width bucket for its slice of
-the metadata: ``width``, ``rows``, ``path``); a ``device.kernel`` span is
-one sub-batch's enqueue (``pack_rows``, classify, the gate, the kernel;
-``swept=True`` under the sweep gate), not its run on the card. The
+``device.frame`` span is host framing (the width buckets, the newline
+strip on the bytes path, and the staging copy, with one child a width
+bucket for its slice of the metadata: ``width``, ``rows``, ``path``); a
+``device.kernel`` span is one sub-batch's enqueue
+(``pack_classify_rows``, the gate, the kernel; ``swept=True`` under the
+sweep gate), not its run on the card. The
 card's time shows in the coalescer's ``device.fetch``. No span, counter
 or probe here waits on the card.
 """
@@ -274,12 +281,16 @@ class ShortLines:
             setattr(new, name, _moved(getattr(self, name), new.device))
         return new
 
-    def _match_short(self, batch: torch.Tensor, lengths: torch.Tensor):
-        """[rows, width] bytes + lengths, on the device -> ([rows] bool,
-        gate stats [3] or None): the main path (device classify, then
-        K1 or K4, or the gate and K3)."""
+    def _match_short(self, payload: torch.Tensor, starts: torch.Tensor,
+                     lens: torch.Tensor, width: int, rows: int):
+        """One width bucket's lines (``starts`` and raw ``lens`` into
+        ``payload``, zero-padded to ``rows``), on the device -> ([rows]
+        bool, gate stats [3] or None): the main path
+        (``pack_classify_rows``, then K1 or K4, or the gate and K3)."""
         g = self._grouped
-        cls = nfa.classify_chunk(g, batch, lengths, first=True, final=True)
+        cls, lengths, batch = pack.pack_classify_rows(
+            payload, starts, lens, width, rows, g,
+            want_bytes=self._gate_reads_bytes())
         gate = self._gate_bits(batch, lengths, cls)
         if gate is None:
             kernel = (nfa_kernels.match_cls_grouped_fused if self._fused
@@ -289,7 +300,13 @@ class ShortLines:
             g, self._g_live, self._g_acc, cls, gate,
             want_stats=self._stats is not None)
 
-    def _gate_bits(self, batch: torch.Tensor, lengths: torch.Tensor,
+    def _gate_reads_bytes(self) -> bool:
+        """Whether the active gate reads the rows' bytes: the sweep, or a
+        pair-CNF with no class-domain tables."""
+        return self._sweep_tables is not None or (
+            self._pf_tables is not None and len(self._pf_tables) != 4)
+
+    def _gate_bits(self, batch: "torch.Tensor | None", lengths: torch.Tensor,
                    cls: torch.Tensor) -> "torch.Tensor | None":
         """[rows, GW] group words of the active gate, or None."""
         if self._sweep_tables is not None:
@@ -453,10 +470,8 @@ class GpuEngineFilter(ShortLines, LogFilter):
                         parts.append((idx, eng.dispatch_rows(
                             staged, at, rows, len(idx), width), None))
                     else:
-                        batch = pack.pack_rows(payload_d, starts_d, lens_d,
-                                               width, rows)
-                        parts.append((idx, *self._match_short(batch,
-                                                              lens_d)))
+                        parts.append((idx, *self._match_short(
+                            payload_d, starts_d, lens_d, width, rows)))
             at += 2 * rows
         if self._stats is not None and _build.loaded_count() > loaded:
             self._stats.record_compile(_build.loaded_count() - loaded)
@@ -481,13 +496,19 @@ class GpuEngineFilter(ShortLines, LogFilter):
         """The host's share of a framed batch, per-line work only: a list
         of (line indices, width or None for the long lines, rows, longest
         length) per sub-batch, the int64 metadata the device reads, each
-        sub-batch's starts then lengths (trailing newlines stripped),
-        zero-padded to its rows. A width bucket's rows are its batch
-        bucket, rounded up to a multiple of a mesh engine's data shards
+        sub-batch's starts then lengths, zero-padded to its rows. On the
+        cls path the lengths are raw (the card strips the newlines); on
+        the bytes path they are stripped here, as the JAX engine's two
+        paths have them. A width bucket's rows are its batch bucket,
+        rounded up to a multiple of a mesh engine's data shards
         (the padding rows hold no line). Each sub-batch's slice is a
         ``device.frame`` span (``path`` is its attribute; the long
         lines' is ``long``)."""
-        starts, ends = strip_newlines(payload, offsets)
+        if path == "bytes":
+            starts, ends = strip_newlines(payload, offsets)
+        else:
+            offsets = np.asarray(offsets, dtype=np.int64)
+            starts, ends = offsets[:-1], offsets[1:]
         lens = ends - starts
         short = lens <= self._chunk_bytes
         buckets = []
@@ -522,10 +543,13 @@ class GpuEngineFilter(ShortLines, LogFilter):
     def _match_long(self, payload: torch.Tensor, starts: torch.Tensor,
                     lens: torch.Tensor, longest: int) -> torch.Tensor:
         """Carried-state chunked matching of the lines at ``starts`` with
-        ``lens`` (zero-padded to a batch bucket) in ``payload``, on the
-        device: every line advances in lockstep, each chunk packed from
-        the payload, the state carried across chunks (K2g's per (line,
-        group) on the grouped route, else K2's on the union)."""
+        ``lens`` (zero-padded to a batch bucket; raw or stripped, the
+        longest ``longest``) in ``payload``, on the device: every line
+        advances in lockstep, each chunk cut, stripped and classified
+        from the payload in one launch, the state carried across chunks
+        (K2g's per (line, group) on the grouped route, else K2's on the
+        union). A last chunk that a line's stripped newlines leave all
+        PAD changes no verdict: ``acc`` is absorbing."""
         L = self._chunk_bytes
         B = starts.shape[0]
         n_chunks = -(-longest // L)
@@ -537,10 +561,10 @@ class GpuEngineFilter(ShortLines, LogFilter):
             v = nfa_kernels.initial_state(prog, self._live, B)
         matched = None
         for k in range(n_chunks):
-            chunk = pack.pack_rows(payload, starts, lens, L, B, skip=k * L)
             final = k == n_chunks - 1
-            cls = nfa.classify_chunk(prog, chunk, lens - k * L,
-                                     first=k == 0, final=final)
+            cls, _, _ = pack.pack_classify_rows(
+                payload, starts, lens, L, B, prog, skip=k * L,
+                first=k == 0, final=final)
             if self._long is not None:
                 v, matched = nfa_kernels.match_chunk_cls_grouped(
                     prog, live, acc, cls, v, final=final)

@@ -57,12 +57,14 @@ GROUPED_CHUNK = "grouped_chunk_kernel"
 # K3's pair builder (gate_pairs_count, gate_pairs_scan and
 # gate_pairs_scatter, launched together: counted once per list built).
 PAIRS = "gate_pairs"
-# The ragged pack of ops/pack.py, which cuts the rows these kernels read
-# out of a batch's payload on the device.
+# The kernels of ops/pack.py: the fused pack-strip-classify, which cuts
+# and classifies the rows these kernels read out of a batch's payload on
+# the device, and the byte-rows pack.
+PACK_CLS = "pack_classify_rows"
 PACK = "pack_rows"
 
 LAUNCHES = {GROUPED: 0, GATED: 0, CHUNK: 0, FUSED: 0, GROUPED_CHUNK: 0,
-            PAIRS: 0, PACK: 0}
+            PAIRS: 0, PACK_CLS: 0, PACK: 0}
 
 # Lines per tile of the gate's stats: the JAX engine counts candidate
 # lines clustered into tiles of its kernel's width, and the --stats

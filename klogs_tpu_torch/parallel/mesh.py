@@ -11,13 +11,14 @@ of ``d`` data shards x ``g`` pattern shards, laid out data-major (device
 - ``data``: a width bucket's rows, padded to a multiple of ``d``, are
   cut into ``d`` slices, one a data shard.
 
-Each shard packs its slice of the rows from the payload already staged
-on its device (``pack_rows``), classifies them, runs its gate and K1 or
-K3 on that device's current stream. The verdict of a row is the OR of
-its pattern shards' verdicts: each shard's verdicts are ORed into a
-zeroed uint8 vector of the bucket's rows on the first device (the
-counterpart of JAX's ``pmax`` over the ``pattern`` axis; a few KiB a
-batch, no kernel's work). A data shard whose slice holds only padding
+Each shard cuts, strips and classifies its slice of the rows from the
+payload already staged on its device, through its own program's
+``byte_class`` (``pack_classify_rows``, one launch), then runs its gate
+and K1 or K3 on that device's current stream. The verdict of a row is
+the OR of its pattern shards' verdicts: each shard's verdicts are ORed
+into a zeroed uint8 vector of the bucket's rows on the first device
+(the counterpart of JAX's ``pmax`` over the ``pattern`` axis; a few KiB
+a batch, no kernel's work). A data shard whose slice holds only padding
 launches nothing.
 
 Across processes (``torch.distributed`` initialised, world size W, see
@@ -44,7 +45,7 @@ from klogs_tpu_torch.filters.compiler.prefilter import compile_prefilter
 from klogs_tpu_torch.filters.cpu import device_gate_choice, note_sweep_supersedes
 from klogs_tpu_torch.filters.gpu import ShortLines
 from klogs_tpu_torch.obs import trace
-from klogs_tpu_torch.ops import nfa, pack, tune
+from klogs_tpu_torch.ops import nfa, tune
 from klogs_tpu_torch.ui import term
 from klogs_tpu_torch.utils.env import read as env_read
 
@@ -199,8 +200,8 @@ class MeshEngine:
                 meta, payload = staged[dev]
                 starts = meta[at + lo:at + lo + per]
                 lens = meta[at + rows + lo:at + rows + lo + per]
-                batch = pack.pack_rows(payload, starts, lens, width, per)
-                matched, _ = self._shards[gi, dev]._match_short(batch, lens)
+                matched, _ = self._shards[gi, dev]._match_short(
+                    payload, starts, lens, width, per)
                 out[lo:lo + per] |= matched.to(self._home, torch.uint8)
             if self._collective:
                 torch.distributed.all_reduce(

@@ -15,8 +15,10 @@ import numpy as np
 import pytest
 
 from klogs_tpu.filters import async_service as jax_async_service
+from klogs_tpu.filters.base import FilterStats as JaxFilterStats
 from klogs_tpu.ops import tune as jax_tune
 from klogs_tpu_torch.filters import async_service
+from klogs_tpu_torch.filters.base import FilterStats
 from klogs_tpu_torch.obs import profiler
 from klogs_tpu_torch.ops import tune
 
@@ -127,6 +129,54 @@ def test_apply_tuning_equals_jax():
     assert mine == ref
     assert mine[:4] == [("start", 4.0, 0, 4), ("up", 6.0, 2, 8),
                         ("down", 2.0, 0, 2), ("retired", 0.0, 2, 2)]
+
+
+def queued_story(mod, tune_mod, stats) -> tuple:
+    """Six one-line callers at depth 2 with coalesce_lines 1: each
+    caller's frame fills a group at once, two groups hold the slots and
+    four wait for one. (the queue-depth probe, the slots used, two
+    controller ticks on those samples)."""
+    filt = HeldFilter()
+    svc = mod.AsyncFilterService(filt, max_in_flight=2, coalesce_lines=1,
+                                 stats=stats)
+    payload, offsets = b"x", np.array([0, 1], dtype=np.int32)
+
+    async def go():
+        calls = [asyncio.create_task(svc.match_framed(payload, offsets))
+                 for _ in range(6)]
+        for _ in range(20):
+            await asyncio.sleep(0)
+        await asyncio.sleep(0.05)
+        depth = svc._probes["coalescer.queue_depth"]()
+        used = svc._probes["device.in_flight_used"]()
+        doc = {"enabled": True, "samples": {
+            "device.in_flight_used": used, "coalescer.queue_depth": depth,
+            "coalescer.pending_lines": svc._probes[
+                "coalescer.pending_lines"]()}}
+        ctrl = tune_mod.AdaptiveController(
+            svc, profile_fn=lambda: doc, interval_s=0.01, step=0.5,
+            surface={"max_in_flight": (2, 64)})
+        ticks = [await ctrl.step_once(doc) for _ in range(2)]
+        filt.release.set()
+        await asyncio.gather(*calls)
+        await svc.aclose()
+        return depth, used, ticks
+
+    return asyncio.run(go())
+
+
+def test_queue_depth_probe_counts_callers_waiting_for_a_slot():
+    """Callers whose group waits for an in-flight slot are queued callers:
+    the port's ``coalescer.queue_depth`` probe counts them, so with every
+    slot taken the controller steps the depth up on its second tick. The
+    JAX package's probe counts only callers still coalescing and reads 0
+    here, and its controller holds: under many callers whose frames fill
+    a group at once, the pressure it was built to see is invisible
+    (ROADMAP §C, reference fault 8)."""
+    mine = queued_story(async_service, tune, FilterStats())
+    ref = queued_story(jax_async_service, jax_tune, JaxFilterStats())
+    assert mine == (4.0, 2.0, [None, ("max_in_flight", "up")])
+    assert ref == (0.0, 2.0, [None, None])
 
 
 def test_shared_budget_service_is_not_tunable(monkeypatch):

@@ -408,7 +408,7 @@ def test_engine_on_card_equals_cpu(dev, env, monkeypatch):
     nfa_kernels.reset_launches()
     gpu = GpuEngineFilter(PATTERNS, device=dev).match_lines(lines)
     assert (nfa_kernels.LAUNCHES[nfa_kernels.GATED] > 0) == bool(env)
-    assert nfa_kernels.LAUNCHES[nfa_kernels.PACK] > 0
+    assert nfa_kernels.LAUNCHES[nfa_kernels.PACK_CLS] > 0
     cpu = GpuEngineFilter(PATTERNS, device="cpu").match_lines(lines)
     assert gpu == cpu
     assert sum(gpu) >= 5
@@ -711,6 +711,83 @@ def test_pack_kernel_large_offsets(dev):
         assert not got[2:].any()
 
 
+@pytest.mark.parametrize("case", sorted(PACK_CASES))
+def test_pack_classify_kernel_equals_plain(dev, case):
+    """pack_classify_rows on the card equals its plain version element
+    for element (class ids, stripped lengths, byte rows), in both of the
+    kernel's schedules (staged, rows up to 1024 bytes; flat, wider): every
+    line on raw lengths at widths 1, 128, 256, 300 (not a multiple of
+    16), 4096 and 12000, at its count of rows and at many more, with and
+    without the BEGIN and latch columns; an empty bucket; and chunk k of
+    every line at skip = k * 4096 through the long lines' program, first
+    and final as the engine sets them."""
+    from klogs_tpu_torch.filters.base import frame_lines
+
+    prog, _, _ = nfa.compile_grouped(PATTERNS, device=dev)
+    aug = nfa.pack_program(nfa.augment(compile_patterns(PATTERNS)),
+                           device=dev)
+    payload, offsets, _ = frame_lines(PACK_CASES[case], strip_nl=False)
+    offsets = np.asarray(offsets, dtype=np.int64)
+    pt = torch.from_numpy(np.frombuffer(payload + b"\0",
+                                        dtype=np.uint8).copy())[:-1].to(dev)
+    starts = torch.from_numpy(offsets[:-1].copy()).to(dev)
+    lens = torch.from_numpy(np.diff(offsets)).to(dev)
+    n = len(starts)
+    nfa_kernels.reset_launches()
+    calls = 0
+
+    def same(*args):
+        exp = pack.pack_classify_rows_plain(*args)
+        for got in (pack.pack_classify_rows(*args),
+                    pack._launch_classify(*args, flat=True)):
+            for g, e in zip(got, exp):
+                assert (g is None and e is None) or torch.equal(g, e), \
+                    args[3:]
+
+    for width in (1, 128, 256, 300, 4096, 12000):
+        for rows in (n, n + 37):
+            for first, final, want in ((True, True, True),
+                                       (False, False, False),
+                                       (True, False, True)):
+                same(pt, starts, lens, width, rows, prog, 0, first, final,
+                     want)
+                calls += 1
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    same(pt, none, none, 128, 8, prog)
+    calls += 1
+    n_chunks = -(-int(lens.max()) // PACK_CHUNK) + 1
+    for k in range(n_chunks):
+        same(pt, starts, lens, PACK_CHUNK, n + 3, aug, k * PACK_CHUNK,
+             k == 0, k == n_chunks - 1)
+        calls += 1
+    torch.cuda.synchronize()
+    assert nfa_kernels.LAUNCHES[nfa_kernels.PACK_CLS] == 2 * calls
+
+
+def test_pack_classify_kernel_large_offsets(dev):
+    """Starts past 2**31 - 4096 of a payload: the fused kernel's offsets
+    are 64-bit through starts + skip; lines end in newline runs."""
+    size = 2**31 + 2 * PACK_CHUNK
+    prog, _, _ = nfa.compile_grouped(PATTERNS, device=dev)
+    payload = torch.zeros(size, dtype=torch.uint8, device=dev)
+    tail = torch.arange(3 * PACK_CHUNK, device=dev) % 251
+    payload[-3 * PACK_CHUNK:] = tail.to(torch.uint8)
+    payload[-3] = payload[-2] = payload[-1] = 0x0A
+    starts = torch.tensor([size - 3 * PACK_CHUNK, size - 9, size - 2],
+                          device=dev)
+    lens = torch.tensor([3 * PACK_CHUNK, 9, 2], device=dev)
+    for k in range(3):
+        args = (payload, starts, lens, PACK_CHUNK, 8, prog, k * PACK_CHUNK,
+                k == 0, k == 2, True)
+        got = pack.pack_classify_rows(*args)
+        exp = pack.pack_classify_rows_plain(*args)
+        for g, e in zip(got, exp):
+            assert torch.equal(g, e)
+        assert got[1][:3].tolist() == [3 * PACK_CHUNK - 3, 6, 0]
+        if k == 0:
+            assert torch.equal(got[2][1, :6], payload[-9:-3])
+
+
 def test_async_service_many_batches_in_flight(dev):
     """48 distinct framed batches through AsyncFilterService, each its own
     dispatch (coalesce_lines at 1), up to 16 in flight, each with long
@@ -752,7 +829,7 @@ def test_async_service_many_batches_in_flight(dev):
     nfa_kernels.reset_launches()
     got = asyncio.run(go())
     assert svc.batches_dispatched == len(batches)
-    assert nfa_kernels.LAUNCHES[nfa_kernels.PACK] >= 2 * len(batches)
+    assert nfa_kernels.LAUNCHES[nfa_kernels.PACK_CLS] >= 2 * len(batches)
     cpu = GpuEngineFilter(PATTERNS, device="cpu")
     for (p, o), g in zip(batches, got):
         assert g.tolist() == cpu.fetch_framed(cpu.dispatch_framed(p, o)) \
@@ -900,7 +977,8 @@ def test_follow_stop_with_batches_in_flight(dev, tmp_path):
 def test_engine_small_batches_launch_kernels(dev):
     """Follow mode's batches of 1 to 8 lines (one batch bucket of 8 rows)
     run the kernels, not their plain versions: each launches K1 and
-    pack_rows once, and a long line K2, with the CPU engine's verdicts."""
+    pack_classify_rows once, and a long line K2 (and pack_classify_rows a
+    chunk), with the CPU engine's verdicts."""
     from klogs_tpu_torch.filters.base import frame_lines
 
     card = GpuEngineFilter(PATTERNS, device=dev)
@@ -913,7 +991,7 @@ def test_engine_small_batches_launch_kernels(dev):
         got = card.fetch_framed(card.dispatch_framed(*frame))
         long_ = n >= 5
         assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED] == 1
-        assert nfa_kernels.LAUNCHES[nfa_kernels.PACK] == 1 + 2 * long_
+        assert nfa_kernels.LAUNCHES[nfa_kernels.PACK_CLS] == 1 + 2 * long_
         assert nfa_kernels.LAUNCHES[nfa_kernels.CHUNK] == 2 * long_
         assert got.tolist() == cpu.fetch_framed(
             cpu.dispatch_framed(*frame)).tolist()
@@ -990,7 +1068,7 @@ def test_backfill_on_card_equals_cpu(dev, tmp_path, monkeypatch):
     for body in outs["card"].values():
         assert body and all(rx.search(ln) for ln in body.splitlines())
     assert dispatches[0] > 2
-    for k in (nfa_kernels.GROUPED, nfa_kernels.CHUNK, nfa_kernels.PACK):
+    for k in (nfa_kernels.GROUPED, nfa_kernels.CHUNK, nfa_kernels.PACK_CLS):
         assert launches[k] > 0, launches
 
 
@@ -1050,7 +1128,7 @@ def test_filterd_on_card_serves_two_clients_the_cpu_verdicts(dev):
         assert g.tolist() == cpu.fetch_framed(cpu.dispatch_framed(p, o)) \
             .tolist()
     assert sum(int(g.sum()) for g in got) > 100
-    for k in (nfa_kernels.GROUPED, nfa_kernels.CHUNK, nfa_kernels.PACK):
+    for k in (nfa_kernels.GROUPED, nfa_kernels.CHUNK, nfa_kernels.PACK_CLS):
         assert launches[k] > 0, launches
 
 
@@ -1287,7 +1365,7 @@ def test_backend_cpu_files_exact_in_a_cuda_process(dev, tmp_path,
 def test_mesh_on_card_equals_single_engine_k32(dev, grid):
     """A grid over [cuda:0] x 4: the same verdicts as the single engine on
     short lines in several width buckets and long lines; K1 and
-    pack_rows launch once a shard a bucket holding lines, and the long
+    pack_classify_rows launch once a shard a bucket holding lines, and the long
     lines' K2 on the first device."""
     from klogs_tpu_torch.parallel.mesh import MeshEngine
 

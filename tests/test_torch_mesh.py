@@ -113,13 +113,13 @@ def test_uneven_batch_padding_launches_only_real_rows(monkeypatch):
     shard, the 5 shards of padding launch nothing and their verdicts
     are dropped."""
     calls = []
-    real = pack.pack_rows
+    real = pack.pack_classify_rows
 
     def counting(*a, **kw):
         calls.append(a[4])
         return real(*a, **kw)
 
-    monkeypatch.setattr(pack, "pack_rows", counting)
+    monkeypatch.setattr(pack, "pack_classify_rows", counting)
     f = port_mesh(["foo"], (8, 1))
     assert f.match_lines([b"foo", b"bar", b"xfoo"]) == [True, False, True]
     assert calls == [1, 1, 1]
@@ -389,17 +389,17 @@ def test_mesh_dispatch_span(monkeypatch):
 
 def test_shard_program_copies_to_a_device_with_a_fresh_cache():
     sh = ShortLines(PATS, device="cpu")
-    batch = torch.zeros((4, 16), dtype=torch.uint8)
-    lens = torch.tensor([0, 3, 5, 16])
-    sh._match_short(batch, lens)
+    zeros = torch.zeros(16, dtype=torch.uint8)
+    sh._match_short(zeros, torch.zeros(4, dtype=torch.int64),
+                    torch.tensor([0, 3, 5, 16]), 16, 4)
     moved = sh.to(CPU)
     assert moved._grouped is not sh._grouped
     assert moved._grouped.cache == {} and moved._grouped.cache is not \
         sh._grouped.cache
     assert torch.equal(moved._grouped.follow, sh._grouped.follow)
-    rows = torch.frombuffer(bytearray(b"WARN 7".ljust(16, b"\0")),
-                            dtype=torch.uint8).reshape(1, 16)
-    assert moved._match_short(rows, torch.tensor([6]))[0].tolist() == [True]
+    line = torch.frombuffer(bytearray(b"WARN 7\n"), dtype=torch.uint8)
+    assert moved._match_short(line, torch.tensor([0]), torch.tensor([7]),
+                              16, 1)[0].tolist() == [True]
 
 
 def test_property_mesh_vs_jax_and_re():

@@ -205,12 +205,16 @@ def test_wrappers_count_only_kernel_launches():
     pack.pack_rows(torch.zeros(4, dtype=torch.uint8),
                    torch.zeros(2, dtype=torch.int64),
                    torch.full((2,), 4, dtype=torch.int64), 8, 4)
+    pack.pack_classify_rows(torch.zeros(4, dtype=torch.uint8),
+                            torch.zeros(2, dtype=torch.int64),
+                            torch.full((2,), 4, dtype=torch.int64), 8, 4, tp)
     assert nfa_kernels.LAUNCHES == {nfa_kernels.GROUPED: 0,
                                     nfa_kernels.GATED: 0,
                                     nfa_kernels.CHUNK: 0,
                                     nfa_kernels.FUSED: 0,
                                     nfa_kernels.GROUPED_CHUNK: 0,
                                     nfa_kernels.PAIRS: 0,
+                                    nfa_kernels.PACK_CLS: 0,
                                     nfa_kernels.PACK: 0}
 
 
