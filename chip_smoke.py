@@ -26,7 +26,8 @@ there.
 2. grouped_nfa_kernel against its plain PyTorch version on the
    32-pattern program (4 groups x 128 states, 64 classes): 131072 rows
    at the 128-byte width bucket and 4096 rows at the 4096 bucket, plus a
-   256-state group and a program wider than 1024 states. Exact equality.
+   256-state group and a program wider than 1024 states (the wide
+   shift kernel, ``grouped_shift_wide_kernel``). Exact equality.
 3. chunk_nfa_kernel against its plain version on the 512-state union
    program: 1024 lines of 4 KiB to 128 KiB chained chunk by chunk (some
    ending exactly on a chunk edge), a 640-state union program (run
@@ -97,6 +98,23 @@ K axis: 156 groups of 128 states, 64 classes):
    batch, the 4096 bucket, the 1280-state wide program, and at K = 1024
    (156 groups in chunks, ungated) the sweep's 131072 x 131 batch and
    the engine's 256-byte bucket (2048 x 259).
+   wide: K1 and K2g past 32 words, on the 32 patterns and the watch
+   list (``WATCH``, one alternation of 128 pods: 5 groups of 1152
+   states), run by the wide shift-and-exceptions kernels
+   (``grouped_shift_wide_kernel``, ``grouped_chunk_wide_kernel``): (a)
+   K1 against its plain version and beside K4's generic wide kernel
+   (``grouped_nfa_fused_wide``, the generic step), timed in turns, on K1's
+   s1280 batch (512 x 2051, row 0 dense) and on 131072 FakeCluster rows
+   at the 128-byte bucket, with the register K1 on the same rows under
+   the 32 patterns; (b) K2g against its plain version on each chunk,
+   the carry chained, beside ``chunk_nfa_wide`` on the set's
+   1536-state union on the same 8 x 4096 chunks; (c) the cli cell (256
+   pods x 4000 lines, 16 long
+   lines) with ``--match`` x33, this path's main run (counts zeroed
+   just before, read just after: both wide kernels launch, K1's and
+   K2g's register kernels and ``chunk_nfa_kernel`` do not), every file
+   equal to the ``re`` oracle's, both kernels held on the run's own
+   most frequent batches.
    grouped_chunk_kernel (K2g, the long lines' kernel of a set whose
    union is wider than 1024 states) against its plain version, every
    4096-byte chunk chained, carries and verdicts exactly equal: the
@@ -312,7 +330,10 @@ before it. Then a ``kernels`` line (each kernel's time beside its bound
 and its plain version's time, with its launches on its main path, on
 the backfill, in the fleet's registry, on the mesh (K1 on (a)'s (2,2)
 grid, K3, K2g and ``pack_classify_rows`` on (c)'s cli_k1024 cell): the
-four NFA kernels, K2g, ``pack_classify_rows`` and ``pack_rows`` (whose
+four NFA kernels, K2g, the wide route's two kernels (their main path
+the ``wide`` phase's cli cell, K1's time the watch-list batch beside
+K4's generic wide kernel, K2g's the 8 x 4096 chunks beside
+``chunk_nfa_wide``), ``pack_classify_rows`` and ``pack_rows`` (whose
 main path is the host engines' device sweep); K2g's main path is
 cli_k1024, its time the
 8 x 4096 chunks of the 1024 patterns, beside ``chunk_nfa_wide``'s),
@@ -357,6 +378,12 @@ NEEDLES = [b"panic: x", b"oom-killer", b"code=503", b"retry 3/5",
            b"uid=1234567", b"FATAL a code=9", b"latency=495ms", b"EPIPE",
            b"GET /api/v2 404", b"x-request-id: 9f0a", b"disk is full",
            b"timed out", b"517 ABCDE", b"broken pipe"]
+
+
+# A watch list written as one alternation ("the lines of any of these
+# 128 pods"): 1,028 Glushkov positions, so every group of a set that
+# holds it runs at 1152 states (36 words), past the register widths.
+WATCH = "pod=(?:" + "|".join(f"pod-{p:04d}" for p in range(1, 256, 2)) + ")"
 
 
 def make_patterns(k: int) -> "list[str]":
@@ -616,8 +643,8 @@ def k1_phase(torch, np, nfa, nk, synthetic_line, dev, rows_128=131072,
                              torch.from_numpy(lens).to(dev), True, True)
     results["w4096"] = k1_check(torch, nk, dp, live, acc, cls, 5)
     batches["w4096"] = (dp, live, acc, cls)
-    # A 256-state group (register path, W=8) and a 1280-state group (the
-    # shared-memory "wide" path).
+    # A 256-state group (register path, W=8) and a 1280-state group (40
+    # words: the wide shift kernel).
     for name, pats in (("s256", ["a" * 200 + "b", r"x\d+y"]),
                        ("s1280", ["q" * 1200 + "z", "panic:"])):
         dpx, lx, ax = nfa.compile_grouped(pats, device=dev)
@@ -863,19 +890,22 @@ def k2g_chain(torch, nfa, nk, prog, live, acc, rows, lens, L, dev,
 
 
 def k2g_against_wide(torch, np, nfa, nk, compile_patterns, pats, long, rng,
-                     dev, B=8, n_chunks=4, L=4096, reps=20) -> dict:
+                     dev, B=8, n_chunks=4, L=4096, reps=20,
+                     needles=None) -> dict:
     """K2g on the grouped program and K2's wide variant
     (``chunk_nfa_wide``) on the augmented union of the same patterns,
     over the same B x L chunks of B lines n_chunks chunks long, each
     chunk timed; K2g held against its plain version there (its bounds),
-    and the two kernels' verdicts equal."""
+    and the two kernels' verdicts equal. ``needles`` default to minted
+    family members and the 32 patterns' needles."""
     gp, live, acc = long
     union = compile_patterns(pats)
     up = nfa.pack_program(nfa.augment(union), device=dev)
     if nk.kernel_states(up.n_states) <= 1024:
         raise AssertionError("the union fits the register K2")
-    needles = [minted_needle(int(i)) for i in
-               rng.integers(0, 992, size=8)] + NEEDLES
+    if needles is None:
+        needles = [minted_needle(int(i)) for i in
+                   rng.integers(0, 992, size=8)] + NEEDLES
     rows, lens = long_rows(np, rng, B, L, (n_chunks - 1) * L + 1,
                            n_chunks * L, needles)
     rows_d = torch.from_numpy(rows).to(dev)
@@ -944,6 +974,183 @@ def grouped_chunk_phase(torch, np, nfa, nk, compile_patterns, eng1024,
             or res["g5_b8"]["groups"] != 5
             or res["vs_wide"]["verdict_mismatches"]):
         raise AssertionError(f"grouped_chunk_kernel disagrees: {res}")
+    return res
+
+
+# ---- past 32 words: K1's and K2g's wide shift kernels ---------------------
+
+WATCH_NEEDLES = [b"pod=pod-0001", b"pod=pod-0255", b"pod=pod-0129",
+                 b"pod=pod-0002", b"pod=pod-025"]
+
+
+def watch_rows(np, synthetic_line, B: int, width: int):
+    """[B, width] FakeCluster rows (pods pod-0000 to pod-0255, so every
+    other pod is on the watch list), each line cut to ``width``."""
+    rows = np.zeros((B, width), dtype=np.uint8)
+    lens = np.zeros(B, dtype=np.int32)
+    for i in range(B):
+        ln = synthetic_line(f"pod-{i % 256:04d}", f"c{i % 3}", i,
+                            CLOCK + i).rstrip(b"\n")[:width]
+        rows[i, :len(ln)] = np.frombuffer(ln, dtype=np.uint8)
+        lens[i] = len(ln)
+    return rows, lens
+
+
+def wide_k1_check(torch, nk, dp, live, acc, cls, reps: int, k4_reps: int,
+                  step: int) -> dict:
+    """K1's wide kernel (``grouped_shift_wide_kernel``) against its plain
+    version, over slices of ``step`` rows, on one batch; beside K4's
+    generic wide kernel (``grouped_nfa_fused_wide``, the generic step: the
+    whole follow row ORed for every set state) on the same batch, its
+    verdicts equal. K1 and K4 timed in turns (K1, K4, K4, K1) by CUDA
+    events around the wrappers, each kernel alone by torch.profiler,
+    with the bounds of K1's function (``step_bounds``)."""
+    got = nk.match_cls_grouped(dp, live, acc, cls)
+    k4 = nk.match_cls_grouped_fused(dp, live, acc, cls)
+    B, T = cls.shape
+    work: dict = {}
+    err = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for i in range(0, B, step):
+        exp = nk.match_cls_grouped_plain(dp, live, acc, cls[i:i + step],
+                                         work=work)
+        err = max(err, int((got[i:i + step].int() - exp.int()).abs().max()))
+    ev[1].record()
+    ev[1].synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1])
+
+    def k1():
+        return nk.match_cls_grouped(dp, live, acc, cls)
+
+    def k4f():
+        return nk.match_cls_grouped_fused(dp, live, acc, cls)
+
+    turns = [cuda_ms(torch, k1, reps), cuda_ms(torch, k4f, k4_reps),
+             cuda_ms(torch, k4f, k4_reps), cuda_ms(torch, k1, reps)]
+    G, C, S = dp.char_mask.shape
+    n_bytes = B * T * 2 + G * (S + C) * (S // 32) * 4 + B
+    return dict(rows=B, T=T, states=S, groups=G, max_abs_err=err,
+                k4_mismatches=int((got != k4).sum()),
+                ms=min(turns[0], turns[3]), k4_ms=min(turns[1], turns[2]),
+                turns_ms=turns,
+                kernel_ms=kernel_alone_ms(torch, k1, reps, nk.GROUPED_WIDE),
+                k4_kernel_ms=kernel_alone_ms(torch, k4f, k4_reps,
+                                             "grouped_nfa_fused_wide"),
+                plain_ms=plain_ms, matched=int(got.sum()),
+                active_per_step=work["active"] / (B * G * T),
+                exc_per_step=work["exc"] / (B * G * T),
+                **step_bounds(n_bytes, S, C, B * G * T, work["active"]))
+
+
+def wide_cli(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
+             lines_per_pod=4000) -> dict:
+    """(c) The user's entry point on the wide set: ``app.run_async`` over
+    the cli cell's FakeCluster (256 pods x 4000 lines, 16 long lines of
+    5-180 KiB) with ``--match`` x33 (the 32 patterns and the watch list);
+    this path's main run (counts zeroed just before, read just after:
+    K1's and K2g's wide kernels launch, K1's and K2g's register kernels
+    and K2, whose wide variant is ``chunk_nfa_wide``, do not); every file
+    equal to the ``re`` oracle's. Then K1's wide kernel is held against
+    its plain version on the run's most frequent batch, and K2g's on its
+    most frequent chunk batch."""
+    fc, n_lines = cli_cluster(np, FakeCluster, n_pods, lines_per_pod)
+    pods = fc.namespaces["default"]
+    pats = PATTERNS + [WATCH]
+    argv = ["-n", "default", "-a", "-p", ""]
+    for p in pats:
+        argv += ["--match", p]
+    with tempfile.TemporaryDirectory() as out_dir, \
+            recording_wrappers(nk, None, ["match_cls_grouped",
+                                          "match_chunk_cls_grouped"]) as calls:
+        argv[4] = out_dir
+        opts = cli.parse_args(argv)
+        term.set_ui_stream(io.StringIO())
+        try:
+            torch.cuda.synchronize()
+            nk.reset_launches()
+            t0 = time.perf_counter()
+            rc = asyncio.run(app.run_async(opts, backend=fc, device=dev))
+            seconds = time.perf_counter() - t0
+            launches = dict(nk.LAUNCHES)
+        finally:
+            term.set_ui_stream(None)
+        want = oracle_files_for(pods, pats)
+        bad = []
+        kept = 0
+        for name, exp in want.items():
+            kept += exp.count(b"\n")
+            with open(os.path.join(out_dir, name), "rb") as f:
+                if f.read() != exp:
+                    bad.append(name)
+        files = len(os.listdir(out_dir))
+    shapes = sorted(calls["match_cls_grouped"].items(),
+                    key=lambda e: -e[1][0])
+    k1_batches = [dict(launches=count, shape=list(key[-1]),
+                       **k1_check(torch, nk, *seen[0][0], 10))
+                  for key, (count, seen) in shapes[:1]]
+    k2g_batches = held_k2g(torch, nk, calls)
+    del calls
+    res = dict(rc=rc, pods=len(pods), files=files, lines=n_lines,
+               kept_lines=kept, seconds=seconds,
+               lines_per_s=n_lines / seconds, mismatched_files=bad,
+               launches=launches, k1_batches=k1_batches,
+               k2g_batches=k2g_batches)
+    if (rc != 0 or bad or files != len(pods) or not kept
+            or launches[nk.GROUPED_WIDE] == 0
+            or launches[nk.GROUPED_CHUNK_WIDE] == 0
+            or launches[nk.PACK_CLS] == 0 or launches[nk.GROUPED] != 0
+            or launches[nk.GROUPED_CHUNK] != 0 or launches[nk.CHUNK] != 0
+            or not k1_batches or not k2g_batches
+            or any(b["max_abs_err"] for b in k1_batches + k2g_batches)):
+        raise AssertionError(f"wide (c) failed: {res}")
+    return res
+
+
+def wide_phase(torch, np, nfa, nk, compile_patterns, app, cli, term,
+               FakeCluster, synthetic_line, s1280, dev, rows=131072,
+               L=4096, cli_pods=256) -> dict:
+    """K1 and K2g past 32 words (``grouped_shift_wide_kernel``,
+    ``grouped_chunk_wide_kernel``) on the set of the 32 patterns and the
+    watch list (5 groups of 1152 states): (a) K1 against its plain
+    version and beside K4's generic wide kernel on the s1280 batch (K1's
+    512 x 2051, row 0 dense) and on 131072 FakeCluster rows at the
+    128-byte bucket under the watch-list set, with the register K1 on the
+    same rows under the 32 patterns; (b) K2g against its plain version
+    on each chunk, the carry chained, beside ``chunk_nfa_wide`` on the
+    set's 1536-state union on the same 8 x 4096 chunks of 8 lines of
+    12-16 KiB; (c) the cli cell (``wide_cli``)."""
+    rng = np.random.default_rng(SEED + 19)
+    pats = PATTERNS + [WATCH]
+    res = {"s1280": wide_k1_check(torch, nk, *s1280, 5, 1, 512)}
+    wp = nfa.compile_grouped(pats, device=dev)
+    rb, lb = watch_rows(np, synthetic_line, rows, 128)
+    rows_d, lens_d = torch.from_numpy(rb).to(dev), torch.from_numpy(lb).to(dev)
+    cls = nfa.classify_chunk(wp[0], rows_d, lens_d, True, True)
+    res["watch_w128"] = wide_k1_check(torch, nk, *wp, cls, 10, 3, 16384)
+    bp = nfa.compile_grouped(PATTERNS, device=dev)
+    bcls = nfa.classify_chunk(bp[0], rows_d, lens_d, True, True)
+
+    def k1_reg():
+        return nk.match_cls_grouped(*bp, bcls)
+
+    res["watch_w128"]["register_ms"] = cuda_ms(torch, k1_reg, 20)
+    res["watch_w128"]["register_kernel_ms"] = kernel_alone_ms(
+        torch, k1_reg, 20, "grouped_shift_kernel")
+    del rows_d, lens_d, cls, bcls
+    res["k2g_vs_wide"] = k2g_against_wide(
+        torch, np, nfa, nk, compile_patterns, pats, wp, rng, dev, L=L,
+        needles=WATCH_NEEDLES + NEEDLES)
+    res["cli"] = wide_cli(torch, np, nk, app, cli, term, FakeCluster, dev,
+                          n_pods=cli_pods)
+    emit({"phase": "wide", **res})
+    k2g = res["k2g_vs_wide"]
+    if (any(r["max_abs_err"] or r["k4_mismatches"] or not r["matched"]
+            for r in (res["s1280"], res["watch_w128"]))
+            or k2g["max_abs_err"] or not k2g["matched"]
+            or k2g["verdict_mismatches"] or k2g["groups"] != 5):
+        raise AssertionError(f"wide phase failed: {res}")
     return res
 
 
@@ -5921,6 +6128,10 @@ def main() -> int:
                          synthetic_line, dev)
         k3 = k3_phase(torch, nfa, bits, nk, sw)
         k4 = k4_phase(torch, nfa, nk, k1_batches, sw)
+        # Past 32 words: K1's and K2g's wide kernels, and the cli cell
+        # of the watch-list set (this slice's main path).
+        wd = wide_phase(torch, np, nfa, nk, compile_patterns, app, cli, term,
+                        FakeCluster, synthetic_line, k1_batches["s1280"], dev)
         del k1_batches
         k2g = grouped_chunk_phase(torch, np, nfa, nk, compile_patterns,
                                   sw["eng"], dev)
@@ -5984,6 +6195,7 @@ def main() -> int:
     w, c, g = k1["w128"], k2["s512"], run3["k3_batches"][0]
     f, cc = run4["k4_batches"][0], run["k2_batches"][0]
     vw, gc3 = k2g["vs_wide"], run3["k2g_batches"][0]
+    ww, wv, wc = wd["watch_w128"], wd["k2g_vs_wide"], wd["cli"]
     k2g_held = ([r for k, r in k2g.items() if k != "vs_wide"] + [vw]
                 + run3["k2g_batches"] + ek["k2g_batches"]
                 + bfr["c"]["k2g_batches"] + ms["k2g"] + fl_k2g)
@@ -6024,6 +6236,35 @@ def main() -> int:
          "shape": f"{vw['lines']}x4096, {vw['groups']} groups",
          "wide_ms": vw["wide_ms"], "cli_ms": gc3["ms"],
          "cli_shape": f"{gc3['rows']}x{gc3['T']}"},
+        {"name": nk.GROUPED_WIDE, "route": "cuda", "source": SOURCE,
+         "replaces": "klogs_tpu/ops/pallas_nfa.py:200",
+         "launches": wc["launches"][nk.GROUPED_WIDE],
+         "main_path": "wide (c): the cli cell with --match x33",
+         "max_abs_err": float(max(r["max_abs_err"] for r in
+                                  [ww, wd["s1280"]] + wc["k1_batches"])),
+         "ms": ww["ms"], "plain_ms": ww["plain_ms"],
+         "bound_ms": ww["bound_ms"], "bound_by": ww["bound_by"],
+         "library_ms": None, "kernel_ms": ww["kernel_ms"],
+         "bytes_ms": ww["bytes_ms"],
+         "shape": f"{ww['rows']}x{ww['T']}, {ww['groups']} groups of "
+                  f"{ww['states']} states",
+         "k4_wide_ms": ww["k4_ms"], "register_ms": ww["register_ms"],
+         "s1280_ms": wd["s1280"]["ms"],
+         "s1280_bound_ms": wd["s1280"]["bound_ms"],
+         "s1280_k4_wide_ms": wd["s1280"]["k4_ms"]},
+        {"name": nk.GROUPED_CHUNK_WIDE, "route": "cuda", "source": SOURCE,
+         "replaces": "klogs_tpu/ops/pallas_nfa.py:50",
+         "launches": wc["launches"][nk.GROUPED_CHUNK_WIDE],
+         "main_path": "wide (c): the cli cell with --match x33",
+         "max_abs_err": float(max(r["max_abs_err"] for r in
+                                  [wv] + wc["k2g_batches"])),
+         "ms": wv["ms"], "plain_ms": wv["plain_ms"],
+         "bound_ms": wv["bound_ms"], "bound_by": wv["bound_by"],
+         "library_ms": None, "bytes_ms": wv["bytes_ms"],
+         "us_per_step": wv["us_per_step"],
+         "shape": f"{wv['lines']}x4096, {wv['groups']} groups",
+         "wide_ms": wv["wide_ms"],
+         "chunk_nfa_launches": wc["launches"][nk.CHUNK]},
         {"name": nk.GATED, "route": "cuda", "source": SOURCE,
          "replaces": "klogs_tpu/ops/pallas_nfa.py:377",
          "launches": run3["launches"][nk.GATED],

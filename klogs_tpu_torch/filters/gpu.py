@@ -25,8 +25,11 @@ on the host instead, in ``klogs_tpu/native/_hostops.c``.)
   set whose union is wider than ``GROUPED_LONG_STATES`` (K2's register
   kernel), K2g (``match_chunk_cls_grouped``) over the grouped program,
   a carry per (line, group); the union is then never built on the
-  device. A set with a group past a register width (a single pattern of
-  more than ~1000 positions) stays on the union. Lines over
+  device. That holds at every group width K2g covers: its register
+  kernel up to 1024 states a group, its wide kernel up to
+  ``nfa_kernels.WIDE_WORDS`` (5120 states; a group is that wide only
+  under ``KLOGS_MAX_PATTERN_POSITIONS`` raised past 4096); a set with a
+  group past that stays on the union. Lines over
   ``SEQ_SCAN_BYTES``, which the JAX engine sends to its
   sequence-parallel scan, take the same chunk path here, with the same
   verdicts: the port's scan (``ops/seqscan.py``) lost to K2 at every
@@ -362,9 +365,10 @@ class GpuEngineFilter(ShortLines, LogFilter):
 
     def _long_program(self, prog, patterns: list[str], ignore_case: bool):
         """(grouped program, live, acc) for K2g when the union is wider
-        than ``GROUPED_LONG_STATES`` and every group fits a register
-        width, else None (the union on K2). A mesh's filter compiles the
-        whole set's grouped program on its device for this."""
+        than ``GROUPED_LONG_STATES`` and K2g covers the groups' width
+        (``nfa_kernels.shift_words``), else None (the union on K2). A
+        mesh's filter compiles the whole set's grouped program on its
+        device for this."""
         union = nfa_kernels.kernel_states(nfa.padded_states(prog.n_states
                                                             + 2))
         if union <= GROUPED_LONG_STATES:
@@ -374,8 +378,8 @@ class GpuEngineFilter(ShortLines, LogFilter):
         else:
             long = nfa.compile_grouped(patterns, ignore_case=ignore_case,
                                        device=self.device)
-        if nfa_kernels.grouped_state_words(long[0]) not in \
-                nfa_kernels.REGISTER_WORDS:
+        if not nfa_kernels.shift_words(
+                nfa_kernels.grouped_state_words(long[0])):
             return None
         return long
 

@@ -148,11 +148,42 @@
 // same class ids (one L1 line) ID_AHEAD steps ahead, and the group
 // tables through L1, as K3 does, with no barrier anywhere.
 //
-// Programs wider than S = 1024 (W > 32): the *_wide kernels give each
-// line (K1, K2), (line, group) pair (K4) or listed pair (K3) a warp,
-// its state in shared memory, and read follow/mask rows from device
-// memory through L2 in coalesced row passes, so every pattern set the
-// compiler accepts runs.
+// Programs wider than S = 1024 (W > 32), K1 and K2g: a group of more
+// than 1024 states (one pattern of ~1000 positions is enough, and
+// compile_grouped gives every group the widest group's S) steps by the
+// same split, spread over a warp: grouped_shift_wide_kernel<K> (K1)
+// and grouped_chunk_wide_kernel<K> (K2g, the carry read and written
+// as [B][G][W] words) give a (line, group) pair a warp, lane l owning
+// words l, l+32, ... (K = ceil(W/32) a lane, K <= 5: up to 160 words,
+// 5120 states, past the compiler's default cap of 4096 positions a
+// set). The step reads no follow row but for a set exception bit:
+// shl1's carry into word j, bit 31 of word j-1, crosses lanes as one
+// rotating shuffle of the lane's K top bits (lane 0 takes lane 31's
+// from the slot before); live's bit is found by a vote; v & EX is
+// balloted, and each set bit's follow row is ORed by the whole warp in
+// one coalesced pass through L1. The class's mask row is the group's
+// table staged in shared memory, C+1 rows (row C zero) of 32 K words
+// (zero past W), each lane reading its own words through a 32-bit
+// shared address kept in a register, one step ahead; every number the
+// step needs of its lane is computed once before the scan. Class ids
+// are loaded 32 steps at a time, a lane each, and broadcast by
+// shuffles. A block is WIDE_WARPS lines of one group (grid y: the
+// groups side by side, not one after another: a launch lasts its
+// longest chain), striding over the line chunks so that it stages its
+// group's table once; the OR over groups is a verdict byte per line,
+// zeroed by the entry and set with atomicOr on its word by each group
+// that accepts (K3's way). What bounds them: the latency of one (line,
+// group)'s chain of T steps (a shuffle, a vote and a ballot a step)
+// where the pairs are few (long lines, K2g), the instructions of B x G x
+// T warp-steps where they are many (K1 on an engine batch), not bytes.
+//
+// The other kernels past 32 words, and K1 past 160 words, keep the
+// generic *_wide kernels: each line (K1, K2), (line, group) pair (K4)
+// or listed pair (K3) a warp, its state in shared memory, and for
+// every set state bit its whole follow row ORed from device memory
+// through L2 in a coalesced pass, so every pattern set the compiler
+// accepts runs. K2g past 160 words has no kernel: the engine keeps such
+// a set's long lines on the union (chunk_nfa_wide).
 //
 // Every entry point returns the cudaError_t of its launch (0 = success)
 // and never synchronises.
@@ -755,6 +786,225 @@ __device__ __forceinline__ uint32_t lds(uint32_t addr) {
   return x;
 }
 
+// ---- K1 and K2g past 32 words: the shift step over a warp ------------
+// (see the note at the top)
+
+constexpr int WIDE_WARPS = 8;  // (line, group) pairs, a warp each, a block
+constexpr int WIDE_MAX_K = 5;  // state words a lane: up to 160 words
+
+// x[i] for an i known to the warp only at run time (static indexing, so
+// the array stays in registers).
+template <int K>
+__device__ __forceinline__ uint32_t slot(const uint32_t (&x)[K], int i) {
+  uint32_t w = 0u;
+#pragma unroll
+  for (int q = 0; q < K; ++q)
+    if (q == i) w = x[q];
+  return w;
+}
+
+// What a lane of a wide warp keeps in registers for its whole scan: its
+// words of the group's constants (SH, SELF, RL, EX), live's bit in its
+// words (0 but in live's lane), its lane number and the 32-bit shared
+// address of its word of mask row 0 (rows of 32 K words: a lane reads
+// word lane + 32 i of a row, zero past W), through opaque() so that the
+// compiler keeps the address in a register.
+template <int K>
+struct WideLane {
+  uint32_t sh[K], sf[K], rl[K], ex[K], lv[K];
+  int lane;
+  uint32_t m_lane;
+  __device__ __forceinline__ WideLane(const uint4* c_g, int W, int live,
+                                      const uint32_t* m_s) {
+    lane = (int)(threadIdx.x & 31u);
+    m_lane = opaque(smem_addr(m_s + lane));
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const int j = lane + 32 * i;
+      const uint4 q = j < W ? c_g[j] : make_uint4(0u, 0u, 0u, 0u);
+      sh[i] = q.x;
+      sf[i] = q.y;
+      rl[i] = q.z;
+      ex[i] = q.w;
+      lv[i] = j == (live >> 5) ? 1u << (live & 31) : 0u;
+    }
+  }
+};
+
+// The lane's words of mask row c (row C, all zero, for an id outside
+// [0, C)) of the staged [C+1][32 K] table.
+template <int K>
+__device__ __forceinline__ void wide_mask(uint32_t (&m)[K],
+                                          const WideLane<K>& w, int C,
+                                          int c) {
+  const uint32_t row = w.m_lane + min((unsigned)c, (unsigned)C) * (128u * K);
+#pragma unroll
+  for (int i = 0; i < K; ++i) m[i] = lds(row + 128u * i);
+}
+
+// One step of a warp's (line, group), v' = reach(v) & m, reach split as
+// in shift_step. Word j = lane + 32 i is v[i] of the lane. shl1 carries
+// bit 31 of word j-1 into word j: lane l's K top bits of v & SH go, in
+// one shuffle, to lane l+1 (lane 31's to lane 0, whose slot i takes
+// slot i-1's bit: word 32i-1 is lane 31's). live's bit is found by a
+// vote. f_g is the group's follow table [S][W] in device memory; each
+// set exception bit's row is read by the warp, a word a lane a pass.
+template <int K>
+__device__ __forceinline__ void wide_shift_step(
+    uint32_t (&v)[K], const WideLane<K>& w, const uint32_t* __restrict__ f_g,
+    int W, const uint32_t (&m)[K]) {
+  uint32_t a[K], r[K], top = 0u, exc = 0u, live = 0u;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    a[i] = v[i] & w.sh[i];
+    top |= (a[i] >> 31) << i;
+    exc |= v[i] & w.ex[i];
+    live |= v[i] & w.lv[i];
+  }
+  // Lane l - 1's: a source lane is taken modulo 32, so lane 0 reads 31.
+  const uint32_t prev = __shfl_sync(FULL, top, w.lane - 1);
+  const uint32_t keep = __any_sync(FULL, live != 0u) ? FULL : 0u;
+  const uint32_t carry = w.lane ? prev : prev << 1;
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+    r[i] = (a[i] << 1) | ((carry >> i) & 1u) | (v[i] & w.sf[i]) |
+           (w.rl[i] & keep);
+  uint32_t lanes = __ballot_sync(FULL, exc != 0u);
+  while (lanes) {  // warp-uniform, as every loop below
+    const int q = __ffs(lanes) - 1;
+    lanes &= lanes - 1u;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      uint32_t bits = __shfl_sync(FULL, v[i] & w.ex[i], q);
+      while (bits) {
+        const int b = __ffs(bits) - 1;
+        bits &= bits - 1u;
+        const uint32_t* row = f_g + (size_t)((q + 32 * i) * 32 + b) * W;
+#pragma unroll
+        for (int i2 = 0; i2 < K; ++i2) {
+          const int j = w.lane + 32 * i2;
+          if (j < W) r[i2] |= __ldg(row + j);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) v[i] = r[i] & m[i];
+}
+
+// A warp's (line, group) stepped from v over the line's T class ids at
+// `row`: lane l holds the id of step t0 + l (-1 past T), the next 32
+// loaded a tile ahead; step t's mask row is read during step t - 1.
+template <int K>
+__device__ __forceinline__ void wide_shift_scan(
+    uint32_t (&v)[K], const WideLane<K>& w, const uint32_t* __restrict__ f_g,
+    int W, int C, const int16_t* __restrict__ row, int T) {
+  int cur = w.lane < T ? row[w.lane] : -1;
+  int nxt = 32 + w.lane < T ? row[32 + w.lane] : -1;
+  uint32_t m[K];
+  wide_mask<K>(m, w, C, __shfl_sync(FULL, cur, 0));
+  for (int t0 = 0; t0 < T; t0 += 32) {
+    const int n = min(32, T - t0);
+    for (int tt = 0; tt < n; ++tt) {
+      const int cn = __shfl_sync(FULL, tt < 31 ? cur : nxt, (tt + 1) & 31);
+      uint32_t mn[K];
+      wide_mask<K>(mn, w, C, cn);
+      wide_shift_step<K>(v, w, f_g, W, m);
+#pragma unroll
+      for (int i = 0; i < K; ++i) m[i] = mn[i];
+    }
+    cur = nxt;
+    nxt = t0 + 64 + w.lane < T ? row[t0 + 64 + w.lane] : -1;
+  }
+}
+
+// Block (x, g): group g's automaton, warp w on line ch * WIDE_WARPS + w
+// for the chunks ch = x, x + gridDim.x, ... of WIDE_WARPS lines. The
+// block stages the group's mask rows (from mask [G][C][W]) and a zero
+// row in shared memory once, in rows of 32 K words (zero past W);
+// follow holds [G][S][W] words, then the constants [G][W][4]. With v0
+// (K2g) the state comes from v0 and goes to vout, [B][G][W] words; else
+// (K1) it starts at {live}. A pair that holds acc after its last step
+// sets its line's byte in out (zeroed before the launch). Not inlined:
+// K1's and K2g's kernels call one copy of it a width, which halves what
+// nvcc compiles.
+template <int K>
+__device__ __noinline__ void wide_shift_pairs(
+    const int16_t* __restrict__ cls, int B, int T,
+    const uint32_t* __restrict__ follow, const uint32_t* __restrict__ mask,
+    int G, int W, int C, int live, int acc, const uint32_t* __restrict__ v0,
+    uint32_t* __restrict__ vout, uint32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  constexpr int WP = 32 * K;  // words of a staged mask row
+  const int g = blockIdx.y, S = 32 * W;
+  const uint32_t* m_g = mask + (size_t)g * C * W;
+  for (int e = threadIdx.x; e < (C + 1) * WP; e += blockDim.x) {
+    const int r = e / WP, j = e % WP;
+    smem[e] = r < C && j < W ? m_g[r * W + j] : 0u;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const uint32_t* f_g = follow + (size_t)g * S * W;
+  const WideLane<K> w(
+      reinterpret_cast<const uint4*>(follow + (size_t)G * S * W) +
+          (size_t)g * W,
+      W, live, smem);
+  const int aw = acc >> 5;
+  const int chunks = (B + WIDE_WARPS - 1) / WIDE_WARPS;
+  for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
+    const int line = ch * WIDE_WARPS + warp;
+    if (line >= B) break;  // the whole warp; later chunks only go further
+    const size_t at = ((size_t)line * G + g) * W;
+    uint32_t v[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const int j = w.lane + 32 * i;
+      if (v0 != nullptr)
+        v[i] = j < W ? v0[at + j] : 0u;
+      else
+        v[i] = w.lv[i];
+    }
+    wide_shift_scan<K>(v, w, f_g, W, C, cls + (size_t)line * T, T);
+    if (v0 != nullptr) {
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const int j = w.lane + 32 * i;
+        if (j < W) vout[at + j] = v[i];
+      }
+    }
+    const uint32_t x = __shfl_sync(FULL, slot<K>(v, aw >> 5), aw & 31);
+    if (w.lane == 0 && ((x >> (acc & 31)) & 1u)) set_verdict(out, line);
+  }
+}
+
+// K1 past 32 words.
+template <int K>
+__global__ void __launch_bounds__(WIDE_WARPS * 32)
+    grouped_shift_wide_kernel(const int16_t* __restrict__ cls, int B, int T,
+                              const uint32_t* __restrict__ follow,
+                              const uint32_t* __restrict__ mask, int G, int W,
+                              int C, int live, int acc,
+                              const uint32_t* __restrict__ v0,
+                              uint32_t* __restrict__ vout,
+                              uint32_t* __restrict__ out) {
+  wide_shift_pairs<K>(cls, B, T, follow, mask, G, W, C, live, acc, nullptr,
+                      nullptr, out);
+}
+
+// K2g past 32 words.
+template <int K>
+__global__ void __launch_bounds__(WIDE_WARPS * 32)
+    grouped_chunk_wide_kernel(const int16_t* __restrict__ cls, int B, int T,
+                              const uint32_t* __restrict__ follow,
+                              const uint32_t* __restrict__ mask, int G, int W,
+                              int C, int live, int acc,
+                              const uint32_t* __restrict__ v0,
+                              uint32_t* __restrict__ vout,
+                              uint32_t* __restrict__ out) {
+  wide_shift_pairs<K>(cls, B, T, follow, mask, G, W, C, live, acc, v0, vout,
+                      out);
+}
+
 // K2's mask word for a lane: word `lane` of mask row c (m_lane is the
 // address of the lane's word of row 0), 0 past W and for a class id
 // outside [0, C), which kills every state, as the one-hot product of the
@@ -1206,6 +1456,50 @@ cudaError_t launch_grouped_chunk(const int16_t* cls, int B, int T,
   return cudaGetLastError();
 }
 
+// K1 (CARRY false) or K2g (CARRY true) past 32 words, K words a lane:
+// blocks of WIDE_WARPS lines, grid y the groups, grid x as many line
+// chunks as fill the card twice over (each block stages its group's
+// mask table once and strides over the chunks). out is zeroed by the
+// caller.
+template <int K, bool CARRY>
+cudaError_t launch_shift_wide(const int16_t* cls, int B, int T,
+                              const uint32_t* follow, const uint32_t* mask,
+                              int G, int W, int C, int live, int acc,
+                              const uint32_t* v0, uint32_t* vout,
+                              uint32_t* out, cudaStream_t st) {
+  const size_t smem = (size_t)(C + 1) * 32 * K * 4;  // staged mask rows
+  if (G > 65535 || smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
+  const auto kernel = CARRY ? &grouped_chunk_wide_kernel<K>
+                            : &grouped_shift_wide_kernel<K>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const long long chunks = (B + WIDE_WARPS - 1) / WIDE_WARPS;
+  const long long fill =
+      (2LL * resident_blocks(kernel, WIDE_WARPS * 32, smem) + G - 1) / G;
+  const int gx = (int)(chunks < fill ? chunks : fill);
+  kernel<<<dim3(gx, G), WIDE_WARPS * 32, smem, st>>>(
+      cls, B, T, follow, mask, G, W, C, live, acc, v0, vout, out);
+  return cudaGetLastError();
+}
+
+// Whether W state words take the wide shift kernels.
+bool shift_wide_words(int W) { return W > 32 && W <= 32 * WIDE_MAX_K; }
+
+template <bool CARRY>
+cudaError_t launch_wide(const int16_t* cls, int B, int T,
+                        const uint32_t* follow, const uint32_t* mask, int G,
+                        int W, int C, int live, int acc, const uint32_t* v0,
+                        uint32_t* vout, uint32_t* out, cudaStream_t st) {
+  switch ((W + 31) / 32) {
+    case 2: return launch_shift_wide<2, CARRY>(cls, B, T, follow, mask, G, W, C, live, acc, v0, vout, out, st);
+    case 3: return launch_shift_wide<3, CARRY>(cls, B, T, follow, mask, G, W, C, live, acc, v0, vout, out, st);
+    case 4: return launch_shift_wide<4, CARRY>(cls, B, T, follow, mask, G, W, C, live, acc, v0, vout, out, st);
+    case 5: return launch_shift_wide<5, CARRY>(cls, B, T, follow, mask, G, W, C, live, acc, v0, vout, out, st);
+    default: break;
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <int W>
 cudaError_t launch_chunk(const int16_t* cls, int B, int T,
                          const uint32_t* follow, const uint32_t* mask, int C,
@@ -1229,12 +1523,13 @@ const char* klogs_error_string(int err) {
 }
 
 // cls [B, T] int16 (row-major), follow [G, S, S/32] and mask [G, C, S/32]
-// bit tables, out [B] uint8. S/32 is a register width (4, 8, 16 or 32)
-// or above 32 (the wide kernel); the caller pads a program of another
-// width up to the next register width with dead states. At a register
-// width the follow buffer holds, after its G * S * S/32 words, the shift
-// step's constants [G, S/32, 4] (per word: SH, SELF, RL, EX; see
-// ops/nfa_kernels.py shift_constants).
+// bit tables, out [B] uint8 (ceil(B / 4) * 4 bytes, 4-byte aligned).
+// S/32 is a register width (4, 8, 16 or 32) or above 32: up to 160
+// words the wide shift kernel, past them the generic grouped_nfa_wide; the
+// caller pads a program of another width up to the next register width
+// with dead states. Up to 160 words the follow buffer holds, after its
+// G * S * S/32 words, the shift step's constants [G, S/32, 4] (per
+// word: SH, SELF, RL, EX; see ops/nfa_kernels.py shift_constants).
 int klogs_grouped_nfa(const int16_t* cls, int B, int T,
                       const uint32_t* follow, const uint32_t* mask, int G,
                       int S, int C, int live, int acc, uint8_t* out,
@@ -1250,6 +1545,13 @@ int klogs_grouped_nfa(const int16_t* cls, int B, int T,
     case 16: return launch_shift<16, true>(cls, B, T, follow, mask, G, C, live, acc, out, st);
     case 32: return launch_shift<32, true>(cls, B, T, follow, mask, G, C, live, acc, out, st);
     default: break;
+  }
+  if (shift_wide_words(S / 32)) {
+    e = cudaMemsetAsync(out, 0, (size_t)(B + 3) / 4 * 4, st);
+    if (e != cudaSuccess) return e;
+    return launch_wide<false>(cls, B, T, follow, mask, G, S / 32, C, live,
+                              acc, nullptr, nullptr,
+                              reinterpret_cast<uint32_t*>(out), st);
   }
   return launch_grouped_wide(cls, B, T, follow, mask, G, S, C, live, acc,
                              out, st);
@@ -1340,11 +1642,13 @@ int klogs_grouped_nfa_fused(const int16_t* cls, int B, int T,
   return cudaGetLastError();
 }
 
-// K2g: cls, follow (with its constants) and mask [G, C + 1, S/32] as
-// for klogs_grouped_nfa_gated at a register width (S/32 in 4, 8, 16,
-// 32; anything else is refused); v0 and vout [B, G, S/32] words, the
-// carry of each (line, group); out ceil(B / 4) uint32 words, zeroed
-// here, whose byte b is set to 1 where some group of line b holds acc.
+// K2g: cls, follow (with its constants) and mask as for
+// klogs_grouped_nfa_gated ([G, C + 1, S/32] at a register width, [G, C,
+// S/32] past it); S/32 a register width (4, 8, 16, 32) or 33 to 160
+// words (the wide shift kernel; anything else is refused); v0 and vout
+// [B, G, S/32] words, the carry of each (line, group); out ceil(B / 4)
+// uint32 words, zeroed here, whose byte b is set to 1 where some group
+// of line b holds acc.
 int klogs_grouped_chunk_nfa(const int16_t* cls, int B, int T,
                             const uint32_t* follow, const uint32_t* mask,
                             int G, int S, int C, int live, int acc,
@@ -1364,6 +1668,9 @@ int klogs_grouped_chunk_nfa(const int16_t* cls, int B, int T,
     case 32: return launch_grouped_chunk<32>(cls, B, T, follow, mask, G, C, live, acc, v0, vout, out, st);
     default: break;
   }
+  if (shift_wide_words(S / 32))
+    return launch_wide<true>(cls, B, T, follow, mask, G, S / 32, C, live,
+                             acc, v0, vout, out, st);
   return cudaErrorInvalidValue;
 }
 

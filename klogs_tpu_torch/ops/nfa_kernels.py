@@ -33,6 +33,17 @@ ids laid out BEGIN, body, END, PAD latch:
   the groups partition the patterns). The engine runs it for sets whose
   union is wider than K2's register kernel.
 
+The route by width of a group (``kernel_states(S) / 32`` words). At a
+register width (``REGISTER_WORDS``) each kernel above runs as named.
+From 33 to ``WIDE_WORDS`` (160) words, K1 and K2g run the same
+shift-and-exceptions step spread over a warp a (line, group):
+``grouped_shift_wide_kernel`` (K1, counted under ``GROUPED_WIDE``) and
+``grouped_chunk_wide_kernel`` (K2g, under ``GROUPED_CHUNK_WIDE``); K3,
+K4 and K2 there, and K1 past 160 words, run the generic wide kernels
+under their own names. K2g takes no group past 160 words (5120 states,
+past the compiler's default cap of 4096 positions a set) and raises;
+``filters/gpu.py`` keeps such a set's long lines on the union.
+
 A tensor on the CPU runs the plain PyTorch version (a Python loop over
 the steps); a CUDA tensor launches the kernel from
 ``ops/csrc/nfa_kernels.cu`` or raises. ``LAUNCHES`` counts kernel
@@ -54,6 +65,9 @@ GATED = "grouped_nfa_gated_kernel"
 CHUNK = "chunk_nfa_kernel"
 FUSED = "grouped_nfa_fused_kernel"
 GROUPED_CHUNK = "grouped_chunk_kernel"
+# K1 and K2g past 32 words: the wide shift-and-exceptions kernels.
+GROUPED_WIDE = "grouped_shift_wide_kernel"
+GROUPED_CHUNK_WIDE = "grouped_chunk_wide_kernel"
 # K3's pair builder (gate_pairs_count, gate_pairs_scan and
 # gate_pairs_scatter, launched together: counted once per list built).
 PAIRS = "gate_pairs"
@@ -64,7 +78,8 @@ PACK_CLS = "pack_classify_rows"
 PACK = "pack_rows"
 
 LAUNCHES = {GROUPED: 0, GATED: 0, CHUNK: 0, FUSED: 0, GROUPED_CHUNK: 0,
-            PAIRS: 0, PACK_CLS: 0, PACK: 0}
+            GROUPED_WIDE: 0, GROUPED_CHUNK_WIDE: 0, PAIRS: 0, PACK_CLS: 0,
+            PACK: 0}
 
 # Lines per tile of the gate's stats: the JAX engine counts candidate
 # lines clustered into tiles of its kernel's width, and the --stats
@@ -76,6 +91,9 @@ PAIR_SLAB = 256
 # State words per line that the register kernels are built for; a
 # program of another width up to 32 words runs at the next of them.
 REGISTER_WORDS = (4, 8, 16, 32)
+# The widest width the wide shift kernels of K1 and K2g are built for
+# (5 words a lane of a warp).
+WIDE_WORDS = 160
 _launch_lock = threading.Lock()
 
 
@@ -151,6 +169,13 @@ def kernel_states(S: int) -> int:
     return 32 * next((w for w in REGISTER_WORDS if w >= words), words)
 
 
+def shift_words(words: int) -> bool:
+    """Whether a program of ``words`` state words (a ``kernel_states``
+    width) runs K1 and K2g on the shift-and-exceptions step: a register
+    width, or 33 to ``WIDE_WORDS`` words (the wide kernels)."""
+    return words in REGISTER_WORDS or 32 < words <= WIDE_WORDS
+
+
 def _bit_tables(prog: TorchProgram):
     """(follow bits [.., Sk, Sk/32], mask bits [.., C, Sk/32]) of
     ``prog`` padded to ``Sk = kernel_states(S)``, built once on its
@@ -198,14 +223,12 @@ def shift_constants(follow_bits: torch.Tensor, live: int) -> torch.Tensor:
 
 
 def _shift_tables(prog: TorchProgram, live: int):
-    """K1's and K4's operands (follow, mask): at a register width the
-    follow bit table [G, Sk, Sk/32] followed, in one buffer, by
-    ``shift_constants`` [G, Sk/32, 4]; past 32 words (the wide kernels)
-    the bit tables as they are. Built once per ``live`` on the
-    program's device."""
+    """K1's and K4's operands (follow, mask): the follow bit table [G,
+    Sk, Sk/32] followed, in one buffer, by ``shift_constants`` [G,
+    Sk/32, 4], and the mask bit table. The generic wide kernels read only
+    the buffer's bit table. Built once per ``live`` on the program's
+    device."""
     follow_bits, mask_bits = _bit_tables(prog)
-    if follow_bits.shape[-1] not in REGISTER_WORDS:
-        return follow_bits, mask_bits
     key = ("shift", live)
     buf = prog.cache.get(key)
     if buf is None:
@@ -249,8 +272,8 @@ def match_cls_grouped_fused(prog: TorchProgram, live: int, acc: int,
 
 def _match_grouped(prog: TorchProgram, live: int, acc: int,
                    cls: torch.Tensor, fused: bool) -> torch.Tensor:
-    name = FUSED if fused else GROUPED
     if prog.follow.dim() != 3:
+        name = FUSED if fused else GROUPED
         raise ValueError(f"{name} needs a compile_grouped program")
     if cls.device.type == "cpu":
         return match_cls_grouped_plain(prog, live, acc, cls)
@@ -260,22 +283,27 @@ def _match_grouped(prog: TorchProgram, live: int, acc: int,
     cls = _cls16(prog, cls)
     B, T = cls.shape
     G, C, S = prog.char_mask.shape
+    words = kernel_states(S) // 32
     follow, mask_bits = _shift_tables(prog, live)
     lib = _library()
     stream = torch.cuda.current_stream(cls.device).cuda_stream
     if fused:
         # K4's blocks (group chunks) OR into a zeroed word per line.
+        name, entry = FUSED, lib.klogs_grouped_nfa_fused
         out = torch.zeros(B, dtype=torch.int32, device=cls.device)
-        entry = lib.klogs_grouped_nfa_fused
     else:
-        out = torch.empty(B, dtype=torch.uint8, device=cls.device)
+        # A verdict byte per line; past 32 words the groups' warps set it
+        # in place through its 32-bit word.
+        name = GROUPED_WIDE if 32 < words <= WIDE_WORDS else GROUPED
         entry = lib.klogs_grouped_nfa
+        out = torch.empty(-(-B // 4) * 4, dtype=torch.uint8,
+                          device=cls.device)
     err = entry(cls.data_ptr(), B, T, follow.data_ptr(),
-                mask_bits.data_ptr(), G, kernel_states(S), C, live, acc,
+                mask_bits.data_ptr(), G, 32 * words, C, live, acc,
                 out.data_ptr(), stream, cls.device.index or 0)
     _count(name)
     _check(err, name)
-    return _or_match_all(prog, out.bool())
+    return _or_match_all(prog, out[:B].bool())
 
 
 def _mask_table(char_mask: torch.Tensor, cls: torch.Tensor):
@@ -631,8 +659,8 @@ def match_chunk_cls_grouped(prog: TorchProgram, live: int, acc: int,
     program: [B, T] class ids (``classify_chunk`` layout, latch column on
     the final chunk) and the [B, G, W] carry (``initial_state_grouped``)
     -> (carry, matched [B] bool: some group holds ``acc``); ``match_all``
-    is ORed in on the final chunk. Groups must fit a register width
-    (``kernel_states`` of at most 1024 states)."""
+    is ORed in on the final chunk. Groups must fit ``WIDE_WORDS``
+    (``kernel_states`` of at most 5120 states)."""
     if prog.follow.dim() != 3:
         raise ValueError(f"{GROUPED_CHUNK} needs a compile_grouped program")
     if cls.device.type == "cpu":
@@ -647,9 +675,11 @@ def match_chunk_cls_grouped(prog: TorchProgram, live: int, acc: int,
 def _launch_grouped_chunk(prog: TorchProgram, live: int, acc: int,
                           cls: torch.Tensor, v0: torch.Tensor):
     _check_states(prog)
-    if grouped_state_words(prog) not in REGISTER_WORDS:
-        raise ValueError(f"{GROUPED_CHUNK} takes groups of at most 1024 "
-                         f"states, got {prog.n_states}")
+    words = grouped_state_words(prog)
+    if not shift_words(words):
+        raise ValueError(f"{GROUPED_CHUNK} takes groups of at most "
+                         f"{32 * WIDE_WORDS} states, got {prog.n_states}")
+    name = GROUPED_CHUNK if words in REGISTER_WORDS else GROUPED_CHUNK_WIDE
     cls = _cls16(prog, cls)
     _check_carry(prog, cls, v0)
     B, T = cls.shape
@@ -665,8 +695,8 @@ def _launch_grouped_chunk(prog: TorchProgram, live: int, acc: int,
         cls.data_ptr(), B, T, follow.data_ptr(), mask.data_ptr(), G,
         kernel_states(S), C, live, acc, v0.data_ptr(), vout.data_ptr(),
         out.data_ptr(), stream, cls.device.index or 0)
-    _count(GROUPED_CHUNK)
-    _check(err, GROUPED_CHUNK)
+    _count(name)
+    _check(err, name)
     return vout, out[:B].view(torch.bool)
 
 

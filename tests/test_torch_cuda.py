@@ -244,6 +244,152 @@ def test_engine_long_lines_take_k2g_past_1024_states(dev):
     assert any(got[:12]) and not all(got[:12])
 
 
+# ---- K1 and K2g past 32 words: the wide shift kernels ----------------
+
+# (patterns, needles, dense line) past 32 words: 36 (the watch list's
+# width: chip_smoke.WATCH and a few exception-heavy patterns), 40 (the
+# s1280 program), 48, 72, 128 and 132 words: 2 to 5 words a lane. The
+# dense line sets hundreds of states a step (every unanchored start of
+# the q run), or all 128 watch-list branches for five steps.
+WIDE_CASES = {
+    36: (None, [b"pod=pod-0001", b"x pod=pod-0255", b"abcd", b"bazqux",
+                b"pod=pod-0002"], b"pod=pod-0129"),
+    40: (["q" * 1200 + "z", "panic:"], [b"panic: x"], b"q" * 1200 + b"z"),
+    48: (["q" * 1500 + "z", r"x\d+y"], [b"x12y"], b"q" * 1500 + b"z"),
+    72: (["q" * 2200 + "z", "panic:"], [b"panic:"], b"q" * 2200 + b"z"),
+    128: (["q" * 4000 + "z", "panic:"], [b"panic:"], b"q" * 4000 + b"z"),
+    132: (["q" * 4094 + "z", "panic:"], [b"panic:"], b"q" * 4094 + b"z"),
+}
+
+
+def wide_case(words: int):
+    from chip_smoke import WATCH
+
+    patterns, needles, dense = WIDE_CASES[words]
+    return patterns or [WATCH] + EXC_PATS[:3], needles, dense
+
+
+def wide_rows(B: int, width: int, needles: list, dense: bytes, seed: int):
+    """[B, width] printable rows, lengths in [0, width], a needle in every
+    other row from row 2; row 0 the dense line (a match), row 1 the dense
+    line with its last byte changed (no match)."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(32, 127, size=(B, width), dtype=np.uint8)
+    lens = rng.integers(0, width + 1, size=B)
+    for i in range(2, B, 2):
+        nd = needles[(i // 2) % len(needles)]
+        if lens[i] >= len(nd):
+            p = int(rng.integers(0, lens[i] - len(nd) + 1))
+            rows[i, p:p + len(nd)] = np.frombuffer(nd, np.uint8)
+    for i, line in enumerate((dense, dense[:-1] + b"~")):
+        rows[i, :len(line)] = np.frombuffer(line, np.uint8)
+        lens[i] = len(line)
+    return rows, lens.astype(np.int32)
+
+
+@pytest.mark.parametrize("words", sorted(WIDE_CASES))
+def test_wide_grouped_kernel_equals_plain(dev, words):
+    """K1 past 32 words (``grouped_shift_wide_kernel``) equals its plain
+    version on random class ids at B = 1, 33 and 200 and on text rows
+    with the dense line, with ids outside [0, C) (C + 5 and -1); every
+    launch is the wide kernel's."""
+    patterns, needles, dense = wide_case(words)
+    prog, live, acc = nfa.compile_grouped(patterns, device=dev)
+    assert nfa_kernels.kernel_states(prog.n_states) == 32 * words
+    batches = [random_cls(prog, B, T, B).to(dev)
+               for B, T in ((1, 5), (33, 67), (200, 131))]
+    rows, lens = wide_rows(64, len(dense) + 40, needles, dense, words)
+    cls = nfa.classify_chunk(prog, torch.from_numpy(rows).to(dev),
+                             torch.from_numpy(lens).to(dev), True, True)
+    T = cls.shape[1]
+    cls[3::11, T // 3] = prog.n_classes + 5
+    cls[5::13, T // 2] = -1
+    batches.append(cls)
+    nfa_kernels.reset_launches()
+    for cls in batches:
+        got = nfa_kernels.match_cls_grouped(prog, live, acc, cls)
+        exp = nfa_kernels.match_cls_grouped_plain(prog, live, acc, cls)
+        assert got.dtype == torch.bool and got.shape == (cls.shape[0],)
+        assert torch.equal(got, exp)
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED_WIDE] == len(batches)
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED] == 0
+    assert got[0] and not got[1] and got[2:].any() and not got.all()
+
+
+@pytest.mark.parametrize("B", [1, 8, 33])
+@pytest.mark.parametrize("words", sorted(WIDE_CASES))
+def test_wide_grouped_chunk_kernel_equals_plain_chained(dev, words, B):
+    """K2g past 32 words (``grouped_chunk_wide_kernel``) equals its plain
+    version bit for bit, carries and verdicts, chained over the chunks of
+    text rows (the dense line crossing chunk edges in row 0), with ids
+    outside [0, C) in the second chunk (an id outside kills every state,
+    acc too); one wide launch a chunk."""
+    patterns, needles, dense = wide_case(words)
+    prog, live, acc = nfa.compile_grouped(patterns, device=dev)
+    rows, lens = wide_rows(max(B, 3), len(dense) + 700, needles, dense,
+                           words + B)
+    rows, lens = rows[:B], lens[:B]
+    L = 512
+    n_chunks = -(-rows.shape[1] // L)
+    rows_d = torch.from_numpy(rows).to(dev)
+    lens_d = torch.from_numpy(lens).to(dev)
+    v = nfa_kernels.initial_state_grouped(prog, live, B)
+    vp = v.clone()
+    nfa_kernels.reset_launches()
+    for k in range(n_chunks):
+        final = k == n_chunks - 1
+        chunk = rows_d[:, k * L:(k + 1) * L].contiguous()
+        cls = nfa.classify_chunk(prog, chunk, lens_d - k * L, k == 0, final)
+        if k == 1:  # rows 0 and 2 keep their verdicts
+            cls[3::3, 5] = prog.n_classes + 5
+            cls[1::3, 9] = -1
+        v, m = nfa_kernels.match_chunk_cls_grouped(prog, live, acc, cls, v,
+                                                   final=final)
+        vp, mp = nfa_kernels.match_chunk_cls_grouped_plain(prog, live, acc,
+                                                           cls, vp)
+        assert v.dtype == torch.int32 and v.shape == (B, prog.follow.shape[0],
+                                                      words)
+        assert torch.equal(v, vp) and torch.equal(m, mp)
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED_CHUNK_WIDE] == n_chunks
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED_CHUNK] == 0
+    assert bool(m[0]) and (B < 2 or not bool(m[1]))
+
+
+def test_engine_wide_set_on_card_equals_re(dev):
+    """The 32 bench patterns and the watch list (5 groups of 36 words):
+    short lines launch K1's wide kernel, long lines K2g's, never K2 (no
+    union is built), and every verdict is ``re``'s."""
+    import re
+
+    from chip_smoke import PATTERNS as bench, WATCH
+
+    from klogs_tpu_torch.cluster.fake import synthetic_line
+
+    pats = bench + [WATCH]
+    rng = np.random.default_rng(36)
+    lines = [synthetic_line(f"pod-{i % 300:04d}", "c0", i, 1.7e9 + i)
+             for i in range(3000)]
+    for i in range(8):
+        n = int(rng.integers(4097, 12 * 1024))
+        body = bytearray(rng.integers(32, 127, size=n, dtype=np.uint8))
+        nd = b"pod=pod-%04d" % (2 * i + 1 + (i % 3 == 0))
+        p = 4096 - 6 if i == 1 else int(rng.integers(0, n - len(nd)))
+        body[p:p + len(nd)] = nd
+        lines.append(bytes(body))
+    card = GpuEngineFilter(pats, device=dev)
+    assert card._long is not None and card._aug is None
+    nfa_kernels.reset_launches()
+    got = card.match_lines(lines)
+    launches = dict(nfa_kernels.LAUNCHES)
+    assert launches[nfa_kernels.GROUPED_WIDE] > 0
+    assert launches[nfa_kernels.GROUPED_CHUNK_WIDE] >= 2
+    assert launches[nfa_kernels.GROUPED] == 0
+    assert launches[nfa_kernels.CHUNK] == 0
+    alt = re.compile(b"|".join(b"(?:" + p.encode() + b")" for p in pats))
+    assert got == [alt.search(ln.rstrip(b"\n")) is not None for ln in lines]
+    assert any(got[-8:]) and not all(got[-8:])
+
+
 SEQ_PATTERNS = ["needle", "^start", "end$", r"retry \d+/\d+"]
 
 

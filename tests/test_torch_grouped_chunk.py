@@ -2,8 +2,9 @@
 (``nfa_kernels.match_chunk_cls_grouped``), on the CPU: its plain version
 chained chunk by chunk gives exactly the verdicts of the JAX package's
 union chunk kernel (Pallas, interpret mode), and ``GpuEngineFilter``'s
-grouped long-line route gives the JAX engine's and ``re``'s. Inputs are
-made with numpy from a seed; long-line batches hold at most 8 rows."""
+grouped long-line route gives the JAX engine's and ``re``'s, at register
+widths and past 32 words (the wide kernel's groups). Inputs are made
+with numpy from a seed; long-line batches hold at most 8 rows."""
 
 import re
 
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from klogs_tpu.filters.compiler.glushkov import compile_patterns as jax_compile
 from klogs_tpu.filters.tpu import NFAEngineFilter, classify_chunk_host
 from klogs_tpu.ops import nfa as jnfa
@@ -138,6 +140,30 @@ def test_plain_chained_equals_jax_union(seed, k, max_pos, ignore_case, L):
                           for r, n in zip(rows, lens)]
 
 
+def test_plain_chained_equals_jax_union_past_32_words():
+    """The watch list (1,028 positions) puts every group of its set at
+    1152 states (36 words, the wide kernel's): K2g's plain version
+    chained over 3 chunks equals the JAX union kernel and ``re``, with
+    watch needles inside a chunk, across a chunk edge, ending on one,
+    and near misses; the carry is [B, G, 36] words."""
+    pats = [chip_smoke.WATCH, "ab0", "x-1"]
+    tp, live, acc = nfa.compile_grouped(pats, device="cpu")
+    G = tp.follow.shape[0]
+    assert G == 2 and nfa_kernels.grouped_state_words(tp) == 36
+    L, n_chunks = 48, 3
+    lens = [0, L - 3, L, 2 * L, 2 * L + 7, 3 * L - 1, 3 * L, L + 1]
+    rows, lens = long_rows(np.random.default_rng(36), lens, n_chunks * L)
+    for i, nd, end in ((2, b"pod=pod-0007", L), (3, b"pod=pod-0255", L + 5),
+                       (4, b"pod=pod-0002", 70), (5, b"pod=pod-0129", 130),
+                       (6, b"pod=pod-025", 3 * L), (7, b"pod=pod-0001", L + 1)):
+        rows[i, end - len(nd):end] = np.frombuffer(nd, np.uint8)
+    v, m = chained(tp, live, acc, jax_union(pats), rows, lens, L, n_chunks)
+    assert v.shape == (8, G, 36) and v.dtype == torch.int32
+    want = [oracle(pats, bytes(r[:n])) for r, n in zip(rows, lens)]
+    assert m.tolist() == want
+    assert want[2] and want[3] and want[5] and want[7] and not all(want)
+
+
 def test_match_all_set_and_needles_on_the_edges():
     """A ``match_all`` set verdicts every line on the final chunk only;
     needles ending on a chunk edge and spanning one are found in a set
@@ -241,16 +267,26 @@ def test_engine_grouped_route_equals_jax(monkeypatch):
     assert got == NFAEngineFilter(pats, kernel="interpret").match_lines(lines)
 
 
-def test_group_past_a_register_width_stays_on_the_union(monkeypatch, capsys):
+def test_group_past_a_register_width_takes_the_grouped_route(monkeypatch,
+                                                              capsys):
     """A single pattern of more than ~1000 positions makes a group past
-    32 words: the filter keeps the union for that set, and says
-    nothing."""
-    monkeypatch.setattr(gpu, "GROUPED_LONG_STATES", 0)
+    32 words (36) and a union past 1024 states: the filter takes K2g over
+    the grouped automata (its wide kernel on the card), builds no union
+    and says nothing; K2 is never called, and long lines get ``re``'s
+    verdicts."""
+    def no_union(*a, **kw):
+        raise AssertionError("K2 on the grouped route")
+
+    monkeypatch.setattr(nfa_kernels, "match_chunk_cls", no_union)
     pats = ["q" * 1100 + "z", "panic:"]
-    port = GpuEngineFilter(pats, device="cpu")
+    port = GpuEngineFilter(pats, chunk_bytes=256, device="cpu")
     assert nfa_kernels.grouped_state_words(port._grouped) == 36
-    assert port._long is None and port._aug is not None
+    assert port._long is not None and port._aug is None
+    assert port._long[0] is port._grouped
     assert capsys.readouterr() == ("", "")
+    lines = [b"q" * 1100 + b"z", b"q" * 1099 + b"z", b"x" * 300 + b"panic:",
+             b"y" * 700]
+    assert port.match_lines(lines) == [True, False, True, False]
 
 
 # make_patterns(80) of chip_smoke.py (bench.make_patterns): the 32

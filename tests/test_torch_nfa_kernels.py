@@ -208,11 +208,20 @@ def test_wrappers_count_only_kernel_launches():
     pack.pack_classify_rows(torch.zeros(4, dtype=torch.uint8),
                             torch.zeros(2, dtype=torch.int64),
                             torch.full((2,), 4, dtype=torch.int64), 8, 4, tp)
+    # Past 32 words (a 1152-state group): the wide kernels' plain versions.
+    wp, wl, wa = nfa.compile_grouped(["q" * 1100 + "z"], device="cpu")
+    assert nfa_kernels.grouped_state_words(wp) == 36
+    wcls = torch.full((4, 5), wp.pad_class, dtype=torch.int16)
+    nfa_kernels.match_cls_grouped(wp, wl, wa, wcls)
+    nfa_kernels.match_chunk_cls_grouped(
+        wp, wl, wa, wcls, nfa_kernels.initial_state_grouped(wp, wl, 4))
     assert nfa_kernels.LAUNCHES == {nfa_kernels.GROUPED: 0,
                                     nfa_kernels.GATED: 0,
                                     nfa_kernels.CHUNK: 0,
                                     nfa_kernels.FUSED: 0,
                                     nfa_kernels.GROUPED_CHUNK: 0,
+                                    nfa_kernels.GROUPED_WIDE: 0,
+                                    nfa_kernels.GROUPED_CHUNK_WIDE: 0,
                                     nfa_kernels.PAIRS: 0,
                                     nfa_kernels.PACK_CLS: 0,
                                     nfa_kernels.PACK: 0}

@@ -10,7 +10,10 @@ The constants must rebuild every row of the padded table, and a numpy
 transcription of that step (a helper of this file, word for word as
 the CUDA source runs it, not a second path of the port) must equal the
 plain version and the JAX Pallas grouped and fused kernels in interpret
-mode on the same class ids. Exact equality: verdicts are booleans."""
+mode on the same class ids. Past 32 words the kernels spread the same
+step over a warp a (line, group), lane l owning words l, l+32, ...; a
+second transcription steps that layout, the cross-lane carry of shl1
+included. Exact equality: verdicts are booleans."""
 
 import numpy as np
 import pytest
@@ -33,6 +36,20 @@ EXC_PATS = [r"(a|b|c)+d", r"x.*y.*z", r"(foo|bar|baz)qux",
             r"k(e|i)+y", "disk .*full"]
 GROUPED_PATS = ["panic:", "code=50[34]", "^FATAL", r"x[0-9]{2,}y", "a.*b.*c",
                 r"(?:err|warn)\d+", "end$"] * 3
+# The watch list and a few exception-heavy patterns: every group at 1152
+# states (36 words), run by the wide kernels.
+WIDE_PATS = [chip_smoke.WATCH] + EXC_PATS[:3]
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain step's batched products on one thread: several test
+    processes each spreading them over every core slow each other to a
+    crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def words_np(t: torch.Tensor) -> np.ndarray:
@@ -67,7 +84,9 @@ def kernel_operands(prog, live):
     (EDGE_PATS, 128),
     (EXC_PATS, 128),
     (None, 128),  # chip_smoke.make_patterns(1024): 156 groups
-], ids=["bench32", "s256", "s640_padded", "word_edge", "exceptions", "k1024"])
+    (WIDE_PATS, 1152),  # past 32 words: the wide kernels' constants
+], ids=["bench32", "s256", "s640_padded", "word_edge", "exceptions", "k1024",
+        "wide"])
 def test_constants_rebuild_padded_follow(patterns, states):
     """shl1(SH) | SELF | RL (live's row) | the rows of EX gives back
     every row of each group's padded follow table, and no constant bit
@@ -102,6 +121,12 @@ def test_constants_rebuild_padded_follow(patterns, states):
         assert ex.sum() == 47 if G == 4 else ex.sum() < 12 * G
     if states == 1024:
         assert not (sh | self_loop | ex)[:, prog.n_states:].any()
+    if states == 1152:
+        # The watch list's group (the largest, binned first): its "=" and
+        # the 128 branch ends are its only exception states; its shifts
+        # are p-o-d-=, = to the first branch and 7 in each branch.
+        assert G == 2 and ex[0].sum() == 129
+        assert sh[0].sum() == 3 + 1 + 128 * 7
 
 
 def shift_scan_np(prog, live, acc, cls: np.ndarray):
@@ -137,6 +162,65 @@ def shift_scan_np(prog, live, acc, cls: np.ndarray):
     return matched | prog.match_all, n_exc
 
 
+def wide_scan_np(prog, live, acc, cls: np.ndarray):
+    """``shift_scan_np`` in the wide kernels' layout: each (line, group)
+    a warp, lane l holding words l, l+32, ... (slot i: word l + 32i, 0
+    past W). shl1's carry into word j is bit 31 of word j-1: each lane
+    ORs its slots' top bits into one word, which a rotating shuffle
+    hands to the next lane; lane 0 takes slot i's carry from slot i-1 of
+    lane 31's. live's bit is voted on by the lanes; the lanes with a set
+    exception bit are balloted and each such bit's follow row is ORed by
+    every lane into its own slots."""
+    follow_w, consts, mask_w, Sk = kernel_operands(prog, live)
+    G, C, W = mask_w.shape
+    K = -(-W // 32)
+    B, T = cls.shape
+    j = np.arange(32)[:, None] + 32 * np.arange(K)[None, :]  # [32, K]
+
+    def lanes(words: np.ndarray) -> np.ndarray:
+        """[..., W] words -> [..., 32, K] (lane, slot), 0 past W."""
+        return np.where(j < W, words[..., np.minimum(j, W - 1)],
+                        np.uint32(0)).astype(np.uint32)
+
+    slots = np.arange(K, dtype=np.uint32)
+    row = np.minimum(cls.astype(np.int64) & 0xFFFFFFFF, C)  # unsigned min
+    lw, lsh, aw = live >> 5, np.uint32(live & 31), acc >> 5
+    matched = np.zeros(B, dtype=bool)
+    n_exc = 0
+    for g in range(G):
+        sh, self_loop, rl, ex = (lanes(consts[g, :, k]) for k in range(4))
+        masks = lanes(np.concatenate([mask_w[g], np.zeros((1, W), np.uint32)]))
+        rows = lanes(follow_w[g])  # [Sk, 32, K]
+        v = np.zeros((B, 32, K), dtype=np.uint32)
+        v[:, lw & 31, lw >> 5] = np.uint32(1 << (live & 31))
+        for t in range(T):
+            lv = np.zeros((32, K), dtype=np.uint32)
+            lv[lw & 31, lw >> 5] = np.uint32(1) << lsh
+            voted = (v & lv).any(axis=(1, 2))  # the lanes' vote
+            keep = np.where(voted, np.uint32(0xFFFFFFFF), np.uint32(0))
+            a = v & sh
+            top = np.bitwise_or.reduce((a >> np.uint32(31)) << slots, axis=-1)
+            prev = np.roll(top, 1, axis=1)  # lane l gets lane l-1's
+            carry = prev.copy()
+            carry[:, 0] <<= np.uint32(1)  # lane 0: slot i from slot i-1
+            r = ((a << np.uint32(1)) | (carry[:, :, None] >> slots & 1)
+                 | (v & self_loop) | (rl & keep[:, None, None]))
+            e = v & ex
+            for n in range(B):
+                for q in np.nonzero(e[n].any(axis=-1))[0]:  # the ballot
+                    for i in range(K):
+                        bits = int(e[n, q, i])
+                        while bits:
+                            b = (bits & -bits).bit_length() - 1
+                            bits &= bits - 1
+                            r[n] |= rows[(q + 32 * i) * 32 + b]
+                            n_exc += 1
+            v = r & masks[row[:, t]]
+        matched |= (v[:, aw & 31, aw >> 5] >> np.uint32(acc & 31) & 1) \
+            .astype(bool)
+    return matched | prog.match_all, n_exc
+
+
 def text_rows(seed: int, B: int, width: int, needles: list):
     """[B, width] printable rows, lengths in [0, width], a needle in
     every other row."""
@@ -151,32 +235,39 @@ def text_rows(seed: int, B: int, width: int, needles: list):
     return rows, lens
 
 
-@pytest.mark.parametrize("patterns,needles,width,max_positions", [
-    (chip_smoke.PATTERNS, chip_smoke.NEEDLES, 61, 126),
+@pytest.mark.parametrize("patterns,needles,width,max_positions,B", [
+    (chip_smoke.PATTERNS, chip_smoke.NEEDLES, 61, 126, 40),
     (EDGE_PATS, [EDGE_PATS[0].encode(), EDGE_PATS[0][:40].encode(),
-                 b"panic:"], 77, 126),
+                 b"panic:"], 77, 126, 40),
     (EXC_PATS, [b"abcd", b"x1y2z", b"bazqux", b"1.2.3e", b"abcdef",
-                b"CRIT at code=4", b"keiy", b"disk is full"], 45, 126),
+                b"CRIT at code=4", b"keiy", b"disk is full"], 45, 126, 40),
     (GROUPED_PATS, [b"panic: now", b"code=504", b"x123y", b"a-b-c",
-                    b"warn77", b"the end"], 32, 24),
-    (["a" * 200 + "b", r"x\d+y"], [b"a" * 200 + b"b", b"x12y"], 230, 126),
-], ids=["bench32", "word_edge", "exceptions", "multi_group", "s256"])
+                    b"warn77", b"the end"], 32, 24, 40),
+    (["a" * 200 + "b", r"x\d+y"], [b"a" * 200 + b"b", b"x12y"], 230, 126,
+     40),
+    (WIDE_PATS, [b"pod=pod-0001", b"x pod=pod-0255 y", b"pod=pod-0002",
+                 b"abcd", b"pod=pod-0254", b"bazqux", b"xy pod=pod-0129"],
+     45, 126, 16),
+], ids=["bench32", "word_edge", "exceptions", "multi_group", "s256", "wide"])
 def test_shift_step_equals_plain_and_pallas(patterns, needles, width,
-                                            max_positions):
+                                            max_positions, B):
     """The step transcribed from the kernels equals the plain version and
     the Pallas grouped and fused kernels (interpret mode), with class ids
     outside [0, C) (C + 5 and -1) in some rows; the plain version's
-    ``work["exc"]`` counts the exception rows the step reads."""
+    ``work["exc"]`` counts the exception rows the step reads. Past 32
+    words the transcription is the wide kernels' lane-owned one."""
     prog, live, acc = nfa.compile_grouped(patterns, device="cpu",
                                           max_positions=max_positions)
     jdp, _, _ = jnfa.compile_grouped(patterns, max_positions=max_positions)
-    rows, lens = text_rows(len(patterns) + width, 40, width, needles)
+    rows, lens = text_rows(len(patterns) + width, B, width, needles)
     cls = nfa.classify_chunk(prog, torch.from_numpy(rows),
                              torch.from_numpy(lens), True, True)
     T = cls.shape[1]
     cls[3::11, T // 3] = prog.n_classes + 5
     cls[6::13, T // 2] = -1
-    got, n_exc = shift_scan_np(prog, live, acc, cls.numpy())
+    words = nfa_kernels.kernel_states(prog.n_states) // 32
+    scan = wide_scan_np if words > 32 else shift_scan_np
+    got, n_exc = scan(prog, live, acc, cls.numpy())
     work: dict = {}
     plain = nfa_kernels.match_cls_grouped_plain(prog, live, acc, cls,
                                                 work=work).numpy()
