@@ -1000,16 +1000,17 @@ def wide_k1_check(torch, nk, dp, live, acc, cls, reps: int, k4_reps: int,
                   step: int) -> dict:
     """K1's wide kernel (``grouped_shift_wide_kernel``) against its plain
     version, over slices of ``step`` rows, on one batch; beside K4's
-    generic wide kernel (``grouped_nfa_fused_wide``, the generic step: the
-    whole follow row ORed for every set state) on the same batch, its
-    verdicts equal. K1 and K4 timed in turns (K1, K4, K4, K1) by CUDA
+    wide kernel (``grouped_fused_wide_kernel``: K1's schedule, a zeroed
+    word a line) on the same batch, against the same plain version and
+    K1's verdicts. K1 and K4 timed in turns (K1, K4, K4, K1) by CUDA
     events around the wrappers, each kernel alone by torch.profiler,
-    with the bounds of K1's function (``step_bounds``)."""
+    with the bounds of K1's function (``step_bounds``), which K4
+    computes too."""
     got = nk.match_cls_grouped(dp, live, acc, cls)
     k4 = nk.match_cls_grouped_fused(dp, live, acc, cls)
     B, T = cls.shape
     work: dict = {}
-    err = 0
+    err = k4_err = 0
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
     ev[0].record()
@@ -1017,6 +1018,8 @@ def wide_k1_check(torch, nk, dp, live, acc, cls, reps: int, k4_reps: int,
         exp = nk.match_cls_grouped_plain(dp, live, acc, cls[i:i + step],
                                          work=work)
         err = max(err, int((got[i:i + step].int() - exp.int()).abs().max()))
+        k4_err = max(k4_err, int((k4[i:i + step].int()
+                                  - exp.int()).abs().max()))
     ev[1].record()
     ev[1].synchronize()
     plain_ms = ev[0].elapsed_time(ev[1])
@@ -1032,12 +1035,12 @@ def wide_k1_check(torch, nk, dp, live, acc, cls, reps: int, k4_reps: int,
     G, C, S = dp.char_mask.shape
     n_bytes = B * T * 2 + G * (S + C) * (S // 32) * 4 + B
     return dict(rows=B, T=T, states=S, groups=G, max_abs_err=err,
-                k4_mismatches=int((got != k4).sum()),
+                k4_max_abs_err=k4_err, k4_mismatches=int((got != k4).sum()),
                 ms=min(turns[0], turns[3]), k4_ms=min(turns[1], turns[2]),
                 turns_ms=turns,
                 kernel_ms=kernel_alone_ms(torch, k1, reps, nk.GROUPED_WIDE),
                 k4_kernel_ms=kernel_alone_ms(torch, k4f, k4_reps,
-                                             "grouped_nfa_fused_wide"),
+                                             nk.FUSED_WIDE),
                 plain_ms=plain_ms, matched=int(got.sum()),
                 active_per_step=work["active"] / (B * G * T),
                 exc_per_step=work["exc"] / (B * G * T),
@@ -1045,7 +1048,7 @@ def wide_k1_check(torch, nk, dp, live, acc, cls, reps: int, k4_reps: int,
 
 
 def wide_cli(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
-             lines_per_pod=4000) -> dict:
+             lines_per_pod=4000, fused=False) -> dict:
     """(c) The user's entry point on the wide set: ``app.run_async`` over
     the cli cell's FakeCluster (256 pods x 4000 lines, 16 long lines of
     5-180 KiB) with ``--match`` x33 (the 32 patterns and the watch list);
@@ -1054,15 +1057,18 @@ def wide_cli(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
     and K2, whose wide variant is ``chunk_nfa_wide``, do not); every file
     equal to the ``re`` oracle's. Then K1's wide kernel is held against
     its plain version on the run's most frequent batch, and K2g's on its
-    most frequent chunk batch."""
+    most frequent chunk batch. (f) With ``fused`` (the caller sets
+    ``KLOGS_TPU_FUSED_GROUPS=1``) the short lines take K4's wide kernel
+    instead of K1's, held against its plain version and K1 there."""
     fc, n_lines = cli_cluster(np, FakeCluster, n_pods, lines_per_pod)
     pods = fc.namespaces["default"]
     pats = PATTERNS + [WATCH]
     argv = ["-n", "default", "-a", "-p", ""]
     for p in pats:
         argv += ["--match", p]
+    short = "match_cls_grouped_fused" if fused else "match_cls_grouped"
     with tempfile.TemporaryDirectory() as out_dir, \
-            recording_wrappers(nk, None, ["match_cls_grouped",
+            recording_wrappers(nk, None, [short,
                                           "match_chunk_cls_grouped"]) as calls:
         argv[4] = out_dir
         opts = cli.parse_args(argv)
@@ -1085,50 +1091,127 @@ def wide_cli(torch, np, nk, app, cli, term, FakeCluster, dev, n_pods=256,
                 if f.read() != exp:
                     bad.append(name)
         files = len(os.listdir(out_dir))
-    shapes = sorted(calls["match_cls_grouped"].items(),
-                    key=lambda e: -e[1][0])
-    k1_batches = [dict(launches=count, shape=list(key[-1]),
-                       **k1_check(torch, nk, *seen[0][0], 10))
-                  for key, (count, seen) in shapes[:1]]
+    shapes = sorted(calls[short].items(), key=lambda e: -e[1][0])
+    check = k4_check if fused else k1_check
+    short_batches = [dict(launches=count, shape=list(key[-1]),
+                          **check(torch, nk, *seen[0][0], 10))
+                     for key, (count, seen) in shapes[:1]]
     k2g_batches = held_k2g(torch, nk, calls)
     del calls
     res = dict(rc=rc, pods=len(pods), files=files, lines=n_lines,
                kept_lines=kept, seconds=seconds,
                lines_per_s=n_lines / seconds, mismatched_files=bad,
-               launches=launches, k1_batches=k1_batches,
-               k2g_batches=k2g_batches)
+               launches=launches, k2g_batches=k2g_batches,
+               **{"k4_batches" if fused else "k1_batches": short_batches})
+    ran, idle = ((nk.FUSED_WIDE, (nk.GROUPED_WIDE, nk.FUSED)) if fused
+                 else (nk.GROUPED_WIDE, (nk.FUSED_WIDE,)))
     if (rc != 0 or bad or files != len(pods) or not kept
-            or launches[nk.GROUPED_WIDE] == 0
+            or launches[ran] == 0 or any(launches[n] for n in idle)
             or launches[nk.GROUPED_CHUNK_WIDE] == 0
             or launches[nk.PACK_CLS] == 0 or launches[nk.GROUPED] != 0
             or launches[nk.GROUPED_CHUNK] != 0 or launches[nk.CHUNK] != 0
-            or not k1_batches or not k2g_batches
-            or any(b["max_abs_err"] for b in k1_batches + k2g_batches)):
-        raise AssertionError(f"wide (c) failed: {res}")
+            or not short_batches or not k2g_batches
+            or any(b["max_abs_err"] or b.get("k1_mismatches")
+                   for b in short_batches + k2g_batches)):
+        raise AssertionError(f"wide ({'f' if fused else 'c'}) failed: {res}")
     return res
 
 
-def wide_phase(torch, np, nfa, nk, compile_patterns, app, cli, term,
-               FakeCluster, synthetic_line, s1280, dev, rows=131072,
-               L=4096, cli_pods=256) -> dict:
-    """K1 and K2g past 32 words (``grouped_shift_wide_kernel``,
-    ``grouped_chunk_wide_kernel``) on the set of the 32 patterns and the
-    watch list (5 groups of 1152 states): (a) K1 against its plain
-    version and beside K4's generic wide kernel on the s1280 batch (K1's
-    512 x 2051, row 0 dense) and on 131072 FakeCluster rows at the
-    128-byte bucket under the watch-list set, with the register K1 on the
-    same rows under the 32 patterns; (b) K2g against its plain version
-    on each chunk, the carry chained, beside ``chunk_nfa_wide`` on the
-    set's 1536-state union on the same 8 x 4096 chunks of 8 lines of
-    12-16 KiB; (c) the cli cell (``wide_cli``)."""
+def wide_k3(torch, np, nk, bits, gpu, synthetic_line, dev, rows=131072,
+            reps=5) -> dict:
+    """(d) K3's wide kernel (``grouped_gated_wide_kernel``) on the
+    thousand-pattern set with the watch list (``make_patterns(1024) +
+    [WATCH]``: 157 groups of 1152 states) under the engine's sweep gate,
+    over ``rows`` rows of ``k1024_rows`` at the 128-byte bucket (1%
+    minted needles): the pair list against its plain version, the
+    verdicts against the plain version (which steps the gated cells
+    only; timed once by CUDA events, with the state bits its steps read
+    for the bound) and against ungated K1 (the wide kernel); the launch
+    alone on the list (events, and the kernel by torch.profiler), the
+    pair builder and the whole wrapper by events. Returns the figures
+    and the engine (its construction timed)."""
+    pats = make_patterns(1024) + [WATCH]
+    t0 = time.perf_counter()
+    eng = gpu.GpuEngineFilter(pats, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if eng._sweep_tables is None or eng._long is None:
+        raise AssertionError("the K = 1025 engine is not swept or keeps K2")
+    from klogs_tpu_torch.ops import nfa, sweep
+
+    dp, live, acc = eng._grouped, eng._g_live, eng._g_acc
+    r, lens = k1024_rows(np, synthetic_line, rows, 128, SEED + 4)
+    batch, lens = torch.from_numpy(r).to(dev), torch.from_numpy(lens).to(dev)
+    cls = nfa.classify_chunk(dp, batch, lens, True, True)
+    words = sweep.sweep_group_bits(eng._sweep_tables, batch, lens)
+    got, stats = nk.match_cls_grouped_gated(dp, live, acc, cls, words,
+                                            want_stats=True)
+    k1 = nk.match_cls_grouped(dp, live, acc, cls)
+    work: dict = {}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    exp = nk.match_cls_grouped_gated_plain(dp, live, acc, cls, words,
+                                           work=work)
+    ev[1].record()
+    ev[1].synchronize()
+    parts = k3_parts(torch, nk, dp, live, acc, cls, words, reps)
+    G = int(dp.follow.shape[0])
+    pairs, n_pairs, _ = nk.gate_pairs(words, G)
+
+    def launch():
+        return nk.launch_gated(dp, live, acc, cls, pairs, n_pairs)
+
+    B, T = cls.shape
+    S, C, GW = dp.n_states, dp.n_classes, words.shape[1]
+    cells = gate_cells(bits, nk, words, G)
+    n_bytes = (B * T * 2 + B * GW * 4 + G * (S + C) * (S // 32) * 4 + B
+               + 4 * cells["pairs"] + 4)
+    res = dict(rows=B, T=T, groups=G, states=S, engine_build_s=build_s,
+               max_abs_err=int((got.int() - exp.int()).abs().max()),
+               k3_vs_k1_mismatches=int((got != k1).sum()), **parts,
+               kernel_ms=kernel_alone_ms(torch, launch, reps, nk.GATED_WIDE),
+               wrapper_ms=cuda_ms(torch, lambda: nk.match_cls_grouped_gated(
+                   dp, live, acc, cls, words), reps),
+               plain_ms=ev[0].elapsed_time(ev[1]), matched=int(exp.sum()),
+               candidate_lines=int(stats[0]), **cells,
+               warp_steps=cells["pairs"] * T,
+               active_per_step=work["active"] / max(cells["pairs"] * T, 1),
+               exc_per_step=work["exc"] / max(cells["pairs"] * T, 1),
+               **step_bounds(n_bytes, S, C, cells["pairs"] * T,
+                             work["active"]))
+    return res, eng
+
+
+def wide_phase(torch, np, nfa, nk, bits, gpu, compile_patterns, app, cli,
+               term, FakeCluster, synthetic_line, s1280, dev, rows=131072,
+               L=4096, cli_pods=256, k1025_pods=64, fused_pods=64) -> dict:
+    """K1, K2g, K3 and K4 past 32 words (``grouped_shift_wide_kernel``,
+    ``grouped_chunk_wide_kernel``, ``grouped_gated_wide_kernel``,
+    ``grouped_fused_wide_kernel``) on the set of the 32 patterns and the
+    watch list (5 groups of 1152 states): (a) K1 and K4 against their
+    plain version, in turns, on the s1280 batch (K1's 512 x 2051, row 0
+    dense) and on 131072 FakeCluster rows at the 128-byte bucket under
+    the watch-list set, with the register K1 on the same rows under the
+    32 patterns; (b) K2g against its plain version on each chunk, the
+    carry chained, beside ``chunk_nfa_wide`` on the set's 1536-state
+    union on the same 8 x 4096 chunks of 8 lines of 12-16 KiB; (c) the
+    cli cell (``wide_cli``); then the thousand-pattern path with a wide
+    group: (d) K3 on the K = 1025 batch (``wide_k3``), (e) the
+    ``cli_k1024`` cell with ``--match`` x1025 at ``k1025_pods`` pods and
+    4 long lines (files = ``re`` oracle; K3's and K2g's wide kernels
+    launch, the register K3 and K2 do not), K3 held against its plain
+    version on the run's most frequent batch; (f) (c) under
+    ``KLOGS_TPU_FUSED_GROUPS=1`` at ``fused_pods`` pods (K4's wide
+    kernel launches, K1's does not)."""
     rng = np.random.default_rng(SEED + 19)
     pats = PATTERNS + [WATCH]
-    res = {"s1280": wide_k1_check(torch, nk, *s1280, 5, 1, 512)}
+    res = {"s1280": wide_k1_check(torch, nk, *s1280, 5, 5, 512)}
     wp = nfa.compile_grouped(pats, device=dev)
     rb, lb = watch_rows(np, synthetic_line, rows, 128)
     rows_d, lens_d = torch.from_numpy(rb).to(dev), torch.from_numpy(lb).to(dev)
     cls = nfa.classify_chunk(wp[0], rows_d, lens_d, True, True)
-    res["watch_w128"] = wide_k1_check(torch, nk, *wp, cls, 10, 3, 16384)
+    res["watch_w128"] = wide_k1_check(torch, nk, *wp, cls, 10, 10, 16384)
     bp = nfa.compile_grouped(PATTERNS, device=dev)
     bcls = nfa.classify_chunk(bp[0], rows_d, lens_d, True, True)
 
@@ -1144,12 +1227,36 @@ def wide_phase(torch, np, nfa, nk, compile_patterns, app, cli, term,
         needles=WATCH_NEEDLES + NEEDLES)
     res["cli"] = wide_cli(torch, np, nk, app, cli, term, FakeCluster, dev,
                           n_pods=cli_pods)
+    res["k1025"], eng = wide_k3(torch, np, nk, bits, gpu, synthetic_line, dev,
+                                rows=rows)
+    del eng
+    cli3 = cli_k1024_run(torch, np, nk, bits, app, cli, term, FakeCluster,
+                         dev, make_patterns(1024) + [WATCH], k1025_pods, 250,
+                         4)
+    cli3.pop("want")
+    res["cli_k1025"] = cli3
+    with env_set("KLOGS_TPU_FUSED_GROUPS", "1"):
+        res["cli_fused"] = wide_cli(torch, np, nk, app, cli, term,
+                                    FakeCluster, dev, n_pods=fused_pods,
+                                    fused=True)
     emit({"phase": "wide", **res})
-    k2g = res["k2g_vs_wide"]
-    if (any(r["max_abs_err"] or r["k4_mismatches"] or not r["matched"]
-            for r in (res["s1280"], res["watch_w128"]))
+    k2g, k3, la = res["k2g_vs_wide"], res["k1025"], cli3["launches"]
+    if (any(r["max_abs_err"] or r["k4_max_abs_err"] or r["k4_mismatches"]
+            or not r["matched"] for r in (res["s1280"], res["watch_w128"]))
             or k2g["max_abs_err"] or not k2g["matched"]
-            or k2g["verdict_mismatches"] or k2g["groups"] != 5):
+            or k2g["verdict_mismatches"] or k2g["groups"] != 5
+            or k3["max_abs_err"] or k3["k3_vs_k1_mismatches"]
+            or k3["pairs_mismatches"] or not k3["matched"]
+            or k3["groups"] != 157
+            or cli3["rc"] != 0 or cli3["mismatched_files"]
+            or cli3["files"] != cli3["pods"] or not cli3["kept_lines"]
+            or la[nk.GATED_WIDE] == 0 or la[nk.PAIRS] == 0
+            or la[nk.GROUPED_CHUNK_WIDE] == 0 or la[nk.GATED] != 0
+            or la[nk.CHUNK] != 0 or la[nk.GROUPED] != 0
+            or la[nk.GROUPED_WIDE] != 0 or not cli3["k3_batches"]
+            or not cli3["k2g_batches"]
+            or any(b["max_abs_err"] or b.get("pairs_mismatches")
+                   for b in cli3["k3_batches"] + cli3["k2g_batches"])):
         raise AssertionError(f"wide phase failed: {res}")
     return res
 
@@ -2992,9 +3099,15 @@ def k1024_expected(pats: list, all_lines: dict) -> tuple:
     return want, int(sum(exp))
 
 
-def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
-                    n_pods=256, lines_per_pod=250, n_long=8) -> dict:
-    pats = make_patterns(1024)
+def cli_k1024_run(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
+                  pats: list, n_pods: int, lines_per_pod: int,
+                  n_long: int) -> dict:
+    """``app.run_async`` with ``--match`` for each of ``pats`` on the
+    ``k1024_cluster`` cell (counts zeroed just before, read just after),
+    its files against the ``re`` oracle; then K3 (and its pair list)
+    held against its plain version on the run's most frequent batch and
+    K2g on its most frequent chunk batch. Returns the run's figures and
+    the oracle's files (``want``)."""
     fc, all_lines = k1024_cluster(np, FakeCluster, n_pods, lines_per_pod,
                                   n_long)
     pods = fc.namespaces["default"]
@@ -3044,15 +3157,27 @@ def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
                                                       *args, 20)))
     k2g_batches = held_k2g(torch, nk, calls)
     del calls
-    res = dict(rc=rc, pods=len(pods), files=files, lines=len(flat),
-               kept_lines=kept, seconds=seconds,
-               lines_per_s=len(flat) / seconds, mismatched_files=bad,
-               launches=launches, prefilter_line=pf_line,
-               k3_shapes={f"{B}x{T}": e[0] for (B, T), e in shapes.items()},
-               k3_batches=k3_batches, k2g_batches=k2g_batches)
+    return dict(rc=rc, pods=len(pods), files=files, lines=len(flat),
+                kept_lines=kept, seconds=seconds,
+                lines_per_s=len(flat) / seconds, mismatched_files=bad,
+                launches=launches, prefilter_line=pf_line,
+                k3_shapes={f"{B}x{T}": e[0] for (B, T), e in shapes.items()},
+                k3_batches=k3_batches, k2g_batches=k2g_batches, want=want)
+
+
+def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
+                    n_pods=256, lines_per_pod=250, n_long=8) -> dict:
+    res = cli_k1024_run(torch, np, nk, bits, app, cli, term, FakeCluster,
+                        dev, make_patterns(1024), n_pods, lines_per_pod,
+                        n_long)
+    want = res.pop("want")
     emit({"phase": "cli_k1024", **res})
-    res["want"] = want
-    if (rc != 0 or bad or files != len(pods) or not kept
+    rc, bad, files, pods, kept = (res["rc"], res["mismatched_files"],
+                                  res["files"], res["pods"],
+                                  res["kept_lines"])
+    launches, pf_line = res["launches"], res["prefilter_line"]
+    k3_batches, k2g_batches = res["k3_batches"], res["k2g_batches"]
+    if (rc != 0 or bad or files != pods or not kept
             or launches[nk.GATED] == 0 or launches[nk.PAIRS] == 0
             or launches[nk.PACK_CLS] == 0
             or launches[nk.GROUPED] != 0 or pf_line is None or not k3_batches
@@ -3061,6 +3186,7 @@ def cli_k1024_phase(torch, np, nk, bits, app, cli, term, FakeCluster, dev,
             or any(b["max_abs_err"] or b.get("pairs_mismatches")
                    for b in k3_batches + k2g_batches)):
         raise AssertionError(f"cli_k1024 phase failed: {res}")
+    res["want"] = want
     return res
 
 
@@ -6128,10 +6254,12 @@ def main() -> int:
                          synthetic_line, dev)
         k3 = k3_phase(torch, nfa, bits, nk, sw)
         k4 = k4_phase(torch, nfa, nk, k1_batches, sw)
-        # Past 32 words: K1's and K2g's wide kernels, and the cli cell
-        # of the watch-list set (this slice's main path).
-        wd = wide_phase(torch, np, nfa, nk, compile_patterns, app, cli, term,
-                        FakeCluster, synthetic_line, k1_batches["s1280"], dev)
+        # Past 32 words: K1's, K2g's, K3's and K4's wide kernels, the
+        # cli cell of the watch-list set, the thousand-pattern path with
+        # the watch list and the fused path on the watch-list set.
+        wd = wide_phase(torch, np, nfa, nk, bits, gpu, compile_patterns, app,
+                        cli, term, FakeCluster, synthetic_line,
+                        k1_batches["s1280"], dev)
         del k1_batches
         k2g = grouped_chunk_phase(torch, np, nfa, nk, compile_patterns,
                                   sw["eng"], dev)
@@ -6196,6 +6324,7 @@ def main() -> int:
     f, cc = run4["k4_batches"][0], run["k2_batches"][0]
     vw, gc3 = k2g["vs_wide"], run3["k2g_batches"][0]
     ww, wv, wc = wd["watch_w128"], wd["k2g_vs_wide"], wd["cli"]
+    k3w, c3w, f4w = wd["k1025"], wd["cli_k1025"], wd["cli_fused"]
     k2g_held = ([r for k, r in k2g.items() if k != "vs_wide"] + [vw]
                 + run3["k2g_batches"] + ek["k2g_batches"]
                 + bfr["c"]["k2g_batches"] + ms["k2g"] + fl_k2g)
@@ -6265,6 +6394,42 @@ def main() -> int:
          "shape": f"{wv['lines']}x4096, {wv['groups']} groups",
          "wide_ms": wv["wide_ms"],
          "chunk_nfa_launches": wc["launches"][nk.CHUNK]},
+        {"name": nk.GATED_WIDE, "route": "cuda", "source": SOURCE,
+         "replaces": "klogs_tpu/ops/pallas_nfa.py:377",
+         "launches": c3w["launches"][nk.GATED_WIDE],
+         "main_path": "wide (e): the cli_k1024 cell with --match x1025",
+         "max_abs_err": float(max(b["max_abs_err"] for b in
+                                  [k3w] + c3w["k3_batches"])),
+         "ms": k3w["ms"], "plain_ms": k3w["plain_ms"],
+         "bound_ms": k3w["bound_ms"], "bound_by": k3w["bound_by"],
+         "library_ms": None, "kernel_ms": k3w["kernel_ms"],
+         "bytes_ms": k3w["bytes_ms"], "wrapper_ms": k3w["wrapper_ms"],
+         "pairs_ms": k3w["pairs_ms"], "pairs": k3w["pairs"],
+         "pairs_launches": c3w["launches"][nk.PAIRS],
+         "shape": f"{k3w['rows']}x{k3w['T']}, {k3w['groups']} groups of "
+                  f"{k3w['states']} states",
+         "cli_ms": c3w["k3_batches"][0]["ms"],
+         "cli_shape": "{rows}x{T}".format(**c3w["k3_batches"][0]),
+         "register_launches": c3w["launches"][nk.GATED]},
+        {"name": nk.FUSED_WIDE, "route": "cuda", "source": SOURCE,
+         "replaces": "klogs_tpu/ops/pallas_nfa.py:334",
+         "launches": f4w["launches"][nk.FUSED_WIDE],
+         "main_path": "wide (f): the cli cell with --match x33 under "
+                      "KLOGS_TPU_FUSED_GROUPS=1",
+         "max_abs_err": float(max([ww["k4_max_abs_err"],
+                                   wd["s1280"]["k4_max_abs_err"]]
+                                  + [b["max_abs_err"]
+                                     for b in f4w["k4_batches"]])),
+         "ms": ww["k4_ms"], "plain_ms": ww["plain_ms"],
+         "bound_ms": ww["bound_ms"], "bound_by": ww["bound_by"],
+         "library_ms": None, "kernel_ms": ww["k4_kernel_ms"],
+         "k1_ms": ww["ms"], "k1_kernel_ms": ww["kernel_ms"],
+         "shape": f"{ww['rows']}x{ww['T']}, {ww['groups']} groups of "
+                  f"{ww['states']} states",
+         "s1280_ms": wd["s1280"]["k4_ms"],
+         "s1280_kernel_ms": wd["s1280"]["k4_kernel_ms"],
+         "s1280_bound_ms": wd["s1280"]["bound_ms"],
+         "k1_launches": f4w["launches"][nk.GROUPED_WIDE]},
         {"name": nk.GATED, "route": "cuda", "source": SOURCE,
          "replaces": "klogs_tpu/ops/pallas_nfa.py:377",
          "launches": run3["launches"][nk.GATED],

@@ -29,7 +29,7 @@ wrapper by CUDA events (``wrapper_ms``), and its verdicts held against
 the plain version (8192 rows) or ungated K1 (``"equal"``). Last, what
 ptxas reported for each kernel (registers, spills):
 
-    python3 klogs_tpu_torch/ops/bench_widths.py [--tree DIR] [--label L] [--main]
+    python3 klogs_tpu_torch/ops/bench_widths.py [--tree DIR] [--label L] [--main | --wide]
 
 ``--tree`` is the root of the checkout whose ``klogs_tpu_torch`` is
 timed (default: the one holding this file). Two trees are compared on
@@ -37,6 +37,19 @@ one card by running the script once per tree, in turns (``--tree
 dist/prev`` for an unpacked ``git archive`` of the parent). It needs a
 CUDA device and nvcc, and prints one JSON line per (kernel, width,
 lines) or shape. ``--main`` runs the main-path rows only.
+
+``--wide`` runs only K3 and K4 past 32 words, through wrapper names that
+a tree from before their wide kernels has too: K4
+(``match_cls_grouped_fused``) beside K1 on the watch-list set
+(``chip_smoke.PATTERNS + [WATCH]``: 5 groups of 1152 states) over 131072
+FakeCluster rows at the 128-byte bucket, and on a 1280-state set over
+512 x 2051 (row 0 the dense line, as ``chip_smoke``'s s1280); then K3 on
+the thousand-pattern set with the watch list (``make_patterns(1024) +
+[WATCH]``: 157 groups of 1152 states) under the engine's sweep gate,
+over 8192 and 131072 rows of ``chip_smoke.k1024_rows``: ``launch_gated``
+alone on ``gate_pairs``' list (``kernels_ms`` by name, and CUDA events),
+the pair builder and the whole wrapper by events, the verdicts held
+against ungated K1.
 """
 
 import argparse
@@ -115,6 +128,8 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--main", action="store_true",
                     help="only K1 and K4 on the main path's batches (and K3)")
+    ap.add_argument("--wide", action="store_true",
+                    help="only K3 and K4 past 32 words")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import numpy as np
@@ -130,6 +145,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
     label = args.label or os.path.abspath(args.tree)
+    if args.wide:
+        wide_bench(np, torch, nfa, nk, dev, label)
+        return 0
     for S in () if args.main else WIDTHS:
         pats = patterns_for(S)
         needle = pats[0].encode()
@@ -330,6 +348,79 @@ def k3_bench(np, torch, nfa, nk, dev, label: str, rng) -> None:
                                         if k.startswith("grouped_nfa")),
                           "wrapper_ms": cuda_ms(torch, k3, 20)}),
               flush=True)
+
+
+def wide_bench(np, torch, nfa, nk, dev, label: str) -> None:
+    """K4 and K3 past 32 words (see the module's note)."""
+    import chip_smoke
+    from klogs_tpu_torch.cluster.fake import synthetic_line
+    from klogs_tpu_torch.filters.gpu import GpuEngineFilter
+    from klogs_tpu_torch.ops import sweep
+    from klogs_tpu_torch.ops.bits import unpack_bits
+
+    os.environ.setdefault("KLOGS_MAX_PATTERN_POSITIONS", "65536")
+    rng = np.random.default_rng(SEED)
+    dense = ["q" * 1200 + "z", "panic:"]
+    r, lens = chip_smoke.rows_with_needles(np, rng, 512, 2048, 0,
+                                           printable=True)
+    r[0, :len(dense[0])] = np.frombuffer(dense[0].encode(), np.uint8)
+    lens[0] = max(lens[0], len(dense[0]))
+    cases = (("watch_w128", chip_smoke.PATTERNS + [chip_smoke.WATCH],
+              chip_smoke.watch_rows(np, synthetic_line, 131072, 128), 10),
+             ("s1280", dense, (r, lens), 3))
+    for name, pats, (r, lens), reps in cases:
+        dp, live, acc = nfa.compile_grouped(pats, device=dev)
+        cls = nfa.classify_chunk(dp, torch.from_numpy(r).to(dev),
+                                 torch.from_numpy(lens).to(dev), True, True)
+
+        def k1():
+            return nk.match_cls_grouped(dp, live, acc, cls)
+
+        def k4():
+            return nk.match_cls_grouped_fused(dp, live, acc, cls)
+
+        print(json.dumps({"tree": label, "case": name,
+                          "rows": cls.shape[0], "T": cls.shape[1],
+                          "groups": dp.follow.shape[0],
+                          "states": dp.n_states,
+                          "equal": bool(torch.equal(k1(), k4())),
+                          "matched": int(k1().sum()),
+                          "k1_kernels_ms": kernels_ms(torch, k1, reps),
+                          "k4_kernels_ms": kernels_ms(torch, k4, reps),
+                          "wrapper_ms": {nk.GROUPED: cuda_ms(torch, k1, reps),
+                                         nk.FUSED: cuda_ms(torch, k4, reps)}}),
+              flush=True)
+    eng = GpuEngineFilter(chip_smoke.make_patterns(1024) + [chip_smoke.WATCH],
+                          device=dev)
+    dp, live, acc = eng._grouped, eng._g_live, eng._g_acc
+    G = dp.follow.shape[0]
+    r, lens = chip_smoke.k1024_rows(np, synthetic_line, 131072, 128,
+                                    SEED + 4)
+    batch, lens = torch.from_numpy(r).to(dev), torch.from_numpy(lens).to(dev)
+    cls = nfa.classify_chunk(dp, batch, lens, True, True)
+    words = sweep.sweep_group_bits(eng._sweep_tables, batch, lens)
+    k1 = nk.match_cls_grouped(dp, live, acc, cls)
+    for name, n in (("k1025_8192", 8192), ("k1025", 131072)):
+        c, w = cls[:n], words[:n]
+        pairs, n_pairs, _ = nk.gate_pairs(w, G)
+
+        def launch():
+            return nk.launch_gated(dp, live, acc, c, pairs, n_pairs)
+
+        def k3():
+            return nk.match_cls_grouped_gated(dp, live, acc, c, w)[0]
+
+        print(json.dumps({"tree": label, "case": name, "rows": n,
+                          "T": c.shape[1], "groups": G,
+                          "states": dp.n_states,
+                          "pairs": int(unpack_bits(w.long(), G).sum()),
+                          "equal": bool(torch.equal(k3(), k1[:n])),
+                          "matched": int(k1[:n].sum()),
+                          "kernels_ms": kernels_ms(torch, launch, 5),
+                          "launch_ms": cuda_ms(torch, launch, 5),
+                          "pairs_ms": cuda_ms(torch, lambda: nk.gate_pairs(
+                              w, G), 5),
+                          "wrapper_ms": cuda_ms(torch, k3, 5)}), flush=True)
 
 
 if __name__ == "__main__":

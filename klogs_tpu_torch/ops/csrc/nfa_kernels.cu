@@ -148,42 +148,59 @@
 // same class ids (one L1 line) ID_AHEAD steps ahead, and the group
 // tables through L1, as K3 does, with no barrier anywhere.
 //
-// Programs wider than S = 1024 (W > 32), K1 and K2g: a group of more
-// than 1024 states (one pattern of ~1000 positions is enough, and
+// Programs wider than S = 1024 (W > 32), K1, K2g, K3 and K4: a group of
+// more than 1024 states (one pattern of ~1000 positions is enough, and
 // compile_grouped gives every group the widest group's S) steps by the
-// same split, spread over a warp: grouped_shift_wide_kernel<K> (K1)
-// and grouped_chunk_wide_kernel<K> (K2g, the carry read and written
-// as [B][G][W] words) give a (line, group) pair a warp, lane l owning
-// words l, l+32, ... (K = ceil(W/32) a lane, K <= 5: up to 160 words,
-// 5120 states, past the compiler's default cap of 4096 positions a
-// set). The step reads no follow row but for a set exception bit:
-// shl1's carry into word j, bit 31 of word j-1, crosses lanes as one
-// rotating shuffle of the lane's K top bits (lane 0 takes lane 31's
-// from the slot before); live's bit is found by a vote; v & EX is
-// balloted, and each set bit's follow row is ORed by the whole warp in
-// one coalesced pass through L1. The class's mask row is the group's
-// table staged in shared memory, C+1 rows (row C zero) of 32 K words
-// (zero past W), each lane reading its own words through a 32-bit
-// shared address kept in a register, one step ahead; every number the
-// step needs of its lane is computed once before the scan. Class ids
-// are loaded 32 steps at a time, a lane each, and broadcast by
-// shuffles. A block is WIDE_WARPS lines of one group (grid y: the
-// groups side by side, not one after another: a launch lasts its
-// longest chain), striding over the line chunks so that it stages its
-// group's table once; the OR over groups is a verdict byte per line,
-// zeroed by the entry and set with atomicOr on its word by each group
-// that accepts (K3's way). What bounds them: the latency of one (line,
-// group)'s chain of T steps (a shuffle, a vote and a ballot a step)
-// where the pairs are few (long lines, K2g), the instructions of B x G x
-// T warp-steps where they are many (K1 on an engine batch), not bytes.
+// same split, spread over a warp: grouped_shift_wide_kernel<K> (K1),
+// grouped_chunk_wide_kernel<K> (K2g, the carry read and written as
+// [B][G][W] words), grouped_fused_wide_kernel<K> (K4) and
+// grouped_gated_wide_kernel<K> (K3) give a (line, group) pair a warp,
+// lane l owning words l, l+32, ... (K = ceil(W/32) a lane, K <= 5: up
+// to 160 words, 5120 states, past the compiler's default cap of 4096
+// positions a set). The step reads no follow row but for a set
+// exception bit: shl1's carry into word j, bit 31 of word j-1, crosses
+// lanes as one rotating shuffle of the lane's K top bits (lane 0 takes
+// lane 31's from the slot before); live's bit is found by a vote; v & EX
+// is balloted, and each set bit's follow row is ORed by the whole warp
+// in one coalesced pass through L1. Every number the step needs of its
+// lane is computed once before the scan. Class ids are loaded 32 steps
+// at a time, a lane each, and broadcast by shuffles; the class's mask
+// row is read one step ahead.
+// - K1, K2g and K4 share one schedule (one non-inlined body a width,
+//   wide_shift_pairs): a block is WIDE_WARPS lines of one group (grid y:
+//   the groups side by side, not one after another: a launch lasts its
+//   longest chain), striding over the line chunks so that it stages its
+//   group's mask table once in shared memory, C+1 rows (row C zero) of
+//   32 K words (zero past W), each lane reading its own words through a
+//   32-bit shared address kept in a register. The OR over groups is a
+//   verdict byte per line (K1, K2g), zeroed by the entry and set with
+//   atomicOr on its word by each group that accepts (K3's way), or a
+//   word per line that the caller zeroed (K4, as at the register
+//   widths); K4 differs from K1 in that word alone, and has its own
+//   kernel so that a profile and the launch counts tell them apart.
+// - K3 keeps its register schedule, a persistent grid striding over the
+//   device pair list, with a warp a listed pair: it loads the pair's
+//   group constants and reads the mask rows through L1 from the [G][C+1]
+//   [W] table in device memory, since a block's warps may hold pairs of
+//   several groups (the list is group-major, so neighbouring warps
+//   mostly share one group's rows: 9.2 KB at C = 64 and W = 36). A grid
+//   over (chunk, group) that stages each group's rows would leave most
+//   blocks idle where a few groups hold the pairs, as on FakeCluster
+//   lines under the sweep (the watch list's group is a candidate on
+//   every line).
+// What bounds them: the latency of one (line, group)'s chain of T steps
+// (a shuffle, a vote and a ballot a step) where the pairs are few (long
+// lines, K2g), the instructions of the pairs' warp-steps where they are
+// many (K1 and K4 on an engine batch, B x G x T; K3, listed pairs x T),
+// not bytes.
 //
-// The other kernels past 32 words, and K1 past 160 words, keep the
-// generic *_wide kernels: each line (K1, K2), (line, group) pair (K4)
-// or listed pair (K3) a warp, its state in shared memory, and for
-// every set state bit its whole follow row ORed from device memory
-// through L2 in a coalesced pass, so every pattern set the compiler
-// accepts runs. K2g past 160 words has no kernel: the engine keeps such
-// a set's long lines on the union (chunk_nfa_wide).
+// Past 160 words K1, K3 and K4 keep the generic *_wide kernels, and K2
+// keeps chunk_nfa_wide at any width past 32: each line (K1, K2), (line,
+// group) pair (K4) or listed pair (K3) a warp, its state in shared
+// memory, and for every set state bit its whole follow row ORed from
+// device memory through L2 in a coalesced pass, so every pattern set
+// the compiler accepts runs. K2g past 160 words has no kernel: the
+// engine keeps such a set's long lines on the union (chunk_nfa_wide).
 //
 // Every entry point returns the cudaError_t of its launch (0 = success)
 // and never synchronises.
@@ -786,7 +803,7 @@ __device__ __forceinline__ uint32_t lds(uint32_t addr) {
   return x;
 }
 
-// ---- K1 and K2g past 32 words: the shift step over a warp ------------
+// ---- past 32 words: the shift step over a warp (K1, K2g, K3, K4) ----
 // (see the note at the top)
 
 constexpr int WIDE_WARPS = 8;  // (line, group) pairs, a warp each, a block
@@ -805,19 +822,13 @@ __device__ __forceinline__ uint32_t slot(const uint32_t (&x)[K], int i) {
 
 // What a lane of a wide warp keeps in registers for its whole scan: its
 // words of the group's constants (SH, SELF, RL, EX), live's bit in its
-// words (0 but in live's lane), its lane number and the 32-bit shared
-// address of its word of mask row 0 (rows of 32 K words: a lane reads
-// word lane + 32 i of a row, zero past W), through opaque() so that the
-// compiler keeps the address in a register.
+// words (0 but in live's lane) and its lane number.
 template <int K>
 struct WideLane {
   uint32_t sh[K], sf[K], rl[K], ex[K], lv[K];
   int lane;
-  uint32_t m_lane;
-  __device__ __forceinline__ WideLane(const uint4* c_g, int W, int live,
-                                      const uint32_t* m_s) {
+  __device__ __forceinline__ WideLane(const uint4* c_g, int W, int live) {
     lane = (int)(threadIdx.x & 31u);
-    m_lane = opaque(smem_addr(m_s + lane));
 #pragma unroll
     for (int i = 0; i < K; ++i) {
       const int j = lane + 32 * i;
@@ -831,16 +842,43 @@ struct WideLane {
   }
 };
 
-// The lane's words of mask row c (row C, all zero, for an id outside
-// [0, C)) of the staged [C+1][32 K] table.
+// A wide warp's mask rows, staged: the lane's words of row c (row C, all
+// zero, for an id outside [0, C)) of a group's [C+1][32 K] table in
+// shared memory (rows of 32 K words, zero past W: a lane reads word
+// lane + 32 i of a row), through the 32-bit shared address of its word
+// of row 0, passed through opaque() so that the compiler keeps it in a
+// register.
 template <int K>
-__device__ __forceinline__ void wide_mask(uint32_t (&m)[K],
-                                          const WideLane<K>& w, int C,
-                                          int c) {
-  const uint32_t row = w.m_lane + min((unsigned)c, (unsigned)C) * (128u * K);
+struct StagedRows {
+  uint32_t m_lane;
+  int C;
+  __device__ __forceinline__ StagedRows(const uint32_t* m_s, int C_)
+      : m_lane(opaque(smem_addr(m_s + (threadIdx.x & 31u)))), C(C_) {}
+  __device__ __forceinline__ void operator()(uint32_t (&m)[K], int c) const {
+    const uint32_t row = m_lane + min((unsigned)c, (unsigned)C) * (128u * K);
 #pragma unroll
-  for (int i = 0; i < K; ++i) m[i] = lds(row + 128u * i);
-}
+    for (int i = 0; i < K; ++i) m[i] = lds(row + 128u * i);
+  }
+};
+
+// The same rows read through L1 from a group's [C+1][W] table in device
+// memory (row C all zero): the lane's word of row 0, and how many of its
+// K slots lie inside W (0 past them).
+template <int K>
+struct CachedRows {
+  const uint32_t* m_lane;
+  int W, C, n;
+  __device__ __forceinline__ CachedRows(const uint32_t* m_g, int W_, int C_)
+      : m_lane(m_g + (threadIdx.x & 31u)),
+        W(W_),
+        C(C_),
+        n((W_ - (int)(threadIdx.x & 31u) + 31) / 32) {}
+  __device__ __forceinline__ void operator()(uint32_t (&m)[K], int c) const {
+    const uint32_t* row = m_lane + min((unsigned)c, (unsigned)C) * W;
+#pragma unroll
+    for (int i = 0; i < K; ++i) m[i] = i < n ? __ldg(row + 32 * i) : 0u;
+  }
+};
 
 // One step of a warp's (line, group), v' = reach(v) & m, reach split as
 // in shift_step. Word j = lane + 32 i is v[i] of the lane. shl1 carries
@@ -894,21 +932,23 @@ __device__ __forceinline__ void wide_shift_step(
 
 // A warp's (line, group) stepped from v over the line's T class ids at
 // `row`: lane l holds the id of step t0 + l (-1 past T), the next 32
-// loaded a tile ahead; step t's mask row is read during step t - 1.
-template <int K>
+// loaded a tile ahead; step t's mask row (`rows`: StagedRows or
+// CachedRows) is read during step t - 1.
+template <int K, class Rows>
 __device__ __forceinline__ void wide_shift_scan(
-    uint32_t (&v)[K], const WideLane<K>& w, const uint32_t* __restrict__ f_g,
-    int W, int C, const int16_t* __restrict__ row, int T) {
+    uint32_t (&v)[K], const WideLane<K>& w, const Rows& rows,
+    const uint32_t* __restrict__ f_g, int W, const int16_t* __restrict__ row,
+    int T) {
   int cur = w.lane < T ? row[w.lane] : -1;
   int nxt = 32 + w.lane < T ? row[32 + w.lane] : -1;
   uint32_t m[K];
-  wide_mask<K>(m, w, C, __shfl_sync(FULL, cur, 0));
+  rows(m, __shfl_sync(FULL, cur, 0));
   for (int t0 = 0; t0 < T; t0 += 32) {
     const int n = min(32, T - t0);
     for (int tt = 0; tt < n; ++tt) {
       const int cn = __shfl_sync(FULL, tt < 31 ? cur : nxt, (tt + 1) & 31);
       uint32_t mn[K];
-      wide_mask<K>(mn, w, C, cn);
+      rows(mn, cn);
       wide_shift_step<K>(v, w, f_g, W, m);
 #pragma unroll
       for (int i = 0; i < K; ++i) m[i] = mn[i];
@@ -918,26 +958,42 @@ __device__ __forceinline__ void wide_shift_scan(
   }
 }
 
+// Whether a wide warp's state holds state s (word s/32 is slot s/32/32
+// of lane s/32 % 32); every lane takes part in the shuffle.
+template <int K>
+__device__ __forceinline__ bool wide_holds(const uint32_t (&v)[K], int s) {
+  const int sw = s >> 5;
+  return (__shfl_sync(FULL, slot<K>(v, sw >> 5), sw & 31) >> (s & 31)) & 1u;
+}
+
+// Which kernel a wide_shift_pairs block serves: K1 (a verdict byte a
+// line), K2g (the state carried in v0 and out in vout, a verdict byte a
+// line) or K4 (a zeroed word a line).
+enum WideMode { WIDE_K1, WIDE_K2G, WIDE_K4 };
+
 // Block (x, g): group g's automaton, warp w on line ch * WIDE_WARPS + w
 // for the chunks ch = x, x + gridDim.x, ... of WIDE_WARPS lines. The
-// block stages the group's mask rows (from mask [G][C][W]) and a zero
-// row in shared memory once, in rows of 32 K words (zero past W);
-// follow holds [G][S][W] words, then the constants [G][W][4]. With v0
-// (K2g) the state comes from v0 and goes to vout, [B][G][W] words; else
-// (K1) it starts at {live}. A pair that holds acc after its last step
-// sets its line's byte in out (zeroed before the launch). Not inlined:
-// K1's and K2g's kernels call one copy of it a width, which halves what
-// nvcc compiles.
+// block stages the group's mask rows (rows 0..C-1 of mask [G][MR][W],
+// MR = C, or C + 1 for a table that ends in a zero row) and a zero row
+// in shared memory once, in rows of 32 K words (zero past W); follow
+// holds [G][S][W] words, then the constants [G][W][4]. With v0 (K2g)
+// the state comes from v0 and goes to vout, [B][G][W] words; else (K1,
+// K4) it starts at {live}. A pair that holds acc after its last step
+// sets its line's byte in out (K1, K2g; zeroed before the launch) or
+// ORs 1 into its line's word (K4, `word_out`; zeroed by the caller).
+// Not inlined: K1's, K2g's and K4's kernels call one copy of it a
+// width, which keeps what nvcc compiles to one body a width.
 template <int K>
 __device__ __noinline__ void wide_shift_pairs(
     const int16_t* __restrict__ cls, int B, int T,
     const uint32_t* __restrict__ follow, const uint32_t* __restrict__ mask,
-    int G, int W, int C, int live, int acc, const uint32_t* __restrict__ v0,
-    uint32_t* __restrict__ vout, uint32_t* __restrict__ out) {
+    int G, int W, int C, int MR, int live, int acc,
+    const uint32_t* __restrict__ v0, uint32_t* __restrict__ vout,
+    uint32_t* __restrict__ out, bool word_out) {
   extern __shared__ __align__(16) uint32_t smem[];
   constexpr int WP = 32 * K;  // words of a staged mask row
   const int g = blockIdx.y, S = 32 * W;
-  const uint32_t* m_g = mask + (size_t)g * C * W;
+  const uint32_t* m_g = mask + (size_t)g * MR * W;
   for (int e = threadIdx.x; e < (C + 1) * WP; e += blockDim.x) {
     const int r = e / WP, j = e % WP;
     smem[e] = r < C && j < W ? m_g[r * W + j] : 0u;
@@ -948,8 +1004,8 @@ __device__ __noinline__ void wide_shift_pairs(
   const WideLane<K> w(
       reinterpret_cast<const uint4*>(follow + (size_t)G * S * W) +
           (size_t)g * W,
-      W, live, smem);
-  const int aw = acc >> 5;
+      W, live);
+  const StagedRows<K> rows(smem, C);
   const int chunks = (B + WIDE_WARPS - 1) / WIDE_WARPS;
   for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
     const int line = ch * WIDE_WARPS + warp;
@@ -964,7 +1020,7 @@ __device__ __noinline__ void wide_shift_pairs(
       else
         v[i] = w.lv[i];
     }
-    wide_shift_scan<K>(v, w, f_g, W, C, cls + (size_t)line * T, T);
+    wide_shift_scan<K>(v, w, rows, f_g, W, cls + (size_t)line * T, T);
     if (v0 != nullptr) {
 #pragma unroll
       for (int i = 0; i < K; ++i) {
@@ -972,8 +1028,12 @@ __device__ __noinline__ void wide_shift_pairs(
         if (j < W) vout[at + j] = v[i];
       }
     }
-    const uint32_t x = __shfl_sync(FULL, slot<K>(v, aw >> 5), aw & 31);
-    if (w.lane == 0 && ((x >> (acc & 31)) & 1u)) set_verdict(out, line);
+    if (wide_holds<K>(v, acc) && w.lane == 0) {
+      if (word_out)
+        atomicOr(out + line, 1u);
+      else
+        set_verdict(out, line);
+    }
   }
 }
 
@@ -987,11 +1047,11 @@ __global__ void __launch_bounds__(WIDE_WARPS * 32)
                               const uint32_t* __restrict__ v0,
                               uint32_t* __restrict__ vout,
                               uint32_t* __restrict__ out) {
-  wide_shift_pairs<K>(cls, B, T, follow, mask, G, W, C, live, acc, nullptr,
-                      nullptr, out);
+  wide_shift_pairs<K>(cls, B, T, follow, mask, G, W, C, C, live, acc,
+                      nullptr, nullptr, out, false);
 }
 
-// K2g past 32 words.
+// K2g past 32 words (mask [G][C+1][W], as K3 reads it).
 template <int K>
 __global__ void __launch_bounds__(WIDE_WARPS * 32)
     grouped_chunk_wide_kernel(const int16_t* __restrict__ cls, int B, int T,
@@ -1001,8 +1061,58 @@ __global__ void __launch_bounds__(WIDE_WARPS * 32)
                               const uint32_t* __restrict__ v0,
                               uint32_t* __restrict__ vout,
                               uint32_t* __restrict__ out) {
-  wide_shift_pairs<K>(cls, B, T, follow, mask, G, W, C, live, acc, v0, vout,
-                      out);
+  wide_shift_pairs<K>(cls, B, T, follow, mask, G, W, C, C + 1, live, acc, v0,
+                      vout, out, false);
+}
+
+// K4 past 32 words: K1's schedule, a word a line.
+template <int K>
+__global__ void __launch_bounds__(WIDE_WARPS * 32)
+    grouped_fused_wide_kernel(const int16_t* __restrict__ cls, int B, int T,
+                              const uint32_t* __restrict__ follow,
+                              const uint32_t* __restrict__ mask, int G, int W,
+                              int C, int live, int acc,
+                              const uint32_t* __restrict__ v0,
+                              uint32_t* __restrict__ vout,
+                              uint32_t* __restrict__ out) {
+  wide_shift_pairs<K>(cls, B, T, follow, mask, G, W, C, C, live, acc,
+                      nullptr, nullptr, out, true);
+}
+
+// K3 past 32 words: warp i of a persistent grid takes pairs i, i + (grid
+// warps), ... of the first *n_pairs entries of the list (pair p = g * B
+// + line, group-major). For each it loads group g's constants, runs
+// the wide step from {live} over line's class ids, the mask rows read
+// through L1 from mask [G][C+1][W] (a block's warps may hold pairs of
+// different groups, so nothing is staged; neighbouring warps mostly
+// share a group, so its rows are a few cached lines), and sets the
+// line's verdict byte where acc holds (out zeroed before the launch).
+template <int K>
+__global__ void __launch_bounds__(WIDE_WARPS * 32)
+    grouped_gated_wide_kernel(const int16_t* __restrict__ cls, int B, int T,
+                              const uint32_t* __restrict__ follow,
+                              const uint32_t* __restrict__ mask, int G, int W,
+                              int C, int live, int acc,
+                              const int* __restrict__ pairs,
+                              const int* __restrict__ n_pairs,
+                              uint32_t* __restrict__ out) {
+  const int S = 32 * W;
+  const uint4* consts =
+      reinterpret_cast<const uint4*>(follow + (size_t)G * S * W);
+  const int n = *n_pairs;
+  for (int i = blockIdx.x * WIDE_WARPS + (int)(threadIdx.x >> 5); i < n;
+       i += gridDim.x * WIDE_WARPS) {
+    const unsigned p = (unsigned)pairs[i];
+    const int g = (int)(p / (unsigned)B), line = (int)(p - g * (unsigned)B);
+    const WideLane<K> w(consts + (size_t)g * W, W, live);
+    const CachedRows<K> rows(mask + (size_t)g * (C + 1) * W, W, C);
+    uint32_t v[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = w.lv[k];
+    wide_shift_scan<K>(v, w, rows, follow + (size_t)g * S * W, W,
+                       cls + (size_t)line * T, T);
+    if (wide_holds<K>(v, acc) && w.lane == 0) set_verdict(out, line);
+  }
 }
 
 // K2's mask word for a lane: word `lane` of mask row c (m_lane is the
@@ -1162,7 +1272,7 @@ __global__ void __launch_bounds__(CHUNK_WARPS * 32)
   if (lane == (acc >> 5)) matched[line] = (v >> (acc & 31)) & 1u;
 }
 
-// ---- programs wider than 32 words ------------------------------------
+// ---- the generic wide kernels (past 160 words; K2 past 32) ----------
 // One warp per line. The line's state (v) and reach (r) are W-word
 // buffers in shared memory, and lane l owns words l, l+32, ...: a
 // ballot over the owned words finds the nonzero ones, the owner
@@ -1246,9 +1356,9 @@ __global__ void grouped_nfa_wide(const int16_t* __restrict__ cls, int B,
   if (line < B && lane == 0) out[line] = matched ? 1 : 0;
 }
 
-// K3 past 32 words: one warp per listed pair, warp i of the grid taking
-// pairs i, i + (grid warps), ... of the first *n_pairs; `out` as for
-// the register K3.
+// K3 past 160 words: one warp per listed pair, warp i of the grid
+// taking pairs i, i + (grid warps), ... of the first *n_pairs; `out` as
+// for the register K3.
 __global__ void grouped_nfa_gated_wide(const int16_t* __restrict__ cls, int B,
                                        int T,
                                        const uint32_t* __restrict__ follow,
@@ -1275,7 +1385,7 @@ __global__ void grouped_nfa_gated_wide(const int16_t* __restrict__ cls, int B,
   }
 }
 
-// K4 past 32 words: one warp per (line, group) pair, pair p = line * G +
+// K4 past 160 words: one warp per (line, group) pair, pair p = line * G +
 // g, so a line's groups run side by side on neighbouring warps (and read
 // its class ids through the same L1 lines). `out` as for the fused
 // kernel: zeroed by the caller, a word set per accepted line.
@@ -1338,7 +1448,7 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-// K1 past 32 words: a warp per line.
+// K1 past 160 words: a warp per line.
 cudaError_t launch_grouped_wide(const int16_t* cls, int B, int T,
                                 const uint32_t* follow, const uint32_t* mask,
                                 int G, int S, int C, int live, int acc,
@@ -1456,12 +1566,11 @@ cudaError_t launch_grouped_chunk(const int16_t* cls, int B, int T,
   return cudaGetLastError();
 }
 
-// K1 (CARRY false) or K2g (CARRY true) past 32 words, K words a lane:
-// blocks of WIDE_WARPS lines, grid y the groups, grid x as many line
-// chunks as fill the card twice over (each block stages its group's
-// mask table once and strides over the chunks). out is zeroed by the
-// caller.
-template <int K, bool CARRY>
+// K1, K2g or K4 (MODE) past 32 words, K words a lane: blocks of
+// WIDE_WARPS lines, grid y the groups, grid x as many line chunks as
+// fill the card twice over (each block stages its group's mask table
+// once and strides over the chunks). out is zeroed by the caller.
+template <int K, WideMode MODE>
 cudaError_t launch_shift_wide(const int16_t* cls, int B, int T,
                               const uint32_t* follow, const uint32_t* mask,
                               int G, int W, int C, int live, int acc,
@@ -1469,8 +1578,9 @@ cudaError_t launch_shift_wide(const int16_t* cls, int B, int T,
                               uint32_t* out, cudaStream_t st) {
   const size_t smem = (size_t)(C + 1) * 32 * K * 4;  // staged mask rows
   if (G > 65535 || smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
-  const auto kernel = CARRY ? &grouped_chunk_wide_kernel<K>
-                            : &grouped_shift_wide_kernel<K>;
+  const auto kernel = MODE == WIDE_K2G  ? &grouped_chunk_wide_kernel<K>
+                      : MODE == WIDE_K4 ? &grouped_fused_wide_kernel<K>
+                                        : &grouped_shift_wide_kernel<K>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const long long chunks = (B + WIDE_WARPS - 1) / WIDE_WARPS;
@@ -1485,16 +1595,50 @@ cudaError_t launch_shift_wide(const int16_t* cls, int B, int T,
 // Whether W state words take the wide shift kernels.
 bool shift_wide_words(int W) { return W > 32 && W <= 32 * WIDE_MAX_K; }
 
-template <bool CARRY>
+template <WideMode MODE>
 cudaError_t launch_wide(const int16_t* cls, int B, int T,
                         const uint32_t* follow, const uint32_t* mask, int G,
                         int W, int C, int live, int acc, const uint32_t* v0,
                         uint32_t* vout, uint32_t* out, cudaStream_t st) {
   switch ((W + 31) / 32) {
-    case 2: return launch_shift_wide<2, CARRY>(cls, B, T, follow, mask, G, W, C, live, acc, v0, vout, out, st);
-    case 3: return launch_shift_wide<3, CARRY>(cls, B, T, follow, mask, G, W, C, live, acc, v0, vout, out, st);
-    case 4: return launch_shift_wide<4, CARRY>(cls, B, T, follow, mask, G, W, C, live, acc, v0, vout, out, st);
-    case 5: return launch_shift_wide<5, CARRY>(cls, B, T, follow, mask, G, W, C, live, acc, v0, vout, out, st);
+    case 2: return launch_shift_wide<2, MODE>(cls, B, T, follow, mask, G, W, C, live, acc, v0, vout, out, st);
+    case 3: return launch_shift_wide<3, MODE>(cls, B, T, follow, mask, G, W, C, live, acc, v0, vout, out, st);
+    case 4: return launch_shift_wide<4, MODE>(cls, B, T, follow, mask, G, W, C, live, acc, v0, vout, out, st);
+    case 5: return launch_shift_wide<5, MODE>(cls, B, T, follow, mask, G, W, C, live, acc, v0, vout, out, st);
+    default: break;
+  }
+  return cudaErrorInvalidValue;
+}
+
+// K3 past 32 words, K words a lane: a persistent grid of WIDE_WARPS-warp
+// blocks over the pair list (its length is on the device), never more
+// warps than B * G pairs could fill.
+template <int K>
+cudaError_t launch_gated_shift(const int16_t* cls, int B, int T,
+                               const uint32_t* follow, const uint32_t* mask,
+                               int G, int W, int C, int live, int acc,
+                               const int* pairs, const int* n_pairs,
+                               uint32_t* out, cudaStream_t st) {
+  static const int resident =
+      resident_blocks(grouped_gated_wide_kernel<K>, WIDE_WARPS * 32, 0);
+  const long long need = ((long long)B * G + WIDE_WARPS - 1) / WIDE_WARPS;
+  const int blocks = (int)(need < resident ? need : resident);
+  grouped_gated_wide_kernel<K><<<blocks, WIDE_WARPS * 32, 0, st>>>(
+      cls, B, T, follow, mask, G, W, C, live, acc, pairs, n_pairs, out);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_gated_shift_wide(const int16_t* cls, int B, int T,
+                                    const uint32_t* follow,
+                                    const uint32_t* mask, int G, int W, int C,
+                                    int live, int acc, const int* pairs,
+                                    const int* n_pairs, uint32_t* out,
+                                    cudaStream_t st) {
+  switch ((W + 31) / 32) {
+    case 2: return launch_gated_shift<2>(cls, B, T, follow, mask, G, W, C, live, acc, pairs, n_pairs, out, st);
+    case 3: return launch_gated_shift<3>(cls, B, T, follow, mask, G, W, C, live, acc, pairs, n_pairs, out, st);
+    case 4: return launch_gated_shift<4>(cls, B, T, follow, mask, G, W, C, live, acc, pairs, n_pairs, out, st);
+    case 5: return launch_gated_shift<5>(cls, B, T, follow, mask, G, W, C, live, acc, pairs, n_pairs, out, st);
     default: break;
   }
   return cudaErrorInvalidValue;
@@ -1549,9 +1693,9 @@ int klogs_grouped_nfa(const int16_t* cls, int B, int T,
   if (shift_wide_words(S / 32)) {
     e = cudaMemsetAsync(out, 0, (size_t)(B + 3) / 4 * 4, st);
     if (e != cudaSuccess) return e;
-    return launch_wide<false>(cls, B, T, follow, mask, G, S / 32, C, live,
-                              acc, nullptr, nullptr,
-                              reinterpret_cast<uint32_t*>(out), st);
+    return launch_wide<WIDE_K1>(cls, B, T, follow, mask, G, S / 32, C, live,
+                                acc, nullptr, nullptr,
+                                reinterpret_cast<uint32_t*>(out), st);
   }
   return launch_grouped_wide(cls, B, T, follow, mask, G, S, C, live, acc,
                              out, st);
@@ -1584,10 +1728,11 @@ int klogs_gate_pairs(const uint32_t* gate, int B, int GW, int stride, int G,
 }
 
 // K3: cls, follow (with its constants) and S as for klogs_grouped_nfa;
-// mask [G, C + 1, S/32] at a register width (row C all zero), [G, C,
-// S/32] past it; pairs and n_pairs from klogs_gate_pairs (on the
-// device); out ceil(B / 4) uint32 words, zeroed here, whose byte b is
-// set to 1 for each matching line b.
+// mask [G, C + 1, S/32] (row C all zero) at a register width and from
+// 33 to 160 words (grouped_gated_wide_kernel), [G, C, S/32] past them
+// (the generic grouped_nfa_gated_wide); pairs and n_pairs from
+// klogs_gate_pairs (on the device); out ceil(B / 4) uint32 words,
+// zeroed here, whose byte b is set to 1 for each matching line b.
 int klogs_grouped_nfa_gated(const int16_t* cls, int B, int T,
                             const uint32_t* follow, const uint32_t* mask,
                             int G, int S, int C, int live, int acc,
@@ -1607,13 +1752,17 @@ int klogs_grouped_nfa_gated(const int16_t* cls, int B, int T,
     case 32: return launch_gated<32>(cls, B, T, follow, mask, G, C, live, acc, pairs, n_pairs, out, st);
     default: break;
   }
+  if (shift_wide_words(S / 32))
+    return launch_gated_shift_wide(cls, B, T, follow, mask, G, S / 32, C,
+                                   live, acc, pairs, n_pairs, out, st);
   return launch_gated_wide(cls, B, T, follow, mask, G, S, C, live, acc, pairs,
                            n_pairs, out, st);
 }
 
-// K4: as klogs_grouped_nfa (the same follow buffer), with out [B] uint32
-// words that the caller zeroed (a word is set to 1 for each matching
-// line).
+// K4: as klogs_grouped_nfa (the same follow buffer; from 33 to 160
+// words grouped_fused_wide_kernel, past them the generic
+// grouped_nfa_fused_wide), with out [B] uint32 words that the caller
+// zeroed (a word is set to 1 for each matching line).
 int klogs_grouped_nfa_fused(const int16_t* cls, int B, int T,
                             const uint32_t* follow, const uint32_t* mask,
                             int G, int S, int C, int live, int acc,
@@ -1630,6 +1779,9 @@ int klogs_grouped_nfa_fused(const int16_t* cls, int B, int T,
     case 32: return launch_shift<32, false>(cls, B, T, follow, mask, G, C, live, acc, out, st);
     default: break;
   }
+  if (shift_wide_words(S / 32))
+    return launch_wide<WIDE_K4>(cls, B, T, follow, mask, G, S / 32, C, live,
+                                acc, nullptr, nullptr, out, st);
   const int nw = S > 32 * 32 ? wide_warps(S) : 0;
   if (nw == 0) return cudaErrorInvalidValue;
   const size_t smem = (size_t)2 * (S / 32) * nw * 4;
@@ -1643,9 +1795,9 @@ int klogs_grouped_nfa_fused(const int16_t* cls, int B, int T,
 }
 
 // K2g: cls, follow (with its constants) and mask as for
-// klogs_grouped_nfa_gated ([G, C + 1, S/32] at a register width, [G, C,
-// S/32] past it); S/32 a register width (4, 8, 16, 32) or 33 to 160
-// words (the wide shift kernel; anything else is refused); v0 and vout
+// klogs_grouped_nfa_gated ([G, C + 1, S/32]); S/32 a register width (4,
+// 8, 16, 32) or 33 to 160 words (the wide shift kernel; anything else
+// is refused); v0 and vout
 // [B, G, S/32] words, the carry of each (line, group); out ceil(B / 4)
 // uint32 words, zeroed here, whose byte b is set to 1 where some group
 // of line b holds acc.
@@ -1669,8 +1821,8 @@ int klogs_grouped_chunk_nfa(const int16_t* cls, int B, int T,
     default: break;
   }
   if (shift_wide_words(S / 32))
-    return launch_wide<true>(cls, B, T, follow, mask, G, S / 32, C, live,
-                             acc, v0, vout, out, st);
+    return launch_wide<WIDE_K2G>(cls, B, T, follow, mask, G, S / 32, C, live,
+                                 acc, v0, vout, out, st);
   return cudaErrorInvalidValue;
 }
 

@@ -35,14 +35,17 @@ ids laid out BEGIN, body, END, PAD latch:
 
 The route by width of a group (``kernel_states(S) / 32`` words). At a
 register width (``REGISTER_WORDS``) each kernel above runs as named.
-From 33 to ``WIDE_WORDS`` (160) words, K1 and K2g run the same
+From 33 to ``WIDE_WORDS`` (160) words, K1, K2g, K3 and K4 run the same
 shift-and-exceptions step spread over a warp a (line, group):
-``grouped_shift_wide_kernel`` (K1, counted under ``GROUPED_WIDE``) and
-``grouped_chunk_wide_kernel`` (K2g, under ``GROUPED_CHUNK_WIDE``); K3,
-K4 and K2 there, and K1 past 160 words, run the generic wide kernels
-under their own names. K2g takes no group past 160 words (5120 states,
-past the compiler's default cap of 4096 positions a set) and raises;
-``filters/gpu.py`` keeps such a set's long lines on the union.
+``grouped_shift_wide_kernel`` (K1, counted under ``GROUPED_WIDE``),
+``grouped_chunk_wide_kernel`` (K2g, under ``GROUPED_CHUNK_WIDE``),
+``grouped_gated_wide_kernel`` (K3, a warp a listed pair, under
+``GATED_WIDE``) and ``grouped_fused_wide_kernel`` (K4, under
+``FUSED_WIDE``). Past 160 words (5120 states, past the compiler's
+default cap of 4096 positions a set) K1, K3 and K4 run the generic
+wide kernels, counted under their register names, and K2g raises:
+``filters/gpu.py`` keeps such a set's long lines on the union. K2 runs
+its generic wide kernel at any width past 32 words.
 
 A tensor on the CPU runs the plain PyTorch version (a Python loop over
 the steps); a CUDA tensor launches the kernel from
@@ -65,9 +68,11 @@ GATED = "grouped_nfa_gated_kernel"
 CHUNK = "chunk_nfa_kernel"
 FUSED = "grouped_nfa_fused_kernel"
 GROUPED_CHUNK = "grouped_chunk_kernel"
-# K1 and K2g past 32 words: the wide shift-and-exceptions kernels.
+# K1, K2g, K3 and K4 past 32 words: the wide shift-and-exceptions kernels.
 GROUPED_WIDE = "grouped_shift_wide_kernel"
 GROUPED_CHUNK_WIDE = "grouped_chunk_wide_kernel"
+GATED_WIDE = "grouped_gated_wide_kernel"
+FUSED_WIDE = "grouped_fused_wide_kernel"
 # K3's pair builder (gate_pairs_count, gate_pairs_scan and
 # gate_pairs_scatter, launched together: counted once per list built).
 PAIRS = "gate_pairs"
@@ -78,8 +83,8 @@ PACK_CLS = "pack_classify_rows"
 PACK = "pack_rows"
 
 LAUNCHES = {GROUPED: 0, GATED: 0, CHUNK: 0, FUSED: 0, GROUPED_CHUNK: 0,
-            GROUPED_WIDE: 0, GROUPED_CHUNK_WIDE: 0, PAIRS: 0, PACK_CLS: 0,
-            PACK: 0}
+            GROUPED_WIDE: 0, GROUPED_CHUNK_WIDE: 0, GATED_WIDE: 0,
+            FUSED_WIDE: 0, PAIRS: 0, PACK_CLS: 0, PACK: 0}
 
 # Lines per tile of the gate's stats: the JAX engine counts candidate
 # lines clustered into tiles of its kernel's width, and the --stats
@@ -91,8 +96,8 @@ PAIR_SLAB = 256
 # State words per line that the register kernels are built for; a
 # program of another width up to 32 words runs at the next of them.
 REGISTER_WORDS = (4, 8, 16, 32)
-# The widest width the wide shift kernels of K1 and K2g are built for
-# (5 words a lane of a warp).
+# The widest width the wide shift kernels of K1, K2g, K3 and K4 are
+# built for (5 words a lane of a warp).
 WIDE_WORDS = 160
 _launch_lock = threading.Lock()
 
@@ -171,9 +176,14 @@ def kernel_states(S: int) -> int:
 
 def shift_words(words: int) -> bool:
     """Whether a program of ``words`` state words (a ``kernel_states``
-    width) runs K1 and K2g on the shift-and-exceptions step: a register
-    width, or 33 to ``WIDE_WORDS`` words (the wide kernels)."""
+    width) runs K1, K2g, K3 and K4 on the shift-and-exceptions step: a
+    register width, or 33 to ``WIDE_WORDS`` words (the wide kernels)."""
     return words in REGISTER_WORDS or 32 < words <= WIDE_WORDS
+
+
+def _wide(words: int) -> bool:
+    """Whether ``words`` state words take the wide shift kernels."""
+    return 32 < words <= WIDE_WORDS
 
 
 def _bit_tables(prog: TorchProgram):
@@ -288,13 +298,15 @@ def _match_grouped(prog: TorchProgram, live: int, acc: int,
     lib = _library()
     stream = torch.cuda.current_stream(cls.device).cuda_stream
     if fused:
-        # K4's blocks (group chunks) OR into a zeroed word per line.
-        name, entry = FUSED, lib.klogs_grouped_nfa_fused
+        # K4's blocks (group chunks, or past 32 words groups) OR into a
+        # zeroed word per line.
+        name = FUSED_WIDE if _wide(words) else FUSED
+        entry = lib.klogs_grouped_nfa_fused
         out = torch.zeros(B, dtype=torch.int32, device=cls.device)
     else:
         # A verdict byte per line; past 32 words the groups' warps set it
         # in place through its 32-bit word.
-        name = GROUPED_WIDE if 32 < words <= WIDE_WORDS else GROUPED
+        name = GROUPED_WIDE if _wide(words) else GROUPED
         entry = lib.klogs_grouped_nfa
         out = torch.empty(-(-B // 4) * 4, dtype=torch.uint8,
                           device=cls.device)
@@ -319,20 +331,23 @@ def _mask_table(char_mask: torch.Tensor, cls: torch.Tensor):
 
 def _group_steps_plain(prog: TorchProgram, live: int, cls: torch.Tensor,
                        v: torch.Tensor, work: "dict | None",
-                       cells: "torch.Tensor | None" = None) -> torch.Tensor:
+                       cells: "torch.Tensor | None" = None,
+                       group: "int | None" = None) -> torch.Tensor:
     """The [G, B, S] bool state ``v`` of every group's automaton stepped
-    over the [B, T] class ids — a loop over T of the boolean step.
-    ``work``, when given, receives under "active" the number of state
-    bits the steps read (summed over groups, lines and steps; only over
-    the [G, B] ``cells`` when given), and under "exc" those of exception
-    states (``shift_masks``): the follow rows K1, K2g and K4 read."""
+    over the [B, T] class ids — a loop over T of the boolean step; with
+    ``group``, the [1, B, S] state of that group alone. ``work``, when
+    given, receives under "active" the number of state bits the steps
+    read (summed over groups, lines and steps; only over the [G, B]
+    ``cells`` when given), and under "exc" those of exception states
+    (``shift_masks``): the follow rows K1, K2g, K3 and K4 read."""
     T = cls.shape[1]
-    follow = prog.follow.float()  # [G, S, S]
-    table, idx = _mask_table(prog.char_mask, cls)  # [G, C+1, S], [B, T]
+    keep = slice(None) if group is None else slice(group, group + 1)
+    follow = prog.follow[keep].float()  # [G, S, S]
+    table, idx = _mask_table(prog.char_mask[keep], cls)  # [G, C+1, S]
     active = torch.zeros((), dtype=torch.int64, device=cls.device)
     exc = torch.zeros((), dtype=torch.int64, device=cls.device)
     if work is not None:
-        ex = shift_masks(prog.follow, live)[3][:, None, :]  # [G, 1, S]
+        ex = shift_masks(prog.follow[keep], live)[3][:, None, :]  # [G, 1, S]
         if cells is not None:
             ex = ex & cells[:, :, None]
     for t in range(T):
@@ -351,13 +366,34 @@ def _group_accepts_plain(prog: TorchProgram, live: int, acc: int,
                          cls: torch.Tensor, work: "dict | None",
                          cells: "torch.Tensor | None" = None) -> torch.Tensor:
     """[G, B] bool: group g's automaton, started at ``{live}``, holds
-    ``acc`` after the last step; ``work`` and ``cells`` as in
-    ``_group_steps_plain``."""
+    ``acc`` after the last step; with ``cells`` ([G, B] bool) only on
+    those (line, group) cells, the others False; ``work`` as in
+    ``_group_steps_plain``. Up to the register widths every group steps
+    every line, one product a step; past them (a [S, S] product of 1152
+    states or more a group) only the cells' lines are stepped, a group
+    at a time."""
     G, C, S = prog.char_mask.shape
-    v = torch.zeros((G, cls.shape[0], S), dtype=torch.bool,
-                    device=cls.device)
-    v[:, :, live] = True
-    return _group_steps_plain(prog, live, cls, v, work, cells)[:, :, acc]
+    if cells is None or S <= 32 * REGISTER_WORDS[-1]:
+        v = torch.zeros((G, cls.shape[0], S), dtype=torch.bool,
+                        device=cls.device)
+        v[:, :, live] = True
+        accepts = _group_steps_plain(prog, live, cls, v, work,
+                                     cells)[:, :, acc]
+        return accepts if cells is None else accepts & cells
+    out = torch.zeros((G, cls.shape[0]), dtype=torch.bool, device=cls.device)
+    if work is not None:  # an empty gate steps nothing and reads nothing
+        work.setdefault("active", 0)
+        work.setdefault("exc", 0)
+    for g in range(G):
+        lines = torch.nonzero(cells[g]).reshape(-1)
+        if len(lines) == 0:
+            continue
+        v = torch.zeros((1, len(lines), S), dtype=torch.bool,
+                        device=cls.device)
+        v[:, :, live] = True
+        out[g, lines] = _group_steps_plain(prog, live, cls[lines], v, work,
+                                           group=g)[0, :, acc]
+    return out
 
 
 def match_cls_grouped_plain(prog: TorchProgram, live: int, acc: int,
@@ -454,12 +490,13 @@ def gate_pairs_plain(gate_bits: torch.Tensor, G: int):
 
 
 def _gated_tables(prog: TorchProgram, live: int):
-    """K3's operands (follow, mask): K1's follow buffer, and at a
-    register width the mask bit table with an all-zero row appended to
-    each group ([G, C+1, Sk/32]: the row an id outside [0, C) reads);
-    past 32 words the bit tables as they are."""
+    """K3's and K2g's operands (follow, mask): K1's follow buffer, and
+    where the shift kernels run (``shift_words``) the mask bit table
+    with an all-zero row appended to each group ([G, C+1, Sk/32]: the
+    row an id outside [0, C) reads); past 160 words the bit tables as
+    they are."""
     follow, mask_bits = _shift_tables(prog, live)
-    if mask_bits.shape[-1] not in REGISTER_WORDS:
+    if not shift_words(mask_bits.shape[-1]):
         return follow, mask_bits
     padded = prog.cache.get("mask_zero_row")
     if padded is None:
@@ -481,6 +518,7 @@ def launch_gated(prog: TorchProgram, live: int, acc: int, cls: torch.Tensor,
     cls = _cls16(prog, cls)
     B, T = cls.shape
     G, C, S = prog.char_mask.shape
+    name = GATED_WIDE if _wide(kernel_states(S) // 32) else GATED
     if (pairs.shape != (B * G,)
             or {pairs.dtype, n_pairs.dtype} != {torch.int32}
             or not pairs.device == n_pairs.device == cls.device):
@@ -495,21 +533,21 @@ def launch_gated(prog: TorchProgram, live: int, acc: int, cls: torch.Tensor,
         cls.data_ptr(), B, T, follow.data_ptr(), mask.data_ptr(), G,
         kernel_states(S), C, live, acc, pairs.data_ptr(), n_pairs.data_ptr(),
         out.data_ptr(), stream, cls.device.index or 0)
-    _count(GATED)
-    _check(err, GATED)
+    _count(name)
+    _check(err, name)
     return out[:B].view(torch.bool)
 
 
 def launch_gated_plain(prog: TorchProgram, live: int, acc: int,
                        cls: torch.Tensor, pairs: torch.Tensor,
                        n_pairs: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``launch_gated``: the plain K1 step over every
-    (line, group), kept on the listed pairs."""
+    """Plain version of ``launch_gated``: the plain K1 step, kept on the
+    listed (line, group) pairs."""
     B, G = cls.shape[0], prog.follow.shape[0]
     cells = torch.zeros(G * B, dtype=torch.bool, device=cls.device)
     cells[pairs[:int(n_pairs)].long()] = True
-    accepts = _group_accepts_plain(prog, live, acc, cls, None)  # [G, B]
-    return (accepts & cells.reshape(G, B)).any(dim=0)
+    return _group_accepts_plain(prog, live, acc, cls, None,
+                                cells.reshape(G, B)).any(dim=0)
 
 
 def match_cls_grouped_gated(prog: TorchProgram, live: int, acc: int,
@@ -538,14 +576,14 @@ def match_cls_grouped_gated(prog: TorchProgram, live: int, acc: int,
 def match_cls_grouped_gated_plain(prog: TorchProgram, live: int, acc: int,
                                   cls: torch.Tensor, gate_bits: torch.Tensor,
                                   work: dict | None = None) -> torch.Tensor:
-    """Plain version of ``match_cls_grouped_gated``: the plain K1 step
-    over every (line, group), ANDed with the gate. ``work`` counts the
-    state bits read on the gated cells only."""
+    """Plain version of ``match_cls_grouped_gated``: the plain K1 step,
+    kept on the gated (line, group) cells. ``work`` counts the state
+    bits read on the gated cells only."""
     gate_bits = _gate_words(prog.follow.shape[0], cls.shape[0], cls.device,
                             gate_bits)
     cells = unpack_bits(gate_bits.long(), prog.follow.shape[0]).T  # [G, B]
     accepts = _group_accepts_plain(prog, live, acc, cls, work, cells)
-    return _or_match_all(prog, (accepts & cells).any(dim=0))
+    return _or_match_all(prog, accepts.any(dim=0))
 
 
 # ---- K2: carried-state chunk match ---------------------------------------

@@ -390,6 +390,54 @@ def test_engine_wide_set_on_card_equals_re(dev):
     assert any(got[-8:]) and not all(got[-8:])
 
 
+def test_engine_k1024_watch_on_card_equals_re(dev, monkeypatch):
+    """``make_patterns(1024)`` and the watch list: every one of the 157
+    groups at 36 words, the sweep on (auto, K >= 64 on cuda). Short
+    lines run K3's wide kernel (``grouped_gated_wide_kernel``), long
+    lines K2g's (the union, ~20k states, is never built); the register
+    K3, K1 (either width) and K2 never launch; every verdict is
+    ``re``'s."""
+    import re
+
+    from chip_smoke import WATCH, make_patterns, minted_needle
+
+    from klogs_tpu_torch.cluster.fake import synthetic_line
+
+    monkeypatch.setenv("KLOGS_MAX_PATTERN_POSITIONS", "65536")
+    pats = make_patterns(1024) + [WATCH]
+    rng = np.random.default_rng(1025)
+    lines = [synthetic_line(f"pod-{i % 300:04d}", "c0", i, 1.7e9 + i)
+             for i in range(4000)]
+    for i in range(3, 4000, 50):
+        lines[i] = lines[i][:30] + minted_needle(int(rng.integers(0, 1200))) \
+            + lines[i][30:]
+    for i in range(6):
+        n = int(rng.integers(4097, 12 * 1024))
+        body = bytearray(rng.integers(32, 127, size=n, dtype=np.uint8))
+        nd = (b"pod=pod-%04d" % (2 * i + 1) if i % 2
+              else minted_needle(int(rng.integers(0, 992))))
+        p = 4096 - 5 if i == 1 else int(rng.integers(0, n - len(nd)))
+        body[p:p + len(nd)] = nd
+        lines.append(bytes(body))
+    card = GpuEngineFilter(pats, device=dev)
+    assert card._sweep_tables is not None
+    assert card._grouped.follow.shape[0] == 157
+    assert nfa_kernels.grouped_state_words(card._grouped) == 36
+    assert card._long is not None and card._aug is None
+    nfa_kernels.reset_launches()
+    got = card.match_lines(lines)
+    launches = dict(nfa_kernels.LAUNCHES)
+    assert launches[nfa_kernels.GATED_WIDE] > 0
+    assert launches[nfa_kernels.GROUPED_CHUNK_WIDE] > 0
+    for name in (nfa_kernels.GATED, nfa_kernels.GROUPED,
+                 nfa_kernels.GROUPED_WIDE, nfa_kernels.CHUNK):
+        assert launches[name] == 0, name
+    alt = re.compile(b"|".join(b"(?:" + p.encode() + b")" for p in pats))
+    assert got == [alt.search(ln.rstrip(b"\n")) is not None for ln in lines]
+    assert any(got[:4000]) and not all(got[:4000])
+    assert any(got[-6:]) and not all(got[-6:])
+
+
 SEQ_PATTERNS = ["needle", "^start", "end$", r"retry \d+/\d+"]
 
 
@@ -480,17 +528,31 @@ def test_kernels_count_launches(dev):
     (["q" * 600 + "z", "r" * 600 + "y", "panic:"],  # 640 states run at W =
      [b"q" * 600 + b"z", b"r" * 600 + b"y"]),  # 32, a group a block: 3 chunks
     W_CASES["wide"], (EXC_PATS, EXC_NEEDLES), (EDGE_PATS, EDGE_NEEDLES),
-], ids=["w4", "w8", "w16", "w32", "wide", "exceptions", "word_edge"])
+    (WIDE_CASES[48][0], [b"x12y", WIDE_CASES[48][2]]),
+    (WIDE_CASES[132][0], [b"panic:", WIDE_CASES[132][2]]),
+], ids=["w4", "w8", "w16", "w32", "wide", "exceptions", "word_edge",
+        "wide48", "wide132"])
 def test_fused_kernel_equals_plain_and_k1(dev, patterns, needles):
+    """K4 equals its plain version and K1 at each register width and
+    past them (36, 48 and 132 words: ``grouped_fused_wide_kernel``),
+    every launch counted under its route's name."""
     prog, live, acc = nfa.compile_grouped(patterns, device=dev)
+    wide = 32 < nfa_kernels.kernel_states(prog.n_states) // 32
+    nfa_kernels.reset_launches()
+    n = 0
     for cls in grouped_batches(prog, needles, dev):
         B = cls.shape[0]
         got = nfa_kernels.match_cls_grouped_fused(prog, live, acc, cls)
+        n += 1
         exp = nfa_kernels.match_cls_grouped_fused_plain(prog, live, acc, cls)
         assert got.dtype == torch.bool and got.shape == (B,)
         assert torch.equal(got, exp)
         assert torch.equal(got, nfa_kernels.match_cls_grouped(prog, live, acc,
                                                               cls))
+    name, other = ((nfa_kernels.FUSED_WIDE, nfa_kernels.FUSED) if wide
+                   else (nfa_kernels.FUSED, nfa_kernels.FUSED_WIDE))
+    assert nfa_kernels.LAUNCHES[name] == n
+    assert nfa_kernels.LAUNCHES[other] == 0
 
 
 def test_fused_kernel_group_chunks_at_k1024(dev, monkeypatch):
@@ -591,30 +653,39 @@ def test_gate_pairs_kernel_equals_plain(dev, B, G, share, dtype):
 
 
 # K3 cases: W = 4, 8, 16, 32 (640 states padded to 1024) and past 32
-# words, each with several groups.
+# words (36, then WIDE_CASES' 40, 48 and 132: 2, 2, 2 and 5 words a
+# lane of grouped_gated_wide_kernel), each with several groups.
 GATED_CASES = [
     PATTERNS + [f"t{i:02d}lit" for i in range(40)],
     ["a" * 200 + "b", r"x\d+y"] + [f"lit{i:02d}x" for i in range(40)],
     ["b" * 400 + "c", "panic:"] + [f"v{i:02d}yz" for i in range(40)],
     ["q" * 600 + "z", "panic:"] + [f"u{i:02d}yz" for i in range(40)],
     ["q" * 1100 + "z", "panic:"] + [f"w{i:02d}yz" for i in range(40)],
+    WIDE_CASES[40][0], WIDE_CASES[48][0], WIDE_CASES[132][0],
 ]
 
 
 @pytest.mark.parametrize("patterns", GATED_CASES,
-                         ids=["w4", "w8", "w16", "w32", "wide"])
+                         ids=["w4", "w8", "w16", "w32", "wide", "wide40",
+                              "wide48", "wide132"])
 def test_gated_kernel_equals_plain(dev, patterns):
     """K3 against its plain version under random gates: all ones, dense,
     sparse and empty, each over lines whose second half has no gate bit
-    (a dead half)."""
+    (a dead half); every launch counted under its route's name
+    (``GATED_WIDE`` past 32 words)."""
     from klogs_tpu_torch.ops import bits
 
     prog, live, acc = nfa.compile_grouped(patterns, device=dev)
     G = int(prog.follow.shape[0])
     assert G > 1
+    wide = 32 < nfa_kernels.kernel_states(prog.n_states) // 32
+    name, other = ((nfa_kernels.GATED_WIDE, nfa_kernels.GATED) if wide
+                   else (nfa_kernels.GATED, nfa_kernels.GATED_WIDE))
     rng = np.random.default_rng(G)
-    for B, T, share in ((1, 5, 1.0), (300, 67, 0.5), (1000, 131, 0.02),
-                        (700, 40, 0.0), (513, 99, 1.0)):
+    nfa_kernels.reset_launches()
+    cases = ((1, 5, 1.0), (300, 67, 0.5), (1000, 131, 0.02), (700, 40, 0.0),
+             (513, 99, 1.0))
+    for B, T, share in cases:
         cls = random_cls(prog, B, T, B).to(dev)
         gate = torch.from_numpy(rng.random((B, G)) < share)
         if B > 1:
@@ -627,6 +698,8 @@ def test_gated_kernel_equals_plain(dev, patterns):
         assert got.dtype == torch.bool and got.shape == (B,)
         assert torch.equal(got, exp)
         assert int(stats[0]) == int(gate.any(1).sum())
+    assert nfa_kernels.LAUNCHES[name] == len(cases)
+    assert nfa_kernels.LAUNCHES[other] == 0
 
 
 def test_gated_launch_alone_equals_wrapper(dev):
@@ -677,6 +750,56 @@ def test_gated_wrapper_does_not_wait_on_host(dev, dtype):
     assert torch.equal(got, exp)
     assert torch.equal(got, nfa_kernels.match_cls_grouped_gated_plain(
         prog, live, acc, cls, words))
+
+
+def test_gated_wide_wrapper_does_not_wait_on_host(dev):
+    """As above past 32 words (the watch-list set: 36 words,
+    ``grouped_gated_wide_kernel``)."""
+    from klogs_tpu_torch.ops import bits
+
+    patterns, needles, _ = wide_case(36)
+    prog, live, acc = nfa.compile_grouped(patterns, device=dev)
+    G = int(prog.follow.shape[0])
+    cls = text_cls(prog, 2000, 61, needles, 6, dev)
+    words = bits.pack_bits(torch.from_numpy(
+        np.random.default_rng(6).random((2000, G)) < 0.3)).to(dev)
+    exp, _ = nfa_kernels.match_cls_grouped_gated(prog, live, acc, cls,
+                                                 words)  # warm-up
+    torch.cuda.synchronize()
+    nfa_kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, stats = nfa_kernels.match_cls_grouped_gated(
+            prog, live, acc, cls, words, want_stats=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GATED_WIDE] == 1
+    assert torch.equal(got, exp)
+    assert torch.equal(got, nfa_kernels.match_cls_grouped_gated_plain(
+        prog, live, acc, cls, words))
+    assert got.any()
+
+
+@pytest.mark.parametrize("words", [36, 132])
+def test_gated_wide_kernel_all_ones_equals_k1(dev, words):
+    """Past 32 words, K3 under an all-ones gate is K1's wide kernel."""
+    from klogs_tpu_torch.ops import bits
+
+    patterns, needles, dense = wide_case(words)
+    prog, live, acc = nfa.compile_grouped(patterns, device=dev)
+    rows, lens = wide_rows(600, len(dense) + 40, needles, dense, words)
+    cls = nfa.classify_chunk(prog, torch.from_numpy(rows).to(dev),
+                             torch.from_numpy(lens).to(dev), True, True)
+    ones = bits.pack_bits(torch.ones((600, prog.follow.shape[0]),
+                                     dtype=torch.bool)).to(dev)
+    nfa_kernels.reset_launches()
+    got, _ = nfa_kernels.match_cls_grouped_gated(prog, live, acc, cls, ones)
+    k1 = nfa_kernels.match_cls_grouped(prog, live, acc, cls)
+    assert torch.equal(got, k1)
+    assert got[0] and not got[1] and not got.all()
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GATED_WIDE] == 1
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED_WIDE] == 1
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GATED] == 0
 
 
 def test_gated_kernel_all_ones_equals_k1(dev):

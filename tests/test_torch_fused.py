@@ -33,6 +33,17 @@ GROUPED_LINES = [b"panic: now", b"code=504", b"FATAL x", b"zFATAL x",
                  b"end it", b""] * 7
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions' batched products on one thread: several test
+    processes each spreading them over every core slow each other to a
+    crawl (the wide cases step 1152-state groups)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def oracle(patterns, line: bytes) -> bool:
     body = line.rstrip(b"\n")
     return any(re.search(p.encode(), body) for p in patterns)
@@ -172,6 +183,54 @@ def test_fused_engine_equals_jax_fused_and_oracle(fused_env, monkeypatch):
     assert got == [oracle(ENGINE_PATS, ln) for ln in lines]
     assert got[-2] and got[-1] and any(got[:-2])
     assert calls and {w for _, w in calls} == {CHUNK + 3, 128 + 3}
+
+
+def test_fused_engine_wide_set_equals_jax_fused_and_oracle(fused_env,
+                                                         monkeypatch):
+    """The 32 bench patterns and the watch list (``chip_smoke.WATCH``: 5
+    groups of 1152 states, 36 words) under the variable: short lines go
+    through the fused wrapper at that width (K4's card kernel there is
+    ``grouped_fused_wide_kernel``), K1's is never called, the long lines
+    take K2g over the grouped automata; every verdict equals the JAX
+    engine's under the same variable (its fused Pallas kernel in
+    interpret mode) and the oracle."""
+    import chip_smoke
+
+    pats = list(bench.PATTERNS) + [chip_smoke.WATCH]
+    widths = []
+    fused = nfa_kernels.match_cls_grouped_fused
+
+    def recording(prog, live, acc, cls):
+        widths.append(nfa_kernels.kernel_states(prog.n_states) // 32)
+        return fused(prog, live, acc, cls)
+
+    def k1(*a, **kw):
+        raise AssertionError("K1 ran under KLOGS_TPU_FUSED_GROUPS=1")
+
+    monkeypatch.setattr(nfa_kernels, "match_cls_grouped_fused", recording)
+    monkeypatch.setattr(nfa_kernels, "match_cls_grouped", k1)
+    port = GpuEngineFilter(pats, device="cpu")
+    assert port._fused and port._aug is None
+    assert port._grouped.follow.shape[0] == 5
+    rng = np.random.default_rng(12)
+    lines = [ln + b"\n" for ln in fake_lines(48, 12)]
+    lines += [b"pod=pod-0255", b"x pod=pod-01", b"pod=pod-0256",
+              b"pod=pod-0129 and panic: too", b""]
+    for nd, at in ((b"pod=pod-0033", 4090), (b"pod=pod-0012", 5000)):
+        size = int(rng.integers(4097, 6 * 1024))
+        body = bytearray(rng.integers(32, 127, size=size, dtype=np.uint8))
+        body[at - len(nd):at] = nd
+        lines.append(bytes(body))
+    payload, offsets, _ = frame_lines(lines, strip_nl=False)
+    got = port.fetch_framed(port.dispatch_framed(payload, offsets)).tolist()
+    ref = NFAEngineFilter(pats, kernel="interpret")
+    assert ref._chain_kwargs(True)[0] == {"fused": True}
+    exp = [oracle(pats, ln) for ln in lines]
+    assert got == exp
+    assert ref.match_lines(lines) == exp
+    assert any(exp[:48]) and not all(exp[:48])
+    assert exp[-7:] == [True, False, False, True, False, True, False]
+    assert widths and set(widths) == {36}
 
 
 def test_fused_include_exclude_equals_jax(fused_env):

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import bench
+import chip_smoke
 from klogs_tpu.filters.compiler.glushkov import compile_patterns as jax_compile
 from klogs_tpu.filters.tpu import classify_chunk_host
 from klogs_tpu.ops import nfa as jnfa
@@ -20,6 +21,17 @@ from klogs_tpu_torch.ops import nfa, nfa_kernels, pack
 
 NEEDLES = [b"panic:", b"code=503", b"retry 3/5", b"uid=1234567",
            b"FATAL x code=9", b"latency=495ms", b"broken pipe", b"EPIPE"]
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions' batched products on one thread: several test
+    processes each spreading them over every core slow each other to a
+    crawl (the wide cases step 1152-state groups)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def seeded_rows(seed: int, B: int, width: int, lo: int = 0):
@@ -213,6 +225,9 @@ def test_wrappers_count_only_kernel_launches():
     assert nfa_kernels.grouped_state_words(wp) == 36
     wcls = torch.full((4, 5), wp.pad_class, dtype=torch.int16)
     nfa_kernels.match_cls_grouped(wp, wl, wa, wcls)
+    nfa_kernels.match_cls_grouped_fused(wp, wl, wa, wcls)
+    nfa_kernels.match_cls_grouped_gated(
+        wp, wl, wa, wcls, torch.ones((4, 1), dtype=torch.int64))
     nfa_kernels.match_chunk_cls_grouped(
         wp, wl, wa, wcls, nfa_kernels.initial_state_grouped(wp, wl, 4))
     assert nfa_kernels.LAUNCHES == {nfa_kernels.GROUPED: 0,
@@ -222,6 +237,8 @@ def test_wrappers_count_only_kernel_launches():
                                     nfa_kernels.GROUPED_CHUNK: 0,
                                     nfa_kernels.GROUPED_WIDE: 0,
                                     nfa_kernels.GROUPED_CHUNK_WIDE: 0,
+                                    nfa_kernels.GATED_WIDE: 0,
+                                    nfa_kernels.FUSED_WIDE: 0,
                                     nfa_kernels.PAIRS: 0,
                                     nfa_kernels.PACK_CLS: 0,
                                     nfa_kernels.PACK: 0}
@@ -260,13 +277,13 @@ def k64_rows(seed: int, B: int = 48, width: int = 64):
     return rows, lens
 
 
-def k64_programs():
+def k64_programs(pats: list = K64):
     from klogs_tpu_torch.filters.compiler.groups import analyze, plan_groups
     from klogs_tpu_torch.filters.compiler.index import FactorIndex
 
-    tp, live, acc = nfa.compile_grouped(K64, device="cpu")
-    jdp, _, _ = jnfa.compile_grouped(K64)
-    infos = analyze(K64)
+    tp, live, acc = nfa.compile_grouped(pats, device="cpu")
+    jdp, _, _ = jnfa.compile_grouped(pats)
+    infos = analyze(pats)
     prog = FactorIndex(infos, plan_groups(infos)).sweep_program(
         group_of=np.asarray(tp.pattern_group, np.int32),
         n_groups=int(tp.follow.shape[0]))
@@ -370,7 +387,7 @@ def sweep_gate(prog, rows, lens):
         dict(sweep_tables=jtables(prog)))
 
 
-def pair_cnf_gate(tp, jdp, cls):
+def pair_cnf_gate(tp, jdp, cls, pats: list = K64):
     """The class-domain pair-CNF gate's [B, GW] words, and JAX's gated
     kernel arguments for the same gate."""
     from klogs_tpu.filters.compiler.prefilter import compile_prefilter as jcp
@@ -378,14 +395,15 @@ def pair_cnf_gate(tp, jdp, cls):
     from klogs_tpu_torch.filters.compiler.prefilter import compile_prefilter
     from klogs_tpu_torch.ops import bits, prefilter
 
-    tt = prefilter.class_tables(compile_prefilter(K64), tp.byte_class.numpy(),
-                                tp.n_classes, device="cpu")
+    tt = prefilter.class_tables(compile_prefilter(pats),
+                                tp.byte_class.numpy(), tp.n_classes,
+                                device="cpu")
     onehot = prefilter.pattern_group_onehot(
         tp.pattern_group, tp.follow.shape[0], device="cpu")
     gm = prefilter.group_candidates(
-        prefilter.candidate_matrix_from_cls(tt, cls), onehot, len(K64))
+        prefilter.candidate_matrix_from_cls(tt, cls), onehot, len(pats))
     return bits.pack_bits(gm), dict(prefilter_tables=jpf.class_tables(
-        jcp(K64), jdp.byte_class, jdp.n_classes))
+        jcp(pats), jdp.byte_class, jdp.n_classes))
 
 
 @pytest.mark.parametrize("kind", ["sweep", "pair_cnf"])
@@ -395,10 +413,44 @@ def test_gate_pairs_and_plain_versions_equal_pallas(kind):
     plain version from the gate and from the pair list give JAX's gated
     Pallas verdicts (interpret mode), and the pair count is the gated
     cells' and the candidate count JAX's."""
+    gated_against_pallas(kind, K64, *k64_rows(26))
+
+
+# The thousand-pattern path with one wide group: make_patterns(64) and
+# the watch list (chip_smoke.WATCH, 1,028 positions) put all 10 groups
+# at 1152 states (36 words), the width of K3's wide kernel on the card.
+K64W = K64 + [chip_smoke.WATCH]
+WATCH_NEEDLES = [b"pod=pod-0001", b"x pod=pod-0255 y", b"pod=pod-0002",
+                 b"pod=pod-013", b"pod=pod-0129"]
+
+
+def k64w_rows(seed: int):
+    """16 rows of 45 bytes (T = 48): ``k64_rows`` with watch-list needles
+    (two near misses) planted in every fourth row."""
+    rows, lens = k64_rows(seed, B=16, width=45)
+    for i in range(3, 16, 4):
+        nd = WATCH_NEEDLES[(i // 4) % len(WATCH_NEEDLES)]
+        lens[i] = max(lens[i], len(nd) + 2)
+        rows[i, 2:2 + len(nd)] = np.frombuffer(nd, dtype=np.uint8)
+    return rows, lens
+
+
+@pytest.mark.parametrize("kind", ["sweep", "pair_cnf"])
+def test_gate_pairs_and_plain_versions_equal_pallas_wide(kind):
+    """As above on the set whose groups are all 36 words: K3's plain
+    version, which the card's wide K3 is held against, gives JAX's gated
+    verdicts and candidate count under each gate."""
+    tp = gated_against_pallas(kind, K64W, *k64w_rows(27))
+    assert tp.follow.shape[0] == 10
+    assert nfa_kernels.kernel_states(tp.n_states) == 32 * 36
+
+
+def gated_against_pallas(kind: str, pats: list, rows, lens):
+    """The checks of the two tests above on one set and batch; returns
+    the port's program."""
     from klogs_tpu_torch.ops import bits
 
-    tp, jdp, live, acc, prog = k64_programs()
-    rows, lens = k64_rows(26)
+    tp, jdp, live, acc, prog = k64_programs(pats)
     cls = nfa.classify_chunk(tp, torch.from_numpy(rows),
                              torch.from_numpy(lens), True, True)
     if kind == "sweep":
@@ -407,7 +459,7 @@ def test_gate_pairs_and_plain_versions_equal_pallas(kind):
             jdp, live, acc, rows, lens, tile_b=16, interpret=True,
             return_stats=True, **jkw)
     else:
-        words, jkw = pair_cnf_gate(tp, jdp, cls)
+        words, jkw = pair_cnf_gate(tp, jdp, cls, pats)
         exp, jstats = pallas_nfa.match_cls_grouped_pallas(
             jdp, live, acc, cls.numpy().astype(np.int32), tile_b=16,
             interpret=True, return_stats=True, **jkw)
@@ -425,7 +477,10 @@ def test_gate_pairs_and_plain_versions_equal_pallas(kind):
                                           n_pairs).tolist() == exp
     assert nfa_kernels.match_cls_grouped_gated_plain(
         tp, live, acc, cls, words).tolist() == exp
-    assert any(exp)
+    assert exp == [any(re.search(p.encode(), bytes(r[:n])) for p in pats)
+                   for r, n in zip(rows, lens)]
+    assert any(exp) and not all(exp)
+    return tp
 
 
 def test_gated_plain_counts_only_gated_cells():

@@ -90,3 +90,59 @@ def test_watch_list_engine_equals_jax_and_re(monkeypatch):
     payload, offsets, _ = frame_lines(lines[:96], strip_nl=False)
     framed = port.fetch_framed(port.dispatch_framed(payload, offsets))
     assert framed.tolist() == got[:96]
+
+
+# ---- the thousand-pattern path with a wide group -------------------------
+
+K64W = bench.make_patterns(64) + [chip_smoke.WATCH]
+CHUNK = 256
+
+
+def k64w_lines() -> list:
+    """The port's K64 engine corpus (``bench.make_lines(40)``, minted
+    needles, a 300-byte line: long at a 256-byte chunk) and lines around
+    the watch list: 59 short lines and one long."""
+    lines = list(bench.make_lines(40))
+    lines += [b"svc-0008 unreachable\n", b"errcode=00009", b"CRIT00011 x",
+              b"x tenant-0010 y quota exceeded", b"svc-0001 unreachable",
+              b"PANIC job-00014", b"user=u000015 denied\n", b"", b"panic: a",
+              b"retry 3/5", b"z" * 300 + b" deploy/rel-0013 failed"]
+    lines += [b"pod=pod-0001", b"x pod=pod-0255 y\n", b"pod=pod-0002",
+              b"pod=pod-013", b"pod=pod-0129 svc-0003 unreachable",
+              b"pod=pod-0127 errcode=00011", b"pod=pod-0256", b"pod=pod-"]
+    return lines
+
+
+def test_k64_watch_engine_equals_jax_and_re(monkeypatch):
+    """``make_patterns(64)`` and the watch list, 10 groups of 36 words,
+    under the sweep gate: short lines go through the gated wrapper (K3,
+    whose card kernel at this width is ``grouped_gated_wide_kernel``),
+    never K1, and the long line through K2g; the verdicts equal the JAX
+    engine's (sweep and gated Pallas kernel in interpret mode) and
+    ``re``'s."""
+    monkeypatch.setenv("KLOGS_TPU_SWEEP", "1")
+    gated, widths = nfa_kernels.match_cls_grouped_gated, []
+
+    def recording(prog, live, acc, cls, words, want_stats=False):
+        widths.append(nfa_kernels.kernel_states(prog.n_states) // 32)
+        return gated(prog, live, acc, cls, words, want_stats=want_stats)
+
+    def k1(*a, **kw):
+        raise AssertionError("K1 ran under the sweep gate")
+
+    monkeypatch.setattr(nfa_kernels, "match_cls_grouped_gated", recording)
+    monkeypatch.setattr(nfa_kernels, "match_cls_grouped", k1)
+    port = GpuEngineFilter(K64W, chunk_bytes=CHUNK, device="cpu")
+    ref = NFAEngineFilter(K64W, chunk_bytes=CHUNK, kernel="interpret")
+    assert port._sweep_tables is not None and ref._sweep_tables is not None
+    assert port._grouped.follow.shape[0] == 10
+    assert port._aug is None and port._long is not None
+    lines = k64w_lines()
+    payload, offsets, _ = frame_lines(lines, strip_nl=False)
+    got = port.fetch_framed(port.dispatch_framed(payload, offsets)).tolist()
+    exp = [any(re.search(p.encode(), ln.rstrip(b"\n")) for p in K64W)
+           for ln in lines]
+    assert got == exp and sum(exp) >= 12 and not all(exp)
+    assert got[-8:] == [True, True, False, False, True, True, False, False]
+    assert ref.match_lines(lines) == exp
+    assert widths and set(widths) == {36}
