@@ -25,11 +25,11 @@ on the host instead, in ``klogs_tpu/native/_hostops.c``.)
   set whose union is wider than ``GROUPED_LONG_STATES`` (K2's register
   kernel), K2g (``match_chunk_cls_grouped``) over the grouped program,
   a carry per (line, group); the union is then never built on the
-  device. That holds at every group width K2g covers: its register
-  kernel up to 1024 states a group, its wide kernel up to
-  ``nfa_kernels.WIDE_WORDS`` (5120 states; a group is that wide only
-  under ``KLOGS_MAX_PATTERN_POSITIONS`` raised past 4096); a set with a
-  group past that stays on the union. Lines over
+  device. That holds at every group width: K2g's register kernel up to
+  1024 states a group, its wide kernel up to ``nfa_kernels.WIDE_WORDS``
+  (5120 states), its shared-memory kernel past that (a group is that
+  wide only under ``KLOGS_MAX_PATTERN_POSITIONS`` raised past 4096).
+  Lines over
   ``SEQ_SCAN_BYTES``, which the JAX engine sends to its
   sequence-parallel scan, take the same chunk path here, with the same
   verdicts: the port's scan (``ops/seqscan.py``) lost to K2 at every
@@ -365,23 +365,17 @@ class GpuEngineFilter(ShortLines, LogFilter):
 
     def _long_program(self, prog, patterns: list[str], ignore_case: bool):
         """(grouped program, live, acc) for K2g when the union is wider
-        than ``GROUPED_LONG_STATES`` and K2g covers the groups' width
-        (``nfa_kernels.shift_words``), else None (the union on K2). A
-        mesh's filter compiles the whole set's grouped program on its
-        device for this."""
+        than ``GROUPED_LONG_STATES``, else None (the union on K2). K2g
+        runs every group width. A mesh's filter compiles the whole set's
+        grouped program on its device for this."""
         union = nfa_kernels.kernel_states(nfa.padded_states(prog.n_states
                                                             + 2))
         if union <= GROUPED_LONG_STATES:
             return None
         if self._grouped is not None:
-            long = (self._grouped, self._g_live, self._g_acc)
-        else:
-            long = nfa.compile_grouped(patterns, ignore_case=ignore_case,
-                                       device=self.device)
-        if not nfa_kernels.shift_words(
-                nfa_kernels.grouped_state_words(long[0])):
-            return None
-        return long
+            return self._grouped, self._g_live, self._g_acc
+        return nfa.compile_grouped(patterns, ignore_case=ignore_case,
+                                   device=self.device)
 
     def _use_engine(self, engine, device, stats, patterns: list[str],
                     ignore_case: bool) -> None:

@@ -50,6 +50,20 @@ over 8192 and 131072 rows of ``chip_smoke.k1024_rows``: ``launch_gated``
 alone on ``gate_pairs``' list (``kernels_ms`` by name, and CUDA events),
 the pair builder and the whole wrapper by events, the verdicts held
 against ungated K1.
+
+Then (also alone with ``--past160``) K1, K4, K3 and K2g past 160 state
+words, through the same wrapper names (a tree from before the
+shared-memory kernels runs the generic wide kernels there, and refuses
+K2g): K1 and K4 on the 32 patterns with watch lists of 700 and 1016
+pods (5 groups of 176 and 256 words) over 131072 FakeCluster rows at
+the 128-byte bucket, and on dense literal sets of 176 and 256 words
+over 512 rows of 6144 and 8704 bytes (row 0 the dense line, as s1280);
+K3 on ``make_patterns(64)`` and the 700-pod list under the engine's
+sweep gate over 131072 ``k1024_rows`` rows; K2g (where the tree runs
+it) and ``chunk_nfa_wide`` on the set's union over the same 8 x 4096
+chunks of 8 lines of 12-16 KiB, the carry chained, the verdicts of the
+two equal. K2g and K2 are timed by CUDA events a chunk, the others as
+above.
 """
 
 import argparse
@@ -129,7 +143,9 @@ def main(argv=None) -> int:
     ap.add_argument("--main", action="store_true",
                     help="only K1 and K4 on the main path's batches (and K3)")
     ap.add_argument("--wide", action="store_true",
-                    help="only K3 and K4 past 32 words")
+                    help="only K3 and K4 past 32 words, and past 160")
+    ap.add_argument("--past160", action="store_true",
+                    help="only K1, K2g, K3 and K4 past 160 words")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import numpy as np
@@ -145,8 +161,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
     label = args.label or os.path.abspath(args.tree)
-    if args.wide:
-        wide_bench(np, torch, nfa, nk, dev, label)
+    if args.wide or args.past160:
+        if not args.past160:
+            wide_bench(np, torch, nfa, nk, dev, label)
+        past160_bench(np, torch, compile_patterns, nfa, nk, dev, label)
         return 0
     for S in () if args.main else WIDTHS:
         pats = patterns_for(S)
@@ -421,6 +439,161 @@ def wide_bench(np, torch, nfa, nk, dev, label: str) -> None:
                           "pairs_ms": cuda_ms(torch, lambda: nk.gate_pairs(
                               w, G), 5),
                           "wrapper_ms": cuda_ms(torch, k3, 5)}), flush=True)
+
+
+def watch_list(n: int) -> str:
+    """``chip_smoke.watch_list`` (a tree's own chip_smoke may predate
+    it): n pods as one alternation, 8 positions a pod."""
+    return ("pod=(?:" + "|".join(f"pod-{p:04d}" for p in range(1, 2 * n, 2))
+            + ")")
+
+
+def dense_rows(np, rng, B: int, width: int, line: bytes):
+    """``chip_smoke.rows_with_needles``' printable rows, row 0 ``line``."""
+    import chip_smoke
+
+    r, lens = chip_smoke.rows_with_needles(np, rng, B, width, 0,
+                                           printable=True)
+    r[0, :len(line)] = np.frombuffer(line, np.uint8)
+    lens[0] = max(lens[0], len(line))
+    return r, lens
+
+
+def past160_bench(np, torch, compile_patterns, nfa, nk, dev,
+                  label: str) -> None:
+    """K1, K4, K3 and K2g past 160 words (see the module's note)."""
+    import chip_smoke
+    from klogs_tpu_torch.cluster.fake import synthetic_line
+    from klogs_tpu_torch.filters.gpu import GpuEngineFilter
+    from klogs_tpu_torch.ops import sweep
+    from klogs_tpu_torch.ops.bits import unpack_bits
+
+    os.environ["KLOGS_MAX_PATTERN_POSITIONS"] = "65536"
+    rng = np.random.default_rng(SEED + 160)
+    watch_rows = chip_smoke.watch_rows(np, synthetic_line, 131072, 128)
+    d176, d256 = "q" * 5600 + "z", "q" * 8120 + "z"
+    cases = (
+        ("watch700_w128", chip_smoke.PATTERNS + [watch_list(700)], watch_rows,
+         5),
+        ("watch1016_w128", chip_smoke.PATTERNS + [watch_list(1016)],
+         watch_rows, 3),
+        ("dense176", [d176, "panic:"],
+         dense_rows(np, rng, 512, 6144, d176.encode()), 1),
+        ("dense256", [d256, "panic:"],
+         dense_rows(np, rng, 512, 8704, d256.encode()), 1))
+    for name, pats, (r, lens), reps in cases:
+        dp, live, acc = nfa.compile_grouped(pats, device=dev)
+        cls = nfa.classify_chunk(dp, torch.from_numpy(r).to(dev),
+                                 torch.from_numpy(lens).to(dev), True, True)
+
+        def k1():
+            return nk.match_cls_grouped(dp, live, acc, cls)
+
+        def k4():
+            return nk.match_cls_grouped_fused(dp, live, acc, cls)
+
+        print(json.dumps({"tree": label, "case": name,
+                          "rows": cls.shape[0], "T": cls.shape[1],
+                          "groups": dp.follow.shape[0],
+                          "states": dp.n_states, "classes": dp.n_classes,
+                          "equal": bool(torch.equal(k1(), k4())),
+                          "matched": int(k1().sum()),
+                          "k1_kernels_ms": kernels_ms(torch, k1, reps),
+                          "k4_kernels_ms": kernels_ms(torch, k4, reps),
+                          "wrapper_ms": {"k1": cuda_ms(torch, k1, reps),
+                                         "k4": cuda_ms(torch, k4, reps)}}),
+              flush=True)
+        del cls
+    pats = chip_smoke.make_patterns(64) + [watch_list(700)]
+    eng = GpuEngineFilter(pats, device=dev)
+    dp, live, acc = eng._grouped, eng._g_live, eng._g_acc
+    G = dp.follow.shape[0]
+    r, lens = chip_smoke.k1024_rows(np, synthetic_line, 131072, 128,
+                                    SEED + 4)
+    batch, lens = torch.from_numpy(r).to(dev), torch.from_numpy(lens).to(dev)
+    cls = nfa.classify_chunk(dp, batch, lens, True, True)
+    words = sweep.sweep_group_bits(eng._sweep_tables, batch, lens)
+    pairs, n_pairs, _ = nk.gate_pairs(words, G)
+
+    def launch():
+        return nk.launch_gated(dp, live, acc, cls, pairs, n_pairs)
+
+    def k3():
+        return nk.match_cls_grouped_gated(dp, live, acc, cls, words)[0]
+
+    print(json.dumps({"tree": label, "case": "k64_watch700_sweep",
+                      "rows": cls.shape[0], "T": cls.shape[1], "groups": G,
+                      "states": dp.n_states,
+                      "pairs": int(unpack_bits(words.long(), G).sum()),
+                      "equal": bool(torch.equal(
+                          k3(), nk.match_cls_grouped(dp, live, acc, cls))),
+                      "matched": int(k3().sum()),
+                      "kernels_ms": kernels_ms(torch, launch, 3),
+                      "launch_ms": cuda_ms(torch, launch, 3),
+                      "wrapper_ms": cuda_ms(torch, k3, 3)}), flush=True)
+    del eng, cls, batch, words, pairs
+    k2g_past160(np, torch, compile_patterns, nfa, nk, dev, label, rng)
+
+
+def k2g_past160(np, torch, compile_patterns, nfa, nk, dev, label: str,
+                rng, B: int = 8, n_chunks: int = 4, L: int = 4096) -> None:
+    """K2g on the 32 patterns and the 700-pod list (where the tree's K2g
+    takes 176 words) and ``chunk_nfa_wide`` on their union, over the
+    same B x L chunks, each chunk timed by CUDA events after one
+    untimed launch of each."""
+    import chip_smoke
+
+    pats = chip_smoke.PATTERNS + [watch_list(700)]
+    gp, live, acc = nfa.compile_grouped(pats, device=dev)
+    union = compile_patterns(pats)
+    up = nfa.pack_program(nfa.augment(union), device=dev)
+    needles = [b"pod=pod-0001", b"pod=pod-1399", b"pod=pod-0641",
+               b"pod=pod-0642"] + chip_smoke.NEEDLES
+    r, lens = chip_smoke.long_rows(np, rng, B, L, (n_chunks - 1) * L + 1,
+                                   n_chunks * L, needles)
+    rows_d, lens_d = torch.from_numpy(r).to(dev), torch.from_numpy(lens).to(dev)
+    grouped = hasattr(nk, "GROUPED_CHUNK_SMEM")  # else the tree refuses it
+    vg = nk.initial_state_grouped(gp, live, B)
+    vu = nk.initial_state(up, union.n_states, B)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        ev[1].synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+
+    # One untimed launch of each kernel first (a program's tables are
+    # built at its first call), so that every timed chunk is warm.
+    chunk = rows_d[:, :L].contiguous()
+    nk.match_chunk_cls(up, union.n_states + 1, nfa.classify_chunk(
+        up, chunk, lens_d, True, False), vu, False)
+    if grouped:
+        nk.match_chunk_cls_grouped(gp, live, acc, nfa.classify_chunk(
+            gp, chunk, lens_d, True, False), vg, False)
+    k2g_ms, wide_ms, equal = [], [], True
+    for k in range(n_chunks):
+        final = k == n_chunks - 1
+        chunk = rows_d[:, k * L:(k + 1) * L].contiguous()
+        cu = nfa.classify_chunk(up, chunk, lens_d - k * L, k == 0, final)
+        (vu, mu), ms = timed(lambda: nk.match_chunk_cls(
+            up, union.n_states + 1, cu, vu, final))
+        wide_ms.append(ms)
+        if grouped:
+            cg = nfa.classify_chunk(gp, chunk, lens_d - k * L, k == 0, final)
+            (vg, mg), ms = timed(lambda: nk.match_chunk_cls_grouped(
+                gp, live, acc, cg, vg, final))
+            k2g_ms.append(ms)
+            equal = equal and bool(torch.equal(mg, mu))
+    print(json.dumps({"tree": label, "case": "k2g_watch700_8x4096",
+                      "lines": B, "chunks": n_chunks,
+                      "groups": gp.follow.shape[0], "states": gp.n_states,
+                      "union_states": up.n_states, "matched": int(mu.sum()),
+                      "chunk_nfa_wide_ms": wide_ms,
+                      "k2g_ms": k2g_ms or None,
+                      "equal": equal if grouped else None}), flush=True)
 
 
 if __name__ == "__main__":

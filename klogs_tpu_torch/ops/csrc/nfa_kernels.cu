@@ -194,13 +194,34 @@
 // many (K1 and K4 on an engine batch, B x G x T; K3, listed pairs x T),
 // not bytes.
 //
-// Past 160 words K1, K3 and K4 keep the generic *_wide kernels, and K2
-// keeps chunk_nfa_wide at any width past 32: each line (K1, K2), (line,
-// group) pair (K4) or listed pair (K3) a warp, its state in shared
+// Past 160 words (5120 states: one pattern of more than ~5100 positions,
+// under KLOGS_MAX_PATTERN_POSITIONS raised past its default 4096) K1,
+// K2g, K3 and K4 run the same split, still a warp a (line, group), with
+// the state in shared memory: grouped_shift_smem_kernel (K1),
+// grouped_chunk_smem_kernel (K2g, the carry [B][G][W] words),
+// grouped_fused_smem_kernel (K4) and grouped_gated_smem_kernel (K3). A
+// warp's state v and next state n are two W-word buffers in shared
+// memory and lane l walks words l, l+32, ... in a loop of W/32 slices,
+// so any width the compiler emits runs (a width whose two buffers do
+// not fit a block's shared memory is refused: the wrapper raises
+// GroupTooWideError). The step reads three words a slice (v, the
+// constants, the mask row) and writes one; the carry crosses lanes by
+// the rotating shuffle, live's bit is one broadcast word of v, and a
+// vote over v & EX sends the warp, only where some exception is set, to
+// a second pass that ORs each set bit's follow row. The K1/K2g/K4
+// schedule (a block of lines of one group, groups on grid y) stages the
+// group's constants and mask rows in shared memory where they fit beside
+// the buffers in a quarter of the budget (four blocks an SM: up to 392
+// words at C = 16, 170 at C = 64), else reads them through L1, as K3
+// always does.
+// What bounds them (measured on the H100): the latency of a warp's
+// chain of steps (W/32 slices a step, each three loads and a shuffle),
+// which more warps an SM hide, not bytes.
+//
+// K2 keeps chunk_nfa_wide at any width past 32 words (off the engine's
+// path since K2g covers every width): a warp a line, its state in shared
 // memory, and for every set state bit its whole follow row ORed from
-// device memory through L2 in a coalesced pass, so every pattern set
-// the compiler accepts runs. K2g past 160 words has no kernel: the
-// engine keeps such a set's long lines on the union (chunk_nfa_wide).
+// device memory through L2 in a coalesced pass.
 //
 // Every entry point returns the cudaError_t of its launch (0 = success)
 // and never synchronises.
@@ -1272,7 +1293,290 @@ __global__ void __launch_bounds__(CHUNK_WARPS * 32)
   if (lane == (acc >> 5)) matched[line] = (v >> (acc & 31)) & 1u;
 }
 
-// ---- the generic wide kernels (past 160 words; K2 past 32) ----------
+// ---- past 160 words: the shift step, the state in shared memory ------
+// (see the note at the top)
+//
+// A warp still owns one (line, group), lane l the words l, l+32, ...,
+// but the state v and the next state n are the warp's two W-word
+// buffers in shared memory, walked by a loop of W/32 slices, so any
+// width runs. The step's math is wide_shift_step's: per slice, the lane
+// reads its word of v, of the constants and of the class's mask row;
+// shl1's carry into word j is bit 31 of word j-1 of v & SH, passed by a
+// rotating shuffle (lane 0 takes lane 31's of the slice before); live's
+// bit is one broadcast word of v; a vote finds a set exception, and a
+// second pass over the slices, only then, ballots v & EX and ORs each
+// set bit's follow row (masked) into n, a word a lane. Every lane
+// touches its own words only, and the one word read across lanes (v's
+// live word) is read after the __syncwarp that ends the step before.
+// (Skipping the slices that are zero, and loading eight slices' words
+// ahead, each ran slower on the H100: PERF.md.)
+
+// A warp's tables past 160 words: the group's [W] (SH, SELF, RL, EX)
+// constant words and its mask rows, STAGED in shared memory (C+1 rows,
+// row C zero), else read through L1 from device memory (an id outside
+// [0, C) reads zeros).
+template <bool STAGED>
+struct SmemTables;
+
+template <>
+struct SmemTables<true> {
+  const uint4* k;     // [W]
+  const uint32_t* m;  // [C + 1][W]
+  int W, C;
+  __device__ __forceinline__ uint4 consts(int j) const { return k[j]; }
+  __device__ __forceinline__ uint32_t ex(int j) const { return k[j].w; }
+  __device__ __forceinline__ const uint32_t* row(int c) const {
+    return m + (size_t)min((unsigned)c, (unsigned)C) * W;
+  }
+  __device__ __forceinline__ uint32_t word(const uint32_t* r, int j) const {
+    return r[j];
+  }
+};
+
+template <>
+struct SmemTables<false> {
+  const uint4* k;     // [W]
+  const uint32_t* m;  // [C or C + 1][W]
+  int W, C;
+  __device__ __forceinline__ uint4 consts(int j) const { return __ldg(k + j); }
+  __device__ __forceinline__ uint32_t ex(int j) const {
+    return __ldg(reinterpret_cast<const uint32_t*>(k + j) + 3);
+  }
+  __device__ __forceinline__ const uint32_t* row(int c) const {
+    return (unsigned)c < (unsigned)C ? m + (size_t)c * W : nullptr;
+  }
+  __device__ __forceinline__ uint32_t word(const uint32_t* r, int j) const {
+    return r != nullptr ? __ldg(r + j) : 0u;
+  }
+};
+
+// One step, n = reach(v) & mask[c], of a warp's (line, group) whose
+// state v and next state n are W-word buffers in shared memory (lane l:
+// words l, l+32, ...); live is bit lsh of word lw; f_g is the group's
+// follow table [S][W] in device memory. Ends with the warp's
+// __syncwarp.
+template <bool STAGED>
+__device__ __forceinline__ void smem_shift_step(
+    const uint32_t* __restrict__ v, uint32_t* __restrict__ n,
+    const SmemTables<STAGED>& t, const uint32_t* __restrict__ f_g, int lane,
+    int lw, int lsh, int c) {
+  const int W = t.W;
+  const uint32_t keep = (v[lw] >> lsh) & 1u ? FULL : 0u;
+  const uint32_t* mr = t.row(c);
+  uint32_t exc = 0u, carry = 0u;
+  for (int j0 = 0; j0 < W; j0 += 32) {
+    const int j = j0 + lane;
+    const bool in = j < W;
+    const uint32_t x = in ? v[j] : 0u;
+    const uint4 k = in ? t.consts(j) : make_uint4(0u, 0u, 0u, 0u);
+    const uint32_t m = in ? t.word(mr, j) : 0u;
+    const uint32_t a = x & k.x;
+    // Lane l - 1's top bit (a source lane is taken modulo 32: lane 0
+    // reads lane 31's, which is lane 0's carry into the next slice).
+    const uint32_t prev = __shfl_sync(FULL, a >> 31, lane - 1);
+    const uint32_t cin = lane ? prev : carry;
+    carry = prev;
+    exc |= x & k.w;
+    if (in) n[j] = ((a << 1) | cin | (x & k.y) | (k.z & keep)) & m;
+  }
+  if (__any_sync(FULL, exc != 0u)) {  // warp-uniform, as every loop below
+    for (int j0 = 0; j0 < W; j0 += 32) {
+      const int j = j0 + lane;
+      const uint32_t e = j < W ? v[j] & t.ex(j) : 0u;
+      uint32_t lanes = __ballot_sync(FULL, e != 0u);
+      while (lanes) {
+        const int q = __ffs(lanes) - 1;
+        lanes &= lanes - 1u;
+        uint32_t bits = __shfl_sync(FULL, e, q);
+        while (bits) {
+          const int b = __ffs(bits) - 1;
+          bits &= bits - 1u;
+          const uint32_t* row = f_g + (size_t)((j0 + q) * 32 + b) * W;
+          for (int i = lane; i < W; i += 32)
+            n[i] |= __ldg(row + i) & t.word(mr, i);
+        }
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// A warp's (line, group) stepped from the state in v over the line's T
+// class ids at `row` (lane l holds the id of step t0 + l, the next 32
+// loaded a tile ahead), v and n swapped after each step; returns the
+// buffer that holds the last state.
+template <bool STAGED>
+__device__ __forceinline__ uint32_t* smem_shift_scan(
+    uint32_t* v, uint32_t* n, const SmemTables<STAGED>& t,
+    const uint32_t* __restrict__ f_g, int lane, int lw, int lsh,
+    const int16_t* __restrict__ row, int T) {
+  int cur = lane < T ? row[lane] : -1;
+  int nxt = 32 + lane < T ? row[32 + lane] : -1;
+  for (int t0 = 0; t0 < T; t0 += 32) {
+    const int cnt = min(32, T - t0);
+    for (int tt = 0; tt < cnt; ++tt) {
+      smem_shift_step<STAGED>(v, n, t, f_g, lane, lw, lsh,
+                              __shfl_sync(FULL, cur, tt));
+      uint32_t* s = v;
+      v = n;
+      n = s;
+    }
+    cur = nxt;
+    nxt = t0 + 64 + lane < T ? row[t0 + 64 + lane] : -1;
+  }
+  return v;
+}
+
+// Block (x, g): group g's automaton, warp w on line ch * nw + w for the
+// chunks ch = x, x + gridDim.x, ... of nw = blockDim.x / 32 lines, as
+// wide_shift_pairs, with the state in shared memory. STAGED: the block
+// first copies its group's constants ([W] words of the follow buffer's
+// [G][W][4] tail, as four [W] arrays) and mask rows (rows 0..C-1 of
+// mask [G][MR][W], then a zero row) into shared memory; the warps'
+// buffers follow them. v0/vout, out and word_out as in
+// wide_shift_pairs. Not inlined: one body a STAGED for K1's, K2g's and
+// K4's kernels.
+template <bool STAGED>
+__device__ __noinline__ void smem_shift_pairs(
+    const int16_t* __restrict__ cls, int B, int T,
+    const uint32_t* __restrict__ follow, const uint32_t* __restrict__ mask,
+    int G, int W, int C, int MR, int live, int acc,
+    const uint32_t* __restrict__ v0, uint32_t* __restrict__ vout,
+    uint32_t* __restrict__ out, bool word_out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int g = blockIdx.y, nw = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t S = (size_t)32 * W;
+  const uint32_t* m_g = mask + (size_t)g * MR * W;
+  const uint4* c_g =
+      reinterpret_cast<const uint4*>(follow + (size_t)G * S * W) +
+      (size_t)g * W;
+  SmemTables<STAGED> t;
+  t.W = W;
+  t.C = C;
+  uint32_t* buf = smem;
+  if constexpr (STAGED) {
+    uint4* k_s = reinterpret_cast<uint4*>(smem);
+    for (int e = threadIdx.x; e < W; e += blockDim.x) k_s[e] = c_g[e];
+    for (int e = threadIdx.x; e < (C + 1) * W; e += blockDim.x)
+      smem[4 * W + e] = e < C * W ? m_g[e] : 0u;
+    t.k = k_s;
+    t.m = smem + 4 * W;
+    buf = smem + (size_t)(C + 5) * W;
+    __syncthreads();
+  } else {
+    t.k = c_g;
+    t.m = m_g;
+  }
+  const uint32_t* f_g = follow + (size_t)g * S * W;
+  const int lw = live >> 5, lsh = live & 31;
+  uint32_t* v = buf + (size_t)warp * 2 * W;
+  uint32_t* n = v + W;
+  const int chunks = (B + nw - 1) / nw;
+  for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
+    const int line = ch * nw + warp;
+    if (line >= B) break;  // the whole warp; later chunks only go further
+    const size_t at = ((size_t)line * G + g) * W;
+    for (int j = lane; j < W; j += 32)
+      v[j] = v0 != nullptr ? v0[at + j] : (j == lw ? 1u << lsh : 0u);
+    __syncwarp();
+    const uint32_t* f = smem_shift_scan<STAGED>(v, n, t, f_g, lane, lw, lsh,
+                                                cls + (size_t)line * T, T);
+    if (v0 != nullptr)
+      for (int j = lane; j < W; j += 32) vout[at + j] = f[j];
+    if (lane == 0 && (f[acc >> 5] >> (acc & 31)) & 1u) {
+      if (word_out)
+        atomicOr(out + line, 1u);
+      else
+        set_verdict(out, line);
+    }
+    __syncwarp();  // every lane is done with f before the next line
+  }
+}
+
+// K1 past 160 words.
+template <bool STAGED>
+__global__ void __launch_bounds__(WIDE_WARPS * 32)
+    grouped_shift_smem_kernel(const int16_t* __restrict__ cls, int B, int T,
+                              const uint32_t* __restrict__ follow,
+                              const uint32_t* __restrict__ mask, int G, int W,
+                              int C, int live, int acc,
+                              const uint32_t* __restrict__ v0,
+                              uint32_t* __restrict__ vout,
+                              uint32_t* __restrict__ out) {
+  smem_shift_pairs<STAGED>(cls, B, T, follow, mask, G, W, C, C, live, acc,
+                           nullptr, nullptr, out, false);
+}
+
+// K2g past 160 words (mask [G][C+1][W]).
+template <bool STAGED>
+__global__ void __launch_bounds__(WIDE_WARPS * 32)
+    grouped_chunk_smem_kernel(const int16_t* __restrict__ cls, int B, int T,
+                              const uint32_t* __restrict__ follow,
+                              const uint32_t* __restrict__ mask, int G, int W,
+                              int C, int live, int acc,
+                              const uint32_t* __restrict__ v0,
+                              uint32_t* __restrict__ vout,
+                              uint32_t* __restrict__ out) {
+  smem_shift_pairs<STAGED>(cls, B, T, follow, mask, G, W, C, C + 1, live,
+                           acc, v0, vout, out, false);
+}
+
+// K4 past 160 words: K1's schedule, a word a line.
+template <bool STAGED>
+__global__ void __launch_bounds__(WIDE_WARPS * 32)
+    grouped_fused_smem_kernel(const int16_t* __restrict__ cls, int B, int T,
+                              const uint32_t* __restrict__ follow,
+                              const uint32_t* __restrict__ mask, int G, int W,
+                              int C, int live, int acc,
+                              const uint32_t* __restrict__ v0,
+                              uint32_t* __restrict__ vout,
+                              uint32_t* __restrict__ out) {
+  smem_shift_pairs<STAGED>(cls, B, T, follow, mask, G, W, C, C, live, acc,
+                           nullptr, nullptr, out, true);
+}
+
+// K3 past 160 words: grouped_gated_wide_kernel's persistent grid (warp i
+// takes pairs i, i + (grid warps), ... of the first *n_pairs), each
+// warp's state in its two W-word buffers of shared memory, its group's
+// tables read through L1 (mask [G][C+1][W]).
+__global__ void __launch_bounds__(WIDE_WARPS * 32)
+    grouped_gated_smem_kernel(const int16_t* __restrict__ cls, int B, int T,
+                              const uint32_t* __restrict__ follow,
+                              const uint32_t* __restrict__ mask, int G, int W,
+                              int C, int live, int acc,
+                              const int* __restrict__ pairs,
+                              const int* __restrict__ n_pairs,
+                              uint32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const size_t S = (size_t)32 * W;
+  const uint4* consts =
+      reinterpret_cast<const uint4*>(follow + (size_t)G * S * W);
+  const int lw = live >> 5, lsh = live & 31;
+  uint32_t* v = smem + (size_t)warp * 2 * W;
+  uint32_t* n = v + W;
+  const int np = *n_pairs;
+  for (int i = blockIdx.x * nw + warp; i < np; i += gridDim.x * nw) {
+    const unsigned p = (unsigned)pairs[i];
+    const int g = (int)(p / (unsigned)B), line = (int)(p - g * (unsigned)B);
+    SmemTables<false> t;
+    t.k = consts + (size_t)g * W;
+    t.m = mask + (size_t)g * (C + 1) * W;
+    t.W = W;
+    t.C = C;
+    for (int j = lane; j < W; j += 32) v[j] = j == lw ? 1u << lsh : 0u;
+    __syncwarp();
+    const uint32_t* f =
+        smem_shift_scan<false>(v, n, t, follow + (size_t)g * S * W, lane, lw,
+                               lsh, cls + (size_t)line * T, T);
+    if (lane == 0 && (f[acc >> 5] >> (acc & 31)) & 1u) set_verdict(out, line);
+    __syncwarp();  // every lane is done with f before the next pair
+  }
+}
+
+// ---- K2's generic wide kernel (past 32 words) -------------------------
 // One warp per line. The line's state (v) and reach (r) are W-word
 // buffers in shared memory, and lane l owns words l, l+32, ...: a
 // ballot over the owned words finds the nonzero ones, the owner
@@ -1334,81 +1638,6 @@ __device__ __forceinline__ bool wide_bit(const uint32_t* v, int s) {
   return (v[s >> 5] >> (s & 31)) & 1u;
 }
 
-__global__ void grouped_nfa_wide(const int16_t* __restrict__ cls, int B,
-                                 int T, const uint32_t* __restrict__ follow,
-                                 const uint32_t* __restrict__ mask, int G,
-                                 int S, int C, int live, int acc,
-                                 uint8_t* __restrict__ out) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int W = S / 32, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t* v = smem + (size_t)warp * 2 * W;
-  uint32_t* r = v + W;
-  const int line = blockIdx.x * (blockDim.x >> 5) + warp;
-  bool matched = false;
-  for (int g = 0; g < G; ++g) {
-    for (int k = lane; k < W; k += 32)
-      v[k] = k == (live >> 5) ? 1u << (live & 31) : 0u;
-    wide_scan(v, r, W, lane, cls, B, T, line, follow + (size_t)g * S * W,
-              mask + (size_t)g * C * W, C);
-    matched = matched || wide_bit(v, acc);
-    __syncwarp();  // every lane has read v before the next group resets it
-  }
-  if (line < B && lane == 0) out[line] = matched ? 1 : 0;
-}
-
-// K3 past 160 words: one warp per listed pair, warp i of the grid
-// taking pairs i, i + (grid warps), ... of the first *n_pairs; `out` as
-// for the register K3.
-__global__ void grouped_nfa_gated_wide(const int16_t* __restrict__ cls, int B,
-                                       int T,
-                                       const uint32_t* __restrict__ follow,
-                                       const uint32_t* __restrict__ mask,
-                                       int S, int C, int live, int acc,
-                                       const int* __restrict__ pairs,
-                                       const int* __restrict__ n_pairs,
-                                       uint32_t* __restrict__ out) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int W = S / 32, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  uint32_t* v = smem + (size_t)warp * 2 * W;
-  uint32_t* r = v + W;
-  const int n = *n_pairs;
-  for (int i = blockIdx.x * nw + warp; i < n; i += gridDim.x * nw) {
-    const unsigned p = (unsigned)pairs[i];
-    const int g = (int)(p / (unsigned)B), line = (int)(p - g * (unsigned)B);
-    for (int k = lane; k < W; k += 32)
-      v[k] = k == (live >> 5) ? 1u << (live & 31) : 0u;
-    wide_scan(v, r, W, lane, cls, B, T, line, follow + (size_t)g * S * W,
-              mask + (size_t)g * C * W, C);
-    if (wide_bit(v, acc) && lane == 0) set_verdict(out, line);
-    __syncwarp();  // every lane has read v before the next pair resets it
-  }
-}
-
-// K4 past 160 words: one warp per (line, group) pair, pair p = line * G +
-// g, so a line's groups run side by side on neighbouring warps (and read
-// its class ids through the same L1 lines). `out` as for the fused
-// kernel: zeroed by the caller, a word set per accepted line.
-__global__ void grouped_nfa_fused_wide(const int16_t* __restrict__ cls,
-                                       int B, int T,
-                                       const uint32_t* __restrict__ follow,
-                                       const uint32_t* __restrict__ mask,
-                                       int G, int S, int C, int live, int acc,
-                                       uint32_t* __restrict__ out) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int W = S / 32, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t* v = smem + (size_t)warp * 2 * W;
-  uint32_t* r = v + W;
-  const long long pair = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
-  const int line = (int)(pair / G), g = (int)(pair % G);
-  if (line >= B) return;  // the whole warp: a warp is one pair
-  for (int k = lane; k < W; k += 32)
-    v[k] = k == (live >> 5) ? 1u << (live & 31) : 0u;
-  wide_scan(v, r, W, lane, cls, B, T, line, follow + (size_t)g * S * W,
-            mask + (size_t)g * C * W, C);
-  if (wide_bit(v, acc) && lane == 0) atomicOr(out + line, 1u);
-}
-
 __global__ void chunk_nfa_wide(const int16_t* __restrict__ cls, int B, int T,
                                const uint32_t* __restrict__ follow,
                                const uint32_t* __restrict__ mask, int S,
@@ -1432,7 +1661,7 @@ __global__ void chunk_nfa_wide(const int16_t* __restrict__ cls, int B, int T,
   }
 }
 
-// Warps (lines) per block for the wide kernels: up to 4, as many as fit
+// Warps (lines) per block for chunk_nfa_wide: up to 4, as many as fit
 // two W-word buffers each in shared memory (0 = not even one fits).
 int wide_warps(int S) {
   const size_t per_warp = (size_t)2 * (S / 32) * 4;
@@ -1446,21 +1675,6 @@ cudaError_t allow_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
-}
-
-// K1 past 160 words: a warp per line.
-cudaError_t launch_grouped_wide(const int16_t* cls, int B, int T,
-                                const uint32_t* follow, const uint32_t* mask,
-                                int G, int S, int C, int live, int acc,
-                                uint8_t* out, cudaStream_t st) {
-  const int nw = S > 32 * 32 ? wide_warps(S) : 0;
-  if (nw == 0) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)2 * (S / 32) * nw * 4;
-  cudaError_t e = allow_smem(grouped_nfa_wide, smem);
-  if (e != cudaSuccess) return e;
-  grouped_nfa_wide<<<(B + nw - 1) / nw, 32 * nw, smem, st>>>(
-      cls, B, T, follow, mask, G, S, C, live, acc, out);
-  return cudaGetLastError();
 }
 
 template <int W>
@@ -1499,24 +1713,6 @@ cudaError_t launch_gated(const int16_t* cls, int B, int T,
   const int blocks = (int)(need < resident ? need : resident);
   grouped_nfa_gated_kernel<W><<<blocks, GATED_THREADS, 0, stream>>>(
       cls, B, T, follow, mask, G, C, live, acc, pairs, n_pairs, out);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_gated_wide(const int16_t* cls, int B, int T,
-                              const uint32_t* follow, const uint32_t* mask,
-                              int G, int S, int C, int live, int acc,
-                              const int* pairs, const int* n_pairs,
-                              uint32_t* out, cudaStream_t st) {
-  const int nw = S > 32 * 32 ? wide_warps(S) : 0;
-  if (nw == 0) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)2 * (S / 32) * nw * 4;
-  cudaError_t e = allow_smem(grouped_nfa_gated_wide, smem);
-  if (e != cudaSuccess) return e;
-  const long long need = ((long long)B * G + nw - 1) / nw;
-  const int resident = resident_blocks(grouped_nfa_gated_wide, 32 * nw, smem);
-  const int blocks = (int)(need < resident ? need : resident);
-  grouped_nfa_gated_wide<<<blocks, 32 * nw, smem, st>>>(
-      cls, B, T, follow, mask, S, C, live, acc, pairs, n_pairs, out);
   return cudaGetLastError();
 }
 
@@ -1644,6 +1840,82 @@ cudaError_t launch_gated_shift_wide(const int16_t* cls, int B, int T,
   return cudaErrorInvalidValue;
 }
 
+// Past 160 words: a block's warps (up to WIDE_WARPS, as many as fit
+// two W-word buffers each in MAX_SMEM; 0 when one warp's do not) and
+// whether its group's tables are staged in shared memory (the constants
+// [W] uint4 and C+1 mask rows): where they fit beside WIDE_WARPS warps'
+// buffers in a quarter of MAX_SMEM, so that an SM still holds four such
+// blocks; else they are read through L1. The kernels are bound by the
+// latency of a warp's steps, so warps an SM count for more than staged
+// rows (on the H100 the 700-pod set, C = 64, ran 13% slower staged at
+// three blocks an SM than read through L1). nfa_kernels raises
+// GroupTooWideError before a launch whose plan has no warp.
+struct SmemPlan {
+  int warps;
+  bool staged;
+  size_t bytes;
+};
+
+SmemPlan smem_plan(int W, int C, bool can_stage) {
+  const size_t buf = (size_t)2 * W * 4;
+  const size_t tab = (size_t)(C + 5) * W * 4;
+  if (can_stage && tab + WIDE_WARPS * buf <= (size_t)MAX_SMEM / 4)
+    return {WIDE_WARPS, true, tab + WIDE_WARPS * buf};
+  int nw = WIDE_WARPS;
+  while (nw > 0 && nw * buf > (size_t)MAX_SMEM) --nw;
+  return {nw, false, nw * buf};
+}
+
+// K1, K2g or K4 (MODE) past 160 words: blocks of the plan's warps (a
+// line each), grid y the groups, grid x as many line chunks as fill the
+// card twice over. out is zeroed by the caller.
+template <WideMode MODE>
+cudaError_t launch_smem(const int16_t* cls, int B, int T,
+                        const uint32_t* follow, const uint32_t* mask, int G,
+                        int W, int C, int live, int acc, const uint32_t* v0,
+                        uint32_t* vout, uint32_t* out, cudaStream_t st) {
+  const SmemPlan p = smem_plan(W, C, true);
+  if (p.warps == 0 || G > 65535) return cudaErrorInvalidValue;
+  const auto kernel =
+      MODE == WIDE_K2G
+          ? (p.staged ? &grouped_chunk_smem_kernel<true>
+                      : &grouped_chunk_smem_kernel<false>)
+      : MODE == WIDE_K4 ? (p.staged ? &grouped_fused_smem_kernel<true>
+                                    : &grouped_fused_smem_kernel<false>)
+                        : (p.staged ? &grouped_shift_smem_kernel<true>
+                                    : &grouped_shift_smem_kernel<false>);
+  cudaError_t e = allow_smem(kernel, p.bytes);
+  if (e != cudaSuccess) return e;
+  const long long chunks = (B + p.warps - 1) / p.warps;
+  const long long fill =
+      (2LL * resident_blocks(kernel, p.warps * 32, p.bytes) + G - 1) / G;
+  const int gx = (int)(chunks < fill ? chunks : fill);
+  kernel<<<dim3(gx, G), p.warps * 32, p.bytes, st>>>(
+      cls, B, T, follow, mask, G, W, C, live, acc, v0, vout, out);
+  return cudaGetLastError();
+}
+
+// K3 past 160 words: a persistent grid of the plan's warps (buffers
+// only: the tables are read through L1) over the pair list, never more
+// warps than B * G pairs could fill.
+cudaError_t launch_gated_smem(const int16_t* cls, int B, int T,
+                              const uint32_t* follow, const uint32_t* mask,
+                              int G, int W, int C, int live, int acc,
+                              const int* pairs, const int* n_pairs,
+                              uint32_t* out, cudaStream_t st) {
+  const SmemPlan p = smem_plan(W, C, false);
+  if (p.warps == 0) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(grouped_gated_smem_kernel, p.bytes);
+  if (e != cudaSuccess) return e;
+  const long long need = ((long long)B * G + p.warps - 1) / p.warps;
+  const int resident =
+      resident_blocks(grouped_gated_smem_kernel, p.warps * 32, p.bytes);
+  const int blocks = (int)(need < resident ? need : resident);
+  grouped_gated_smem_kernel<<<blocks, p.warps * 32, p.bytes, st>>>(
+      cls, B, T, follow, mask, G, W, C, live, acc, pairs, n_pairs, out);
+  return cudaGetLastError();
+}
+
 template <int W>
 cudaError_t launch_chunk(const int16_t* cls, int B, int T,
                          const uint32_t* follow, const uint32_t* mask, int C,
@@ -1669,10 +1941,11 @@ const char* klogs_error_string(int err) {
 // cls [B, T] int16 (row-major), follow [G, S, S/32] and mask [G, C, S/32]
 // bit tables, out [B] uint8 (ceil(B / 4) * 4 bytes, 4-byte aligned).
 // S/32 is a register width (4, 8, 16 or 32) or above 32: up to 160
-// words the wide shift kernel, past them the generic grouped_nfa_wide; the
-// caller pads a program of another width up to the next register width
-// with dead states. Up to 160 words the follow buffer holds, after its
-// G * S * S/32 words, the shift step's constants [G, S/32, 4] (per
+// words the wide shift kernel, past them grouped_shift_smem_kernel
+// (refused where one warp's two S/32-word buffers exceed a block's
+// shared memory); the caller pads a program of another width up to the
+// next register width with dead states. The follow buffer holds, after
+// its G * S * S/32 words, the shift step's constants [G, S/32, 4] (per
 // word: SH, SELF, RL, EX; see ops/nfa_kernels.py shift_constants).
 int klogs_grouped_nfa(const int16_t* cls, int B, int T,
                       const uint32_t* follow, const uint32_t* mask, int G,
@@ -1690,15 +1963,15 @@ int klogs_grouped_nfa(const int16_t* cls, int B, int T,
     case 32: return launch_shift<32, true>(cls, B, T, follow, mask, G, C, live, acc, out, st);
     default: break;
   }
-  if (shift_wide_words(S / 32)) {
-    e = cudaMemsetAsync(out, 0, (size_t)(B + 3) / 4 * 4, st);
-    if (e != cudaSuccess) return e;
+  if (S / 32 <= 32) return cudaErrorInvalidValue;
+  e = cudaMemsetAsync(out, 0, (size_t)(B + 3) / 4 * 4, st);
+  if (e != cudaSuccess) return e;
+  uint32_t* words = reinterpret_cast<uint32_t*>(out);
+  if (shift_wide_words(S / 32))
     return launch_wide<WIDE_K1>(cls, B, T, follow, mask, G, S / 32, C, live,
-                                acc, nullptr, nullptr,
-                                reinterpret_cast<uint32_t*>(out), st);
-  }
-  return launch_grouped_wide(cls, B, T, follow, mask, G, S, C, live, acc,
-                             out, st);
+                                acc, nullptr, nullptr, words, st);
+  return launch_smem<WIDE_K1>(cls, B, T, follow, mask, G, S / 32, C, live,
+                              acc, nullptr, nullptr, words, st);
 }
 
 // K3's pair list: gate [B, GW] words read every `stride` 32-bit words
@@ -1728,9 +2001,9 @@ int klogs_gate_pairs(const uint32_t* gate, int B, int GW, int stride, int G,
 }
 
 // K3: cls, follow (with its constants) and S as for klogs_grouped_nfa;
-// mask [G, C + 1, S/32] (row C all zero) at a register width and from
-// 33 to 160 words (grouped_gated_wide_kernel), [G, C, S/32] past them
-// (the generic grouped_nfa_gated_wide); pairs and n_pairs from
+// mask [G, C + 1, S/32] (row C all zero) at every width (from 33 to 160
+// words grouped_gated_wide_kernel, past them grouped_gated_smem_kernel);
+// pairs and n_pairs from
 // klogs_gate_pairs (on the device); out ceil(B / 4) uint32 words,
 // zeroed here, whose byte b is set to 1 for each matching line b.
 int klogs_grouped_nfa_gated(const int16_t* cls, int B, int T,
@@ -1752,17 +2025,18 @@ int klogs_grouped_nfa_gated(const int16_t* cls, int B, int T,
     case 32: return launch_gated<32>(cls, B, T, follow, mask, G, C, live, acc, pairs, n_pairs, out, st);
     default: break;
   }
+  if (S / 32 <= 32) return cudaErrorInvalidValue;
   if (shift_wide_words(S / 32))
     return launch_gated_shift_wide(cls, B, T, follow, mask, G, S / 32, C,
                                    live, acc, pairs, n_pairs, out, st);
-  return launch_gated_wide(cls, B, T, follow, mask, G, S, C, live, acc, pairs,
-                           n_pairs, out, st);
+  return launch_gated_smem(cls, B, T, follow, mask, G, S / 32, C, live, acc,
+                           pairs, n_pairs, out, st);
 }
 
 // K4: as klogs_grouped_nfa (the same follow buffer; from 33 to 160
-// words grouped_fused_wide_kernel, past them the generic
-// grouped_nfa_fused_wide), with out [B] uint32 words that the caller
-// zeroed (a word is set to 1 for each matching line).
+// words grouped_fused_wide_kernel, past them grouped_fused_smem_kernel),
+// with out [B] uint32 words that the caller zeroed (a word is set to 1
+// for each matching line).
 int klogs_grouped_nfa_fused(const int16_t* cls, int B, int T,
                             const uint32_t* follow, const uint32_t* mask,
                             int G, int S, int C, int live, int acc,
@@ -1779,25 +2053,18 @@ int klogs_grouped_nfa_fused(const int16_t* cls, int B, int T,
     case 32: return launch_shift<32, false>(cls, B, T, follow, mask, G, C, live, acc, out, st);
     default: break;
   }
+  if (S / 32 <= 32) return cudaErrorInvalidValue;
   if (shift_wide_words(S / 32))
     return launch_wide<WIDE_K4>(cls, B, T, follow, mask, G, S / 32, C, live,
                                 acc, nullptr, nullptr, out, st);
-  const int nw = S > 32 * 32 ? wide_warps(S) : 0;
-  if (nw == 0) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)2 * (S / 32) * nw * 4;
-  e = allow_smem(grouped_nfa_fused_wide, smem);
-  if (e != cudaSuccess) return e;
-  const long long pairs = (long long)B * G;
-  grouped_nfa_fused_wide<<<(unsigned)((pairs + nw - 1) / nw), 32 * nw, smem,
-                           st>>>(cls, B, T, follow, mask, G, S, C, live, acc,
-                                 out);
-  return cudaGetLastError();
+  return launch_smem<WIDE_K4>(cls, B, T, follow, mask, G, S / 32, C, live,
+                              acc, nullptr, nullptr, out, st);
 }
 
 // K2g: cls, follow (with its constants) and mask as for
 // klogs_grouped_nfa_gated ([G, C + 1, S/32]); S/32 a register width (4,
-// 8, 16, 32) or 33 to 160 words (the wide shift kernel; anything else
-// is refused); v0 and vout
+// 8, 16, 32), 33 to 160 words (the wide shift kernel) or past them
+// (grouped_chunk_smem_kernel); v0 and vout
 // [B, G, S/32] words, the carry of each (line, group); out ceil(B / 4)
 // uint32 words, zeroed here, whose byte b is set to 1 where some group
 // of line b holds acc.
@@ -1820,10 +2087,12 @@ int klogs_grouped_chunk_nfa(const int16_t* cls, int B, int T,
     case 32: return launch_grouped_chunk<32>(cls, B, T, follow, mask, G, C, live, acc, v0, vout, out, st);
     default: break;
   }
+  if (S / 32 <= 32) return cudaErrorInvalidValue;
   if (shift_wide_words(S / 32))
     return launch_wide<WIDE_K2G>(cls, B, T, follow, mask, G, S / 32, C, live,
                                  acc, v0, vout, out, st);
-  return cudaErrorInvalidValue;
+  return launch_smem<WIDE_K2G>(cls, B, T, follow, mask, G, S / 32, C, live,
+                               acc, v0, vout, out, st);
 }
 
 // cls [B, T] int16, follow [S, S/32] and mask [C, S/32] bit tables, v0

@@ -36,16 +36,21 @@ ids laid out BEGIN, body, END, PAD latch:
 The route by width of a group (``kernel_states(S) / 32`` words). At a
 register width (``REGISTER_WORDS``) each kernel above runs as named.
 From 33 to ``WIDE_WORDS`` (160) words, K1, K2g, K3 and K4 run the same
-shift-and-exceptions step spread over a warp a (line, group):
-``grouped_shift_wide_kernel`` (K1, counted under ``GROUPED_WIDE``),
-``grouped_chunk_wide_kernel`` (K2g, under ``GROUPED_CHUNK_WIDE``),
-``grouped_gated_wide_kernel`` (K3, a warp a listed pair, under
-``GATED_WIDE``) and ``grouped_fused_wide_kernel`` (K4, under
-``FUSED_WIDE``). Past 160 words (5120 states, past the compiler's
-default cap of 4096 positions a set) K1, K3 and K4 run the generic
-wide kernels, counted under their register names, and K2g raises:
-``filters/gpu.py`` keeps such a set's long lines on the union. K2 runs
-its generic wide kernel at any width past 32 words.
+shift-and-exceptions step spread over a warp a (line, group), its state
+in registers: ``grouped_shift_wide_kernel`` (K1, counted under
+``GROUPED_WIDE``), ``grouped_chunk_wide_kernel`` (K2g, under
+``GROUPED_CHUNK_WIDE``), ``grouped_gated_wide_kernel`` (K3, a warp a
+listed pair, under ``GATED_WIDE``) and ``grouped_fused_wide_kernel``
+(K4, under ``FUSED_WIDE``). Past 160 words (5120 states, past the
+compiler's default cap of 4096 positions a set) they run that step with
+a warp's state in two buffers of shared memory, at any width:
+``grouped_shift_smem_kernel`` (under ``GROUPED_SMEM``),
+``grouped_chunk_smem_kernel`` (``GROUPED_CHUNK_SMEM``),
+``grouped_gated_smem_kernel`` (``GATED_SMEM``) and
+``grouped_fused_smem_kernel`` (``FUSED_SMEM``); a group whose two
+buffers do not fit a block's shared memory raises
+``GroupTooWideError``. K2 runs its generic wide kernel
+(``chunk_nfa_wide``) at any width past 32 words.
 
 A tensor on the CPU runs the plain PyTorch version (a Python loop over
 the steps); a CUDA tensor launches the kernel from
@@ -73,6 +78,11 @@ GROUPED_WIDE = "grouped_shift_wide_kernel"
 GROUPED_CHUNK_WIDE = "grouped_chunk_wide_kernel"
 GATED_WIDE = "grouped_gated_wide_kernel"
 FUSED_WIDE = "grouped_fused_wide_kernel"
+# ... and past WIDE_WORDS, the same step with the state in shared memory.
+GROUPED_SMEM = "grouped_shift_smem_kernel"
+GROUPED_CHUNK_SMEM = "grouped_chunk_smem_kernel"
+GATED_SMEM = "grouped_gated_smem_kernel"
+FUSED_SMEM = "grouped_fused_smem_kernel"
 # K3's pair builder (gate_pairs_count, gate_pairs_scan and
 # gate_pairs_scatter, launched together: counted once per list built).
 PAIRS = "gate_pairs"
@@ -84,7 +94,15 @@ PACK = "pack_rows"
 
 LAUNCHES = {GROUPED: 0, GATED: 0, CHUNK: 0, FUSED: 0, GROUPED_CHUNK: 0,
             GROUPED_WIDE: 0, GROUPED_CHUNK_WIDE: 0, GATED_WIDE: 0,
-            FUSED_WIDE: 0, PAIRS: 0, PACK_CLS: 0, PACK: 0}
+            FUSED_WIDE: 0, GROUPED_SMEM: 0, GROUPED_CHUNK_SMEM: 0,
+            GATED_SMEM: 0, FUSED_SMEM: 0, PAIRS: 0, PACK_CLS: 0, PACK: 0}
+# Each grouped kernel's count name by route (``_route``).
+_NAMES = {"register": {"k1": GROUPED, "k2g": GROUPED_CHUNK, "k3": GATED,
+                       "k4": FUSED},
+          "wide": {"k1": GROUPED_WIDE, "k2g": GROUPED_CHUNK_WIDE,
+                   "k3": GATED_WIDE, "k4": FUSED_WIDE},
+          "smem": {"k1": GROUPED_SMEM, "k2g": GROUPED_CHUNK_SMEM,
+                   "k3": GATED_SMEM, "k4": FUSED_SMEM}}
 
 # Lines per tile of the gate's stats: the JAX engine counts candidate
 # lines clustered into tiles of its kernel's width, and the --stats
@@ -99,6 +117,8 @@ REGISTER_WORDS = (4, 8, 16, 32)
 # The widest width the wide shift kernels of K1, K2g, K3 and K4 are
 # built for (5 words a lane of a warp).
 WIDE_WORDS = 160
+# Bytes of shared memory a block may use (MAX_SMEM in the CUDA source).
+MAX_SMEM = 232448
 _launch_lock = threading.Lock()
 
 
@@ -174,16 +194,29 @@ def kernel_states(S: int) -> int:
     return 32 * next((w for w in REGISTER_WORDS if w >= words), words)
 
 
-def shift_words(words: int) -> bool:
-    """Whether a program of ``words`` state words (a ``kernel_states``
-    width) runs K1, K2g, K3 and K4 on the shift-and-exceptions step: a
-    register width, or 33 to ``WIDE_WORDS`` words (the wide kernels)."""
-    return words in REGISTER_WORDS or 32 < words <= WIDE_WORDS
+class GroupTooWideError(ValueError):
+    """A group so wide that one warp's two state buffers (2 x W words)
+    do not fit a block's shared memory: no kernel runs it."""
 
 
-def _wide(words: int) -> bool:
-    """Whether ``words`` state words take the wide shift kernels."""
-    return 32 < words <= WIDE_WORDS
+def _route(words: int) -> str:
+    """The route of K1, K2g, K3 and K4 at ``words`` state words (a
+    ``kernel_states`` width): "register" (``REGISTER_WORDS``), "wide"
+    (33 to ``WIDE_WORDS``: the state in a warp's registers) or "smem"
+    (past them: the state in shared memory)."""
+    if words in REGISTER_WORDS:
+        return "register"
+    return "wide" if words <= WIDE_WORDS else "smem"
+
+
+def _check_width(words: int) -> None:
+    """Raises ``GroupTooWideError`` where one warp's two buffers of
+    ``words`` state words exceed a block's shared memory (the CUDA
+    launcher picks the warps a block and where the tables are read)."""
+    if 8 * words > MAX_SMEM:
+        raise GroupTooWideError(
+            f"a group of {32 * words} states needs {8 * words} bytes of "
+            f"shared memory a warp, past the {MAX_SMEM} a block may use")
 
 
 def _bit_tables(prog: TorchProgram):
@@ -235,9 +268,8 @@ def shift_constants(follow_bits: torch.Tensor, live: int) -> torch.Tensor:
 def _shift_tables(prog: TorchProgram, live: int):
     """K1's and K4's operands (follow, mask): the follow bit table [G,
     Sk, Sk/32] followed, in one buffer, by ``shift_constants`` [G,
-    Sk/32, 4], and the mask bit table. The generic wide kernels read only
-    the buffer's bit table. Built once per ``live`` on the program's
-    device."""
+    Sk/32, 4], and the mask bit table. Built once per ``live`` on the
+    program's device."""
     follow_bits, mask_bits = _bit_tables(prog)
     key = ("shift", live)
     buf = prog.cache.get(key)
@@ -294,19 +326,22 @@ def _match_grouped(prog: TorchProgram, live: int, acc: int,
     B, T = cls.shape
     G, C, S = prog.char_mask.shape
     words = kernel_states(S) // 32
+    route = _route(words)
+    if route == "smem":
+        _check_width(words)
     follow, mask_bits = _shift_tables(prog, live)
     lib = _library()
     stream = torch.cuda.current_stream(cls.device).cuda_stream
     if fused:
         # K4's blocks (group chunks, or past 32 words groups) OR into a
         # zeroed word per line.
-        name = FUSED_WIDE if _wide(words) else FUSED
+        name = _NAMES[route]["k4"]
         entry = lib.klogs_grouped_nfa_fused
         out = torch.zeros(B, dtype=torch.int32, device=cls.device)
     else:
         # A verdict byte per line; past 32 words the groups' warps set it
         # in place through its 32-bit word.
-        name = GROUPED_WIDE if _wide(words) else GROUPED
+        name = _NAMES[route]["k1"]
         entry = lib.klogs_grouped_nfa
         out = torch.empty(-(-B // 4) * 4, dtype=torch.uint8,
                           device=cls.device)
@@ -491,13 +526,9 @@ def gate_pairs_plain(gate_bits: torch.Tensor, G: int):
 
 def _gated_tables(prog: TorchProgram, live: int):
     """K3's and K2g's operands (follow, mask): K1's follow buffer, and
-    where the shift kernels run (``shift_words``) the mask bit table
-    with an all-zero row appended to each group ([G, C+1, Sk/32]: the
-    row an id outside [0, C) reads); past 160 words the bit tables as
-    they are."""
+    the mask bit table with an all-zero row appended to each group ([G,
+    C+1, Sk/32]: the row an id outside [0, C) reads), at every width."""
     follow, mask_bits = _shift_tables(prog, live)
-    if not shift_words(mask_bits.shape[-1]):
-        return follow, mask_bits
     padded = prog.cache.get("mask_zero_row")
     if padded is None:
         padded = F.pad(mask_bits, (0, 0, 0, 1)).contiguous()
@@ -518,7 +549,10 @@ def launch_gated(prog: TorchProgram, live: int, acc: int, cls: torch.Tensor,
     cls = _cls16(prog, cls)
     B, T = cls.shape
     G, C, S = prog.char_mask.shape
-    name = GATED_WIDE if _wide(kernel_states(S) // 32) else GATED
+    route = _route(kernel_states(S) // 32)
+    if route == "smem":
+        _check_width(kernel_states(S) // 32)
+    name = _NAMES[route]["k3"]
     if (pairs.shape != (B * G,)
             or {pairs.dtype, n_pairs.dtype} != {torch.int32}
             or not pairs.device == n_pairs.device == cls.device):
@@ -697,8 +731,9 @@ def match_chunk_cls_grouped(prog: TorchProgram, live: int, acc: int,
     program: [B, T] class ids (``classify_chunk`` layout, latch column on
     the final chunk) and the [B, G, W] carry (``initial_state_grouped``)
     -> (carry, matched [B] bool: some group holds ``acc``); ``match_all``
-    is ORed in on the final chunk. Groups must fit ``WIDE_WORDS``
-    (``kernel_states`` of at most 5120 states)."""
+    is ORed in on the final chunk. Any group width runs (past
+    ``WIDE_WORDS``, the state in shared memory; ``GroupTooWideError``
+    where a warp's two buffers do not fit)."""
     if prog.follow.dim() != 3:
         raise ValueError(f"{GROUPED_CHUNK} needs a compile_grouped program")
     if cls.device.type == "cpu":
@@ -714,14 +749,14 @@ def _launch_grouped_chunk(prog: TorchProgram, live: int, acc: int,
                           cls: torch.Tensor, v0: torch.Tensor):
     _check_states(prog)
     words = grouped_state_words(prog)
-    if not shift_words(words):
-        raise ValueError(f"{GROUPED_CHUNK} takes groups of at most "
-                         f"{32 * WIDE_WORDS} states, got {prog.n_states}")
-    name = GROUPED_CHUNK if words in REGISTER_WORDS else GROUPED_CHUNK_WIDE
+    route = _route(words)
     cls = _cls16(prog, cls)
     _check_carry(prog, cls, v0)
     B, T = cls.shape
     G, C, S = prog.char_mask.shape
+    if route == "smem":
+        _check_width(words)
+    name = _NAMES[route]["k2g"]
     v0 = v0.contiguous()
     follow, mask = _gated_tables(prog, live)
     vout = torch.empty_like(v0)

@@ -14,12 +14,24 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from klogs_tpu import app as jax_app
 from klogs_tpu.cli import main as jax_main
 from klogs_tpu.cli import parse_args as jax_parse_args
 from klogs_tpu_torch import app, cli
 from klogs_tpu_torch.ui import term
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SEED = 20261017
 PATTERNS = ["ERROR", r"code=50[34]", r"retry \d+/\d+", "panic:"]

@@ -259,14 +259,38 @@ WIDE_CASES = {
     72: (["q" * 2200 + "z", "panic:"], [b"panic:"], b"q" * 2200 + b"z"),
     128: (["q" * 4000 + "z", "panic:"], [b"panic:"], b"q" * 4000 + b"z"),
     132: (["q" * 4094 + "z", "panic:"], [b"panic:"], b"q" * 4094 + b"z"),
+    # Past 160 words, the state in shared memory: a watch list of 700
+    # pods (176 words, C = 64: the tables read through L1), dense
+    # literals at 264 words (C = 16: staged) and 520 (through L1).
+    176: (700, [b"pod=pod-0001", b"x pod=pod-1399 y", b"pod=pod-0700",
+                b"abcd", b"bazqux", b"pod=pod-0641"], b"pod=pod-1397"),
+    264: (["q" * 8400 + "z", "panic:"], [b"panic:"], b"q" * 8400 + b"z"),
+    520: (["q" * 16600 + "z", "panic:"], [b"panic:"], b"q" * 16600 + b"z"),
 }
+# The widths whose sets need KLOGS_MAX_PATTERN_POSITIONS past 4096.
+SMEM_WORDS = [w for w in sorted(WIDE_CASES) if w > 160]
 
 
-def wide_case(words: int):
-    from chip_smoke import WATCH
+def wide_case(words: int, monkeypatch=None):
+    """(patterns, needles, dense line) of a WIDE_CASES width; past 160
+    words it raises the position cap through ``monkeypatch``."""
+    from chip_smoke import WATCH, watch_list
 
     patterns, needles, dense = WIDE_CASES[words]
+    if words > 160:
+        monkeypatch.setenv("KLOGS_MAX_PATTERN_POSITIONS", "65536")
+    if isinstance(patterns, int):
+        return [watch_list(patterns)] + EXC_PATS[:3], needles, dense
     return patterns or [WATCH] + EXC_PATS[:3], needles, dense
+
+
+def route_names(words: int, kernel: str) -> tuple:
+    """(the count name of ``kernel`` (k1, k2g, k3, k4) at ``words`` state
+    words, the names of its other routes)."""
+    names = nfa_kernels._NAMES
+    route = nfa_kernels._route(words)
+    return (names[route][kernel],
+            [names[r][kernel] for r in names if r != route])
 
 
 def wide_rows(B: int, width: int, needles: list, dense: bytes, seed: int):
@@ -287,44 +311,76 @@ def wide_rows(B: int, width: int, needles: list, dense: bytes, seed: int):
     return rows, lens.astype(np.int32)
 
 
-@pytest.mark.parametrize("words", sorted(WIDE_CASES))
-def test_wide_grouped_kernel_equals_plain(dev, words):
-    """K1 past 32 words (``grouped_shift_wide_kernel``) equals its plain
-    version on random class ids at B = 1, 33 and 200 and on text rows
-    with the dense line, with ids outside [0, C) (C + 5 and -1); every
-    launch is the wide kernel's."""
-    patterns, needles, dense = wide_case(words)
-    prog, live, acc = nfa.compile_grouped(patterns, device=dev)
-    assert nfa_kernels.kernel_states(prog.n_states) == 32 * words
+def wide_batches(prog, words: int, needles: list, dense: bytes, dev):
+    """Random class ids at B = 1, 33 and 200, then text rows with the
+    dense line (64 rows; 16 past 264 words, where the plain version's
+    dense steps cost ~1 PFLOP at 64), with ids outside [0, C) (C + 5 and
+    -1)."""
     batches = [random_cls(prog, B, T, B).to(dev)
                for B, T in ((1, 5), (33, 67), (200, 131))]
-    rows, lens = wide_rows(64, len(dense) + 40, needles, dense, words)
+    rows, lens = wide_rows(64 if words <= 264 else 16, len(dense) + 40,
+                           needles, dense, words)
     cls = nfa.classify_chunk(prog, torch.from_numpy(rows).to(dev),
                              torch.from_numpy(lens).to(dev), True, True)
     T = cls.shape[1]
     cls[3::11, T // 3] = prog.n_classes + 5
     cls[5::13, T // 2] = -1
-    batches.append(cls)
+    return batches + [cls]
+
+
+@pytest.mark.parametrize("words", sorted(WIDE_CASES))
+def test_wide_grouped_kernel_equals_plain(dev, words, monkeypatch):
+    """K1 past 32 words (``grouped_shift_wide_kernel``; past 160
+    ``grouped_shift_smem_kernel``) equals its plain version on
+    ``wide_batches``; every launch is that route's kernel's."""
+    patterns, needles, dense = wide_case(words, monkeypatch)
+    prog, live, acc = nfa.compile_grouped(patterns, device=dev)
+    assert nfa_kernels.kernel_states(prog.n_states) == 32 * words
+    batches = wide_batches(prog, words, needles, dense, dev)
+    name, others = route_names(words, "k1")
     nfa_kernels.reset_launches()
     for cls in batches:
         got = nfa_kernels.match_cls_grouped(prog, live, acc, cls)
         exp = nfa_kernels.match_cls_grouped_plain(prog, live, acc, cls)
         assert got.dtype == torch.bool and got.shape == (cls.shape[0],)
         assert torch.equal(got, exp)
-    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED_WIDE] == len(batches)
-    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED] == 0
+    assert nfa_kernels.LAUNCHES[name] == len(batches)
+    assert not any(nfa_kernels.LAUNCHES[n] for n in others)
     assert got[0] and not got[1] and got[2:].any() and not got.all()
 
 
-@pytest.mark.parametrize("B", [1, 8, 33])
-@pytest.mark.parametrize("words", sorted(WIDE_CASES))
-def test_wide_grouped_chunk_kernel_equals_plain_chained(dev, words, B):
-    """K2g past 32 words (``grouped_chunk_wide_kernel``) equals its plain
-    version bit for bit, carries and verdicts, chained over the chunks of
-    text rows (the dense line crossing chunk edges in row 0), with ids
-    outside [0, C) in the second chunk (an id outside kills every state,
-    acc too); one wide launch a chunk."""
-    patterns, needles, dense = wide_case(words)
+@pytest.mark.parametrize("words", SMEM_WORDS)
+def test_smem_fused_kernel_equals_plain_and_k1(dev, words, monkeypatch):
+    """K4 past 160 words (``grouped_fused_smem_kernel``) equals its plain
+    version and K1 on ``wide_batches``; K4's launches are its own."""
+    patterns, needles, dense = wide_case(words, monkeypatch)
+    prog, live, acc = nfa.compile_grouped(patterns, device=dev)
+    batches = wide_batches(prog, words, needles, dense, dev)
+    nfa_kernels.reset_launches()
+    for cls in batches:
+        got = nfa_kernels.match_cls_grouped_fused(prog, live, acc, cls)
+        assert torch.equal(got, nfa_kernels.match_cls_grouped_fused_plain(
+            prog, live, acc, cls))
+        assert torch.equal(got, nfa_kernels.match_cls_grouped(prog, live,
+                                                              acc, cls))
+    assert nfa_kernels.LAUNCHES[nfa_kernels.FUSED_SMEM] == len(batches)
+    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED_SMEM] == len(batches)
+    assert nfa_kernels.LAUNCHES[nfa_kernels.FUSED_WIDE] == 0
+    assert got[0] and not got[1] and got[2:].any() and not got.all()
+
+
+@pytest.mark.parametrize("words,B", [
+    (w, B) for w in sorted(WIDE_CASES) for B in (1, 8, 33)
+    if w <= 264 or B <= 8])  # 520 x 33: ~0.6 PFLOP of plain steps
+def test_wide_grouped_chunk_kernel_equals_plain_chained(dev, words, B,
+                                                        monkeypatch):
+    """K2g past 32 words (``grouped_chunk_wide_kernel``; past 160
+    ``grouped_chunk_smem_kernel``) equals its plain version bit for bit,
+    carries and verdicts, chained over the chunks of text rows (the dense
+    line crossing chunk edges in row 0), with ids outside [0, C) in the
+    second chunk (an id outside kills every state, acc too); one launch
+    a chunk, of that route's kernel."""
+    patterns, needles, dense = wide_case(words, monkeypatch)
     prog, live, acc = nfa.compile_grouped(patterns, device=dev)
     rows, lens = wide_rows(max(B, 3), len(dense) + 700, needles, dense,
                            words + B)
@@ -350,8 +406,9 @@ def test_wide_grouped_chunk_kernel_equals_plain_chained(dev, words, B):
         assert v.dtype == torch.int32 and v.shape == (B, prog.follow.shape[0],
                                                       words)
         assert torch.equal(v, vp) and torch.equal(m, mp)
-    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED_CHUNK_WIDE] == n_chunks
-    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED_CHUNK] == 0
+    name, others = route_names(words, "k2g")
+    assert nfa_kernels.LAUNCHES[name] == n_chunks
+    assert not any(nfa_kernels.LAUNCHES[n] for n in others)
     assert bool(m[0]) and (B < 2 or not bool(m[1]))
 
 
@@ -436,6 +493,109 @@ def test_engine_k1024_watch_on_card_equals_re(dev, monkeypatch):
     assert got == [alt.search(ln.rstrip(b"\n")) is not None for ln in lines]
     assert any(got[:4000]) and not all(got[:4000])
     assert any(got[-6:]) and not all(got[-6:])
+
+
+def watch700_lines(rng, n_short: int, long_needles: list) -> list:
+    """FakeCluster lines of 300 pods (pod-0000 to pod-0299: every other
+    one on a 700-pod watch list) and one long line of 4-12 KiB a needle,
+    the second one ending 2 bytes past the 4096-byte chunk edge."""
+    from klogs_tpu_torch.cluster.fake import synthetic_line
+
+    lines = [synthetic_line(f"pod-{i % 300:04d}", "c0", i, 1.7e9 + i)
+             for i in range(n_short)]
+    for i, nd in enumerate(long_needles):
+        n = int(rng.integers(4097, 12 * 1024))
+        body = bytearray(rng.integers(32, 127, size=n, dtype=np.uint8))
+        p = 4096 + 2 - len(nd) if i == 1 else int(rng.integers(0, n - len(nd)))
+        body[p:p + len(nd)] = nd
+        lines.append(bytes(body))
+    return lines
+
+
+def test_engine_watch700_on_card_equals_re(dev, monkeypatch):
+    """The 32 bench patterns and a 700-pod watch list (5 groups of 176
+    words, past 160): short lines launch K1's shared-memory kernel, long
+    lines K2g's (no union is built: K2 never launches), and every
+    verdict is ``re``'s."""
+    import re
+
+    from chip_smoke import PATTERNS as bench, watch_list
+
+    monkeypatch.setenv("KLOGS_MAX_PATTERN_POSITIONS", "65536")
+    pats = bench + [watch_list(700)]
+    lines = watch700_lines(np.random.default_rng(700), 3000,
+                           [b"pod=pod-1399", b"pod=pod-0641", b"pod=pod-0642",
+                            b"oom-killer", b"pod=pod-14", b"panic: x"])
+    card = GpuEngineFilter(pats, device=dev)
+    assert nfa_kernels.grouped_state_words(card._grouped) == 176
+    assert card._long is not None and card._aug is None
+    nfa_kernels.reset_launches()
+    got = card.match_lines(lines)
+    launches = dict(nfa_kernels.LAUNCHES)
+    assert launches[nfa_kernels.GROUPED_SMEM] > 0
+    assert launches[nfa_kernels.GROUPED_CHUNK_SMEM] >= 2
+    for name in (nfa_kernels.GROUPED, nfa_kernels.GROUPED_WIDE,
+                 nfa_kernels.GROUPED_CHUNK_WIDE, nfa_kernels.CHUNK):
+        assert launches[name] == 0, name
+    alt = re.compile(b"|".join(b"(?:" + p.encode() + b")" for p in pats))
+    assert got == [alt.search(ln.rstrip(b"\n")) is not None for ln in lines]
+    assert any(got[:3000]) and not all(got[:3000])
+    assert any(got[-6:]) and not all(got[-6:])
+
+
+def test_engine_k64_watch700_on_card_equals_re(dev, monkeypatch):
+    """``make_patterns(64)`` and a 700-pod watch list (every group at 176
+    words) under the sweep (auto, K >= 64 on cuda): short lines run K3's
+    shared-memory kernel, held against its plain version on the sweep's
+    own gate, long lines K2g's; K1, the other K3 routes and K2 never
+    launch; every verdict is ``re``'s."""
+    import re
+
+    from chip_smoke import make_patterns, minted_needle, watch_list
+
+    from klogs_tpu_torch.ops import sweep
+
+    monkeypatch.setenv("KLOGS_MAX_PATTERN_POSITIONS", "65536")
+    pats = make_patterns(64) + [watch_list(700)]
+    rng = np.random.default_rng(64700)
+    lines = watch700_lines(rng, 2000, [b"pod=pod-0001", minted_needle(40),
+                                       b"pod=pod-0002", b"svc-0009 x"])
+    for i in range(3, 2000, 40):
+        lines[i] = lines[i][:30] + minted_needle(int(rng.integers(0, 32))) \
+            + lines[i][30:]
+    card = GpuEngineFilter(pats, device=dev)
+    assert card._sweep_tables is not None
+    assert nfa_kernels.grouped_state_words(card._grouped) == 176
+    assert card._long is not None and card._aug is None
+    nfa_kernels.reset_launches()
+    got = card.match_lines(lines)
+    launches = dict(nfa_kernels.LAUNCHES)
+    assert launches[nfa_kernels.GATED_SMEM] > 0
+    assert launches[nfa_kernels.GROUPED_CHUNK_SMEM] > 0
+    for name in (nfa_kernels.GATED, nfa_kernels.GATED_WIDE,
+                 nfa_kernels.GROUPED, nfa_kernels.GROUPED_SMEM,
+                 nfa_kernels.CHUNK):
+        assert launches[name] == 0, name
+    alt = re.compile(b"|".join(b"(?:" + p.encode() + b")" for p in pats))
+    assert got == [alt.search(ln.rstrip(b"\n")) is not None for ln in lines]
+    assert any(got[:2000]) and not all(got[:2000])
+    assert any(got[-4:]) and not all(got[-4:])
+    dp, live, acc = card._grouped, card._g_live, card._g_acc
+    short = [ln.rstrip(b"\n")[:128] for ln in lines[:512]]
+    rows = np.zeros((len(short), 128), dtype=np.uint8)
+    for i, ln in enumerate(short):
+        rows[i, :len(ln)] = np.frombuffer(ln, dtype=np.uint8)
+    batch = torch.from_numpy(rows).to(dev)
+    lens = torch.tensor([len(ln) for ln in short], dtype=torch.int32,
+                        device=dev)
+    cls = nfa.classify_chunk(dp, batch, lens, True, True)
+    cls[7::50, 20] = dp.n_classes + 5
+    cls[9::50, 30] = -1
+    words = sweep.sweep_group_bits(card._sweep_tables, batch, lens)
+    k3, _ = nfa_kernels.match_cls_grouped_gated(dp, live, acc, cls, words)
+    assert torch.equal(k3, nfa_kernels.match_cls_grouped_gated_plain(
+        dp, live, acc, cls, words))
+    assert k3.any() and not k3.all()
 
 
 SEQ_PATTERNS = ["needle", "^start", "end$", r"retry \d+/\d+"]
@@ -530,14 +690,18 @@ def test_kernels_count_launches(dev):
     W_CASES["wide"], (EXC_PATS, EXC_NEEDLES), (EDGE_PATS, EDGE_NEEDLES),
     (WIDE_CASES[48][0], [b"x12y", WIDE_CASES[48][2]]),
     (WIDE_CASES[132][0], [b"panic:", WIDE_CASES[132][2]]),
+    (176, WIDE_CASES[176][1]),
 ], ids=["w4", "w8", "w16", "w32", "wide", "exceptions", "word_edge",
-        "wide48", "wide132"])
-def test_fused_kernel_equals_plain_and_k1(dev, patterns, needles):
+        "wide48", "wide132", "smem176"])
+def test_fused_kernel_equals_plain_and_k1(dev, patterns, needles,
+                                          monkeypatch):
     """K4 equals its plain version and K1 at each register width and
-    past them (36, 48 and 132 words: ``grouped_fused_wide_kernel``),
-    every launch counted under its route's name."""
+    past them (36, 48 and 132 words: ``grouped_fused_wide_kernel``; 176:
+    ``grouped_fused_smem_kernel``), every launch counted under its
+    route's name."""
+    if isinstance(patterns, int):
+        patterns = wide_case(patterns, monkeypatch)[0]
     prog, live, acc = nfa.compile_grouped(patterns, device=dev)
-    wide = 32 < nfa_kernels.kernel_states(prog.n_states) // 32
     nfa_kernels.reset_launches()
     n = 0
     for cls in grouped_batches(prog, needles, dev):
@@ -549,10 +713,10 @@ def test_fused_kernel_equals_plain_and_k1(dev, patterns, needles):
         assert torch.equal(got, exp)
         assert torch.equal(got, nfa_kernels.match_cls_grouped(prog, live, acc,
                                                               cls))
-    name, other = ((nfa_kernels.FUSED_WIDE, nfa_kernels.FUSED) if wide
-                   else (nfa_kernels.FUSED, nfa_kernels.FUSED_WIDE))
+    name, others = route_names(nfa_kernels.kernel_states(prog.n_states) // 32,
+                               "k4")
     assert nfa_kernels.LAUNCHES[name] == n
-    assert nfa_kernels.LAUNCHES[other] == 0
+    assert not any(nfa_kernels.LAUNCHES[n] for n in others)
 
 
 def test_fused_kernel_group_chunks_at_k1024(dev, monkeypatch):
@@ -662,25 +826,28 @@ GATED_CASES = [
     ["q" * 600 + "z", "panic:"] + [f"u{i:02d}yz" for i in range(40)],
     ["q" * 1100 + "z", "panic:"] + [f"w{i:02d}yz" for i in range(40)],
     WIDE_CASES[40][0], WIDE_CASES[48][0], WIDE_CASES[132][0],
+    *(words for words in SMEM_WORDS),  # past 160 words: wide_case's sets
 ]
 
 
 @pytest.mark.parametrize("patterns", GATED_CASES,
                          ids=["w4", "w8", "w16", "w32", "wide", "wide40",
-                              "wide48", "wide132"])
-def test_gated_kernel_equals_plain(dev, patterns):
+                              "wide48", "wide132",
+                              *(f"smem{w}" for w in SMEM_WORDS)])
+def test_gated_kernel_equals_plain(dev, patterns, monkeypatch):
     """K3 against its plain version under random gates: all ones, dense,
     sparse and empty, each over lines whose second half has no gate bit
     (a dead half); every launch counted under its route's name
-    (``GATED_WIDE`` past 32 words)."""
+    (``GATED_WIDE`` past 32 words, ``GATED_SMEM`` past 160)."""
     from klogs_tpu_torch.ops import bits
 
+    if isinstance(patterns, int):
+        patterns = wide_case(patterns, monkeypatch)[0]
     prog, live, acc = nfa.compile_grouped(patterns, device=dev)
     G = int(prog.follow.shape[0])
     assert G > 1
-    wide = 32 < nfa_kernels.kernel_states(prog.n_states) // 32
-    name, other = ((nfa_kernels.GATED_WIDE, nfa_kernels.GATED) if wide
-                   else (nfa_kernels.GATED, nfa_kernels.GATED_WIDE))
+    name, others = route_names(nfa_kernels.kernel_states(prog.n_states) // 32,
+                               "k3")
     rng = np.random.default_rng(G)
     nfa_kernels.reset_launches()
     cases = ((1, 5, 1.0), (300, 67, 0.5), (1000, 131, 0.02), (700, 40, 0.0),
@@ -699,7 +866,7 @@ def test_gated_kernel_equals_plain(dev, patterns):
         assert torch.equal(got, exp)
         assert int(stats[0]) == int(gate.any(1).sum())
     assert nfa_kernels.LAUNCHES[name] == len(cases)
-    assert nfa_kernels.LAUNCHES[other] == 0
+    assert not any(nfa_kernels.LAUNCHES[n] for n in others)
 
 
 def test_gated_launch_alone_equals_wrapper(dev):
@@ -780,12 +947,13 @@ def test_gated_wide_wrapper_does_not_wait_on_host(dev):
     assert got.any()
 
 
-@pytest.mark.parametrize("words", [36, 132])
-def test_gated_wide_kernel_all_ones_equals_k1(dev, words):
-    """Past 32 words, K3 under an all-ones gate is K1's wide kernel."""
+@pytest.mark.parametrize("words", [36, 132, *SMEM_WORDS])
+def test_gated_wide_kernel_all_ones_equals_k1(dev, words, monkeypatch):
+    """Past 32 words, K3 under an all-ones gate is K1's wide kernel (past
+    160 words, the shared-memory kernels of both)."""
     from klogs_tpu_torch.ops import bits
 
-    patterns, needles, dense = wide_case(words)
+    patterns, needles, dense = wide_case(words, monkeypatch)
     prog, live, acc = nfa.compile_grouped(patterns, device=dev)
     rows, lens = wide_rows(600, len(dense) + 40, needles, dense, words)
     cls = nfa.classify_chunk(prog, torch.from_numpy(rows).to(dev),
@@ -797,9 +965,10 @@ def test_gated_wide_kernel_all_ones_equals_k1(dev, words):
     k1 = nfa_kernels.match_cls_grouped(prog, live, acc, cls)
     assert torch.equal(got, k1)
     assert got[0] and not got[1] and not got.all()
-    assert nfa_kernels.LAUNCHES[nfa_kernels.GATED_WIDE] == 1
-    assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED_WIDE] == 1
-    assert nfa_kernels.LAUNCHES[nfa_kernels.GATED] == 0
+    k3, others = route_names(words, "k3")
+    assert nfa_kernels.LAUNCHES[k3] == 1
+    assert nfa_kernels.LAUNCHES[route_names(words, "k1")[0]] == 1
+    assert not any(nfa_kernels.LAUNCHES[n] for n in others)
 
 
 def test_gated_kernel_all_ones_equals_k1(dev):

@@ -8,12 +8,24 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 import bench
 from klogs_tpu.filters.base import IncludeExcludeFilter as JaxIncludeExclude
 from klogs_tpu.filters.tpu import NFAEngineFilter
 from klogs_tpu_torch.filters.base import build_include_exclude, frame_lines
 from klogs_tpu_torch.filters.gpu import GpuEngineFilter
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 PATTERNS = ["panic:", r"retry \d+/\d+", "code=50[34]", "^start", "end$",
             r"(?:FATAL|CRIT).*code=\d+"]

@@ -11,6 +11,7 @@ import json
 import re
 
 import pytest
+import torch
 
 from klogs_tpu import app as jax_app
 from klogs_tpu import obs as jax_obs
@@ -26,6 +27,17 @@ from klogs_tpu_torch.cluster.fake import FakeCluster
 from klogs_tpu_torch.obs import trace
 from klogs_tpu_torch.resilience import FAULTS, faults, policy
 from klogs_tpu_torch.runtime import fanout
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CLOCK = 1_753_800_000.0
 

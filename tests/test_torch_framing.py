@@ -6,12 +6,23 @@ import asyncio
 
 import numpy as np
 import pytest
+import torch
 
 from klogs_tpu.filters import base as jbase
 from klogs_tpu.filters import framer as jframer
 from klogs_tpu_torch.filters import base, framer
 from klogs_tpu_torch.filters.async_service import AsyncFilterService
 from klogs_tpu_torch.filters.gpu import GpuEngineFilter, strip_newlines
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def seeded_lines(seed: int, n: int) -> list[bytes]:

@@ -9,6 +9,16 @@ import torch
 from klogs_tpu_torch.ops import bits, nfa_kernels
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def numpy_pairs(words: np.ndarray, G: int):
     """(g * B + b for every set bit g < G of line b's [GW] words, in
     group-major order, lines ascending; the lines with any such bit)."""

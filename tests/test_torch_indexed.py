@@ -17,6 +17,17 @@ from klogs_tpu.obs.metrics import Registry as JRegistry
 from klogs_tpu_torch.filters import indexed as pidx
 from klogs_tpu_torch.obs.metrics import Registry as PRegistry
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SEED = 20261019
 FAMILIES = [
     lambda i: f"svc-{i:04d} unreachable",

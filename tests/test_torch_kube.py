@@ -10,6 +10,7 @@ import ssl
 import sys
 
 import pytest
+import torch
 import yaml
 from aiohttp import web
 
@@ -24,6 +25,17 @@ from klogs_tpu_torch.cluster import kube, kubeconfig
 from klogs_tpu_torch.cluster.backend import ClusterError
 from klogs_tpu_torch.cluster.types import LogOptions
 from klogs_tpu_torch.resilience.policy import RetryPolicy
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TOKEN = "test-token-123"
 

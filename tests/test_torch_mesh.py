@@ -30,6 +30,17 @@ from klogs_tpu_torch.parallel.mesh import MeshEngine
 from klogs_tpu_torch.service.server import _uses_device_sweep
 from tests.test_compiler import _rand_line, _rand_pattern, oracle
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 CLOCK = 1_753_800_000.0
 GRIDS = [(8, 1), (4, 2), (2, 4), (1, 8)]

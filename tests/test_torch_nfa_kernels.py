@@ -203,7 +203,7 @@ def test_bit_tables_pad_with_dead_states():
     assert not mask[:, 640:].any()
 
 
-def test_wrappers_count_only_kernel_launches():
+def test_wrappers_count_only_kernel_launches(monkeypatch):
     """The plain versions (CPU tensors) never count as launches."""
     nfa_kernels.reset_launches()
     tp, live, acc = nfa.compile_grouped(["abc"], device="cpu")
@@ -230,6 +230,17 @@ def test_wrappers_count_only_kernel_launches():
         wp, wl, wa, wcls, torch.ones((4, 1), dtype=torch.int64))
     nfa_kernels.match_chunk_cls_grouped(
         wp, wl, wa, wcls, nfa_kernels.initial_state_grouped(wp, wl, 4))
+    # Past 160 words (a 5632-state group): the shared-memory kernels'.
+    monkeypatch.setenv("KLOGS_MAX_PATTERN_POSITIONS", "8192")
+    sp, sl, sa = nfa.compile_grouped(["q" * 5600 + "z"], device="cpu")
+    assert nfa_kernels.grouped_state_words(sp) == 176
+    scls = torch.full((2, 3), sp.pad_class, dtype=torch.int16)
+    nfa_kernels.match_cls_grouped(sp, sl, sa, scls)
+    nfa_kernels.match_cls_grouped_fused(sp, sl, sa, scls)
+    nfa_kernels.match_cls_grouped_gated(
+        sp, sl, sa, scls, torch.ones((2, 1), dtype=torch.int64))
+    nfa_kernels.match_chunk_cls_grouped(
+        sp, sl, sa, scls, nfa_kernels.initial_state_grouped(sp, sl, 2))
     assert nfa_kernels.LAUNCHES == {nfa_kernels.GROUPED: 0,
                                     nfa_kernels.GATED: 0,
                                     nfa_kernels.CHUNK: 0,
@@ -239,9 +250,26 @@ def test_wrappers_count_only_kernel_launches():
                                     nfa_kernels.GROUPED_CHUNK_WIDE: 0,
                                     nfa_kernels.GATED_WIDE: 0,
                                     nfa_kernels.FUSED_WIDE: 0,
+                                    nfa_kernels.GROUPED_SMEM: 0,
+                                    nfa_kernels.GROUPED_CHUNK_SMEM: 0,
+                                    nfa_kernels.GATED_SMEM: 0,
+                                    nfa_kernels.FUSED_SMEM: 0,
                                     nfa_kernels.PAIRS: 0,
                                     nfa_kernels.PACK_CLS: 0,
                                     nfa_kernels.PACK: 0}
+
+
+def test_smem_route_and_too_wide_group():
+    """Past 160 words the route is the shared-memory kernels' at any
+    width whose one warp's two buffers fit a block's shared memory
+    (29056 words); the launch of a wider group raises
+    GroupTooWideError before it reaches the card."""
+    nfa_kernels._check_width(164)
+    nfa_kernels._check_width(29056)
+    with pytest.raises(nfa_kernels.GroupTooWideError):
+        nfa_kernels._check_width(29057)
+    assert [nfa_kernels._route(w) for w in (4, 32, 36, 160, 164, 2048)] == [
+        "register", "register", "wide", "wide", "smem", "smem"]
 
 
 def test_wrappers_reject_mismatched_programs():

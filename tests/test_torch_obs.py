@@ -30,6 +30,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from klogs_tpu import app as jax_app
 from klogs_tpu import obs as jax_obs
@@ -43,6 +44,17 @@ from klogs_tpu_torch.filters.base import FilterStats
 from klogs_tpu_torch.obs import trace
 from klogs_tpu_torch.obs.profiler import PROFILER, STAGES
 import bench
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CLOCK = 1_753_800_000.0
 # The help texts the port words for itself (the TPU's, or a document's).

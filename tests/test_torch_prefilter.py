@@ -18,6 +18,17 @@ from klogs_tpu_torch.filters.compiler.prefilter import (
 from klogs_tpu_torch.ops import nfa
 from klogs_tpu_torch.ops import prefilter as pf
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SETS = {
     "k64": bench.make_patterns(64),
     "bench": bench.PATTERNS,

@@ -15,6 +15,17 @@ from klogs_tpu.ops import nfa as jnfa
 from klogs_tpu_torch.filters.compiler.glushkov import compile_patterns
 from klogs_tpu_torch.ops import nfa
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LEAVES = ("char_mask", "follow", "inject", "accept", "byte_class")
 META = ("begin_class", "end_class", "pad_class", "n_classes", "n_states",
         "match_all")

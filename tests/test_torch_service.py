@@ -32,6 +32,7 @@ import time
 import grpc
 import numpy as np
 import pytest
+import torch
 
 from klogs_tpu import app as jax_app
 from klogs_tpu.cli import parse_args as jax_parse_args
@@ -72,6 +73,17 @@ from klogs_tpu_torch.service.client import (
 )
 from klogs_tpu_torch.service.server import FilterServer
 from klogs_tpu_torch.ui import term
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 PATTERNS = ["ERROR", r"WARN.*\d"]
 CLOCK = 1_753_800_000.0

@@ -39,6 +39,10 @@ GROUPED_PATS = ["panic:", "code=50[34]", "^FATAL", r"x[0-9]{2,}y", "a.*b.*c",
 # The watch list and a few exception-heavy patterns: every group at 1152
 # states (36 words), run by the wide kernels.
 WIDE_PATS = [chip_smoke.WATCH] + EXC_PATS[:3]
+# Past 160 words (the shared-memory kernels), under a raised position
+# cap: watch lists of 700 and 1030 pods, 176 and 260 words.
+SMEM_PATS = {176: [chip_smoke.watch_list(700)] + EXC_PATS[:3],
+             260: [chip_smoke.watch_list(1030)] + EXC_PATS[:3]}
 
 
 @pytest.fixture(autouse=True)
@@ -85,15 +89,18 @@ def kernel_operands(prog, live):
     (EXC_PATS, 128),
     (None, 128),  # chip_smoke.make_patterns(1024): 156 groups
     (WIDE_PATS, 1152),  # past 32 words: the wide kernels' constants
+    (SMEM_PATS[176], 5632),  # past 160 words: the shared-memory kernels'
+    (SMEM_PATS[260], 8320),
 ], ids=["bench32", "s256", "s640_padded", "word_edge", "exceptions", "k1024",
-        "wide"])
-def test_constants_rebuild_padded_follow(patterns, states):
+        "wide", "smem176", "smem260"])
+def test_constants_rebuild_padded_follow(patterns, states, monkeypatch):
     """shl1(SH) | SELF | RL (live's row) | the rows of EX gives back
     every row of each group's padded follow table, and no constant bit
     lies outside it: SH and SELF only where the edge exists, nothing
     past the last state, EX only where a row holds another edge."""
     if patterns is None:
         patterns = chip_smoke.make_patterns(1024)
+    monkeypatch.setenv("KLOGS_MAX_PATTERN_POSITIONS", "65536")
     prog, live, acc = nfa.compile_grouped(patterns, device="cpu")
     follow_w, consts, _, Sk = kernel_operands(prog, live)
     assert Sk == states
@@ -127,6 +134,11 @@ def test_constants_rebuild_padded_follow(patterns, states):
         # are p-o-d-=, = to the first branch and 7 in each branch.
         assert G == 2 and ex[0].sum() == 129
         assert sh[0].sum() == 3 + 1 + 128 * 7
+    if states > 32 * nfa_kernels.WIDE_WORDS:
+        # The same for 700 and 1030 pods.
+        pods = 700 if states == 5632 else 1030
+        assert G == 2 and ex[0].sum() == pods + 1
+        assert sh[0].sum() == 3 + 1 + pods * 7
 
 
 def shift_scan_np(prog, live, acc, cls: np.ndarray):
@@ -221,6 +233,65 @@ def wide_scan_np(prog, live, acc, cls: np.ndarray):
     return matched | prog.match_all, n_exc
 
 
+def smem_scan_np(prog, live, acc, cls: np.ndarray):
+    """``shift_scan_np`` as the shared-memory kernels run it past 160
+    words: each (line, group) a warp whose state v and next state n are
+    two W-word buffers (n starts as garbage: every word of it is written
+    each step), a step a loop over the W/32 slices, lane l taking word j0
+    + l of slice j0. In a slice, shl1's carry into a lane is its left
+    neighbour's top bit of v & SH (a rotating shuffle: lane 0 takes lane
+    31's of the slice before), live's bit is read from v's word, and n =
+    (shl1 | SELF | RL & live) & mask; the lanes' vote on v & EX sends the
+    warp to a second pass over the slices that ORs each set exception
+    bit's follow row, masked, into n."""
+    follow_w, consts, mask_w, Sk = kernel_operands(prog, live)
+    G, C, W = mask_w.shape
+    B, T = cls.shape
+    row = np.minimum(cls.astype(np.int64) & 0xFFFFFFFF, C)  # unsigned min
+    lw, lsh, aw = live >> 5, np.uint32(live & 31), acc >> 5
+    one, top_bit = np.uint32(1), np.uint32(31)
+    rng = np.random.default_rng(W)
+    matched = np.zeros(B, dtype=bool)
+    n_exc = 0
+    for g in range(G):
+        sh, self_loop, rl, ex = (consts[g, :, k] for k in range(4))
+        masks = np.concatenate([mask_w[g], np.zeros((1, W), np.uint32)])
+        for b in range(B):
+            v = np.zeros(W, dtype=np.uint32)
+            v[lw] = one << lsh
+            n = rng.integers(0, 2**32, size=W, dtype=np.uint32)  # garbage
+            for t in range(T):
+                keep = bool(v[lw] >> lsh & one)
+                m = masks[row[b, t]]
+                vote, carry = False, np.uint32(0)
+                for j0 in range(0, W, 32):
+                    j = np.arange(j0, min(j0 + 32, W))
+                    x = v[j]
+                    a = x & sh[j]
+                    top = np.zeros(32, dtype=np.uint32)  # lanes past W: 0
+                    top[:len(j)] = a >> top_bit
+                    prev = np.roll(top, 1)  # lane l gets lane l-1's
+                    cin = prev[:len(j)].copy()
+                    cin[0] = carry
+                    carry = prev[0]
+                    n[j] = ((a << one) | cin | (x & self_loop[j])
+                            | (rl[j] if keep else np.uint32(0))) & m[j]
+                    vote |= bool((x & ex[j]).any())
+                if vote:  # the second pass
+                    for j0 in range(0, W, 32):
+                        e = v[j0:j0 + 32] & ex[j0:j0 + 32]
+                        for q in np.nonzero(e)[0]:  # the ballot, ascending
+                            bits = int(e[q])
+                            while bits:
+                                bit = (bits & -bits).bit_length() - 1
+                                bits &= bits - 1
+                                n |= follow_w[g, (j0 + q) * 32 + bit] & m
+                                n_exc += 1
+                v, n = n, v
+            matched[b] |= bool(v[aw] >> np.uint32(acc & 31) & one)
+    return matched | prog.match_all, n_exc
+
+
 def text_rows(seed: int, B: int, width: int, needles: list):
     """[B, width] printable rows, lengths in [0, width], a needle in
     every other row."""
@@ -280,3 +351,59 @@ def test_shift_step_equals_plain_and_pallas(patterns, needles, width,
     assert np.array_equal(got, plain)
     assert np.array_equal(got, grouped) and np.array_equal(got, fused)
     assert got.any() and not got.all()
+
+
+# The shared-memory step's cases (patterns, width, lines, needles): the
+# 700-pod list (the watch group's states are dense across slices after
+# "pod=", until the digits), and a literal whose one thread crosses the
+# edge of slices 0 and 1 at state 1024 while live sits in slice 2 (68
+# words here: the transcription runs at any width).
+SMEM_STEP_CASES = {
+    "watch176": (SMEM_PATS[176], 45, 16, [
+        b"pod=pod-0255", b"x pod=pod-0511 y", b"pod=pod-1023", b"abcd",
+        b"pod=pod-0767", b"pod=pod-1279 bazqux", b"pod=pod-0700",
+        b"x pod=pod-1399 y"]),
+    "edge68": (["a" + "b" * 2100 + "c", "panic:"], 2110, 6, [
+        b"a" + b"b" * 2100 + b"c", b"panic: x", b"a" + b"b" * 2099 + b"c"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SMEM_STEP_CASES))
+def test_smem_step_equals_plain_and_re(monkeypatch, case):
+    """The step transcribed from the shared-memory kernels (past 160
+    words: the 700-pod watch list and three exception-heavy patterns, 2
+    groups of 5632 states, 176 words; and a literal crossing a slice
+    edge) equals the plain version, which equals ``re``, with ids outside
+    [0, C) in some rows; the plain version's ``work["exc"]`` counts the
+    exception rows it ORs. (The Pallas kernels
+    are left out here: a 5632-state product in interpret mode costs
+    minutes on one thread.)"""
+    import re
+
+    monkeypatch.setenv("KLOGS_MAX_PATTERN_POSITIONS", "65536")
+    pats, width, B, needles = SMEM_STEP_CASES[case]
+    prog, live, acc = nfa.compile_grouped(pats, device="cpu")
+    rows, lens = text_rows(len(pats) + width, B, width, needles)
+    for i in (0, 2):  # the first and last needles whole, in rows 0 and 2
+        nd = needles[-i // 2]
+        rows[i, :len(nd)] = np.frombuffer(nd, np.uint8)
+        lens[i] = len(nd)
+    cls = nfa.classify_chunk(prog, torch.from_numpy(rows),
+                             torch.from_numpy(lens), True, True)
+    T = cls.shape[1]
+    cls[3::11, T // 3] = prog.n_classes + 5
+    cls[6::13, T // 2] = -1
+    got, n_exc = smem_scan_np(prog, live, acc, cls.numpy())
+    work: dict = {}
+    plain = nfa_kernels.match_cls_grouped_plain(prog, live, acc, cls,
+                                                work=work).numpy()
+    assert work["exc"] == n_exc < work["active"]
+    assert np.array_equal(got, plain)
+    words = nfa_kernels.kernel_states(prog.n_states) // 32
+    alt = re.compile("|".join(f"(?:{p})" for p in pats).encode())
+    clean = [i for i in range(B) if i % 11 != 3 and i % 13 != 6]
+    assert [got[i] for i in clean] == [
+        alt.search(rows[i, :lens[i]].tobytes()) is not None for i in clean]
+    assert got[0] and got.any() and not got.all()
+    if case == "watch176":
+        assert words == 176 and n_exc > 0

@@ -8,6 +8,7 @@ import json
 import os
 
 import pytest
+import torch
 
 from klogs_tpu import app as jax_app
 from klogs_tpu.cli import parse_args as jax_parse_args
@@ -20,6 +21,17 @@ from klogs_tpu_torch.cluster.fake import FakeCluster
 from klogs_tpu_torch.runtime import stdout
 from klogs_tpu_torch.runtime.sink import FileSink
 from klogs_tpu_torch.ui import term
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CLOCK = 1_753_800_000.0
 

@@ -20,6 +20,17 @@ from klogs_tpu_torch.filters.compiler.groups import analyze, plan_groups
 from klogs_tpu_torch.filters.compiler.index import SWEEP_FACTOR_CAP, FactorIndex
 from klogs_tpu_torch.ops import bits, sweep
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ALPHA = b"abcdef0123-=/ :"
 
 

@@ -5,6 +5,7 @@ map: every leaf equal, exactly."""
 
 import numpy as np
 import pytest
+import torch
 
 import bench
 from klogs_tpu.filters.compiler import index as jindex
@@ -15,6 +16,17 @@ from klogs_tpu.ops import nfa as jnfa
 from klogs_tpu_torch.filters.compiler import index
 from klogs_tpu_torch.filters.compiler.groups import analyze, plan_groups
 from klogs_tpu_torch.filters.compiler.index import FactorIndex
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TIER_SET = ["ERR!", "panic: out of memory", "x!z", "FATAL|CRIT",
             r"[a-z]*\d?"]

@@ -12,6 +12,7 @@ import json
 import random
 
 import pytest
+import torch
 
 from klogs_tpu.obs import trace as jax_trace
 from klogs_tpu.resilience import policy as jax_policy
@@ -19,6 +20,17 @@ from klogs_tpu_torch import app, cli
 from klogs_tpu_torch.cluster.fake import FakeCluster
 from klogs_tpu_torch.obs import trace
 from klogs_tpu_torch.resilience import policy
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CLOCK = 1_753_800_000.0
 SIDES = {"jax": (jax_trace, jax_policy), "torch": (trace, policy)}

@@ -8,6 +8,17 @@ import torch
 from klogs_tpu.ops import tune as jtune
 from klogs_tpu_torch.ops import nfa, tune
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain kernels' products on one thread: several test processes
+    each spreading them over every core slow each other to a crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TPU_VARS = ("KLOGS_TPU_TILE", "KLOGS_TPU_INTERLEAVE", "KLOGS_TPU_MASK_BLOCK",
             "KLOGS_TPU_FUSED_GROUPS", "KLOGS_TPU_KERNEL")
 

@@ -146,3 +146,77 @@ def test_k64_watch_engine_equals_jax_and_re(monkeypatch):
     assert got[-8:] == [True, True, False, False, True, True, False, False]
     assert ref.match_lines(lines) == exp
     assert widths and set(widths) == {36}
+
+
+# ---- past 160 words: the shared-memory route ------------------------------
+
+# A 700-pod watch list (5,604 positions, under a raised position cap) and
+# two bench patterns: 2 groups of 5632 states, 176 words, past 160.
+SMEM_PATS = [chip_smoke.WATCH700, "panic:", r"retry \d+/\d+"]
+SMEM_CHUNK = 64
+
+
+def smem_lines() -> list:
+    """Short lines around the 700-pod list (pods on it, off it, cut
+    short, past its last pod) and 4 lines longer than the 64-byte chunk:
+    a needle across the chunk edge, one ending on it, a near miss, a
+    bench needle."""
+    lines = [b"pod=pod-%04d x" % i for i in range(0, 1500, 97)]
+    lines += [b"pod=pod-1399", b"pod=pod-1401\n", b"x pod=pod-07", b"",
+              b"retry 3/5 pod=pod-0002"]
+    lines += [b"z" * 60 + b" pod=pod-0011 q", b"q" * 52 + b"pod=pod-1397",
+              b"y" * 70 + b"pod=pod-0640\n", b"panic: " + b"y" * 70]
+    return lines
+
+
+def smem_oracle(line: bytes) -> bool:
+    return any(re.search(p.encode(), line.rstrip(b"\n")) for p in SMEM_PATS)
+
+
+def test_watch700_engine_equals_jax_and_re(monkeypatch):
+    """Past 160 words (``SMEM_PATS``: 2 groups of 176 words) short lines
+    take K1's route and long lines K2g's (no union built), and the
+    verdicts equal ``re``'s and the JAX engine's
+    (``NFAEngineFilter(kernel="interpret")``, its long lines on the
+    5,700-state union). Sized for the CPU: 21 short lines and 4 long
+    ones at a 64-byte chunk took the port's plain versions 7.9 s and the
+    JAX engine 4.6 s on one core (a 5632-state step reads a 254 MB float
+    table a step; 4096-byte chunks and the 32 bench patterns cost the
+    JAX side alone 33 s)."""
+    monkeypatch.setenv("KLOGS_MAX_PATTERN_POSITIONS", "65536")
+    port = GpuEngineFilter(SMEM_PATS, chunk_bytes=SMEM_CHUNK, device="cpu")
+    assert nfa_kernels.grouped_state_words(port._grouped) == 176
+    assert port._aug is None and port._long is not None
+    lines = smem_lines()
+    got = port.match_lines(lines)
+    want = [smem_oracle(ln) for ln in lines]
+    assert got == want
+    assert any(want[:21]) and not all(want[:21])
+    assert want[-4:] == [True, True, False, True]
+    ref = NFAEngineFilter(SMEM_PATS, chunk_bytes=SMEM_CHUNK,
+                          kernel="interpret")
+    assert ref.match_lines(lines) == got
+
+
+def test_watch700_long_lines_take_k2g(monkeypatch):
+    """Long lines of a set past 160 words run K2g over the grouped
+    automata at 176 words, a chunk at a time, the carry chained: the
+    union is never built (``_aug`` is None) and K2 is never called."""
+    monkeypatch.setenv("KLOGS_MAX_PATTERN_POSITIONS", "65536")
+    widths = []
+    grouped = nfa_kernels.match_chunk_cls_grouped
+
+    def recording(prog, live, acc, cls, v0, final=True):
+        widths.append(nfa_kernels.grouped_state_words(prog))
+        return grouped(prog, live, acc, cls, v0, final=final)
+
+    def no_union(*a, **kw):
+        raise AssertionError("K2 on a set past 160 words")
+
+    monkeypatch.setattr(nfa_kernels, "match_chunk_cls_grouped", recording)
+    monkeypatch.setattr(nfa_kernels, "match_chunk_cls", no_union)
+    port = GpuEngineFilter(SMEM_PATS, chunk_bytes=SMEM_CHUNK, device="cpu")
+    assert port._aug is None and port._long[0] is port._grouped
+    lines = smem_lines()[-4:]
+    assert port.match_lines(lines) == [smem_oracle(ln) for ln in lines]
+    assert widths == [176, 176]  # two chunks of the 4 long lines
