@@ -25,8 +25,12 @@ controller's "slots full with callers queued" then shows only while a
 leftover caller happens to be coalescing.)
 Each group is a ``coalescer.dispatch`` span, parented under its first
 traced caller; ``device.fetch`` wraps the await of the verdicts (the
-executor thread does not inherit the trace context), so it holds the
-card's time for the group.
+executor thread does not inherit the trace context): the host's wait,
+around the card's own time, which the engine records as ``card.batch``
+(``filters/gpu.py``). The fetch threads' time in the engine's fetch
+and their CPU time in it (``klogs_fetch_wait_seconds_total``,
+``klogs_fetch_cpu_seconds_total``) are counted with a ``FilterStats``:
+four clock reads a batch, on the executor thread.
 
 ``KLOGS_MAX_IN_FLIGHT``, ``KLOGS_FETCH_WORKERS`` and
 ``KLOGS_COALESCE_LINES`` set the defaults of the constructor's
@@ -92,6 +96,8 @@ class AsyncFilterService:
                 "bp_wait": r.family(
                     "klogs_coalescer_backpressure_wait_seconds"),
                 "dispatch": r.family("klogs_coalescer_dispatch_seconds"),
+                "fetch_wait": r.family("klogs_fetch_wait_seconds_total"),
+                "fetch_cpu": r.family("klogs_fetch_cpu_seconds_total"),
             }
         # An own semaphore is made at first dispatch, inside the loop.
         self._sem: "asyncio.Semaphore | None" = in_flight
@@ -329,7 +335,7 @@ class AsyncFilterService:
                             time.perf_counter() - t_dispatch)
                     with trace.TRACER.span("device.fetch"):
                         verdicts = await loop.run_in_executor(
-                            self._pool, self._filter.fetch_framed, handle)
+                            self._pool, self._fetch, handle)
                     if self._stats is not None:
                         self._stats.record_device_batch(
                             time.perf_counter() - t_dispatch)
@@ -347,6 +353,18 @@ class AsyncFilterService:
             if not fut.done():
                 fut.set_result(verdicts[off:off + n])
             off += n
+
+    def _fetch(self, handle) -> np.ndarray:
+        """The engine's fetch, on an executor thread; counted (its wait,
+        and the thread's CPU time in it) with a ``FilterStats``."""
+        if self._m is None:
+            return self._filter.fetch_framed(handle)
+        t0, cpu0 = time.perf_counter(), time.thread_time()
+        try:
+            return self._filter.fetch_framed(handle)
+        finally:
+            self._m["fetch_cpu"].inc(time.thread_time() - cpu0)
+            self._m["fetch_wait"].inc(time.perf_counter() - t0)
 
     @contextlib.asynccontextmanager
     async def _slot(self, n_callers: int):

@@ -89,13 +89,30 @@ strip on the bytes path, and the staging copy, with one child a width
 bucket for its slice of the metadata: ``width``, ``rows``, ``path``); a
 ``device.kernel`` span is one sub-batch's enqueue
 (``pack_classify_rows``, the gate, the kernel; ``swept=True`` under the
-sweep gate), not its run on the card. The
-card's time shows in the coalescer's ``device.fetch``. No span, counter
-or probe here waits on the card.
+sweep gate), not its run on the card. No span, counter or probe here
+waits on the card.
+
+The card's own time is in ``card.*`` spans, the port's (the JAX engine
+has none): when a batch's outer ``device.frame`` span is sampled, the
+batch records CUDA timing events on its stream (``CardTimer``: before
+and after the staging copy, after each sub-batch's
+``pack_classify_rows``, gate and kernel, after the long lines' whole
+chunk loop, and the ``done`` event), and ``fetch_framed``, once ``done``
+has completed, turns them into finished spans on the host's real-time
+clock (``CardClock``): ``card.batch`` (from the stream reaching the
+batch's first op to its last; ``queued_s``, ``rows``, ``sub_batches``,
+``launches``), parented under the span current at dispatch (the
+coalescer's ``coalescer.dispatch`` in filterd), and one child a stage
+(``card.copy``, ``card.pack``, ``card.gate``, ``card.match``,
+``card.long``, ``card.verdicts``), each from the event before it to its
+own. A stage's span holds any wait of the stream on the host's enqueue
+of that stage. Under a mesh engine, and on a CPU device, no ``card.*``
+span is recorded; unsampled, no timing event is made.
 """
 
 import copy
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -182,11 +199,13 @@ def _moved(x, device: torch.device):
     return x
 
 
-def stage(payload: bytes, meta: np.ndarray, devices) -> dict:
+def stage(payload: bytes, meta: np.ndarray, devices,
+          timer: "CardTimer | None" = None) -> dict:
     """{device: (metadata [M] int64, payload [P] uint8)} for each distinct
     device of ``devices``, from one host buffer (pinned when a card is
     among them) holding both: one host memcpy of the payload and one
-    non-blocking H2D copy a card."""
+    non-blocking H2D copy a card. A ``timer`` starts at the copies and
+    marks their end."""
     devices = list(dict.fromkeys(devices))
     head = meta.nbytes
     host = torch.empty(head + len(payload), dtype=torch.uint8,
@@ -195,10 +214,111 @@ def stage(payload: bytes, meta: np.ndarray, devices) -> dict:
     buf[:head] = meta.view(np.uint8)
     buf[head:] = np.frombuffer(payload, dtype=np.uint8)
     out = {}
+    if timer is not None:
+        timer.start()
     for dev in devices:
         t = host.to(dev, non_blocking=True) if dev.type == "cuda" else host
         out[dev] = (t[:head].view(torch.int64), t[head:])
+    if timer is not None:
+        timer.mark("copy")
     return out
+
+
+# A card's clock anchor is replaced once it is older than this, at the
+# next sampled batch: an event's elapsed time is a float32 of
+# milliseconds, whose step grows with the anchor's age (3.9 us at 60 s),
+# and the card's timer drifts from the host's clock (on an H100, about
+# 3 us a second, with steps of up to 70 us: PERF.md section 7).
+REANCHOR_S = 1.0
+
+
+class CardClock:
+    """One card's CUDA events on the host's real-time clock
+    (``time.time()``, the clock of a span's ``start_unix``). An anchor is
+    a timing event recorded on a stream of its own, which no batch's work
+    is queued ahead of, beside the host time at which its record
+    returned; an event's host time is the anchor's plus
+    ``anchor.elapsed_time(event)``. ``current()`` is the anchor a batch's
+    events are placed by, taken anew past ``REANCHOR_S``."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._stream = torch.cuda.Stream(device)
+        self._anchor: "tuple[torch.cuda.Event, float, float] | None" = None
+
+    def anchor(self) -> "tuple[torch.cuda.Event, float, float]":
+        """A new anchor: (event, its host time, the monotonic time)."""
+        e = torch.cuda.Event(enable_timing=True)
+        e.record(self._stream)
+        self._anchor = (e, time.time(), time.monotonic())
+        return self._anchor
+
+    def current(self) -> "tuple[torch.cuda.Event, float, float]":
+        a = self._anchor
+        if a is None or time.monotonic() - a[2] > REANCHOR_S:
+            a = self.anchor()
+        return a
+
+
+_CLOCKS: "dict[torch.device, CardClock]" = {}
+
+
+def card_clock(device: torch.device) -> CardClock:
+    """The process's clock of a card, made at its first use."""
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    clock = _CLOCKS.get(device)
+    if clock is None:
+        clock = _CLOCKS[device] = CardClock(device)
+    return clock
+
+
+def anchor_card_clock(device: torch.device) -> None:
+    """Anchor a card's clock while it is idle: filterd's start, before any
+    batch."""
+    torch.cuda.synchronize(device)
+    card_clock(device).anchor()
+
+
+class CardTimer:
+    """One sampled batch's timing events on the card. ``start`` records
+    the event before its first op and the host time of that op's enqueue;
+    ``mark(stage)`` an event after a stage's work on the current stream;
+    ``finish(done, rows)``, once ``done`` has completed, records
+    ``card.batch`` under ``parent`` and one child a stage, each from the
+    event before it to its own (``card.verdicts`` ends at ``done``)."""
+
+    def __init__(self, device: torch.device, parent):
+        self.device = device
+        self.parent = parent
+        self.anchor = card_clock(device).current()
+        self.marks: "list[tuple[str, torch.cuda.Event, dict]]" = []
+        self.enqueued_unix = 0.0
+        self.sub_batches = 0
+        self.launches = 0
+
+    def start(self) -> None:
+        self.mark("start")
+        self.enqueued_unix = time.time()
+
+    def mark(self, stage: str, **attrs: object) -> None:
+        e = torch.cuda.Event(enable_timing=True)
+        e.record(torch.cuda.current_stream(self.device))
+        self.marks.append((stage, e, attrs))
+
+    def finish(self, done: "torch.cuda.Event", rows: int) -> None:
+        anchor, unix, _ = self.anchor
+        anchor.synchronize()
+        at = [unix + anchor.elapsed_time(e) / 1e3
+              for e in [e for _, e, _ in self.marks] + [done]]
+        tr = trace.TRACER
+        batch = tr.record_span(
+            "card.batch", self.parent, at[0], at[-1] - at[0],
+            queued_s=at[0] - self.enqueued_unix, rows=rows,
+            sub_batches=self.sub_batches, launches=self.launches)
+        stages = [(s, a) for s, _, a in self.marks[1:]] + [("verdicts", {})]
+        for (stage, attrs), t0, t1 in zip(stages, at, at[1:]):
+            tr.record_span("card." + stage, batch, t0, t1 - t0, **attrs)
 
 
 class ShortLines:
@@ -285,23 +405,35 @@ class ShortLines:
         return new
 
     def _match_short(self, payload: torch.Tensor, starts: torch.Tensor,
-                     lens: torch.Tensor, width: int, rows: int):
+                     lens: torch.Tensor, width: int, rows: int,
+                     timer: "CardTimer | None" = None):
         """One width bucket's lines (``starts`` and raw ``lens`` into
         ``payload``, zero-padded to ``rows``), on the device -> ([rows]
         bool, gate stats [3] or None): the main path
-        (``pack_classify_rows``, then K1 or K4, or the gate and K3)."""
+        (``pack_classify_rows``, then K1 or K4, or the gate and K3). A
+        ``timer`` marks each stage's end."""
         g = self._grouped
         cls, lengths, batch = pack.pack_classify_rows(
             payload, starts, lens, width, rows, g,
             want_bytes=self._gate_reads_bytes())
+        if timer is not None:
+            timer.mark("pack", width=width)
         gate = self._gate_bits(batch, lengths, cls)
         if gate is None:
             kernel = (nfa_kernels.match_cls_grouped_fused if self._fused
                       else nfa_kernels.match_cls_grouped)
-            return kernel(g, self._g_live, self._g_acc, cls), None
-        return nfa_kernels.match_cls_grouped_gated(
-            g, self._g_live, self._g_acc, cls, gate,
-            want_stats=self._stats is not None)
+            out = kernel(g, self._g_live, self._g_acc, cls), None
+        else:
+            # The pair builder ends the gate's stage on the card.
+            marks = ({} if timer is None else
+                     {"on_pairs": lambda: timer.mark("gate", width=width)})
+            out = nfa_kernels.match_cls_grouped_gated(
+                g, self._g_live, self._g_acc, cls, gate,
+                want_stats=self._stats is not None, **marks)
+        if timer is not None:
+            timer.mark("match", width=width)
+            timer.launches += 1
+        return out
 
     def _gate_reads_bytes(self) -> bool:
         """Whether the active gate reads the rows' bytes: the sweep, or a
@@ -362,6 +494,8 @@ class GpuEngineFilter(ShortLines, LogFilter):
             self._aug = nfa.pack_program(nfa.augment(prog),
                                          device=self.device)
         self._live, self._acc = prog.n_states, prog.n_states + 1
+        # Sampled batches time the card (no mesh: its shards' streams).
+        self._card_timing = engine is None and self.device.type == "cuda"
 
     def _long_program(self, prog, patterns: list[str], ignore_case: bool):
         """(grouped program, live, acc) for K2g when the union is wider
@@ -435,18 +569,22 @@ class GpuEngineFilter(ShortLines, LogFilter):
         for fetch_framed."""
         n = len(offsets) - 1
         if n == 0:
-            return (0, [], None)
+            return (0, [], None, None)
         if self._match_all:
-            return (n, None, None)
+            return (n, None, None, None)
         tr = trace.TRACER
         path = self._path()
         eng = self._engine
         loaded = _build.loaded_count()
+        timer = None
         with tr.span("device.frame", rows=n, bytes=len(payload), path=path,
-                     staged=True):
+                     staged=True) as frame:
             layout, meta = self._layout(payload, offsets, path)
+            if frame.sampled and self._card_timing:
+                timer = CardTimer(self.device, self._card_parent(frame))
+                timer.sub_batches = len(layout)
             staged = stage(payload, meta, eng.local_devices if eng is not None
-                           else [self.device])
+                           else [self.device], timer=timer)
         meta_d, payload_d = staged[self.device]
         parts, at = [], 0
         for idx, width, rows, longest in layout:
@@ -459,6 +597,9 @@ class GpuEngineFilter(ShortLines, LogFilter):
                              rows=rows, chunks=chunks):
                     parts.append((idx, self._match_long(
                         payload_d, starts_d, lens_d, longest), None))
+                if timer is not None:
+                    timer.mark("long", chunks=chunks)
+                    timer.launches += chunks
             else:
                 bucket = _bucket_batch(len(idx))
                 self._record_sub_batch(width, bucket, n_bytes)
@@ -469,11 +610,21 @@ class GpuEngineFilter(ShortLines, LogFilter):
                             staged, at, rows, len(idx), width), None))
                     else:
                         parts.append((idx, *self._match_short(
-                            payload_d, starts_d, lens_d, width, rows)))
+                            payload_d, starts_d, lens_d, width, rows,
+                            timer)))
             at += 2 * rows
         if self._stats is not None and _build.loaded_count() > loaded:
             self._stats.record_compile(_build.loaded_count() - loaded)
-        return self._start_fetch(n, parts)
+        return self._start_fetch(n, parts, timer)
+
+    @staticmethod
+    def _card_parent(frame):
+        """Where a batch's ``card.batch`` span parents: the span current
+        at dispatch (``frame``'s parent; the group's
+        ``coalescer.dispatch`` in filterd), else ``frame``."""
+        if frame.parent_id is None:
+            return frame
+        return trace.SpanContext(frame.trace_id, frame.parent_id, True)
 
     def _path(self) -> str:
         """The JAX engine's name for the short lines' path: ``bytes``
@@ -571,12 +722,14 @@ class GpuEngineFilter(ShortLines, LogFilter):
                     prog, self._acc, cls, v, final=final)
         return matched
 
-    def _start_fetch(self, n: int, parts: list):
+    def _start_fetch(self, n: int, parts: list,
+                     timer: "CardTimer | None" = None):
         """Start the copies of the verdicts (and gate stats) to the host;
-        on CUDA, record the event fetch waits on."""
+        on CUDA, record the event fetch waits on (a timing event under a
+        ``timer``)."""
         if self.device.type != "cuda":
             return (n, [(idx, m[:len(idx)], st) for idx, m, st in parts],
-                    None)
+                    None, None)
         host = []
         for idx, m, st in parts:
             h = torch.empty(len(idx), dtype=torch.bool, pin_memory=True)
@@ -586,16 +739,18 @@ class GpuEngineFilter(ShortLines, LogFilter):
                 hs = torch.empty(st.shape, dtype=st.dtype, pin_memory=True)
                 hs.copy_(st, non_blocking=True)
             host.append((idx, h, hs))
-        done = torch.cuda.Event()
+        done = torch.cuda.Event(enable_timing=timer is not None)
         done.record(torch.cuda.current_stream(self.device))
-        return (n, host, done)
+        return (n, host, done, timer)
 
     def fetch_framed(self, handle) -> np.ndarray:
-        n, parts, done = handle
+        n, parts, done, timer = handle
         if parts is None:
             return np.ones(n, dtype=bool)
         if done is not None:
             done.synchronize()
+            if timer is not None:
+                timer.finish(done, n)
         out = np.zeros(n, dtype=bool)
         for idx, h, st in parts:
             out[idx] = h.numpy()

@@ -8,7 +8,11 @@ recorder (``obs.trace``) and the pipeline profiler (``obs.profiler``).
 
 from klogs_tpu_torch.obs.expo import render, snapshot
 from klogs_tpu_torch.obs.http import Health, MetricsHTTPServer
-from klogs_tpu_torch.obs.inventory import SPECS, register_all
+from klogs_tpu_torch.obs.inventory import (
+    PORT_FAMILIES,
+    SPECS,
+    register_all,
+)
 from klogs_tpu_torch.obs.metrics import (
     REGISTRY,
     Counter,
@@ -20,6 +24,6 @@ from klogs_tpu_torch.obs.metrics import (
 
 __all__ = [
     "REGISTRY", "Registry", "Family", "Counter", "Gauge", "Histogram",
-    "Health", "MetricsHTTPServer", "SPECS", "register_all", "render",
-    "snapshot",
+    "Health", "MetricsHTTPServer", "PORT_FAMILIES", "SPECS", "register_all",
+    "render", "snapshot",
 ]

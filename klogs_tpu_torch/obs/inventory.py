@@ -2,7 +2,9 @@
 
 Counterpart of ``klogs_tpu/obs/inventory.py``: the same 95 families,
 with the same names, types, label names and buckets, because operators'
-dashboards read them. Instrumented modules obtain a family through
+dashboards read them, then the port's own (``PORT_FAMILIES``: filterd's
+fetch threads, event loop and RPC receive, which the JAX package does
+not count). Instrumented modules obtain a family through
 ``registry.family(name)``, which resolves here, so a name used anywhere
 carries the type, help and buckets of this table. Every family is
 updated by some layer of the port. Where a help text described the TPU,
@@ -448,7 +450,33 @@ SPECS: dict[str, dict] = {
         "counter", "RPCs per client HOST (peer address normalized to "
         "drop the per-connection port).", labels=("client",),
         bounds={"client": "config"}),
+
+    # -- the port's own (filterd's host path) -------------------------
+    "klogs_fetch_wait_seconds_total": _m(
+        "counter", "Seconds the coalescer's fetch threads spent in the "
+        "engine's fetch (the wait for a batch's verdicts and their "
+        "read), summed over batches."),
+    "klogs_fetch_cpu_seconds_total": _m(
+        "counter", "CPU seconds the fetch threads used in those fetches "
+        "(their thread time): over klogs_fetch_wait_seconds_total, the "
+        "share of the wait spent spinning."),
+    "klogs_loop_lag_seconds": _m(
+        "histogram", "How late filterd's event-loop timer fired, re-armed "
+        "every 50 ms: the loop's delay in running work that is ready.",
+        buckets=LATENCY_BUCKETS),
+    "klogs_rpc_receive_seconds": _m(
+        "histogram", "From an RPC's arrival (its handler looked up, "
+        "before the request message is read) to the handler's entry: "
+        "the request's transfer and the loop's delay, by method.",
+        labels=("method",), buckets=LATENCY_BUCKETS,
+        bounds={"method": "enum"}),
 }
+
+# The families the JAX package has no counterpart of (the last of SPECS).
+PORT_FAMILIES: "tuple[str, ...]" = (
+    "klogs_fetch_wait_seconds_total", "klogs_fetch_cpu_seconds_total",
+    "klogs_loop_lag_seconds", "klogs_rpc_receive_seconds",
+)
 
 
 def register_all(registry: "Registry") -> None:

@@ -21,10 +21,14 @@ tick time, once per ``KLOGS_PROFILE_INTERVAL_S``. The design budget of
 the whole layer is under 2% of a run's throughput.
 
 On the card the device works asynchronously: ``device.kernel`` times
-the enqueue of a sub-batch's launches and ``device.fetch`` the wait
-for its verdicts, so the device's own time shows in ``device.fetch``
-(and in ``klogs_engine_device_batch_seconds``), not in
-``device.kernel``.
+the enqueue of a sub-batch's launches and ``device.fetch`` the host's
+wait for its verdicts. The card's own time is the port's
+``card.batch`` stage (``filters/gpu.py``: from the stream reaching a
+batch's first op to its last, by CUDA events), so ``card.batch``'s
+utilization is the card's busy share and ``device.fetch`` the wait
+around it. ``card.batch`` runs on the card's timeline, beside the host
+spans: it folds its own busy-seconds and is not subtracted from its
+parent's (``coalescer.dispatch``) self time.
 
 ``FleetCapacity`` is filterd's capacity accountant: offered against
 admitted lines, their rolling rates, and a headroom in [0, 1] that every
@@ -50,10 +54,12 @@ if TYPE_CHECKING:
 
     from klogs_tpu_torch.obs.metrics import Registry
 
-# The pipeline stage catalog: the span names the profiler folds, the
-# same as the JAX package's (a fixed enum bounding the `stage` label of
-# the klogs_profile_* families). The port emits every one of them:
-# mesh.dispatch is a sub-batch's enqueue on a mesh engine's shards.
+# The pipeline stage catalog: the span names the profiler folds (a fixed
+# enum bounding the `stage` label of the klogs_profile_* families): the
+# JAX package's, then the port's own, ``CARD_STAGES``. The port emits
+# every one of them: mesh.dispatch is a sub-batch's enqueue on a mesh
+# engine's shards.
+CARD_STAGES: "tuple[str, ...]" = ("card.batch",)
 STAGES: "tuple[str, ...]" = (
     "source.read",
     "fanout.read",
@@ -70,8 +76,9 @@ STAGES: "tuple[str, ...]" = (
     "device.kernel",
     "device.fetch",
     "mesh.dispatch",
-)
+) + CARD_STAGES
 _STAGE_SET = frozenset(STAGES)
+_CARD_SET = frozenset(CARD_STAGES)
 
 DEFAULT_INTERVAL_S = 1.0
 # The rolling window of the offered/admitted rates.
@@ -288,7 +295,7 @@ class PipelineProfiler:
         with self._lock:
             child = (self._child_busy.pop(span_id, 0.0)
                      if isinstance(span_id, str) else 0.0)
-            if isinstance(parent_id, str):
+            if isinstance(parent_id, str) and name not in _CARD_SET:
                 if len(self._child_busy) >= 4096:
                     # Orphans (a parent that never folds): drop the
                     # oldest half rather than grow.

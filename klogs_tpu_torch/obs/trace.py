@@ -376,6 +376,25 @@ class Tracer:
     # The idiomatic entry (`with tracer.span("name"):`).
     span = start_span
 
+    def record_span(self, name: str, parent: object, start_unix: float,
+                    duration_s: float, **attrs: object
+                    ) -> "Span | _NoopSpan":
+        """A finished span of work timed elsewhere (the card's own
+        events, a wait measured before its span could open): ``start_unix``
+        and ``duration_s`` as given, under ``parent`` (a ``Span`` or
+        ``SpanContext``; ``None`` records nothing). Returns it, so
+        children can parent under it; the no-op singleton when the
+        parent does not sample."""
+        if parent is None:
+            return NOOP_SPAN
+        sp = self.start_span(name, parent=parent, **attrs)
+        if isinstance(sp, Span) and sp.sampled:
+            sp.start_unix = start_unix
+            sp.duration_s = duration_s
+            sp._ended = True
+            self._finish(sp)
+        return sp
+
     def current_span(self) -> "Span | None":
         cur = _CURRENT.get()
         return cur if isinstance(cur, Span) else None

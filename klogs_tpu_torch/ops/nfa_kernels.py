@@ -61,6 +61,7 @@ it went through them.
 
 import ctypes
 import threading
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -586,13 +587,15 @@ def launch_gated_plain(prog: TorchProgram, live: int, acc: int,
 
 def match_cls_grouped_gated(prog: TorchProgram, live: int, acc: int,
                             cls: torch.Tensor, gate_bits: torch.Tensor,
-                            want_stats: bool = False):
+                            want_stats: bool = False,
+                            on_pairs: "Callable[[], None] | None" = None):
     """[B, T] class ids + [B, GW] group words (bit g % 32 of word g // 32:
     group g may match line b) -> (matched [B] bool, stats or None), with
     ``matched[b] = match_all or OR_g (gate[b, g] and acc_g(b))``: for a
     necessary gate, K1's verdict. ``stats`` is ``gate_pairs``' [3]
     int64 tensor on the device, read with the verdicts. Nothing waits
-    on the host."""
+    on the host. ``on_pairs`` is called once the pair builder is
+    enqueued, before the kernel (the engine's card timing)."""
     if prog.follow.dim() != 3:
         raise ValueError(
             "match_cls_grouped_gated needs a compile_grouped program")
@@ -602,6 +605,8 @@ def match_cls_grouped_gated(prog: TorchProgram, live: int, acc: int,
     G = prog.follow.shape[0]
     _gate_words(G, cls.shape[0], cls.device, gate_bits)
     pairs, n_pairs, stats = gate_pairs(gate_bits, G)
+    if on_pairs is not None:
+        on_pairs()
     matched = _or_match_all(prog, launch_gated(prog, live, acc, cls, pairs,
                                                n_pairs))
     return matched, (stats if want_stats else None)

@@ -41,9 +41,19 @@ Transport security for a hop across nodes:
 
 Both are off by default. Partial TLS configuration is a constructor
 error, never a plaintext fallback.
+
+With the sidecar's registry, filterd also times its host path, always
+on: the event loop's lag (``klogs_loop_lag_seconds``: a timer re-armed
+every 50 ms, from ``start`` to ``stop``, observes how late it fired)
+and each RPC's receive (``klogs_rpc_receive_seconds{method}``: from its
+arrival, stamped when grpc looks its handler up, before the request
+message is read, to the handler's entry). A sampled RPC's receive is
+also an ``rpc.receive`` span, a child of its ``rpc.server`` span that
+ends where it starts.
 """
 
 import asyncio
+import contextvars
 import hmac
 import time
 
@@ -112,7 +122,8 @@ def _uses_device_sweep(filt) -> bool:
 def _load_kernels(device, backend: str = "cuda") -> None:
     """Build (at first use) and load what the engine runs: the host C
     for ``backend="cpu"``, the CUDA libraries on a card, nothing on the
-    CPU, where the plain versions run."""
+    CPU, where the plain versions run. On a card, then anchor its clock
+    (``filters/gpu.py`` ``CardClock``) while it is idle."""
     if backend == "cpu":
         from klogs_tpu_torch.native import hostops
 
@@ -122,8 +133,63 @@ def _load_kernels(device, backend: str = "cuda") -> None:
         return
     from klogs_tpu_torch.ops import _build
 
+    from klogs_tpu_torch.filters.gpu import anchor_card_clock
+
     for name in ("nfa_kernels", "pack_kernels"):
         _build.load(name)
+    anchor_card_clock(device)
+
+
+# The arrival of the RPC the current task serves (``time.perf_counter``).
+_ARRIVED: "contextvars.ContextVar[float | None]" = contextvars.ContextVar(
+    "klogs_rpc_arrived", default=None)
+
+
+class _Arrivals(grpc.GenericRpcHandler):
+    """Stamps each RPC's arrival in ``_ARRIVED``: grpc.aio looks the
+    handler up in the RPC's own task, once its headers are in and before
+    its request message is read."""
+
+    def __init__(self, inner) -> None:
+        self._inner = inner
+
+    def service(self, handler_call_details):
+        _ARRIVED.set(time.perf_counter())
+        return self._inner.service(handler_call_details)
+
+
+class LoopLag:
+    """The event loop's lag: a timer re-armed every ``period_s`` observes
+    in ``histogram`` how late it fired (asyncio's millisecond poll
+    timeout puts a floor of up to 1 ms under it)."""
+
+    def __init__(self, histogram, period_s: float = 0.05) -> None:
+        self._hist = histogram
+        self.period_s = period_s
+        self._loop: "asyncio.AbstractEventLoop | None" = None
+        self._handle: "asyncio.TimerHandle | None" = None
+        self._due = 0.0
+
+    @property
+    def running(self) -> bool:
+        return self._handle is not None
+
+    def start(self, loop: "asyncio.AbstractEventLoop") -> None:
+        self._loop = loop
+        self._arm()
+
+    def stop(self) -> None:
+        if self._handle is not None:
+            self._handle.cancel()
+            self._handle = None
+
+    def _arm(self) -> None:
+        self._due = self._loop.time() + self.period_s
+        self._handle = self._loop.call_at(self._due, self._fire)
+
+    def _fire(self) -> None:
+        self._hist.observe(max(0.0, self._loop.time() - self._due))
+        self._arm()
 
 
 def _read_tls(path: str, what: str) -> bytes:
@@ -208,6 +274,7 @@ class FilterServer:
         self._http = None
         self._warmup_task: asyncio.Task | None = None
         self._m_rpc = None
+        self._loop_lag: "LoopLag | None" = None
         if metrics_port is not None:
             from klogs_tpu_torch import obs
             from klogs_tpu_torch.filters.base import FilterStats
@@ -230,7 +297,10 @@ class FilterServer:
                 "lat": self.registry.family("klogs_rpc_request_seconds"),
                 "client": self.registry.family(
                     "klogs_rpc_client_requests_total"),
+                "receive": self.registry.family("klogs_rpc_receive_seconds"),
             }
+            self._loop_lag = LoopLag(
+                self.registry.family("klogs_loop_lag_seconds"))
             self.health = obs.Health()
             # Live while the coalescer takes work; a cold one is live.
             self.health.add_live_check(
@@ -360,15 +430,29 @@ class FilterServer:
         """The outermost layer: an ``rpc.server`` span parented under
         the caller's ``rpc.client`` span when the metadata carries its
         traceparent, else a root under local sampling; the bare handler
-        when neither side records."""
+        when neither side records. Its entry ends the RPC's receive,
+        observed with metrics, and when the ``rpc.server`` span samples,
+        an ``rpc.receive`` child that ends where it starts."""
         from klogs_tpu_torch.obs.trace import TRACER
 
+        receive = (self._m_rpc["receive"].labels(method=method)
+                   if self._m_rpc is not None else None)
+
         async def wrapped(request: bytes, context) -> bytes:
+            arrived = _ARRIVED.get()
+            waited = (time.perf_counter() - arrived
+                      if arrived is not None else None)
+            if waited is not None and receive is not None:
+                receive.observe(waited)
             ctx = transport.extract_trace(context.invocation_metadata())
             if ctx is None and not TRACER.enabled:
                 return await handler(request, context)
             with TRACER.span("rpc.server", parent=ctx, method=method,
-                             request_bytes=len(request)):
+                             request_bytes=len(request)) as sp:
+                if waited is not None and sp.sampled:
+                    TRACER.record_span("rpc.receive", sp,
+                                       sp.start_unix - waited, waited,
+                                       method=method)
                 return await handler(request, context)
 
         return wrapped
@@ -582,7 +666,7 @@ class FilterServer:
             ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
             ("grpc.max_send_message_length", MAX_MESSAGE_BYTES),
         ])
-        self._server.add_generic_rpc_handlers((handler,))
+        self._server.add_generic_rpc_handlers((_Arrivals(handler),))
         # "unix:/path.sock" binds a Unix domain socket (a collector on
         # the same host); the port means nothing there.
         if self.host.startswith("unix:"):
@@ -635,12 +719,16 @@ class FilterServer:
             self._sweep_stop = asyncio.Event()
             self._sweep_task = asyncio.get_running_loop().create_task(
                 self.tenants.run_idle_sweeper(self._sweep_stop))
+        if self._loop_lag is not None:
+            self._loop_lag.start(asyncio.get_running_loop())
         return self.port
 
     async def wait(self) -> None:
         await self._server.wait_for_termination()
 
     async def stop(self, grace: float = 1.0) -> None:
+        if self._loop_lag is not None:
+            self._loop_lag.stop()
         if self._warmup_task is not None:
             self._warmup_task.cancel()
             try:

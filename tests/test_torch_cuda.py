@@ -1849,3 +1849,70 @@ def test_mesh_on_card_equals_single_engine_k1024(dev, monkeypatch):
     assert nfa_kernels.LAUNCHES[nfa_kernels.GATED] > 0
     assert nfa_kernels.LAUNCHES[nfa_kernels.GROUPED] == 0
     assert any(got) and not all(got)
+
+
+@pytest.mark.parametrize("prefilter", ["0", "1"], ids=["k1", "gated"])
+def test_card_spans_hold_the_card_time(dev, prefilter, monkeypatch):
+    """A traced engine run: every ``card.*`` child lies inside its
+    ``card.batch`` (the pair-CNF gate as ``card.gate``), and the
+    ``card.batch`` spans hold at least 99% of ``torch.profiler``'s kernel
+    time of the run: both on the host's real-time clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from klogs_tpu_torch.filters import gpu
+    from klogs_tpu_torch.filters.base import frame_lines
+    from klogs_tpu_torch.obs import trace
+
+    monkeypatch.setenv("KLOGS_TPU_PREFILTER", prefilter)
+    rng = np.random.default_rng(11)
+    lines = [b"retry %d/5 code=%d" % (i, 500 + i % 7) if i % 9 == 0
+             else b"quiet line %d of the run" % i for i in range(6000)]
+    lines += [b"x" * int(n) + b" disk is full" for n in
+              rng.integers(8000, 60000, size=24)]
+    payload, offsets = frame_lines(lines)[:2]
+    filt = GpuEngineFilter(PATTERNS, device=dev)
+    assert (filt._pf_tables is not None) == (prefilter == "1")
+    want = filt.fetch_framed(filt.dispatch_framed(payload, offsets))
+    gpu.anchor_card_clock(dev)
+    trace.reset(1.0)
+    spans = []
+    trace.TRACER.add_sink(spans.append)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with trace.TRACER.span("coalescer.dispatch"):
+                handles = [filt.dispatch_framed(payload, offsets)
+                           for _ in range(4)]
+            got = [filt.fetch_framed(h) for h in handles]
+    finally:
+        trace.reset(None)
+    assert all(np.array_equal(g, want) for g in got) and want.any()
+    batches = {s["span_id"]: s for s in spans if s["name"] == "card.batch"}
+    assert len(batches) == 4
+    kids = [s for s in spans if s["name"].startswith("card.")
+            and s["name"] != "card.batch"]
+    assert {s["name"] for s in kids} == (
+        {"card.copy", "card.pack", "card.match", "card.long",
+         "card.verdicts"} | ({"card.gate"} if prefilter == "1" else set()))
+    for s in kids:
+        b = batches[s["parent_id"]]
+        assert s["start_unix"] >= b["start_unix"] - 1e-6
+        assert (s["start_unix"] + s["duration_s"]
+                <= b["start_unix"] + b["duration_s"] + 1e-6)
+    for b in batches.values():
+        assert b["attrs"]["launches"] == 1 + sum(
+            s["attrs"]["chunks"] for s in kids
+            if s["parent_id"] == b["span_id"] and s["name"] == "card.long")
+    held = sorted((b["start_unix"], b["start_unix"] + b["duration_s"])
+                  for b in batches.values())
+    total = inside = 0.0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if ("CUDA" not in str(e.device_type())
+                or name.startswith(("Memcpy", "Memset"))):
+            continue
+        a = e.start_ns() / 1e9
+        z = a + e.duration_ns() / 1e9
+        total += z - a
+        inside += sum(max(0.0, min(z, y) - max(a, x)) for x, y in held)
+    assert total > 0
+    assert inside >= 0.99 * total, (inside, total)

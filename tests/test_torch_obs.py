@@ -62,16 +62,25 @@ REWORDED = {"klogs_engine_compile_total", "klogs_fleet_headroom",
             "klogs_trace_spans_total"}
 
 
+def _port_own(line: str) -> bool:
+    """Whether an exposition line is one of the port's own families'."""
+    words = line.split()
+    name = words[2] if line.startswith("#") else words[0].split("{")[0]
+    return name.startswith(obs.PORT_FAMILIES)
+
+
 def _render(render, registry) -> str:
-    """The exposition with the reworded help lines taken out."""
+    """The exposition with the reworded help lines and the port's own
+    families taken out."""
     return "\n".join(ln for ln in render(registry).splitlines()
                      if not any(ln.startswith(f"# HELP {n} ")
-                                for n in REWORDED))
+                                for n in REWORDED) and not _port_own(ln))
 
 
 def _snap(snapshot, registry) -> dict:
     return {k: (v if k not in REWORDED else dict(v, help=None))
-            for k, v in snapshot(registry).items()}
+            for k, v in snapshot(registry).items()
+            if k not in obs.PORT_FAMILIES}
 
 
 def read_all(out_dir) -> dict:
@@ -95,23 +104,30 @@ def _clean_obs():
 
 
 def test_inventory_equals_jax():
-    """Same family names, types, label names and buckets as JAX's SPECS;
-    ``register_all`` instantiates every one."""
-    assert list(obs.SPECS) == list(jax_obs.SPECS)
-    assert len(obs.SPECS) == 95
+    """Same family names, types, label names and buckets as JAX's SPECS,
+    then the port's own; ``register_all`` instantiates every one."""
+    assert list(obs.SPECS) == list(jax_obs.SPECS) + list(obs.PORT_FAMILIES)
+    assert len(obs.SPECS) == 95 + 4
+    for name in obs.PORT_FAMILIES:
+        assert obs.SPECS[name]["help"]
     for name, spec in obs.SPECS.items():
+        if name in obs.PORT_FAMILIES:
+            continue
         ref = jax_obs.SPECS[name]
         for key in ("type", "labels", "buckets", "bounds"):
             assert spec.get(key) == ref.get(key), (name, key)
         assert spec["help"]
-    assert {n for n in obs.SPECS
+    assert {n for n in jax_obs.SPECS
             if obs.SPECS[n]["help"] != jax_obs.SPECS[n]["help"]} == REWORDED
     r, jr = obs.Registry(), jax_obs.Registry()
     obs.register_all(r)
     jax_obs.register_all(jr)
-    assert [f.name for f in r.collect()] == [f.name for f in jr.collect()]
-    assert [(f.type, f.labelnames) for f in r.collect()] == \
+    shared = [f for f in r.collect() if f.name not in obs.PORT_FAMILIES]
+    assert [f.name for f in shared] == [f.name for f in jr.collect()]
+    assert [(f.type, f.labelnames) for f in shared] == \
         [(f.type, f.labelnames) for f in jr.collect()]
+    assert {f.name for f in r.collect()} - {f.name for f in shared} == set(
+        obs.PORT_FAMILIES)
 
 
 def _drive(registry, seed: int) -> None:
@@ -389,7 +405,8 @@ def test_stats_trace_profile_equal_jax(tmp_path, monkeypatch):
     for key in ("lines_in", "lines_matched"):
         assert t["stats"]["summary"][key] == j["stats"]["summary"][key]
     assert t["stats"]["summary"]["lines_in"] == 361
-    assert set(t["stats"]["metrics"]) == set(j["stats"]["metrics"])
+    assert set(t["stats"]["metrics"]) == set(j["stats"]["metrics"]) | set(
+        obs.PORT_FAMILIES)
     for name in EXACT_FAMILIES:
         strip = [{k: v for k, v in s.items()} for s in
                  t["stats"]["metrics"][name]["samples"]]

@@ -9,6 +9,7 @@ compared exactly."""
 
 import asyncio
 import random
+import time
 
 import pytest
 
@@ -34,7 +35,9 @@ def _clean_profilers():
 
 
 def test_stage_catalog_equals_jax():
-    assert profiler.STAGES == jax_profiler.STAGES
+    """JAX's catalog, then the port's own card stages."""
+    assert profiler.STAGES == jax_profiler.STAGES + profiler.CARD_STAGES
+    assert profiler.CARD_STAGES == ("card.batch",)
 
 
 def _mask(doc: dict) -> dict:
@@ -55,7 +58,9 @@ def _fold(side: str, seed: int) -> tuple:
     p.bind_registry(reg)
     p.add_probe("coalescer.queue_depth", lambda: 3)
     rng = random.Random(seed)
-    names = list(prof_mod.STAGES) + ["not.a.stage"]
+    # The catalog both packages fold (the port's card stages have no JAX
+    # counterpart).
+    names = list(jax_profiler.STAGES) + ["not.a.stage"]
     docs = []
     for i in range(300):
         parent = (f"{rng.randrange(40):016x}" if rng.random() < 0.6
@@ -93,6 +98,27 @@ def test_fold_self_time_subtracts_children():
     doc = p.tick(io=False)
     assert doc["stages"]["coalescer.dispatch"]["busy_s"] == pytest.approx(0.2)
     assert doc["stages"]["device.fetch"]["busy_s"] == pytest.approx(0.3)
+
+
+def test_card_batch_folds_as_a_stage_beside_its_parent():
+    """``card.batch`` (the card's own time, on its timeline) folds its
+    busy-seconds and leaves its parent's self time whole."""
+    trace.reset(1.0)
+    p = profiler.PROFILER
+    p.enable(1.0)
+    with trace.TRACER.span("coalescer.dispatch") as group:
+        with trace.TRACER.span("device.fetch"):
+            time.sleep(0.02)
+        trace.TRACER.record_span("card.batch", group, time.time() - 0.015,
+                                 0.015)
+    doc = p.tick(io=False)
+    card = doc["stages"]["card.batch"]
+    assert card == {"busy_s": pytest.approx(0.015), "spans": 1,
+                    "utilization": 0.0}
+    fetch = doc["stages"]["device.fetch"]["busy_s"]
+    assert doc["stages"]["coalescer.dispatch"]["busy_s"] < 0.015
+    assert doc["stages"]["coalescer.dispatch"]["busy_s"] == pytest.approx(
+        group.duration_s - fetch, abs=1e-6)
 
 
 def test_disabled_profiler_installs_nothing():

@@ -165,6 +165,36 @@ def test_context_reaches_tasks_not_threads():
             assert pool.submit(trace.TRACER.current_span).result() is None
 
 
+def test_record_span_takes_the_given_start_and_duration_under_a_parent():
+    """``record_span`` finishes a span at once, at the start and duration
+    given, under a ``Span`` or a ``SpanContext``, from any thread; an
+    unsampled or absent parent records nothing."""
+    trace.reset(1.0)
+    got = []
+    trace.TRACER.add_sink(got.append)
+    with trace.TRACER.span("coalescer.dispatch") as group:
+        pass
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        batch = pool.submit(trace.TRACER.record_span, "card.batch", group,
+                            1234.5, 0.25, rows=3).result()
+    trace.TRACER.record_span("card.copy", batch.context(), 1234.5, 0.01)
+    assert [d["name"] for d in got] == ["coalescer.dispatch", "card.batch",
+                                        "card.copy"]
+    b, c = got[1], got[2]
+    assert (b["start_unix"], b["duration_s"], b["attrs"]) == (
+        1234.5, 0.25, {"rows": 3})
+    assert b["parent_id"] == f"{group.span_id:016x}"
+    assert b["trace_id"] == c["trace_id"] == f"{group.trace_id:032x}"
+    assert c["parent_id"] == b["span_id"] and not c["local_root"]
+    assert trace.TRACER.current_span() is None
+    assert trace.TRACER.record_span("x", None, 1.0, 1.0) is trace.NOOP_SPAN
+    off = trace.SpanContext(1, 2, False)
+    assert not trace.TRACER.record_span("x", off, 1.0, 1.0).sampled
+    assert len(got) == 3
+
+
 @pytest.mark.parametrize("side", ["jax", "torch"])
 def test_breaker_open_arms_a_recorder_dump(side, tmp_path):
     """A breaker opening inside a traced batch adds ``breaker.open`` and
